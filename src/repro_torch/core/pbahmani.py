@@ -1,0 +1,196 @@
+"""P-Bahmani: parallel (2+2eps)-approximate densest subgraph (paper Alg. 1).
+
+Device formulation: the paper's two "parts" per pass map to
+
+  part 1 (parallel fail-scan)   -> masked vector compare over all vertices
+  part 2 (atomic degree update) -> one segment-sum over the edge lanes
+                                   (core/dispatch.py:peel_delta)
+  barrier                       -> the data dependence between passes
+
+State is fixed-shape (degree array + masks + 0-d tensors). The loop over
+passes runs on the host and reads ``n_v`` once per pass: one device sync a
+pass, O(log_{1+eps} n) in all. ``pbahmani_pass`` is one pass.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.density import degrees_from_coo, peel_threshold
+from repro_torch.core.dispatch import (
+    assert_exact_envelope, peel_delta, resolve_device, resolve_kernel,
+)
+from repro_torch.graphs.convert import to_device
+from repro_torch.graphs.graph import Graph
+
+
+class PeelState(NamedTuple):
+    """Carry of the peeling loop. All tensors fixed-shape.
+
+    deg:      int32 [V]   current degree of live vertices (0 for removed)
+    active:   bool  [V]   live mask (the paper's ``active`` set)
+    n_v, n_e: int32 []    live vertex / undirected edge counts
+    best_density: f32 []  max density over all intermediate subgraphs
+    best_mask: bool [V]   vertex set achieving best_density
+    passes:   int32 []    pass counter (paper: O(log_{1+eps} n))
+    """
+
+    deg: torch.Tensor
+    active: torch.Tensor
+    n_v: torch.Tensor
+    n_e: torch.Tensor
+    best_density: torch.Tensor
+    best_mask: torch.Tensor
+    passes: torch.Tensor
+
+
+def init_state(src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
+               n_edges: int) -> PeelState:
+    del dst
+    deg = degrees_from_coo(src, n_nodes)
+    active = deg > 0  # isolated vertices never contribute to density
+    n_v = active.sum(dtype=torch.int32)
+    n_e = torch.tensor(n_edges, dtype=torch.int32, device=src.device)
+    rho0 = n_e.to(torch.float32) / n_v.clamp(min=1).to(torch.float32)
+    return PeelState(
+        deg=deg,
+        active=active,
+        n_v=n_v,
+        n_e=n_e,
+        best_density=rho0,
+        best_mask=active,
+        passes=torch.tensor(0, dtype=torch.int32, device=src.device),
+    )
+
+
+def pbahmani_pass(
+    state: PeelState, src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
+    eps: float, kernel: bool = False,
+) -> PeelState:
+    """One peeling pass: fail every live vertex with deg <= 2(1+eps)·rho.
+
+    Edge-centric (load-balanced by construction — every edge does O(1)
+    work). ``kernel`` selects the sorted segment-sum K1 for the part-2
+    degree update (core/dispatch.py); results are bit-identical either way.
+    """
+    thr = peel_threshold(state.n_e, state.n_v, eps)
+    failed = state.active & (state.deg.to(torch.float32) <= thr)
+
+    src_c = src.clamp(max=n_nodes - 1)
+    dst_c = dst.clamp(max=n_nodes - 1)
+    valid = (src < n_nodes) & (dst < n_nodes)
+    live_edge = (valid & state.active.index_select(0, src_c)
+                 & state.active.index_select(0, dst_c))
+
+    fail_s = failed.index_select(0, src_c) & live_edge
+    fail_d = failed.index_select(0, dst_c) & live_edge
+    # paper part 2: atomicSub on neighbor degrees -> one deterministic
+    # reduction onto dst. fail_s aggregated on *dst* counts, per survivor,
+    # its failed neighbors (the mirror entry of every (u failed -> v) edge
+    # lands the same information symmetrically).
+    delta_to_dst = peel_delta(fail_s, dst, n_nodes, kernel)
+
+    removed_directed = (fail_s | fail_d).sum(dtype=torch.int32)
+    n_e_new = state.n_e - removed_directed // 2
+
+    active_new = state.active & ~failed
+    deg_new = torch.where(active_new, state.deg - delta_to_dst, 0)
+    n_v_new = state.n_v - failed.sum(dtype=torch.int32)
+
+    rho_new = n_e_new.to(torch.float32) / n_v_new.clamp(min=1).to(torch.float32)
+    rho_new = torch.where(n_v_new > 0, rho_new, 0.0)
+    better = rho_new > state.best_density
+    best_density = torch.where(better, rho_new, state.best_density)
+    best_mask = torch.where(better, active_new, state.best_mask)
+
+    return PeelState(
+        deg=deg_new,
+        active=active_new,
+        n_v=n_v_new,
+        n_e=n_e_new,
+        best_density=best_density,
+        best_mask=best_mask,
+        passes=state.passes + 1,
+    )
+
+
+def pbahmani(
+    graph: Graph, eps: float = 0.0, pruned: bool = False,
+    refine_rounds: int = 0, kernel: bool | None = None,
+    device: torch.device | str | None = None,
+) -> tuple[float, np.ndarray, int]:
+    """Run P-Bahmani. Returns (best_density, best_mask, passes).
+
+    Guarantee (Bahmani et al. 2012): best_density >= rho*(G) / (2 + 2·eps).
+
+    ``device=None`` means the GPU, and raises where there is none.
+    ``kernel=None`` means the sorted segment-sum K1 on a CUDA device and the
+    scatter tier elsewhere; ``True`` forces K1 (its plain version on the
+    CPU). With K1 the edge lanes come from ``graph.dst_sorted()``, uploaded
+    once, and the triple is bit-identical to the scatter path.
+
+    ``pruned`` and ``refine_rounds`` are not ported yet and raise.
+    """
+    device = resolve_device(device)
+    if pruned:
+        raise NotImplementedError(
+            "pbahmani(pruned=True) needs the pruned peel (core/prune.py with "
+            "kernels K3/K4), ROADMAP queue 1 item 6: not ported yet")
+    if refine_rounds > 0:
+        raise NotImplementedError(
+            "pbahmani(refine_rounds>0) needs refinement (refine/), ROADMAP "
+            "queue 1 item 7: not ported yet")
+    if graph.n_nodes == 0:
+        return 0.0, np.zeros(0, dtype=bool), 0
+    kernel = resolve_kernel(kernel, device)
+    if kernel:
+        assert_exact_envelope(graph.src.shape[0], graph.n_nodes)
+    src, dst = to_device(graph, device, sorted=kernel)
+    state = init_state(src, dst, graph.n_nodes, graph.n_edges)
+    while state.n_v.item() > 0:  # the one host sync of each pass
+        state = pbahmani_pass(state, src, dst, graph.n_nodes, float(eps), kernel)
+    return (
+        float(state.best_density),
+        state.best_mask.cpu().numpy(),
+        int(state.passes),
+    )
+
+
+# ---------------------------------------------------------------------------
+# NumPy reference (bit-for-bit oracle for tests; also the fast host path)
+# ---------------------------------------------------------------------------
+def pbahmani_np(graph: Graph, eps: float = 0.0) -> tuple[float, np.ndarray, int]:
+    n = graph.n_nodes
+    s = graph.src[: graph.n_directed].astype(np.int64)
+    d = graph.dst[: graph.n_directed].astype(np.int64)
+    deg = np.bincount(s, minlength=n).astype(np.int64)
+    active = deg > 0
+    n_v = int(active.sum())
+    n_e = graph.n_edges
+    best = n_e / max(n_v, 1)
+    best_mask = active.copy()
+    passes = 0
+    while n_v > 0:
+        rho = n_e / n_v
+        thr = 2.0 * (1.0 + eps) * rho
+        failed = active & (deg <= thr)
+        live = active[s] & active[d]
+        fs = failed[s] & live
+        fd = failed[d] & live
+        n_e -= int((fs | fd).sum()) // 2
+        delta = np.bincount(d[fs], minlength=n)
+        active &= ~failed
+        deg = np.where(active, deg - delta, 0)
+        n_v -= int(failed.sum())
+        passes += 1
+        if n_v > 0:
+            rho_new = n_e / n_v
+            if rho_new > best:
+                best = rho_new
+                best_mask = active.copy()
+    return float(best), best_mask, passes
+
+
+__all__ = ["PeelState", "init_state", "pbahmani_pass", "pbahmani", "pbahmani_np"]

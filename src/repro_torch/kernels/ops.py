@@ -1,0 +1,58 @@
+"""Public kernel ops over the sorted segment-sum (K1).
+
+Edges must be sorted by the segment id for the kernel. ``Graph`` caches a
+dst-sorted view (``graphs.graph.Graph.dst_sorted``, uploaded once by
+``graphs.convert.to_device``); other callers can pass ``presorted=False``
+to sort on the fly. That sort happens inside every such call, so it bumps
+``unsorted_fallback_count``: the counter is how a caller notices a hot path
+quietly re-sorting every pass.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.segsum import segment_sum_sorted
+
+unsorted_fallback_count = 0  # presorted=False calls, each one a full sort
+
+
+def segment_sum(
+    values: torch.Tensor,
+    seg_ids: torch.Tensor,
+    *,
+    num_segments: int,
+    presorted: bool = True,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Deterministic segment-sum; see ``segsum.segment_sum_sorted``."""
+    global unsorted_fallback_count
+    if not presorted:
+        unsorted_fallback_count += 1
+        # stable, so equal ids keep their order and float sums stay
+        # deterministic; the permutation is int64 because torch.sort makes it so
+        seg_ids, order = torch.sort(seg_ids, stable=True)
+        values = values.index_select(0, order)
+    return segment_sum_sorted(values, seg_ids, num_segments=num_segments,
+                              out_dtype=out_dtype)
+
+
+def peel_update(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    failed: torch.Tensor,
+    *,
+    n_nodes: int,
+    presorted: bool = True,
+) -> torch.Tensor:
+    """Paper part 2 (the OpenMP atomicSub loop): per-vertex count of failed
+    neighbors, **int32** (the peel recurrence's type). ``src``/``dst`` are
+    the symmetric COO lanes (sentinel-padded); for the kernel they must be
+    sorted by ``dst``. The sum runs in int32, exact at any size."""
+    src_c = src.clamp(max=n_nodes - 1)
+    valid = (src < n_nodes) & (dst < n_nodes)
+    vals = failed.index_select(0, src_c) & valid
+    return segment_sum(vals, dst, num_segments=n_nodes, presorted=presorted,
+                       out_dtype=torch.int32)
+
+
+__all__ = ["segment_sum", "peel_update"]

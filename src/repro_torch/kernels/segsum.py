@@ -1,0 +1,165 @@
+"""K1 on Hopper: the sorted segment-sum as a CUDA kernel written by hand.
+
+Replaces the JAX package's ``kernels/segsum.py:segment_sum_sorted`` (a
+one-hot MXU grid on the TPU). The kernel is ``csrc/segsum.cu``; its header
+says what bounds it and how its design answers that. It computes exactly
+K1's function:
+
+    out[v, :] = sum over e with seg_ids[e] == v of values[e, :]
+
+for ``seg_ids`` sorted ascending, with ids outside ``[0, num_segments)``
+dropped. Sortedness is a precondition of the kernel, not a hint: unsorted
+ids give wrong sums on the card (``ops.segment_sum(presorted=False)`` sorts
+first).
+
+The source is compiled with ``nvcc`` for ``sm_90a`` at first use into
+``csrc/build/`` (keyed on a hash of the source and flags, so an edit
+rebuilds) and loaded with ``ctypes``. A failed build raises with nvcc's
+output; a failed launch raises with the CUDA error. A CUDA tensor never
+falls back to the plain version, which runs only for tensors on the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.ref import segment_sum_ref
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "segsum.cu"
+BUILD_DIR = SOURCE.parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Input types each accumulator takes. float32 sums take what the JAX kernel
+# takes (converted here, in one pass); int32 sums take 0/1 or integer lanes,
+# bools read as one byte with no conversion pass.
+_ACCEPTS = {
+    torch.float32: (torch.float32, torch.bfloat16, torch.int32, torch.bool),
+    torch.int32: (torch.int32, torch.bool),
+}
+_ENTRY = {torch.float32: "segsum_sorted_f32", torch.int32: "segsum_sorted_i32",
+          torch.bool: "segsum_sorted_u8"}
+
+launches = 0     # kernel launches, counted where the kernel is launched
+build_log = ""   # nvcc/ptxas output of a build made by this process
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: building the segment-sum "
+                           "kernel needs nvcc (set CUDA_HOME)")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def load_library() -> ctypes.CDLL:
+    """Build the kernel library if this source was not built yet, load it
+    and declare its C entry points."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    so = BUILD_DIR / f"segsum-{key.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}.so"
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {SOURCE.name} "
+                               f"(exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, so)  # atomic: concurrent builders never see half a file
+        build_log = proc.stderr
+    lib = ctypes.CDLL(str(so))
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.segsum_scratch_ints.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    lib.segsum_scratch_ints.restype = ctypes.c_longlong
+    lib.segsum_error_string.argtypes = [ctypes.c_int]
+    lib.segsum_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def segment_sum_sorted(
+    values: torch.Tensor,
+    seg_ids: torch.Tensor,
+    *,
+    num_segments: int,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Segment-sum for lanes **sorted by seg_ids**.
+
+    Args:
+      values:   [E] or [E, D]; bool, int32, bfloat16 or float32 for float32
+                sums, bool or int32 for int32 sums.
+      seg_ids:  [E] int32, ascending; ids outside [0, num_segments) dropped.
+      num_segments: output rows V.
+      out_dtype: the accumulator and output type, float32 (the JAX kernel's)
+                or int32 (exact integer counts at any size).
+
+    Returns [V] (for 1-D values) or [V, D] of ``out_dtype``. On a CPU tensor
+    this is the plain version (``ref.segment_sum_ref``); on a CUDA tensor
+    it is one call of the kernel (two CUDA launches: row offsets, then the
+    reduction), counted once in ``launches``.
+    """
+    global launches
+    accepted = _ACCEPTS.get(out_dtype)
+    if accepted is None:
+        raise TypeError(f"out_dtype must be float32 or int32, got {out_dtype}")
+    if values.dtype not in accepted:
+        raise TypeError(f"{out_dtype} segment sums take {accepted}, "
+                        f"got {values.dtype}")
+    if (seg_ids.dtype != torch.int32 or seg_ids.dim() != 1
+            or values.dim() not in (1, 2) or values.shape[0] != seg_ids.shape[0]):
+        raise ValueError(f"need seg_ids int32 [E] and values [E] or [E, D]; got "
+                         f"{seg_ids.dtype} {tuple(seg_ids.shape)} and "
+                         f"{tuple(values.shape)}")
+    if values.device != seg_ids.device:
+        raise ValueError(f"values on {values.device}, seg_ids on {seg_ids.device}")
+    if values.device.type == "cpu":
+        return segment_sum_ref(values, seg_ids, num_segments, out_dtype)
+    if values.device.type != "cuda":
+        raise ValueError(f"no segment-sum kernel for {values.device}")
+    if not (values.is_contiguous() and seg_ids.is_contiguous()):
+        raise ValueError("the segment-sum kernel needs contiguous tensors")
+    n_lanes = seg_ids.shape[0]
+    if n_lanes >= 2**31 or num_segments >= 2**31:
+        raise ValueError("the segment-sum kernel indexes lanes and rows in int32")
+
+    if out_dtype == torch.float32:
+        values = values.float()  # no copy when already float32
+    lib = load_library()
+    fn = getattr(lib, _ENTRY[values.dtype if out_dtype == torch.int32
+                             else torch.float32])
+    d = 1 if values.dim() == 1 else values.shape[1]
+    out = torch.empty((num_segments,) + tuple(values.shape[1:]),
+                      dtype=out_dtype, device=values.device)
+    if num_segments == 0 or d == 0:
+        return out
+    # row offsets and the long-row list, filled by the kernel's first launch
+    scratch = torch.empty(lib.segsum_scratch_ints(n_lanes, num_segments),
+                          dtype=torch.int32, device=values.device)
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(values.data_ptr(), seg_ids.data_ptr(), n_lanes, num_segments,
+                 d, out.data_ptr(), scratch.data_ptr(), stream)
+    if err:
+        msg = lib.segsum_error_string(err).decode()
+        raise RuntimeError(f"segment-sum kernel launch failed: {msg} ({err})")
+    launches += 1
+    return out
+
+
+__all__ = ["segment_sum_sorted", "load_library", "SOURCE", "BUILD_DIR"]

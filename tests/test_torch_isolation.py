@@ -1,0 +1,60 @@
+"""The port stands alone: nothing under src/repro_torch/ nor chip_smoke.py
+imports JAX or the JAX package, and its entry points never fall back to the
+CPU on their own."""
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: Path) -> list[str]:
+    mods = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.append(node.module or "")
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
+                node.func, "id", None)) in ("import_module", "__import__")
+                and node.args and isinstance(node.args[0], ast.Constant)):
+            mods.append(str(node.args[0].value))
+    return mods
+
+
+def test_port_files_found():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"chip_smoke.py", "src/repro_torch/core/pbahmani.py",
+            "src/repro_torch/kernels/segsum.py"} <= names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_catches_forbidden_imports(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import os\nfrom repro.core import pbahmani\n"
+                   "def f():\n    import jax.numpy as jnp\n"
+                   "importlib.import_module('repro.graphs')\n")
+    assert [m for m in _imported_modules(src) if m.split(".")[0] in FORBIDDEN] == [
+        "repro.core", "jax.numpy", "repro.graphs"]
+
+
+@pytest.mark.parametrize("entry", ["pbahmani", "kcore_decompose", "cbds_p"])
+def test_default_device_needs_cuda(monkeypatch, entry):
+    """device=None means the GPU: with no CUDA it raises and names the way
+    out, instead of running on the CPU."""
+    import repro_torch.core as tcore
+    from repro_torch.graphs.generators import small_named
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(tcore, entry)(small_named("petersen"))

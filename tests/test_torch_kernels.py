@@ -1,0 +1,158 @@
+"""The port's sorted segment-sum (K1) and peel_update against the JAX
+package's Pallas kernels (interpret mode on the CPU, as tests/test_kernels.py
+runs them).
+
+On the CPU the port's wrappers run their plain versions
+(tests/test_torch_gpu.py holds the CUDA kernel against them on the card).
+Tolerances: 1e-5 for random float32 and 2e-2 for
+bfloat16 (the summation order differs, as in tests/test_kernels.py); exact
+for 0/1 and integer lanes.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import ops, ref, segsum  # noqa: E402
+
+
+def _problem(rng, e, d, v, sorted_=True):
+    seg = rng.integers(0, v, e).astype(np.int32)
+    if sorted_:
+        seg = np.sort(seg)
+    vals = rng.normal(size=(e, d) if d else (e,)).astype(np.float32)
+    return vals, seg
+
+
+def _jax_segsum(vals, seg, v, presorted=True):
+    return np.asarray(jops.segment_sum(jnp.asarray(vals), jnp.asarray(seg),
+                                       num_segments=v, presorted=presorted))
+
+
+def _port_segsum(vals, seg, v, **kw):
+    return ops.segment_sum(torch.from_numpy(vals), torch.from_numpy(seg),
+                           num_segments=v, **kw).numpy()
+
+
+@pytest.mark.parametrize("e,d,v", [
+    (64, 0, 16),
+    (1000, 33, 300),
+    (512, 128, 256),
+    (2048, 16, 1000),
+    (513, 7, 100),
+    (100, 200, 50),
+])
+def test_segment_sum_shapes_match_jax(e, d, v):
+    rng = np.random.default_rng(e * 7 + d)
+    vals, seg = _problem(rng, e, d, v)
+    np.testing.assert_allclose(_port_segsum(vals, seg, v), _jax_segsum(vals, seg, v),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32", "bool"])
+def test_segment_sum_dtypes_match_jax(dtype):
+    rng = np.random.default_rng(5)
+    seg = np.sort(rng.integers(0, 64, 500)).astype(np.int32)
+    if dtype in ("int32", "bool"):
+        vals = rng.integers(0, 3 if dtype == "int32" else 2, (500, 8)).astype(dtype)
+        jv, tv = jnp.asarray(vals), torch.from_numpy(vals)
+    else:
+        vals = rng.normal(size=(500, 8)).astype(np.float32)
+        jv = jnp.asarray(vals, getattr(jnp, dtype))
+        tv = torch.from_numpy(vals).to(getattr(torch, dtype))
+    exp = np.asarray(jops.segment_sum(jv, jnp.asarray(seg), num_segments=64), np.float32)
+    out = ops.segment_sum(tv, torch.from_numpy(seg), num_segments=64)
+    assert out.dtype == torch.float32
+    tol = {"bfloat16": 2e-2, "float32": 1e-5}.get(dtype, 0)
+    np.testing.assert_allclose(out.numpy(), exp, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", ["sentinel", "all_sentinel", "straddle",
+                                  "duplicates", "negative"])
+def test_segment_sum_edge_cases_match_jax(case):
+    """Exact 0/1 cases: sentinel padding (ids >= V drop), a fully padded
+    input, one segment across many tiles, runs split at tile boundaries,
+    and negative ids (dropped, as JAX drops them)."""
+    seg, v = {
+        "sentinel": (np.array([0, 1, 1, 7, 8, 100]), 7),
+        "all_sentinel": (np.full(700, 1 << 20), 32),
+        "straddle": (np.zeros(1537), 4),
+        "duplicates": (np.sort(np.r_[np.full(510, 3), np.full(5, 4), np.full(509, 5)]), 8),
+        "negative": (np.sort(np.r_[np.arange(-40, 0), np.arange(300) % 30]), 30),
+    }[case]
+    seg = seg.astype(np.int32)
+    vals = np.ones(seg.size, np.float32)
+    out = _port_segsum(vals, seg, v)
+    np.testing.assert_array_equal(out, _jax_segsum(vals, seg, v))
+    counts = ops.segment_sum(torch.from_numpy(vals).bool(), torch.from_numpy(seg),
+                             num_segments=v, out_dtype=torch.int32)
+    assert counts.dtype == torch.int32
+    np.testing.assert_array_equal(counts.numpy(), out.astype(np.int32))
+
+
+def test_segment_sum_unsorted_matches_jax_and_counts():
+    """presorted=False sorts inside every call; the counter rises per call
+    and the sorted path leaves it alone."""
+    rng = np.random.default_rng(9)
+    vals, seg = _problem(rng, 777, 12, 99, sorted_=False)
+    before = ops.unsorted_fallback_count
+    out = _port_segsum(vals, seg, 99, presorted=False)
+    _port_segsum(vals, seg, 99, presorted=False)
+    assert ops.unsorted_fallback_count == before + 2
+    np.testing.assert_allclose(out, _jax_segsum(vals, seg, 99, presorted=False),
+                               rtol=1e-5, atol=1e-5)
+    vals_s, seg_s = _problem(rng, 300, 4, 50)
+    _port_segsum(vals_s, seg_s, 50)
+    assert ops.unsorted_fallback_count == before + 2
+
+
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float64, torch.float32),
+    (torch.int64, torch.float32),
+    (torch.float32, torch.int32),
+    (torch.float32, torch.float64),
+])
+def test_segment_sum_rejects_unsupported_dtypes(dtype, out_dtype):
+    seg = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        segsum.segment_sum_sorted(torch.ones(8, dtype=dtype), seg, num_segments=2,
+                                  out_dtype=out_dtype)
+
+
+def test_segment_sum_rejects_bad_ids():
+    with pytest.raises(ValueError, match="int32"):
+        segsum.segment_sum_sorted(torch.ones(8), torch.zeros(8, dtype=torch.int64),
+                                  num_segments=2)
+    with pytest.raises(ValueError):
+        segsum.segment_sum_sorted(torch.ones(7), torch.zeros(8, dtype=torch.int32),
+                                  num_segments=2)
+
+
+@pytest.mark.parametrize("p_fail", [0.0, 0.3, 1.0])
+def test_peel_update_matches_jax(er_graph, p_fail):
+    g = er_graph
+    src_s, dst_s = g.dst_sorted()
+    failed = np.random.default_rng(1).random(g.n_nodes) < p_fail
+    exp = np.asarray(jops.peel_update(jnp.asarray(src_s), jnp.asarray(dst_s),
+                                      jnp.asarray(failed), n_nodes=g.n_nodes))
+    out = ops.peel_update(torch.from_numpy(src_s), torch.from_numpy(dst_s),
+                          torch.from_numpy(failed), n_nodes=g.n_nodes)
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), exp)
+    plain = ref.peel_update_ref(torch.from_numpy(g.src), torch.from_numpy(g.dst),
+                                torch.from_numpy(failed), g.n_nodes)
+    np.testing.assert_array_equal(plain.numpy(), exp)
+
+
+def test_peel_update_unsorted_lanes(er_graph):
+    g = er_graph
+    failed = np.random.default_rng(4).random(g.n_nodes) < 0.5
+    before = ops.unsorted_fallback_count
+    out = ops.peel_update(torch.from_numpy(g.src), torch.from_numpy(g.dst),
+                          torch.from_numpy(failed), n_nodes=g.n_nodes, presorted=False)
+    assert ops.unsorted_fallback_count == before + 1
+    s, d = g.src[:g.n_directed], g.dst[:g.n_directed]
+    np.testing.assert_array_equal(out.numpy(),
+                                  np.bincount(d[failed[s]], minlength=g.n_nodes))
