@@ -3,18 +3,31 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernel from ``src/repro_torch/csrc`` and drives the
-port's main path at full width: P-Bahmani and CBDS-P on the Graph500 RMAT
-graph ``rmat(19, 16, seed=0)`` (524,288 vertices, 15,482,624 edge lanes, the
-largest Graph500 scale inside the 2^24-lane exactness envelope). Phases:
+Builds the hand-written kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+per source, all at once) and drives the port's paths at full width:
+P-Bahmani and CBDS-P on the Graph500 RMAT graph ``rmat(19, 16, seed=0)``
+(524,288 vertices, 15,482,624 edge lanes, the largest Graph500 scale inside
+the 2^24-lane exactness envelope), the candidate-pruned peel on the planted
+block ``planted_dense(2**19, 2048, 16 / 2**19, 0.9, seed=0)`` (a 2,048-vertex
+dense block in a sparse background of 524,288; 12,158,464 lanes), and
+refinement rounds on the RMAT graph. Phases:
 
   1. card and build: ``nvidia-smi`` name and power limit, versions, build time;
-  2. the kernel against its plain version on the card, at the main path's
-     shape and at the cases of ``tests/test_kernels.py``, with times;
+  2. the kernels against their plain versions on the card, at the cases of
+     ``tests/test_kernels.py`` and at K1's main-path shape, with times;
   3. ``peel_threshold`` float32 bits, card against CPU and numpy;
   4. P-Bahmani, kernel on against kernel off and the numpy oracle;
   5. CBDS-P and k-core, kernel on against kernel off and the numpy oracles;
-  6. a JSON line of every kernel, then the card's name and power limit, then
+  6. the pruned peel on the planted block: plan, pruned with kernels on and
+     off, unpruned, the numpy oracle; K3/K4 launches; every bucket rung K1
+     sees is dst-sorted; wall times split into plan, host, upload, device;
+  7. K3 and K4 at the pruned path's own inputs against their plain versions
+     and one PyTorch call each, with times;
+  8. the pruned peel on the RMAT graph, where pass 0 leaves more lanes than
+     the largest bucket: it falls back to the unpruned peel, equal triple;
+  9. refinement: ``pbahmani(refine_rounds=3)`` and ``refine`` with the
+     kernel on and off, and each round against ``refine_round_np``;
+ 10. a JSON line of every kernel, then the card's name and power limit, then
      the result line ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure, so the script exits non-zero and prints no
@@ -38,7 +51,13 @@ SCALE = 19
 EDGE_FACTOR = 16
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-REPLACES = "src/repro/kernels/segsum.py:118"
+REPLACES = {"segment_sum_sorted": "src/repro/kernels/segsum.py:118",
+            "prefix_sum": "src/repro/kernels/compact.py:73",
+            "stream_compact": "src/repro/kernels/compact.py:88"}
+SOURCES = {"segment_sum_sorted": "src/repro_torch/csrc/segsum.cu",
+           "prefix_sum": "src/repro_torch/csrc/compact.cu",
+           "stream_compact": "src/repro_torch/csrc/compact.cu"}
+PLANTED = dict(n=2**19, clique_size=2048, p_background=16 / 2**19, p_planted=0.9, seed=0)
 # The JAX package's numpy oracles on rmat(19, 16, seed=0): (passes, |S|) of
 # pbahmani_np per eps, and (k*, m_v, m_e) of kcore_np (minutes on a host
 # CPU, too slow to rerun here; the same oracle is rerun at scale 15 below).
@@ -77,6 +96,32 @@ def time_ms(fn, iters: int = 20) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one ``fn()``: the call captured once in a CUDA graph
+    and replayed ``iters`` times between two CUDA events, so the host's
+    launch overhead (Python, ctypes, allocation) is not in it. ``fn`` must
+    not synchronise."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -212,10 +257,14 @@ def phase_kernels(g, device: str) -> tuple[dict, dict]:
         ids = dst_s.clamp(max=v)
         vals_lib = vals.to(out_dtype)
         lib = time_ms(lambda: acc.index_add_(0, ids, vals_lib))
+        dev = graph_ms(lambda: segsum.segment_sum_sorted(vals, dst_s, num_segments=v,
+                                                         out_dtype=out_dtype))
         n_bytes = e * 4 + e * vals.element_size() + v * out.element_size()
         b, by = bound_ms(n_bytes, e)
-        results[label] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by)
+        results[label] = dict(ms=ms, device_ms=dev, plain_ms=plain, library_ms=lib,
+                              bound_ms=b, bound_by=by)
         log(f"  K1 main shape E={e} V={v} {label}: exact; kernel_ms={ms:.6f} "
+            f"device_ms={dev:.6f} "
             f"plain_ms={plain:.6f} library_ms={lib:.6f} bound_ms={b:.6f} ({by})")
 
     # peel_update (K2): a wrapper on K1, exact against its plain version
@@ -361,6 +410,378 @@ def phase_cbds(g, g_small, device: str, scale: int) -> tuple[int, dict]:
     return n_cbds, times
 
 
+# ---------------------------------------------------------------------------
+# phase 2 (K3, K4): the compaction kernels at the cases of the tests
+# ---------------------------------------------------------------------------
+def phase_compact_cases(device: str) -> float:
+    """K3 and K4 against their plain versions (exact) at the cases of
+    tests/test_kernels.py, plus a scan whose total passes 2^24 (int32 stays
+    exact where the JAX kernel's float32 would not). Returns max abs err."""
+    import torch
+
+    from repro_torch.kernels import compact, ref
+
+    rng = np.random.default_rng(4)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    max_err = 0.0
+    scans = [(f"int32 e={e}", rng.integers(0, 4, e).astype(np.int32))
+             for e in (1, 7, 511, 512, 513, 1500)]
+    scans += [("bool ones 3*512+5", np.ones(3 * 512 + 5, bool)),
+              ("int32 zeros 513", np.zeros(513, np.int32)),
+              ("int32 signed 4194321", rng.integers(-5, 6, 4_194_321).astype(np.int32)),
+              ("bool ones 2^24+5 (total past 2^24)", np.ones((1 << 24) + 5, bool))]
+    for name, x in scans:
+        tx = t(x)
+        out = compact.prefix_sum(tx)
+        exp = ref.prefix_sum_ref(tx)
+        torch.cuda.synchronize()
+        max_err = max(max_err, compare(out, exp, None))
+        if name.startswith("bool ones 2^24"):
+            check(int(out[-1]) == x.size, f"K3 total {int(out[-1])}, expected {x.size}")
+        log(f"  K3 {name}: exact")
+    comps = []
+    for e, d, out_size, p_live in [(100, 0, 128, 0.5), (1500, 0, 1024, 0.7),
+                                   (513, 0, 512, 0.3), (64, 0, 16, 0.9),
+                                   (400, 2, 256, 0.6), (300, 0, 64, 0.0),
+                                   (300, 0, 512, 1.0), (0, 2, 8, 0.5)]:
+        vals = rng.integers(0, 10_000, (e, d) if d else e).astype(np.int32)
+        comps.append((f"e={e} d={d} out={out_size} p_live={p_live}", vals,
+                      rng.random(e) < p_live, out_size, out_size))
+    dst = np.sort(rng.integers(0, 40, 400)).astype(np.int32)
+    comps.append(("2-D dst-sorted keeps order",
+                  np.stack([rng.integers(0, 40, 400).astype(np.int32), dst], 1),
+                  rng.random(400) < 0.6, 256, 256))
+    comps.append(("all dead, negative fill", np.arange(300, dtype=np.int32),
+                  np.zeros(300, bool), 64, -7))
+    for name, vals, live, out_size, fill in comps:
+        tv, tl = t(vals), t(live)
+        out = compact.stream_compact(tv, tl, out_size=out_size, fill=fill)
+        exp = ref.stream_compact_ref(tv, tl, out_size, fill)
+        torch.cuda.synchronize()
+        max_err = max(max_err, compare(out, exp, None))
+        log(f"  K4 {name}: exact")
+    return max_err
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the pruned peel on the planted block
+# ---------------------------------------------------------------------------
+def phase_pruned(g, device: str, timed_runs: int = 3) -> tuple[dict, dict, dict]:
+    """Returns (launches by kernel on the pruned main path, times by eps,
+    the K3/K4 inputs the main path gave its kernels at eps 0)."""
+    import torch
+
+    from repro_torch.core import pbahmani, pbahmani_np, prune
+    from repro_torch.kernels import compact, ops, segsum
+
+    launches = {"segment_sum_sorted": 0, "prefix_sum": 0, "stream_compact": 0}
+    times, inputs = {}, {}
+    u, v = prune.slot_arrays(g)
+    deg = g.degrees().astype(np.int32)
+    for eps in (0.1, 0.0):
+        t0 = time.perf_counter()
+        rho_n, mask_n, passes_n = pbahmani_np(g, eps=eps)
+        t_np = time.perf_counter() - t0
+        plan = prune.plan_for_graph(g, kernel=True, device=device)
+        check(plan == prune.plan_for_graph(g, kernel=False, device=device),
+              f"eps={eps}: the plan differs with the kernel on and off")
+        pd = prune.prepare_pruned_peel(u, v, deg, g.n_edges, eps, plan)
+        check(isinstance(pd, prune.PrunedDispatch),
+              f"eps={eps}: pass 0 leaves no bucket-sized subproblem ({pd!r:.80})")
+
+        segsum.launches = compact.prefix_sum_launches = compact.stream_compact_launches = 0
+        on = pbahmani(g, eps=eps, pruned=True, kernel=True, device=device)
+        n_k1, n_k3, n_k4 = (segsum.launches, compact.prefix_sum_launches,
+                            compact.stream_compact_launches)
+        check(n_k3 > 0 and n_k4 > 0 and n_k1 > 0,
+              f"eps={eps}: the pruned path launched K1 {n_k1}, K3 {n_k3}, K4 {n_k4} "
+              f"times: the bucket peel did not run")
+        for name, n in zip(launches, (n_k1, n_k3, n_k4)):
+            launches[name] += n
+        off = pbahmani(g, eps=eps, pruned=True, kernel=False, device=device)
+        full_on = pbahmani(g, eps=eps, kernel=True, device=device)
+        full_off = pbahmani(g, eps=eps, kernel=False, device=device)
+        for label, other in (("pruned, kernel off", off), ("unpruned, kernel on", full_on),
+                             ("unpruned, kernel off", full_off)):
+            check(np.float32(other[0]).view(np.int32) == np.float32(on[0]).view(np.int32)
+                  and other[2] == on[2] and np.array_equal(other[1], on[1]),
+                  f"eps={eps}: pruned with kernels {on[0], on[2]} differs from "
+                  f"{label} {other[0], other[2]}")
+        check(on[2] == passes_n and np.array_equal(on[1], mask_n)
+              and abs(on[0] - rho_n) <= 1e-6 * rho_n,
+              f"eps={eps}: pruned {on[0], on[2]} differs from pbahmani_np {rho_n, passes_n}")
+
+        # every lane array handed to K1 in one run ascends (checked once per
+        # array, on the card), and the K4 calls' inputs are kept for phase 7
+        seen, sorted_rungs, k4_calls = set(), [], []
+        real_k1, real_k4 = ops.segment_sum_sorted, prune.stream_compact
+
+        def k1_checked(values, seg_ids, **kw):
+            key = (seg_ids.data_ptr(), seg_ids.numel())
+            if key not in seen:
+                seen.add(key)
+                ok = bool(torch.all(seg_ids[1:] >= seg_ids[:-1]))
+                check(ok, f"eps={eps}: a K1 hand-off of {seg_ids.numel()} lanes is unsorted")
+                sorted_rungs.append(seg_ids.numel())
+            return real_k1(values, seg_ids, **kw)
+
+        def k4_kept(values, live, **kw):
+            k4_calls.append((values.clone(), live.clone(), kw))
+            return real_k4(values, live, **kw)
+
+        ops.segment_sum_sorted, prune.stream_compact = k1_checked, k4_kept
+        try:
+            again = pbahmani(g, eps=eps, pruned=True, kernel=True, device=device)
+        finally:
+            ops.segment_sum_sorted, prune.stream_compact = real_k1, real_k4
+        check(again[2] == on[2] and np.array_equal(again[1], on[1]), "rerun differs")
+        check(len(k4_calls) == 2, f"eps={eps}: {len(k4_calls)} K4 calls, expected 2")
+        if eps == 0.0:
+            inputs = {"edge": k4_calls[0], "degree": k4_calls[1]}
+        ladder_v, ladder_lanes = int(k4_calls[1][1].sum()), int(k4_calls[0][1].sum())
+
+        # wall times: medians of timed_runs after the warm runs above
+        def med(fn):
+            return statistics.median(wall_s(fn, timed_runs))
+
+        t_plan = med(lambda: prune.plan_for_graph(g, kernel=True, device=device))
+        t_prep = med(lambda: (prune.slot_arrays(g), g.degrees()))
+        t_host = med(lambda: prune.prepare_pruned_peel(u, v, deg, g.n_edges, eps, plan))
+        t_up = med(lambda: prune.upload_buckets(pd, device))
+        b_src, b_dst = prune.upload_buckets(pd, device)
+
+        def device_peel(kernel):
+            return prune._bucket_peel(b_src, b_dst, pd.n_v1, pd.n_e1, float(pd.best_d1), 1,
+                                      eps, *pd.plan.buckets, kernel)
+
+        t_dev_on, t_dev_off = med(lambda: device_peel(True)), med(lambda: device_peel(False))
+        d_b, m_b, p_b = device_peel(True)
+        t0 = time.perf_counter()
+        merged = prune.merge_pruned_peel(pd, d_b.item(), m_b.cpu().numpy(), p_b.item())
+        t_merge = time.perf_counter() - t0
+        check(merged[2] == on[2] and np.array_equal(merged[1], on[1]), "split run differs")
+        times[eps] = dict(
+            pruned_kernel_s=med(lambda: pbahmani(g, eps=eps, pruned=True, kernel=True,
+                                                 device=device)),
+            pruned_scatter_s=med(lambda: pbahmani(g, eps=eps, pruned=True, kernel=False,
+                                                  device=device)),
+            unpruned_kernel_s=med(lambda: pbahmani(g, eps=eps, kernel=True, device=device)),
+            plan_s=t_plan, host_prep_s=t_prep, host_half_s=t_host, upload_s=t_up,
+            device_kernel_s=t_dev_on, device_scatter_s=t_dev_off, merge_s=t_merge,
+            passes=on[2], n_v1=pd.n_v1, lanes1=2 * pd.n_e1, buckets=list(pd.plan.buckets),
+            ladder_vertices=ladder_v, ladder_lanes=ladder_lanes,
+            launches=dict(zip(launches, (n_k1, n_k3, n_k4))))
+        log(f"  pruned eps={eps}: density={on[0]!r} |S|={int(on[1].sum())} passes={on[2]}; "
+            f"pruned on == off == unpruned on == off == pbahmani_np (numpy {t_np:.2f} s)")
+        log(f"    plan rho_lb={plan.rho_lb!r} k={plan.k} candidates={plan.n_candidates}; "
+            f"pass 0 leaves {pd.n_v1} vertices, {2 * pd.n_e1} lanes; buckets "
+            f"{pd.plan.buckets}; ladder handed {ladder_v} vertices, {ladder_lanes} lanes")
+        log(f"    launches K1={n_k1} K3={n_k3} K4={n_k4}; K1 lane arrays checked sorted "
+            f"on the card: {sorted_rungs}")
+        log(f"    wall median of {timed_runs}: pruned kernel {times[eps]['pruned_kernel_s']:.6f} s, "
+            f"pruned scatter {times[eps]['pruned_scatter_s']:.6f} s, unpruned kernel "
+            f"{times[eps]['unpruned_kernel_s']:.6f} s; split: plan {t_plan:.6f}, host prep "
+            f"{t_prep:.6f}, host half {t_host:.6f}, upload {t_up:.6f}, device {t_dev_on:.6f} "
+            f"(scatter {t_dev_off:.6f}), merge {t_merge:.6f} s")
+    return launches, times, inputs
+
+
+# ---------------------------------------------------------------------------
+# phase 7: K3 and K4 at the pruned path's own inputs
+# ---------------------------------------------------------------------------
+def phase_compact_timing(inputs: dict) -> dict:
+    import torch
+
+    from repro_torch.kernels import compact, ref
+
+    res = {}
+    edge_vals, edge_live, edge_kw = inputs["edge"]
+    n = edge_live.shape[0]
+    out = compact.prefix_sum(edge_live)
+    exp = ref.prefix_sum_ref(edge_live)
+    torch.cuda.synchronize()
+    check(torch.equal(out, exp), "K3 differs from its plain version at the path's input")
+    ms = time_ms(lambda: compact.prefix_sum(edge_live))
+    plain = time_ms(lambda: ref.prefix_sum_ref(edge_live))
+    lib = time_ms(lambda: torch.cumsum(edge_live, 0, dtype=torch.int32))
+    dev = graph_ms(lambda: compact.prefix_sum(edge_live))
+    lib_dev = graph_ms(lambda: torch.cumsum(edge_live, 0, dtype=torch.int32))
+    b, by = bound_ms(n * 1 + n * 4, n)
+    res["prefix_sum"] = dict(ms=ms, device_ms=dev, plain_ms=plain, library_ms=lib,
+                             library_device_ms=lib_dev, bound_ms=b, bound_by=by,
+                             shape=f"[{n}] bool -> int32")
+    log(f"  K3 path input [{n}] bool: exact; kernel_ms={ms:.6f} device_ms={dev:.6f} "
+        f"(cumsum device_ms={lib_dev:.6f}) plain_ms={plain:.6f} "
+        f"library_ms={lib:.6f} (cumsum) bound_ms={b:.6f} ({by})")
+
+    for label in ("edge", "degree"):
+        vals, live, kw = inputs[label]
+        out_size, fill = kw["out_size"], kw["fill"]
+        out = compact.stream_compact(vals, live, **kw)
+        exp = ref.stream_compact_ref(vals, live, out_size, fill)
+        torch.cuda.synchronize()
+        check(torch.equal(out, exp), f"K4 ({label}) differs from its plain version")
+        d = 1 if vals.dim() == 1 else vals.shape[1]
+        n_live = int(live.sum())
+
+        def library():
+            sel = vals[live][:out_size]
+            return torch.cat([sel, sel.new_full((out_size - sel.shape[0],) + sel.shape[1:],
+                                                fill)])
+
+        check(torch.equal(library(), exp), f"K4 ({label}) library yardstick differs")
+        ms = time_ms(lambda: compact.stream_compact(vals, live, **kw))
+        plain = time_ms(lambda: ref.stream_compact_ref(vals, live, out_size, fill))
+        lib = time_ms(library)
+        dev = graph_ms(lambda: compact.stream_compact(vals, live, **kw))
+        # bytes this input needs: the mask, the live lanes' values, the output
+        b, by = bound_ms(live.numel() + min(n_live, out_size) * d * 4 + out_size * d * 4,
+                         live.numel())
+        res[f"stream_compact_{label}"] = dict(
+            ms=ms, device_ms=dev, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
+            shape=f"[{vals.shape[0]}{', %d' % d if vals.dim() == 2 else ''}] -> {out_size}",
+            live=n_live, bound_ms_all_values=bound_ms(
+                live.numel() + vals.numel() * 4 + out_size * d * 4, live.numel())[0])
+        log(f"  K4 {label} call {res[f'stream_compact_{label}']['shape']}, {n_live} live: "
+            f"exact; kernel_ms={ms:.6f} device_ms={dev:.6f} plain_ms={plain:.6f} "
+            f"library_ms={lib:.6f} (values[live] + pad) bound_ms={b:.6f} ({by})")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the pruned peel where pass 0 overflows the bucket
+# ---------------------------------------------------------------------------
+def phase_pruned_fallback(g, device: str) -> int:
+    from repro_torch.core import pbahmani, prune
+    from repro_torch.kernels import compact, segsum
+
+    u, v = prune.slot_arrays(g)
+    deg = g.degrees().astype(np.int32)
+    plan = prune.plan_for_graph(g, kernel=True, device=device)
+    n_k1 = 0
+    for eps in (0.1, 0.0):
+        _, a1, _, _ = prune._pass0_host(deg, g.n_edges, eps)
+        lanes1 = 2 * prune._induced_slots(u, v, a1).size
+        check(prune.prepare_pruned_peel(u, v, deg, g.n_edges, eps, plan) is None,
+              f"eps={eps}: expected the pruned path to fall back on this graph")
+        segsum.launches = compact.prefix_sum_launches = compact.stream_compact_launches = 0
+        got = pbahmani(g, eps=eps, pruned=True, kernel=True, device=device)
+        check(compact.prefix_sum_launches == compact.stream_compact_launches == 0,
+              "the fallback launched the compaction kernels")
+        n_k1 += segsum.launches
+        want = pbahmani(g, eps=eps, kernel=True, device=device)
+        check(got[0] == want[0] and got[2] == want[2] and np.array_equal(got[1], want[1]),
+              f"eps={eps}: pruned (fallen back) {got[0], got[2]} differs from unpruned")
+        log(f"  rmat pruned eps={eps}: fell back to the unpruned peel: pass 0 leaves "
+            f"{int(a1.sum())} vertices and {lanes1} lanes, over the largest bucket "
+            f"{plan.bucket_e} (half of next_pow2({g.src.shape[0]})); triple == unpruned "
+            f"(density={got[0]!r}, passes={got[2]})")
+    return n_k1
+
+
+# ---------------------------------------------------------------------------
+# phase 9: refinement
+# ---------------------------------------------------------------------------
+def phase_refine(g, g_small, device: str) -> tuple[int, dict]:
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import pbahmani
+    from repro_torch.graphs.convert import to_device
+    from repro_torch.kernels import segsum
+    from repro_torch.refine import refine, refine_round_np
+    from repro_torch.refine.loads import _refine_round
+
+    segsum.launches = 0
+    t0 = time.perf_counter()
+    on = pbahmani(g, eps=0.1, refine_rounds=3, kernel=True, device=device)
+    t_on = time.perf_counter() - t0
+    n_k1 = segsum.launches
+    check(n_k1 > 0, "refinement did not launch K1")
+    t0 = time.perf_counter()
+    off = pbahmani(g, eps=0.1, refine_rounds=3, kernel=False, device=device)
+    t_off = time.perf_counter() - t0
+    check(on[0] == off[0] and on[2] == off[2] and np.array_equal(on[1], off[1]),
+          f"pbahmani(refine_rounds=3): kernel on {on[0], on[2]} differs from off "
+          f"{off[0], off[2]}")
+    r_on, r_off = (refine(g, target_gap=-1.0, max_rounds=3, eps=0.1, kernel=k, device=device)
+                   for k in (True, False))
+    c_on, c_off = r_on.certificate, r_off.certificate
+    check((c_on.best_ne, c_on.best_nv, c_on.dual_num, c_on.dual_den)
+          == (c_off.best_ne, c_off.best_nv, c_off.dual_num, c_off.dual_den)
+          and r_on.history == r_off.history and np.array_equal(r_on.mask, r_off.mask),
+          "refine: kernel on and off give different certificates or history")
+    log(f"  pbahmani(rmat, eps=0.1, refine_rounds=3): density={on[0]!r} passes={on[2]}; "
+        f"on == off; K1 launches={n_k1}; wall kernel {t_on:.6f} s, scatter {t_off:.6f} s")
+    log(f"  refine(max_rounds=3): certificate {c_on.best_ne}/{c_on.best_nv} <= rho* <= "
+        f"{c_on.dual_num}/{c_on.dual_den}, rel_gap {c_on.rel_gap!r}; on == off, history "
+        f"equal over {len(r_on.history)} rounds")
+
+    # where a refinement's time goes: one run from a given seed, with the
+    # device rounds and the host certificate (dual_fraction) timed apart
+    from repro_torch.refine import engine
+
+    seed = pbahmani(g, eps=0.1, kernel=True, device=device)
+    split = {"round_s": 0.0, "dual_host_s": 0.0}
+    real_round, real_dual = engine._refine_round, engine.dual_fraction
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            split[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    engine._refine_round = timed("round_s", real_round)
+    engine.dual_fraction = timed("dual_host_s", real_dual)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refine(g, target_gap=-1.0, max_rounds=3, eps=0.1, seed=seed, kernel=True,
+               device=device)
+        split["total_s"] = time.perf_counter() - t0
+    finally:
+        engine._refine_round, engine.dual_fraction = real_round, real_dual
+    split["other_host_s"] = split["total_s"] - split["round_s"] - split["dual_host_s"]
+    log(f"  refine(3 rounds, seed given) {split['total_s']:.6f} s: device rounds "
+        f"{split['round_s']:.6f} s (one sync a pass), host certificates "
+        f"{split['dual_host_s']:.6f} s, other host (degrees, seed counts, upload, mask) "
+        f"{split['other_host_s']:.6f} s")
+
+    # each round's loads and best state against the numpy bit-oracle
+    n = g_small.n_nodes
+    deg = g_small.degrees().astype(np.int32)
+    src, dst = to_device(g_small, device, sorted=True)
+    state = (torch.zeros(n, dtype=torch.int32, device=device),
+             torch.tensor(0.0, device=device),
+             torch.tensor(0, dtype=torch.int32, device=device),
+             torch.tensor(0, dtype=torch.int32, device=device),
+             torch.zeros(n, dtype=torch.bool, device=device),
+             torch.tensor(0, dtype=torch.int32, device=device))
+    loads_np, best_np = np.zeros(n, np.int32), (np.float32(0.0), 0, 0, np.zeros(n, bool))
+    for r in range(3):
+        state = _refine_round(src, dst, torch.from_numpy(deg).to(device),
+                              torch.tensor(g_small.n_edges, device=device), *state,
+                              n, 0.1, True)
+        loads_np, best_np, _ = refine_round_np(g_small.src, g_small.dst, deg,
+                                               g_small.n_edges, loads_np, best_np, 0.1)
+        check(np.array_equal(state[0].cpu().numpy(), loads_np)
+              and np.float32(state[1].item()) == best_np[0]
+              and (state[2].item(), state[3].item()) == best_np[1:3]
+              and np.array_equal(state[4].cpu().numpy(), best_np[3]),
+              f"refine round {r + 1} differs from refine_round_np at |V|={n}")
+    log(f"  |V|={n}: 3 refine rounds (kernel on) == refine_round_np, loads and best")
+    return n_k1, dict(refine_rounds3_kernel_s=t_on, refine_rounds3_scatter_s=t_off,
+                      split=split, certificate=dataclasses.asdict(c_on))
+
+
 def main() -> int:
     try:
         import torch
@@ -371,8 +792,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke runs only on a GPU", file=sys.stderr)
         return 2
     try:
-        from repro_torch.graphs.generators import rmat
-        from repro_torch.kernels import segsum
+        from repro_torch.graphs.generators import planted_dense, rmat
+        from repro_torch.kernels import build, compact, segsum
     except ImportError as exc:
         print(f"chip_smoke: the repro_torch package is not beside this script ({exc})",
               file=sys.stderr)
@@ -386,11 +807,15 @@ def main() -> int:
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, capability {torch.cuda.get_device_capability(0)}")
     t0 = time.perf_counter()
+    build.build_all([segsum.SOURCE, compact.SOURCE])  # one nvcc each, at once
     segsum.load_library()
-    log(f"  K1 built and loaded in {time.perf_counter() - t0:.3f} s from {segsum.SOURCE.name}")
-    for line in segsum.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
+    compact.load_library()
+    log(f"  K1, K3, K4 built and loaded in {time.perf_counter() - t0:.3f} s from "
+        f"{segsum.SOURCE.name}, {compact.SOURCE.name}")
+    for source, text in build.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas {source}: {line.strip()}")
 
     t0 = time.perf_counter()
     g = rmat(SCALE, EDGE_FACTOR, seed=0)
@@ -398,9 +823,16 @@ def main() -> int:
     g_small = rmat(15, EDGE_FACTOR, seed=0)
     log(f"  graphs built on the host in {time.perf_counter() - t0:.3f} s: rmat({SCALE}) "
         f"|V|={g.n_nodes} |E|={g.n_edges} lanes={g.src.shape[0]}")
+    t0 = time.perf_counter()
+    g_planted, _, block_density = planted_dense(**PLANTED)
+    g_planted.dst_sorted()
+    log(f"  planted_dense({PLANTED}) built in {time.perf_counter() - t0:.3f} s: "
+        f"|V|={g_planted.n_nodes} |E|={g_planted.n_edges} lanes={g_planted.src.shape[0]} "
+        f"block density {block_density!r}")
 
     log("phase 2: kernels against their plain versions on the card")
     k1, peel = phase_kernels(g, device)
+    compact_err = phase_compact_cases(device)
 
     log("phase 3: peel_threshold bits")
     phase_threshold(device)
@@ -411,27 +843,53 @@ def main() -> int:
     log("phase 5: CBDS-P at full width")
     cbds_launches, cbds_times = phase_cbds(g, g_small, device, SCALE)
 
-    log(f"main path: K1 launches P-Bahmani (eps 0.1 and 0) {peel_launches}, "
-        f"CBDS-P {cbds_launches}")
+    log("phase 6: pruned P-Bahmani on the planted block at full width")
+    pruned_launches, pruned_times, k4_inputs = phase_pruned(g_planted, device)
+
+    log("phase 7: K3 and K4 at the pruned path's inputs")
+    compact_times = phase_compact_timing(k4_inputs)
+
+    log("phase 8: pruned P-Bahmani on the RMAT graph (falls back)")
+    fallback_launches = phase_pruned_fallback(g, device)
+
+    log("phase 9: refinement")
+    refine_launches, refine_times = phase_refine(g, g_small, device)
+
+    k1_launches = (peel_launches + cbds_launches + pruned_launches["segment_sum_sorted"]
+                   + fallback_launches + refine_launches)
+    log(f"main path: K1 launches P-Bahmani (eps 0.1 and 0) {peel_launches}, CBDS-P "
+        f"{cbds_launches}, pruned {pruned_launches['segment_sum_sorted']}, pruned fallback "
+        f"{fallback_launches}, refinement {refine_launches}; K3 {pruned_launches['prefix_sum']}"
+        f", K4 {pruned_launches['stream_compact']} (pruned, eps 0.1 and 0)")
+    rows = {
+        "segment_sum_sorted": (k1_launches, k1["max_abs_err"], k1),
+        "prefix_sum": (pruned_launches["prefix_sum"], compact_err, compact_times["prefix_sum"]),
+        "stream_compact": (pruned_launches["stream_compact"], compact_err,
+                           compact_times["stream_compact_edge"]),
+    }
     kernels = [{
-        "name": "segment_sum_sorted",
+        "name": name,
         "route": "cuda",
-        "source": "src/repro_torch/csrc/segsum.cu",
-        "replaces": REPLACES,
-        "launches": peel_launches + cbds_launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"],
+        "source": SOURCES[name],
+        "replaces": REPLACES[name],
+        "launches": n,
+        "max_abs_err": err,
+        "ms": t["ms"],
+        "device_ms": t["device_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
         "parity": "ok",
-    }]
+    } for name, (n, err, t) in rows.items()]
     log(json.dumps({"wrappers": [dict(name="peel_update", kernel="segment_sum_sorted",
                                       library="gather + index_add_", parity="ok", **peel)],
                     "k1_by_type": k1["by_type"],
+                    "compact_by_call": compact_times,
                     "end_to_end_s": {"pbahmani": {str(k): v for k, v in peel_times.items()},
-                                     "cbds": cbds_times},
+                                     "cbds": cbds_times,
+                                     "pruned": {str(k): v for k, v in pruned_times.items()},
+                                     "refine": refine_times},
                     "smoke_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -131,31 +131,42 @@ def pbahmani(
     CPU). With K1 the edge lanes come from ``graph.dst_sorted()``, uploaded
     once, and the triple is bit-identical to the scatter path.
 
-    ``pruned`` and ``refine_rounds`` are not ported yet and raise.
+    ``pruned=True`` runs the candidate-pruned peel (core/prune.py, with K3
+    and K4 in its compaction ladder when ``kernel`` is on): the same triple.
+    ``refine_rounds > 0`` feeds the peel result through that many
+    weighted-peel refinement rounds (refine/): the density is never below
+    the peel's, and ``passes`` then counts the seed peel's passes plus every
+    round's. ``refine.refine`` gives the certificate and the ``target_gap``
+    loop.
     """
     device = resolve_device(device)
-    if pruned:
-        raise NotImplementedError(
-            "pbahmani(pruned=True) needs the pruned peel (core/prune.py with "
-            "kernels K3/K4), ROADMAP queue 1 item 6: not ported yet")
-    if refine_rounds > 0:
-        raise NotImplementedError(
-            "pbahmani(refine_rounds>0) needs refinement (refine/), ROADMAP "
-            "queue 1 item 7: not ported yet")
     if graph.n_nodes == 0:
         return 0.0, np.zeros(0, dtype=bool), 0
     kernel = resolve_kernel(kernel, device)
     if kernel:
         assert_exact_envelope(graph.src.shape[0], graph.n_nodes)
-    src, dst = to_device(graph, device, sorted=kernel)
-    state = init_state(src, dst, graph.n_nodes, graph.n_edges)
-    while state.n_v.item() > 0:  # the one host sync of each pass
-        state = pbahmani_pass(state, src, dst, graph.n_nodes, float(eps), kernel)
-    return (
-        float(state.best_density),
-        state.best_mask.cpu().numpy(),
-        int(state.passes),
-    )
+    if pruned:
+        from repro_torch.core.prune import pbahmani_pruned
+
+        out = pbahmani_pruned(graph, eps=eps, kernel=kernel, device=device)
+    else:
+        src, dst = to_device(graph, device, sorted=kernel)
+        state = init_state(src, dst, graph.n_nodes, graph.n_edges)
+        while state.n_v.item() > 0:  # the one host sync of each pass
+            state = pbahmani_pass(state, src, dst, graph.n_nodes, float(eps), kernel)
+        out = (
+            float(state.best_density),
+            state.best_mask.cpu().numpy(),
+            int(state.passes),
+        )
+    if refine_rounds > 0:
+        from repro_torch.refine.engine import refine
+
+        # negative target: run exactly refine_rounds rounds (deterministic)
+        res = refine(graph, target_gap=-1.0, max_rounds=int(refine_rounds),
+                     eps=eps, seed=out, kernel=kernel, device=device)
+        return res.density, res.mask, res.passes
+    return out
 
 
 # ---------------------------------------------------------------------------

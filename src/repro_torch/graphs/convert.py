@@ -29,6 +29,15 @@ def graph_from_arrays(n_nodes: int, n_edges: int, src, dst, n_directed: int) -> 
     )
 
 
+def prune_plan_from_fields(**fields):
+    """Build the port's ``core.prune.PrunePlan`` from another plan's fields
+    (for example ``dataclasses.asdict`` of the JAX package's plan), so a
+    plan sized elsewhere drives the port's bucket peel."""
+    from repro_torch.core.prune import PrunePlan
+
+    return PrunePlan(**fields)
+
+
 def to_device(
     graph: Graph, device: torch.device | str, sorted: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -54,4 +63,4 @@ def to_device(
     return cache[key]
 
 
-__all__ = ["graph_from_arrays", "to_device"]
+__all__ = ["graph_from_arrays", "prune_plan_from_fields", "to_device"]

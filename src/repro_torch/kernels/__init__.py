@@ -1,16 +1,26 @@
 # Hand-written CUDA kernels for the compute hot spots, each beside its plain
 # PyTorch version:
-#   segsum.py — sorted segment-sum (K1, csrc/segsum.cu): the paper's
-#               part-2 atomicSub as a deterministic run reduction
-#   ops.py    — the public ops over it; ref.py — the plain versions.
+#   segsum.py  — sorted segment-sum (K1, csrc/segsum.cu): the paper's
+#                part-2 atomicSub as a deterministic run reduction
+#   compact.py — int32 prefix sum (K3) and stream compaction (K4,
+#                csrc/compact.cu): the pruned peel's in-bucket ladder
+#   ops.py     — the public ops over K1; ref.py — the plain versions;
+#   build.py   — nvcc at first use, one hash-keyed library per source.
+from repro_torch.kernels.compact import prefix_sum, stream_compact
 from repro_torch.kernels.ops import peel_update, segment_sum
-from repro_torch.kernels.ref import peel_update_ref, segment_sum_ref
+from repro_torch.kernels.ref import (
+    peel_update_ref, prefix_sum_ref, segment_sum_ref, stream_compact_ref,
+)
 from repro_torch.kernels.segsum import segment_sum_sorted
 
 __all__ = [
     "peel_update",
+    "prefix_sum",
     "segment_sum",
     "segment_sum_sorted",
+    "stream_compact",
     "peel_update_ref",
+    "prefix_sum_ref",
     "segment_sum_ref",
+    "stream_compact_ref",
 ]

@@ -1,0 +1,87 @@
+"""Building the hand-written CUDA sources of ``csrc/`` at first use.
+
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, ``csrc/build/<stem>-<hash>.so``, keyed on a hash
+of the source and the flags (so an edit rebuilds), and loaded with
+``ctypes``. A failed build raises with nvcc's output; nothing falls back.
+
+``build_all`` starts one ``nvcc`` per source at once and waits for all of
+them, so a first use that needs several kernels pays for the slowest build,
+not the sum.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+build_logs: dict[str, str] = {}  # nvcc/ptxas output of builds made by this process
+_libs: dict[Path, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: building the port's kernels "
+                           "needs nvcc (set CUDA_HOME)")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path(source: Path) -> Path:
+    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{key.hexdigest()[:16]}.so"
+
+
+def build_all(sources: list[Path]) -> None:
+    """Compile every source whose library is missing, all at once."""
+    pending = []
+    for source in sources:
+        so = library_path(source)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}.so"
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        pending.append((source, so, tmp, proc))
+    failed = []
+    for source, so, tmp, proc in pending:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {source.name} "
+                          f"(exit {proc.returncode}):\n{err}")
+            continue
+        os.replace(tmp, so)  # atomic: concurrent builders never see half a file
+        build_logs[source.name] = err
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(source: Path) -> ctypes.CDLL:
+    """The loaded library of ``source``, built first if needed."""
+    lib = _libs.get(source)
+    if lib is None:
+        build_all([source])
+        lib = _libs[source] = ctypes.CDLL(str(library_path(source)))
+    return lib
+
+
+def launch_error(lib: ctypes.CDLL, strerror: str, err: int, what: str) -> RuntimeError:
+    """The exception for a C entry point that returned CUDA error ``err``;
+    ``strerror`` names the library's wrapper of ``cudaGetErrorString``."""
+    fn = getattr(lib, strerror)
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+    return RuntimeError(f"{what} launch failed: {fn(err).decode()} ({err})")
+
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_logs", "build_all", "load",
+           "library_path", "launch_error"]

@@ -42,4 +42,24 @@ def peel_update_ref(
     return segment_sum_ref(vals, dst, n_nodes, out_dtype=torch.int32)
 
 
-__all__ = ["segment_sum_ref", "peel_update_ref"]
+def prefix_sum_ref(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of a 1-D bool or int32 tensor, int32 out."""
+    return torch.cumsum(x, 0, dtype=torch.int32)
+
+
+def stream_compact_ref(
+    values: torch.Tensor, live: torch.Tensor, out_size: int, fill: int,
+) -> torch.Tensor:
+    """``full(out_size, fill)`` with ``out[cumsum(live) - 1] = values[live]``
+    for int32 ``[E]`` or ``[E, D]`` values; survivors past ``out_size``
+    drop."""
+    out = torch.full((out_size,) + tuple(values.shape[1:]), fill,
+                     dtype=torch.int32, device=values.device)
+    pos = prefix_sum_ref(live) - 1
+    keep = live & (pos < out_size)
+    out.index_put_((pos[keep].long(),), values[keep])
+    return out
+
+
+__all__ = ["segment_sum_ref", "peel_update_ref", "prefix_sum_ref",
+           "stream_compact_ref"]

@@ -12,28 +12,23 @@ dropped. Sortedness is a precondition of the kernel, not a hint: unsorted
 ids give wrong sums on the card (``ops.segment_sum(presorted=False)`` sorts
 first).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``csrc/build/`` (keyed on a hash of the source and flags, so an edit
-rebuilds) and loaded with ``ctypes``. A failed build raises with nvcc's
-output; a failed launch raises with the CUDA error. A CUDA tensor never
-falls back to the plain version, which runs only for tensors on the CPU.
+The source is built at first use by ``kernels/build.py`` (``nvcc`` for
+``sm_90a``, a hash-keyed library under ``csrc/build/``, loaded with
+``ctypes``). A failed build raises with nvcc's output; a failed launch
+raises with the CUDA error. A CUDA tensor never falls back to the plain
+version, which runs only for tensors on the CPU; there unsorted ids raise
+``ValueError``, so an unsorted hand-off fails in the CPU tests too.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.ref import segment_sum_ref
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "segsum.cu"
-BUILD_DIR = SOURCE.parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = build.CSRC / "segsum.cu"
 
 # Input types each accumulator takes. float32 sums take what the JAX kernel
 # takes (converted here, in one pass); int32 sums take 0/1 or integer lanes,
@@ -46,38 +41,16 @@ _ENTRY = {torch.float32: "segsum_sorted_f32", torch.int32: "segsum_sorted_i32",
           torch.bool: "segsum_sorted_u8"}
 
 launches = 0     # kernel launches, counted where the kernel is launched
-build_log = ""   # nvcc/ptxas output of a build made by this process
 _lib: ctypes.CDLL | None = None
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found: building the segment-sum "
-                           "kernel needs nvcc (set CUDA_HOME)")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
 def load_library() -> ctypes.CDLL:
     """Build the kernel library if this source was not built yet, load it
     and declare its C entry points."""
-    global _lib, build_log
+    global _lib
     if _lib is not None:
         return _lib
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"segsum-{key.hexdigest()[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}.so"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {SOURCE.name} "
-                               f"(exit {proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, so)  # atomic: concurrent builders never see half a file
-        build_log = proc.stderr
-    lib = ctypes.CDLL(str(so))
+    lib = build.load(SOURCE)
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -86,8 +59,6 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.segsum_scratch_ints.argtypes = [ctypes.c_longlong, ctypes.c_int]
     lib.segsum_scratch_ints.restype = ctypes.c_longlong
-    lib.segsum_error_string.argtypes = [ctypes.c_int]
-    lib.segsum_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
 
@@ -110,7 +81,8 @@ def segment_sum_sorted(
                 or int32 (exact integer counts at any size).
 
     Returns [V] (for 1-D values) or [V, D] of ``out_dtype``. On a CPU tensor
-    this is the plain version (``ref.segment_sum_ref``); on a CUDA tensor
+    this is the plain version (``ref.segment_sum_ref``), after a check that
+    the ids ascend (``ValueError`` if not); on a CUDA tensor
     it is one call of the kernel (two CUDA launches: row offsets, then the
     reduction), counted once in ``launches``.
     """
@@ -129,6 +101,10 @@ def segment_sum_sorted(
     if values.device != seg_ids.device:
         raise ValueError(f"values on {values.device}, seg_ids on {seg_ids.device}")
     if values.device.type == "cpu":
+        if bool((seg_ids[1:] < seg_ids[:-1]).any()):
+            raise ValueError("segment_sum_sorted needs seg_ids in ascending "
+                             "order (the kernel's precondition); sort them or "
+                             "use ops.segment_sum(presorted=False)")
         return segment_sum_ref(values, seg_ids, num_segments, out_dtype)
     if values.device.type != "cuda":
         raise ValueError(f"no segment-sum kernel for {values.device}")
@@ -156,10 +132,9 @@ def segment_sum_sorted(
         err = fn(values.data_ptr(), seg_ids.data_ptr(), n_lanes, num_segments,
                  d, out.data_ptr(), scratch.data_ptr(), stream)
     if err:
-        msg = lib.segsum_error_string(err).decode()
-        raise RuntimeError(f"segment-sum kernel launch failed: {msg} ({err})")
+        raise build.launch_error(lib, "segsum_error_string", err, "segment-sum kernel")
     launches += 1
     return out
 
 
-__all__ = ["segment_sum_sorted", "load_library", "SOURCE", "BUILD_DIR"]
+__all__ = ["segment_sum_sorted", "load_library", "SOURCE"]

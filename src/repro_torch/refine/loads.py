@@ -1,0 +1,189 @@
+"""Edge-load state for iterated weighted peeling (Greedy++ / Frank-Wolfe).
+
+The eps-approximate peel (core/pbahmani.py) stops at a 2(1+eps) guarantee.
+One *refinement round* is a full peel of the graph with the key
+
+    key(v) = load(v) + deg(v)
+
+instead of deg(v): the iterated greedy of Greedy++ (Boob et al.), whose
+threshold-batched parallel form converges to near-exact density, read as
+Frank-Wolfe on the load-balancing LP: each round charges every live edge to
+exactly one endpoint, and ``loads / T`` after T rounds is a feasible LP point.
+
+Load accounting: when a batch F of vertices fails in one pass, every live
+edge with an endpoint in F dies and is charged to exactly one endpoint, the
+one in F, or the smaller vertex id when both are (ascending-id sequential
+removal). So after T rounds ``sum(loads) == T * |E|`` and
+``max_v loads(v) / T >= rho*(G)``: the dual side of the certificate
+(refine/certify.py).
+
+All state is int32 (loads are counts), so a round is exact integer
+arithmetic. Threshold: ``(1+eps) * (sum_live loads + 2|E_live|) / |V_live|``,
+Bahmani's ``2(1+eps)rho`` at zero loads; the ``key <= min_key`` guard makes
+termination robust to float32 rounding of large load sums.
+
+This is the JAX package's ``refine/loads.py`` for one device: the pass, the
+round, and its host loop. The batched, sharded and dense-GEMV round
+programs wait for ROADMAP slices 9 and 11.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.dispatch import peel_delta
+
+
+class RefinePeelState(NamedTuple):
+    """Carry of one weighted-peel round. All tensors fixed-shape.
+
+    deg:      int32 [V]  live degree (0 once removed)
+    loads:    int32 [V]  accumulated edge loads (across rounds + this round)
+    active:   bool  [V]  live mask
+    n_v, n_e: int32 []   live vertex / undirected edge counts
+    load_sum: int32 []   sum of loads over live vertices
+    best_density: f32 [] best density seen (the exact fraction is
+                         best_ne/best_nv)
+    best_ne, best_nv: int32 []  integer counts of the best subgraph, the
+                         primal side of the exact-rational certificate
+    best_mask: bool [V]  vertex set achieving the best density
+    passes:   int32 []   cumulative pass counter (across rounds)
+    """
+
+    deg: torch.Tensor
+    loads: torch.Tensor
+    active: torch.Tensor
+    n_v: torch.Tensor
+    n_e: torch.Tensor
+    load_sum: torch.Tensor
+    best_density: torch.Tensor
+    best_ne: torch.Tensor
+    best_nv: torch.Tensor
+    best_mask: torch.Tensor
+    passes: torch.Tensor
+
+
+def refine_threshold(load_sum: torch.Tensor, n_e: torch.Tensor, n_v: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    """(1+eps) * average key over live vertices, float32. The constant is
+    rounded to float32 before the one float32 multiply, as the JAX package
+    and ``certify.refine_round_np`` do."""
+    avg = (load_sum + 2 * n_e).to(torch.float32) / n_v.clamp(min=1).to(torch.float32)
+    return avg * float(np.float32(1.0 + eps))
+
+
+def _fold_best(state: RefinePeelState, n_e_new, n_v_new, active_new):
+    """Strict-> best tracking off the new live set (f32 compare, exact ints
+    carried alongside for the certificate)."""
+    rho_new = n_e_new.to(torch.float32) / n_v_new.clamp(min=1).to(torch.float32)
+    rho_new = torch.where(n_v_new > 0, rho_new, 0.0)
+    better = rho_new > state.best_density
+    return (
+        torch.where(better, rho_new, state.best_density),
+        torch.where(better, n_e_new, state.best_ne),
+        torch.where(better, n_v_new, state.best_nv),
+        torch.where(better, active_new, state.best_mask),
+    )
+
+
+def refine_pass(
+    state: RefinePeelState, src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
+    eps: float, kernel: bool = False,
+) -> RefinePeelState:
+    """One weighted peeling pass over the symmetric COO lanes: fail every
+    live vertex with load+deg <= threshold (or at the live minimum), charge
+    each dying edge to exactly one failing endpoint (the smaller id wins a
+    tie), and decrement survivor degrees: ``pbahmani_pass`` plus loads.
+    ``kernel`` routes both reductions through K1 (dst-sorted lanes); the
+    trajectory is bit-identical either way."""
+    key = (state.loads + state.deg).to(torch.float32)
+    thr = refine_threshold(state.load_sum, state.n_e, state.n_v, eps)
+    min_key = torch.where(state.active, key, torch.inf).min()
+    failed = state.active & ((key <= thr) | (key <= min_key))
+
+    src_c = src.clamp(max=n_nodes - 1)
+    dst_c = dst.clamp(max=n_nodes - 1)
+    valid = (src < n_nodes) & (dst < n_nodes)
+    live_edge = (valid & state.active.index_select(0, src_c)
+                 & state.active.index_select(0, dst_c))
+    fail_s = failed.index_select(0, src_c) & live_edge
+    fail_d = failed.index_select(0, dst_c) & live_edge
+
+    # survivor degree decrement: mirror-entry aggregation as in pbahmani_pass
+    delta_to_dst = peel_delta(fail_s, dst, n_nodes, kernel)
+    # edge charging: (u->v) charges u iff u failed and (v survived or u<v);
+    # exactly one of the two directed entries charges. Aggregated on *dst*
+    # via the mirror identity (lane (v->u) has its src-side charge equal to
+    # this lane's assign_d), so both reductions run over the dst-sorted
+    # layout K1 needs.
+    assign_d = fail_d & (~fail_s | (dst_c < src_c))
+    inc = peel_delta(assign_d, dst, n_nodes, kernel)
+
+    removed_directed = (fail_s | fail_d).sum(dtype=torch.int32)
+    n_e_new = state.n_e - removed_directed // 2
+    active_new = state.active & ~failed
+    deg_new = torch.where(active_new, state.deg - delta_to_dst, 0)
+    n_v_new = state.n_v - failed.sum(dtype=torch.int32)
+    loads_new = state.loads + inc
+    load_sum_new = state.load_sum - torch.where(failed, state.loads, 0).sum(
+        dtype=torch.int32)
+
+    best_density, best_ne, best_nv, best_mask = _fold_best(
+        state, n_e_new, n_v_new, active_new)
+    return RefinePeelState(
+        deg=deg_new, loads=loads_new, active=active_new, n_v=n_v_new,
+        n_e=n_e_new, load_sum=load_sum_new, best_density=best_density,
+        best_ne=best_ne, best_nv=best_nv, best_mask=best_mask,
+        passes=state.passes + 1,
+    )
+
+
+def refine_round_body(
+    src, dst, deg, n_edges, loads, best_density, best_ne, best_nv,
+    best_mask, passes, n_nodes: int, eps: float, kernel: bool = False,
+):
+    """One full refinement round from the degree array. Returns (loads,
+    best_density, best_ne, best_nv, best_mask, passes); the host turns
+    ``loads`` into the top-k dual bound (certify.dual_fraction). The loop
+    over passes runs on the host, one sync a pass."""
+    active = deg > 0
+    state = RefinePeelState(
+        deg=deg,
+        loads=loads,
+        active=active,
+        n_v=active.sum(dtype=torch.int32),
+        n_e=n_edges,
+        load_sum=torch.where(active, loads, 0).sum(dtype=torch.int32),
+        best_density=best_density,
+        best_ne=best_ne,
+        best_nv=best_nv,
+        best_mask=best_mask,
+        passes=passes,
+    )
+    while state.n_v.item() > 0:  # the one host sync of each pass
+        state = refine_pass(state, src, dst, n_nodes, eps, kernel)
+    return (state.loads, state.best_density, state.best_ne, state.best_nv,
+            state.best_mask, state.passes)
+
+
+def _refine_round(src, dst, deg, n_edges, loads, best_density, best_ne,
+                  best_nv, best_mask, passes, n_nodes: int, eps: float,
+                  kernel: bool = False):
+    """One round on int32/float32/bool tensors of one device; the JAX
+    package's ``_refine_round_jit``."""
+    i32 = torch.int32
+    return refine_round_body(
+        src, dst, deg.to(i32), n_edges.to(i32), loads.to(i32),
+        best_density.to(torch.float32), best_ne.to(i32), best_nv.to(i32),
+        best_mask, passes.to(i32), n_nodes, eps, kernel)
+
+
+__all__ = [
+    "RefinePeelState",
+    "refine_threshold",
+    "refine_pass",
+    "refine_round_body",
+    "_refine_round",
+]

@@ -165,8 +165,24 @@ def test_envelope_error_matches_jax():
 
 @pytest.mark.parametrize("kw", [{"pruned": True}, {"refine_rounds": 2}])
 def test_unported_options_raise(er_graph, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcore.pbahmani(port(er_graph), eps=0.1, device="cpu", **kw)
+    """Both options run on one device (tests/test_torch_prune.py and
+    tests/test_torch_refine.py hold them against JAX); their sharded forms
+    are not ported and raise, naming the ROADMAP slice."""
+    from repro_torch.core import prune
+    from repro_torch.refine import engine
+
+    tg = port(er_graph)
+    assert tcore.pbahmani(tg, eps=0.1, device="cpu", **kw)[0] > 0
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 slice 11"):
+        if "pruned" in kw:
+            u, v = prune.slot_arrays(tg)
+            prune.pruned_peel_host(u, v, tg.degrees(), tg.n_edges, 0.1,
+                                   prune.plan_for_graph(tg, device="cpu"),
+                                   mesh=object(), device="cpu")
+        else:
+            engine.refine_resident(None, None, None, tg.n_edges, tg.n_nodes, 0.1,
+                                   0, 0, np.zeros(tg.n_nodes, bool), 0, -1.0, 2,
+                                   mesh=object())
 
 
 def test_empty_graph():

@@ -30,7 +30,11 @@ def _imported_modules(path: Path) -> list[str]:
 def test_port_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"chip_smoke.py", "src/repro_torch/core/pbahmani.py",
-            "src/repro_torch/kernels/segsum.py"} <= names
+            "src/repro_torch/kernels/segsum.py", "src/repro_torch/kernels/compact.py",
+            "src/repro_torch/kernels/build.py", "src/repro_torch/core/prune.py",
+            "src/repro_torch/core/charikar.py", "src/repro_torch/core/exact.py",
+            "src/repro_torch/refine/loads.py", "src/repro_torch/refine/engine.py",
+            "src/repro_torch/refine/certify.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -48,13 +52,16 @@ def test_scan_catches_forbidden_imports(tmp_path):
         "repro.core", "jax.numpy", "repro.graphs"]
 
 
-@pytest.mark.parametrize("entry", ["pbahmani", "kcore_decompose", "cbds_p"])
+@pytest.mark.parametrize("entry", ["pbahmani", "kcore_decompose", "cbds_p",
+                                   "pbahmani_pruned", "plan_for_graph", "refine"])
 def test_default_device_needs_cuda(monkeypatch, entry):
     """device=None means the GPU: with no CUDA it raises and names the way
     out, instead of running on the CPU."""
     import repro_torch.core as tcore
+    import repro_torch.refine as trefine
     from repro_torch.graphs.generators import small_named
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn = getattr(tcore, entry, None) or getattr(trefine, entry)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        getattr(tcore, entry)(small_named("petersen"))
+        fn(small_named("petersen"))

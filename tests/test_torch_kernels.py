@@ -130,6 +130,22 @@ def test_segment_sum_rejects_bad_ids():
                                   num_segments=2)
 
 
+def test_segment_sum_sorted_rejects_unsorted_ids_on_cpu():
+    """Sortedness is K1's precondition: on the card unsorted ids give wrong
+    sums, so the CPU path raises on them instead of summing them right.
+    peel_delta with the kernel on goes through the same check."""
+    from repro_torch.core.dispatch import peel_delta
+
+    seg = torch.tensor([0, 2, 1, 3], dtype=torch.int32)
+    with pytest.raises(ValueError, match="ascending"):
+        segsum.segment_sum_sorted(torch.ones(4), seg, num_segments=4)
+    with pytest.raises(ValueError, match="ascending"):
+        peel_delta(torch.ones(4, dtype=torch.bool), seg, 4, kernel=True)
+    assert peel_delta(torch.ones(4, dtype=torch.bool), seg, 4, kernel=False).tolist() == [1] * 4
+    assert ops.segment_sum(torch.ones(4), seg, num_segments=4,
+                           presorted=False).tolist() == [1.0] * 4
+
+
 @pytest.mark.parametrize("p_fail", [0.0, 0.3, 1.0])
 def test_peel_update_matches_jax(er_graph, p_fail):
     g = er_graph
