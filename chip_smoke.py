@@ -10,11 +10,17 @@ P-Bahmani and CBDS-P on the Graph500 RMAT graph ``rmat(19, 16, seed=0)``
 the 2^24-lane exactness envelope), the candidate-pruned peel on the planted
 block ``planted_dense(2**19, 2048, 16 / 2**19, 0.9, seed=0)`` (a 2,048-vertex
 dense block in a sparse background of 524,288; 12,158,464 lanes), and
-refinement rounds on the RMAT graph. Phases:
+refinement rounds on the RMAT graph, and DCN-v2 serving and retrieval at the
+published widths of ``configs/dcn_v2.py:FULL`` (26 tables of 1,000,000 x 16
+float32) with two departures: ``multi_hot=4``, so that the EmbeddingBag
+reaches the fused gather-and-segment-sum K5 (``multi_hot=1``, FULL's value,
+takes a plain gather), and the kernel switched on. Phases:
 
   1. card and build: ``nvidia-smi`` name and power limit, versions, build time;
   2. the kernels against their plain versions on the card, at the cases of
-     ``tests/test_kernels.py`` and at K1's main-path shape, with times;
+     ``tests/test_kernels.py`` (K5: also invalid ids, empty bags, segment ids
+     past V, the scalar path, 26 tables at once) and at K1's main-path shape,
+     with times;
   3. ``peel_threshold`` float32 bits, card against CPU and numpy;
   4. P-Bahmani, kernel on against kernel off and the numpy oracle;
   5. CBDS-P and k-core, kernel on against kernel off and the numpy oracles;
@@ -27,7 +33,14 @@ refinement rounds on the RMAT graph. Phases:
      the largest bucket: it falls back to the unpruned peel, equal triple;
   9. refinement: ``pbahmani(refine_rounds=3)`` and ``refine`` with the
      kernel on and off, and each round against ``refine_round_np``;
- 10. a JSON line of every kernel, then the card's name and power limit, then
+ 10. DCN-v2 at full width through ``launch.steps.build_step``: 8 serve_p99
+     requests (B = 512), one serve_bulk batch (B = 262,144) and one
+     retrieval_cand query (1,000,448 candidates), K5 launches counted; kernel
+     on against the plain path on the same module (bags and logits) and the
+     bags of 64 rows against a float64 numpy oracle; step times kernel on and
+     off, the split into sort, bag, cross and MLP, and K5 at the serve_bulk
+     shape against its plain version and ``F.embedding_bag``;
+ 11. a JSON line of every kernel, then the card's name and power limit, then
      the result line ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure, so the script exits non-zero and prints no
@@ -53,10 +66,15 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 REPLACES = {"segment_sum_sorted": "src/repro/kernels/segsum.py:118",
             "prefix_sum": "src/repro/kernels/compact.py:73",
-            "stream_compact": "src/repro/kernels/compact.py:88"}
+            "stream_compact": "src/repro/kernels/compact.py:88",
+            "segment_embed": "src/repro/kernels/ops.py:254 (reaches pl.pallas_call "
+                             "through K1 at ops.py:251)"}
 SOURCES = {"segment_sum_sorted": "src/repro_torch/csrc/segsum.cu",
            "prefix_sum": "src/repro_torch/csrc/compact.cu",
-           "stream_compact": "src/repro_torch/csrc/compact.cu"}
+           "stream_compact": "src/repro_torch/csrc/compact.cu",
+           "segment_embed": "src/repro_torch/csrc/embed.cu"}
+EMBED_TOL = (1e-5, 1e-6)     # K5 bags: float32 sums in another order (rtol, atol)
+LOGIT_TOL = (1e-4, 1e-5)     # logits and scores: float32 products in another order
 PLANTED = dict(n=2**19, clique_size=2048, p_background=16 / 2**19, p_planted=0.9, seed=0)
 # The JAX package's numpy oracles on rmat(19, 16, seed=0): (passes, |S|) of
 # pbahmani_np per eps, and (k*, m_v, m_e) of kcore_np (minutes on a host
@@ -203,8 +221,9 @@ def compare(out, exp, tol) -> float:
     if tol is None:
         check(torch.equal(out, exp), "kernel and plain version differ (exact case)")
         return float((out.double() - exp.double()).abs().max()) if out.numel() else 0.0
-    check(torch.allclose(out, exp, rtol=tol, atol=tol),
-          f"kernel and plain version differ beyond rtol=atol={tol}")
+    rtol, atol = tol if isinstance(tol, tuple) else (tol, tol)
+    check(torch.allclose(out, exp, rtol=rtol, atol=atol),
+          f"kernel and plain version differ beyond rtol={rtol}, atol={atol}")
     return float((out - exp).abs().max()) if out.numel() else 0.0
 
 
@@ -782,6 +801,269 @@ def phase_refine(g, g_small, device: str) -> tuple[int, dict]:
                       split=split, certificate=dataclasses.asdict(c_on))
 
 
+# ---------------------------------------------------------------------------
+# phase 2 (K5): the fused gather and segment-sum at the cases of the tests
+# ---------------------------------------------------------------------------
+def phase_embed_cases(device: str) -> float:
+    """K5 against its plain version at the cases of tests/test_kernels.py,
+    with invalid ids, empty bags, segment ids past V, the scalar path (D not
+    a multiple of 4, a table off a 16-byte boundary) and 26 tables at once.
+    Long bags take quarter-integer tables and weights, whose sums are exact
+    in any order (tol None); random floats on bags of a few rows take
+    EMBED_TOL. Returns max abs err."""
+    import torch
+
+    from repro_torch.kernels import embed, ref
+
+    rng = np.random.default_rng(5)
+    max_err = 0.0
+    for t, n, d, e, v, weighted, invalid, quarters in [
+            (1, 50, 16, 1000, 300, True, False, False), (1, 20, 64, 200, 64, False, False, False),
+            (1, 100, 8, 64, 8, True, False, False), (1, 50, 16, 1000, 300, True, True, False),
+            (1, 30, 7, 500, 40, False, True, False), (1, 10, 16, 5, 400, False, False, False),
+            (1, 10, 16, 0, 9, True, False, False), (1, 30, 200, 3000, 50, True, False, True),
+            (3, 1000, 16, 20_000, 64, True, True, True),
+            (26, 100_000, 16, 4 * 4096, 4096, False, False, False),
+            (26, 100_000, 16, 4 * 4096, 4096, True, True, False)]:
+        lo, hi = (-n, 2 * n) if invalid else (0, n)
+        vals = (rng.integers(-8, 8, (t, n, d)) / 4 if quarters
+                else rng.normal(size=(t, n, d))).astype(np.float32)
+        tables = torch.from_numpy(vals).to(device)
+        gid = torch.from_numpy(rng.integers(lo, hi, (t, e)).astype(np.int32)).to(device)
+        seg = np.sort(rng.integers(-3 if invalid else 0, v + 3 if invalid else v, e))
+        seg = torch.from_numpy(seg.astype(np.int32)).to(device)
+        w = rng.integers(0, 8, (t, e)) / 4 if quarters else rng.random((t, e))
+        w = torch.from_numpy(w.astype(np.float32)).to(device) if weighted else None
+        if t == 1:
+            tables, gid, w = tables[0], gid[0], None if w is None else w[0]
+        out = embed.segment_embed_sorted(tables, gid, seg, w, num_segments=v)
+        exp = ref.segment_embed_ref(tables, gid, seg, w, v)
+        torch.cuda.synchronize()
+        tol = None if quarters else EMBED_TOL
+        err = compare(out, exp, tol)
+        max_err = max(max_err, err)
+        log(f"  K5 T={t} R={n} D={d} E={e} V={v} weighted={weighted} invalid={invalid}: "
+            f"ok (max abs err {err:g}, {'exact, quarters' if quarters else EMBED_TOL})")
+    base = torch.from_numpy(rng.normal(size=40 * 16 + 4).astype(np.float32)).to(device)
+    table = base[1:1 + 40 * 16].view(40, 16)
+    gid = torch.from_numpy(rng.integers(0, 40, 900).astype(np.int32)).to(device)
+    seg = torch.from_numpy(np.sort(rng.integers(0, 100, 900)).astype(np.int32)).to(device)
+    err = compare(embed.segment_embed_sorted(table, gid, seg, num_segments=100),
+                  ref.segment_embed_ref(table, gid, seg, None, 100), EMBED_TOL)
+    log(f"  K5 table off a 16-byte boundary (scalar path): ok (max abs err {err:g})")
+    return max(max_err, err)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: DCN-v2 serving and retrieval at full width
+# ---------------------------------------------------------------------------
+def phase_dcn(device: str, timed_runs: int = 3) -> tuple[int, dict, dict]:
+    """Returns (K5 launches on the main path, K5's row at the serve_bulk
+    shape, the step times and splits)."""
+    import copy
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import recsys_batches
+    from repro_torch.kernels import embed, ops, ref
+    from repro_torch.launch import build_step
+    from repro_torch.models import dcn_init, embedding_bag
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    arch = get_arch("dcn-v2")
+    cfg = dataclasses.replace(arch.full, multi_hot=4, kernel=True)  # the two departures
+    plain_cfg = dataclasses.replace(cfg, kernel=False)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = dcn_init(cfg, device=device, generator=gen).requires_grad_(False)
+    plain = copy.copy(model)   # the same parameters, the plain path
+    plain.cfg = plain_cfg
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    steps = {s: build_step("dcn-v2", s, device=device)
+             for s in ("serve_p99", "serve_bulk", "retrieval_cand")}
+    t0 = time.perf_counter()
+    stream = recsys_batches(cfg, steps["serve_p99"].meta["rows"], seed=0)
+    requests = [next(stream) for _ in range(8)]
+    bulk = next(recsys_batches(cfg, steps["serve_bulk"].meta["rows"], seed=0))
+    query = next(recsys_batches(cfg, 1, seed=0))
+    query["candidates"] = torch.randn(steps["retrieval_cand"].meta["rows"], cfg.embed_dim,
+                                      generator=gen, device=device)
+    t_data = time.perf_counter() - t0
+    log(f"  {cfg.name}: {cfg.n_sparse} tables x {cfg.table_rows} x {cfg.embed_dim} float32 "
+        f"({model.tables.numel() * 4 / 1e9:.3f} GB), d_in {cfg.d_in}, cross "
+        f"{cfg.n_cross_layers}, MLP {cfg.mlp}, multi_hot {cfg.multi_hot}; init on the card "
+        f"{t_init:.3f} s, batches on the host {t_data:.3f} s")
+
+    # the main path, as a user calls it: host batches through the steps
+    embed.launches = 0
+    logits_p99 = [steps["serve_p99"].fn(model, r) for r in requests]
+    logits_bulk = steps["serve_bulk"].fn(model, bulk)
+    scores = steps["retrieval_cand"].fn(model, query)
+    torch.cuda.synchronize()
+    n_k5 = embed.launches
+    check(n_k5 > 0, "DCN-v2 serving did not launch K5")
+    check(n_k5 == 10, f"K5 launched {n_k5} times for 10 embedding_bag calls")
+    shapes = {"serve_p99": (steps["serve_p99"].meta["rows"],),
+              "serve_bulk": (steps["serve_bulk"].meta["rows"],),
+              "retrieval_cand": (1, steps["retrieval_cand"].meta["rows"])}
+    for name, out in (("serve_p99", logits_p99[0]), ("serve_bulk", logits_bulk),
+                      ("retrieval_cand", scores)):
+        check(tuple(out.shape) == shapes[name] and bool(torch.isfinite(out).all()),
+              f"{name}: {tuple(out.shape)} output, finite={bool(torch.isfinite(out).all())}")
+    log(f"  main path: 8 serve_p99 requests, 1 serve_bulk batch, 1 retrieval_cand query; "
+        f"K5 launches {n_k5}; outputs finite, shapes {list(shapes.values())}")
+
+    # kernel on against the plain path on the same module
+    def dev(batch, keys=("dense", "sparse_ids")):
+        return {k: torch.as_tensor(batch[k], device=device) for k in keys}
+
+    bulk_dev, query_dev = dev(bulk), dev(query, ("dense", "sparse_ids", "candidates"))
+    p99_dev = [dev(r) for r in requests]
+    ids_bulk = bulk_dev["sparse_ids"]
+    max_err = 0.0
+    with torch.inference_mode():
+        emb_on = embedding_bag(model.tables, ids_bulk, cfg)
+        emb_off = embedding_bag(model.tables, ids_bulk, plain_cfg)
+        torch.cuda.synchronize()
+        max_err = max(max_err, compare(emb_on, emb_off, EMBED_TOL))
+        # float64 numpy oracle on 64 sampled rows
+        pick = np.random.default_rng(0).choice(emb_on.shape[0], 64, replace=False)
+        ids64 = torch.from_numpy(bulk["sparse_ids"][pick].astype(np.int64)).to(device)
+        rows = model.tables[torch.arange(cfg.n_sparse, device=device)[None, :, None], ids64]
+        oracle = rows.double().cpu().numpy().sum(axis=2).reshape(64, -1)
+        got = emb_on[torch.from_numpy(pick).to(device)].cpu().numpy()
+        check(np.allclose(got, oracle, rtol=EMBED_TOL[0], atol=EMBED_TOL[1]),
+              "K5 bags differ from the float64 oracle")
+        oracle_err = float(np.abs(got - oracle).max())
+        for label, on_fn, off_fn in (
+                ("serve_p99", lambda: steps["serve_p99"].fn(model, p99_dev[0]),
+                 lambda: steps["serve_p99"].fn(plain, p99_dev[0])),
+                ("serve_bulk", lambda: steps["serve_bulk"].fn(model, bulk_dev),
+                 lambda: steps["serve_bulk"].fn(plain, bulk_dev)),
+                ("retrieval_cand", lambda: steps["retrieval_cand"].fn(model, query_dev),
+                 lambda: steps["retrieval_cand"].fn(plain, query_dev))):
+            on, off = on_fn(), off_fn()
+            torch.cuda.synchronize()
+            check(torch.allclose(on, off, rtol=LOGIT_TOL[0], atol=LOGIT_TOL[1]),
+                  f"{label}: kernel on and the plain path differ beyond {LOGIT_TOL}")
+        check(torch.equal(emb_on, embedding_bag(model.tables, ids_bulk, cfg)),
+              "K5 bags differ between two runs")
+    log(f"  kernel on == plain path: bags (rtol, atol {EMBED_TOL}, max abs err "
+        f"{max_err:g}), logits and scores ({LOGIT_TOL}); 64 bags == float64 oracle "
+        f"(max abs err {oracle_err:g}); K5 bags equal across runs")
+
+    # step times (batches on the card), kernel on and off
+    def med(fn):
+        return statistics.median(wall_s(fn, timed_runs))
+
+    times = {}
+    for label, batch in (("serve_p99", p99_dev[0]), ("serve_bulk", bulk_dev),
+                         ("retrieval_cand", query_dev)):
+        fn = steps[label].fn
+        fn(model, batch), fn(plain, batch)  # warm
+        times[label] = dict(kernel_s=med(lambda: fn(model, batch)),
+                            plain_s=med(lambda: fn(plain, batch)),
+                            model_flops=steps[label].meta["model_flops"])
+        times[label]["tflops_kernel"] = (times[label]["model_flops"]
+                                         / times[label]["kernel_s"] / 1e12)
+    upload = med(lambda: dev(requests[0]))
+
+    # the split of a serve step (kernel on): what embedding_bag does, piece by piece
+    splits = {}
+    with torch.inference_mode():
+        for label, batch in (("serve_p99", p99_dev[0]), ("serve_bulk", bulk_dev)):
+            ids = batch["sparse_ids"]
+            b, t = ids.shape[0], cfg.n_sparse
+            flat_ids = ids.permute(1, 0, 2).reshape(t, -1)
+            bag = torch.arange(b, dtype=torch.int32, device=device).repeat_interleave(4)
+
+            def sort():
+                s, order = torch.sort(bag, stable=True)
+                return s, flat_ids.index_select(-1, order)
+
+            seg_s, ids_s = sort()
+            x0 = torch.cat([batch["dense"], model.embed(ids)], dim=-1)
+            x = model.cross_net(x0)
+            splits[label] = dict(
+                bag_ids_s=med(lambda: (ids.permute(1, 0, 2).reshape(t, -1),
+                                       torch.arange(b, dtype=torch.int32, device=device)
+                                       .repeat_interleave(4))),
+                sort_s=med(sort),
+                k5_s=med(lambda: embed.segment_embed_sorted(model.tables, ids_s, seg_s,
+                                                            num_segments=b)),
+                embedding_bag_s=med(lambda: model.embed(ids)),
+                cross_s=med(lambda: model.cross_net(x0)),
+                mlp_s=med(lambda: model.head(x)),
+                step_s=times[label]["kernel_s"])
+    for label, t in times.items():
+        log(f"  {label}: step median of {timed_runs}: kernel {t['kernel_s']:.6f} s, plain "
+            f"{t['plain_s']:.6f} s; {t['model_flops']:.0f} model FLOP, "
+            f"{t['tflops_kernel']:.3f} TFLOP/s with the kernel")
+    for label, sp in splits.items():
+        log(f"  {label} split (kernel on, median of {timed_runs}): "
+            + ", ".join(f"{k[:-2]} {v:.6f}" for k, v in sp.items()) + " s")
+    log(f"  upload of one serve_p99 request: {upload:.6f} s")
+
+    # K5 at the serve_bulk shape: its time, its plain version's, F.embedding_bag's
+    t, r, d = model.tables.shape
+    b = ids_bulk.shape[0]
+    with torch.inference_mode():
+        flat_ids = ids_bulk.permute(1, 0, 2).reshape(t, -1)
+        seg = torch.arange(b, dtype=torch.int32, device=device).repeat_interleave(4)
+        e = seg.shape[0]
+        out = embed.segment_embed_sorted(model.tables, flat_ids, seg, num_segments=b)
+        exp = ref.segment_embed_ref(model.tables, flat_ids, seg, None, b)
+        torch.cuda.synchronize()
+        max_err = max(max_err, compare(out, exp, EMBED_TOL))
+        flat_tables = model.tables.view(t * r, d)
+        global_ids = (flat_ids.long() + torch.arange(t, device=device)[:, None] * r).reshape(-1)
+        offsets = torch.arange(0, t * e, 4, device=device)
+
+        def library():
+            return F.embedding_bag(global_ids, flat_tables, offsets, mode="sum")
+
+        check(torch.allclose(library().view(t, b, d).permute(1, 0, 2), out,
+                             rtol=EMBED_TOL[0], atol=EMBED_TOL[1]),
+              "F.embedding_bag yardstick differs from K5")
+        ms = time_ms(lambda: embed.segment_embed_sorted(model.tables, flat_ids, seg,
+                                                        num_segments=b))
+        dev_ms = graph_ms(lambda: embed.segment_embed_sorted(model.tables, flat_ids, seg,
+                                                             num_segments=b))
+        plain_ms = time_ms(lambda: ref.segment_embed_ref(model.tables, flat_ids, seg, None, b),
+                           iters=5)
+        lib_ms = time_ms(library)
+        distinct = int(torch.unique(global_ids).numel())
+        # ids and seg read once, each distinct row read once, the sums written once
+        b_ms, by = bound_ms(t * e * 4 + e * 4 + distinct * d * 4 + b * t * d * 4, t * e * d)
+        all_lanes = bound_ms(t * e * 4 + e * 4 + t * e * d * 4 + b * t * d * 4, t * e * d)[0]
+        p99_ids = p99_dev[0]["sparse_ids"].permute(1, 0, 2).reshape(t, -1)
+        n_p99 = p99_ids.shape[1] // 4
+        p99_seg = torch.arange(n_p99, dtype=torch.int32, device=device).repeat_interleave(4)
+        p99_ms = time_ms(lambda: embed.segment_embed_sorted(model.tables, p99_ids, p99_seg,
+                                                            num_segments=n_p99))
+        p99_dev_ms = graph_ms(lambda: embed.segment_embed_sorted(model.tables, p99_ids,
+                                                                 p99_seg, num_segments=n_p99))
+    k5 = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+              bound_ms=b_ms, bound_by=by,
+              bound_ms_all_lanes=all_lanes, distinct_rows=distinct,
+              shape=f"[{t}, {r}, {d}] tables, [{t}, {e}] ids, {b} bags",
+              serve_p99_ms=p99_ms, serve_p99_device_ms=p99_dev_ms, max_abs_err=max_err)
+    log(f"  K5 at serve_bulk ({k5['shape']}, {distinct} distinct rows): kernel_ms={ms:.6f} "
+        f"device_ms={dev_ms:.6f} plain_ms={plain_ms:.6f} library_ms={lib_ms:.6f} "
+        f"(F.embedding_bag) bound_ms={b_ms:.6f} ({by}; "
+        f"{all_lanes:.6f} counting every lane's row)")
+    log(f"  K5 at serve_p99 ({n_p99} bags): kernel_ms={p99_ms:.6f} device_ms={p99_dev_ms:.6f}")
+    return n_k5, k5, dict(steps=times, splits=splits, upload_p99_s=upload,
+                          init_s=t_init, batches_s=t_data, oracle_err=oracle_err,
+                          unsorted_fallback_count=ops.unsorted_fallback_count)
+
+
 def main() -> int:
     try:
         import torch
@@ -793,7 +1075,7 @@ def main() -> int:
         return 2
     try:
         from repro_torch.graphs.generators import planted_dense, rmat
-        from repro_torch.kernels import build, compact, segsum
+        from repro_torch.kernels import build, compact, embed, segsum
     except ImportError as exc:
         print(f"chip_smoke: the repro_torch package is not beside this script ({exc})",
               file=sys.stderr)
@@ -807,11 +1089,12 @@ def main() -> int:
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, capability {torch.cuda.get_device_capability(0)}")
     t0 = time.perf_counter()
-    build.build_all([segsum.SOURCE, compact.SOURCE])  # one nvcc each, at once
+    build.build_all([segsum.SOURCE, compact.SOURCE, embed.SOURCE])  # one nvcc each, at once
     segsum.load_library()
     compact.load_library()
-    log(f"  K1, K3, K4 built and loaded in {time.perf_counter() - t0:.3f} s from "
-        f"{segsum.SOURCE.name}, {compact.SOURCE.name}")
+    embed.load_library()
+    log(f"  K1, K3, K4, K5 built and loaded in {time.perf_counter() - t0:.3f} s from "
+        f"{segsum.SOURCE.name}, {compact.SOURCE.name}, {embed.SOURCE.name}")
     for source, text in build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -833,6 +1116,7 @@ def main() -> int:
     log("phase 2: kernels against their plain versions on the card")
     k1, peel = phase_kernels(g, device)
     compact_err = phase_compact_cases(device)
+    embed_err = phase_embed_cases(device)
 
     log("phase 3: peel_threshold bits")
     phase_threshold(device)
@@ -855,17 +1139,25 @@ def main() -> int:
     log("phase 9: refinement")
     refine_launches, refine_times = phase_refine(g, g_small, device)
 
+    log("phase 10: DCN-v2 serving and retrieval at full width (multi_hot=4, K5 on)")
+    t0 = time.perf_counter()
+    k5_launches, k5, dcn_times = phase_dcn(device)
+    dcn_times["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 10 took {dcn_times['phase_s']:.3f} s")
+
     k1_launches = (peel_launches + cbds_launches + pruned_launches["segment_sum_sorted"]
                    + fallback_launches + refine_launches)
     log(f"main path: K1 launches P-Bahmani (eps 0.1 and 0) {peel_launches}, CBDS-P "
         f"{cbds_launches}, pruned {pruned_launches['segment_sum_sorted']}, pruned fallback "
         f"{fallback_launches}, refinement {refine_launches}; K3 {pruned_launches['prefix_sum']}"
-        f", K4 {pruned_launches['stream_compact']} (pruned, eps 0.1 and 0)")
+        f", K4 {pruned_launches['stream_compact']} (pruned, eps 0.1 and 0); K5 {k5_launches} "
+        f"(DCN-v2: 8 serve_p99, 1 serve_bulk, 1 retrieval_cand)")
     rows = {
         "segment_sum_sorted": (k1_launches, k1["max_abs_err"], k1),
         "prefix_sum": (pruned_launches["prefix_sum"], compact_err, compact_times["prefix_sum"]),
         "stream_compact": (pruned_launches["stream_compact"], compact_err,
                            compact_times["stream_compact_edge"]),
+        "segment_embed": (k5_launches, max(embed_err, k5["max_abs_err"]), k5),
     }
     kernels = [{
         "name": name,
@@ -890,6 +1182,8 @@ def main() -> int:
                                      "cbds": cbds_times,
                                      "pruned": {str(k): v for k, v in pruned_times.items()},
                                      "refine": refine_times},
+                    "k5_at_serve_bulk": k5,
+                    "dcn_v2": dcn_times,
                     "smoke_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())

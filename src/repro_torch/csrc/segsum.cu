@@ -23,10 +23,11 @@
 // range of consecutive rows would hold the card waiting on the first few
 // blocks. Two launches:
 //
-//   1. row_offsets: one thread per lane, coalesced. Lane e starts the rows
-//      (id[e-1], id[e]], so it writes off[r] = e for them: every off[r] =
-//      lower_bound(seg, r) is written exactly once. A lane that starts a run
-//      longer than LONG lanes also appends its row to a list of long rows.
+//   1. row_offsets (row_offsets.cuh, shared with K5): one thread per lane,
+//      coalesced. Lane e starts the rows (id[e-1], id[e]], so it writes
+//      off[r] = e for them: every off[r] = lower_bound(seg, r) is written
+//      exactly once. A lane that starts a run longer than LONG lanes also
+//      appends its row to a list of long rows.
 //   2. reduce (D = 1): one thread per short row, which sums its run serially
 //      (consecutive threads read neighbouring runs, so the warp's loads share
 //      cache lines); and a fixed set of warps that take the long rows off
@@ -42,6 +43,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "row_offsets.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;       // 8 warps a block
@@ -55,31 +58,6 @@ __device__ __forceinline__ A warp_sum(A x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(FULL, x, off);
   return x;  // lane 0 holds the sum
-}
-
-// Row of lane e for the offset pass: ids below 0 sort before every row
-// (-1), ids at or past the end after every row (n_rows).
-__device__ __forceinline__ int row_of(const int* __restrict__ seg, long long e,
-                                      long long n_lanes, int n_rows) {
-  if (e < 0) return -1;
-  if (e >= n_lanes) return n_rows;
-  const int s = seg[e];
-  return s < 0 ? -1 : (s > n_rows ? n_rows : s);
-}
-
-__global__ void __launch_bounds__(THREADS)
-row_offsets_kernel(const int* __restrict__ seg, long long n_lanes, int n_rows,
-                   int* __restrict__ off, int* __restrict__ long_rows,
-                   int* __restrict__ n_long) {
-  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
-  for (long long e = blockIdx.x * static_cast<long long>(THREADS) + threadIdx.x;
-       e <= n_lanes; e += stride) {
-    const int cur = row_of(seg, e, n_lanes, n_rows);
-    const int prev = row_of(seg, e - 1, n_lanes, n_rows);
-    for (int r = prev + 1; r <= cur; ++r) off[r] = static_cast<int>(e);
-    if (cur > prev && cur < n_rows && e + LONG < n_lanes && seg[e + LONG] == cur)
-      long_rows[atomicAdd(n_long, 1)] = cur;  // list order is free; each row sums alone
-  }
 }
 
 // Sum of one 16-byte vector of values, in the accumulator's type.
@@ -174,10 +152,8 @@ int launch(const void* vals, const void* seg, long long n_lanes, int n_rows, int
   int* long_rows = n_long + 1;
   const cudaError_t err = cudaMemsetAsync(n_long, 0, sizeof(int), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long lane_blocks = (n_lanes + THREADS) / THREADS;  // n_lanes + 1 threads
-  row_offsets_kernel<<<static_cast<int>(lane_blocks < 8448 ? lane_blocks : 8448), THREADS, 0,
-                       stream>>>(static_cast<const int*>(seg), n_lanes, n_rows, off,
-                                 long_rows, n_long);
+  row_offsets::launch<LONG>(static_cast<const int*>(seg), n_lanes, n_rows, off, long_rows,
+                            n_long, stream);
   if (d == 1) {
     const int short_blocks = (n_rows + THREADS - 1) / THREADS;
     reduce_d1_kernel<T, A><<<short_blocks + LONG_BLOCKS, THREADS, 0, stream>>>(

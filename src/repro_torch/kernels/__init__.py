@@ -4,23 +4,30 @@
 #                part-2 atomicSub as a deterministic run reduction
 #   compact.py — int32 prefix sum (K3) and stream compaction (K4,
 #                csrc/compact.cu): the pruned peel's in-bucket ladder
-#   ops.py     — the public ops over K1; ref.py — the plain versions;
+#   embed.py   — fused gather and segment-sum (K5, csrc/embed.cu): the
+#                DCN-v2 EmbeddingBag, all tables in one launch
+#   ops.py     — the public ops over K1 and K5; ref.py — the plain versions;
 #   build.py   — nvcc at first use, one hash-keyed library per source.
 from repro_torch.kernels.compact import prefix_sum, stream_compact
-from repro_torch.kernels.ops import peel_update, segment_sum
+from repro_torch.kernels.embed import segment_embed_sorted
+from repro_torch.kernels.ops import peel_update, segment_embed, segment_sum
 from repro_torch.kernels.ref import (
-    peel_update_ref, prefix_sum_ref, segment_sum_ref, stream_compact_ref,
+    peel_update_ref, prefix_sum_ref, segment_embed_ref, segment_sum_ref,
+    stream_compact_ref,
 )
 from repro_torch.kernels.segsum import segment_sum_sorted
 
 __all__ = [
     "peel_update",
     "prefix_sum",
+    "segment_embed",
+    "segment_embed_sorted",
     "segment_sum",
     "segment_sum_sorted",
     "stream_compact",
     "peel_update_ref",
     "prefix_sum_ref",
+    "segment_embed_ref",
     "segment_sum_ref",
     "stream_compact_ref",
 ]

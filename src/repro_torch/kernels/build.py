@@ -2,8 +2,9 @@
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, ``csrc/build/<stem>-<hash>.so``, keyed on a hash
-of the source and the flags (so an edit rebuilds), and loaded with
-``ctypes``. A failed build raises with nvcc's output; nothing falls back.
+of the source, the shared headers ``csrc/*.cuh`` and the flags (so an edit
+rebuilds), and loaded with ``ctypes``. A failed build raises with nvcc's
+output; nothing falls back.
 
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them, so a first use that needs several kernels pays for the slowest build,
@@ -36,7 +37,9 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the shared headers of csrc/ are part of every source's key
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}-{key.hexdigest()[:16]}.so"
 
 

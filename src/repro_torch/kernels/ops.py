@@ -1,4 +1,5 @@
-"""Public kernel ops over the sorted segment-sum (K1).
+"""Public kernel ops over the sorted segment-sum (K1) and the fused
+gather-and-segment-sum (K5).
 
 Edges must be sorted by the segment id for the kernel. ``Graph`` caches a
 dst-sorted view (``graphs.graph.Graph.dst_sorted``, uploaded once by
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.embed import segment_embed_sorted
 from repro_torch.kernels.segsum import segment_sum_sorted
 
 unsorted_fallback_count = 0  # presorted=False calls, each one a full sort
@@ -55,4 +57,32 @@ def peel_update(
                        out_dtype=torch.int32)
 
 
-__all__ = ["segment_sum", "peel_update"]
+def segment_embed(
+    table: torch.Tensor,
+    gather_ids: torch.Tensor,
+    seg_ids: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    *,
+    num_segments: int,
+    presorted: bool = True,
+) -> torch.Tensor:
+    """Gather + weighted segment-sum: the EmbeddingBag (and, later, GNN
+    message passing); see ``embed.segment_embed_sorted``.
+
+        out[s, :] = sum over e with seg_ids[e]==s of weights[e] * table[gather_ids[e], :]
+
+    ``table`` may be [T, R, D] with [T, E] ids (one call for all tables,
+    [V, T, D] out). ``presorted=False`` sorts the shared ``seg_ids`` once,
+    stably, and carries every table's ids and weights along with it."""
+    global unsorted_fallback_count
+    if not presorted:
+        unsorted_fallback_count += 1
+        seg_ids, order = torch.sort(seg_ids, stable=True)
+        gather_ids = gather_ids.index_select(-1, order)
+        if weights is not None:
+            weights = weights.index_select(-1, order)
+    return segment_embed_sorted(table, gather_ids, seg_ids, weights,
+                                num_segments=num_segments)
+
+
+__all__ = ["segment_sum", "peel_update", "segment_embed"]

@@ -42,6 +42,35 @@ def peel_update_ref(
     return segment_sum_ref(vals, dst, n_nodes, out_dtype=torch.int32)
 
 
+def segment_embed_ref(
+    table: torch.Tensor, gather_ids: torch.Tensor, seg_ids: torch.Tensor,
+    weights: torch.Tensor | None, num_segments: int,
+) -> torch.Tensor:
+    """out[s] = sum_e w[e] * table[gather_ids[e]] over seg_ids[e] == s.
+
+    ``table`` [R, D] with ``gather_ids`` (and ``weights``) [E] gives [V, D];
+    the batched form, [T, R, D] tables with [T, E] ids and one shared
+    ``seg_ids`` [E], gives [V, T, D] (table t's sums at ``out[:, t]``). As the
+    JAX package's ``segment_embed_ref``: gather ids are clamped to R - 1, rows
+    whose id is outside [0, R) are zeroed after the weights are applied,
+    segment ids outside [0, V) drop, and the sums are float32.
+    """
+    single = table.dim() == 2
+    if single:
+        table, gather_ids = table[None], gather_ids[None]
+        weights = None if weights is None else weights[None]
+    n_tables, n_rows, d = table.shape
+    ids = gather_ids.long().clamp(0, max(n_rows - 1, 0))
+    rows = table[torch.arange(n_tables, device=table.device)[:, None], ids].float()
+    if weights is not None:
+        rows = rows * weights[..., None].float()
+    valid = (gather_ids >= 0) & (gather_ids < n_rows)
+    rows = torch.where(valid[..., None], rows, 0.0)               # [T, E, D]
+    lanes = rows.permute(1, 0, 2).reshape(seg_ids.shape[0], n_tables * d)
+    out = segment_sum_ref(lanes, seg_ids, num_segments).view(num_segments, n_tables, d)
+    return out[:, 0] if single else out
+
+
 def prefix_sum_ref(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum of a 1-D bool or int32 tensor, int32 out."""
     return torch.cumsum(x, 0, dtype=torch.int32)
@@ -61,5 +90,5 @@ def stream_compact_ref(
     return out
 
 
-__all__ = ["segment_sum_ref", "peel_update_ref", "prefix_sum_ref",
-           "stream_compact_ref"]
+__all__ = ["segment_sum_ref", "peel_update_ref", "segment_embed_ref",
+           "prefix_sum_ref", "stream_compact_ref"]

@@ -1,0 +1,55 @@
+"""Carrying the JAX package's model parameters across to the port.
+
+``dcn_params_from_jax`` takes the pytree of ``repro.models.recsys.dcn_init``
+as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns a
+``DCNv2`` holding the same values: the tables as they are, and each
+``[in, out]`` matrix transposed into ``nn.Linear``'s ``[out, in]``. Both the
+full-rank cross weights and the low-rank ``(u, v)`` pairs are taken.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.dispatch import resolve_device
+from repro_torch.models.recsys import DCNConfig, DCNv2
+
+
+def _put(param: torch.Tensor, array, name: str, transpose: bool = False) -> None:
+    value = torch.from_numpy(np.array(array, dtype=np.float32))  # a writable copy
+    if transpose:
+        value = value.T
+    if tuple(value.shape) != tuple(param.shape):
+        raise ValueError(f"{name}: JAX gives {tuple(value.shape)}, the port holds "
+                         f"{tuple(param.shape)}")
+    param.copy_(value)
+
+
+def dcn_params_from_jax(tree: dict, cfg: DCNConfig, device=None) -> DCNv2:
+    """A ``DCNv2`` on ``device`` (None means the GPU) with the parameters of
+    the JAX pytree ``tree`` (numpy leaves) for ``cfg``."""
+    model = DCNv2(cfg, device=resolve_device(device))
+    if len(tree["cross_w"]) != cfg.n_cross_layers or len(tree["mlp"]) != len(model.mlp):
+        raise ValueError(f"the tree has {len(tree['cross_w'])} cross and "
+                         f"{len(tree['mlp'])} MLP layers; {cfg.name} needs "
+                         f"{cfg.n_cross_layers} and {len(model.mlp)}")
+    with torch.no_grad():
+        _put(model.tables, tree["tables"], "tables")
+        for i, (layer, w, b) in enumerate(zip(model.cross, tree["cross_w"], tree["cross_b"])):
+            if isinstance(w, (tuple, list)) != bool(cfg.cross_rank):
+                raise ValueError(f"cross layer {i}: the tree's rank does not match "
+                                 f"cross_rank={cfg.cross_rank}")
+            if cfg.cross_rank:
+                _put(layer[0].weight, w[0], f"cross_w[{i}][0]", transpose=True)
+                _put(layer[1].weight, w[1], f"cross_w[{i}][1]", transpose=True)
+                _put(layer[1].bias, b, f"cross_b[{i}]")
+            else:
+                _put(layer.weight, w, f"cross_w[{i}]", transpose=True)
+                _put(layer.bias, b, f"cross_b[{i}]")
+        for i, (lin, (w, b)) in enumerate(zip(model.mlp, tree["mlp"])):
+            _put(lin.weight, w, f"mlp[{i}][0]", transpose=True)
+            _put(lin.bias, b, f"mlp[{i}][1]")
+    return model
+
+
+__all__ = ["dcn_params_from_jax"]

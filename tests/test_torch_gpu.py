@@ -7,14 +7,19 @@ Tolerance: 1e-5 for random float32 on short rows (the summation order
 differs); exact for 0/1 and integer lanes, and for float32 quarter-integers,
 whose sums are exact in any order (the long-row float cases use them).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import cbds_p, kcore_decompose, pbahmani, pbahmani_np  # noqa: E402
+from repro_torch.data import recsys_batches  # noqa: E402
 from repro_torch.graphs.generators import planted_dense, rmat  # noqa: E402
-from repro_torch.kernels import compact, ops, ref, segsum  # noqa: E402
+from repro_torch.kernels import compact, embed, ops, ref, segsum  # noqa: E402
+from repro_torch.launch import build_step  # noqa: E402
+from repro_torch.models import DCNConfig, dcn_init, embedding_bag  # noqa: E402
 from repro_torch.refine import refine  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -226,3 +231,110 @@ def test_refine_kernel_on_card(cuda):
                for k in (True, False))
     assert on.certificate == off.certificate and on.history == off.history
     np.testing.assert_array_equal(on.mask, off.mask)
+
+
+# ---------------------------------------------------------------------------
+# K5 (segment_embed): the fused gather and segment-sum against its plain
+# version, at the cases of the CPU tests, at DCN-v2's 26 tables, and through
+# the model (rtol 1e-5, atol 1e-6 for the bags: float32 sums of a few rows
+# in another order; rtol 1e-4, atol 1e-5 for logits and scores). Bags of
+# 60 and more rows use quarter-integer tables and weights, whose sums are
+# exact in any order: with random floats the plain version's atomic adds
+# differ from the kernel's lane order by up to 1.5e-5 on 300-row bags
+# (measured on the H100), past the short bags' tolerance.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("t,n,d,e,v,weighted,invalid,quarters", [
+    (1, 50, 16, 1000, 300, True, False, False),   # the cases of tests/test_kernels.py
+    (1, 20, 64, 200, 64, False, False, False),
+    (1, 100, 8, 64, 8, True, False, False),
+    (1, 50, 16, 1000, 300, True, True, False),    # ids < 0 and >= R, seg ids < 0 and >= V
+    (1, 30, 7, 500, 40, False, True, False),      # D not a multiple of 4: the scalar path
+    (1, 30, 200, 3000, 50, True, False, True),    # rows wider than a warp's vectors
+    (1, 10, 16, 5, 400, False, False, False),     # mostly empty bags
+    (1, 10, 16, 0, 9, True, False, False),        # no lanes at all
+    (3, 1000, 16, 20_000, 64, True, True, True),  # long bags (the UNROLL loop and tail)
+    (26, 5000, 16, 4 * 2048, 2048, False, False, False),  # DCN-v2's 26 tables, 4 ids a bag
+    (26, 5000, 16, 4 * 2048, 2048, True, True, False),
+])
+def test_segment_embed_matches_plain(cuda, t, n, d, e, v, weighted, invalid, quarters):
+    rng = np.random.default_rng(t + n + d + e)
+    lo, hi = (-n, 2 * n) if invalid else (0, n)
+    vals = (rng.integers(-8, 8, (t, n, d)) / 4 if quarters
+            else rng.normal(size=(t, n, d))).astype(np.float32)
+    tables = torch.from_numpy(vals).to(cuda)
+    gid = torch.from_numpy(rng.integers(lo, hi, (t, e)).astype(np.int32)).to(cuda)
+    seg = np.sort(rng.integers(-3 if invalid else 0, v + 3 if invalid else v, e))
+    seg = torch.from_numpy(seg.astype(np.int32)).to(cuda)
+    w = rng.integers(0, 8, (t, e)) / 4 if quarters else rng.random((t, e))
+    w = torch.from_numpy(w.astype(np.float32)).to(cuda) if weighted else None
+    if t == 1:
+        tables, gid, w = tables[0], gid[0], None if w is None else w[0]
+    before = embed.launches
+    out = embed.segment_embed_sorted(tables, gid, seg, w, num_segments=v)
+    exp = ref.segment_embed_ref(tables, gid, seg, w, v)
+    torch.cuda.synchronize()
+    assert embed.launches == before + 1
+    assert out.shape == exp.shape and out.dtype == torch.float32
+    if quarters:
+        assert torch.equal(out, exp)
+    else:
+        torch.testing.assert_close(out, exp, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_segment_embed_unaligned_table(cuda, shift):
+    """A table that starts off a 16-byte boundary takes the scalar path."""
+    rng = np.random.default_rng(shift)
+    base = torch.from_numpy(rng.normal(size=40 * 16 + 4).astype(np.float32)).to(cuda)
+    table = base[shift:shift + 40 * 16].view(40, 16)
+    gid = torch.from_numpy(rng.integers(0, 40, 900).astype(np.int32)).to(cuda)
+    seg = torch.from_numpy(np.sort(rng.integers(0, 100, 900)).astype(np.int32)).to(cuda)
+    out = embed.segment_embed_sorted(table, gid, seg, num_segments=100)
+    torch.testing.assert_close(out, ref.segment_embed_ref(table, gid, seg, None, 100),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_segment_embed_unsorted_and_checks(cuda):
+    rng = np.random.default_rng(7)
+    tables = torch.from_numpy(rng.normal(size=(4, 60, 8)).astype(np.float32)).to(cuda)
+    gid = torch.from_numpy(rng.integers(0, 60, (4, 700)).astype(np.int32)).to(cuda)
+    seg = torch.from_numpy(rng.integers(0, 90, 700).astype(np.int32)).to(cuda)
+    before = ops.unsorted_fallback_count
+    out = ops.segment_embed(tables, gid, seg, num_segments=90, presorted=False)
+    assert ops.unsorted_fallback_count == before + 1
+    torch.testing.assert_close(out, ref.segment_embed_ref(tables, gid, seg, None, 90),
+                               rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        embed.segment_embed_sorted(tables, gid[:, ::2], seg[:350].sort().values,
+                                   num_segments=90)
+    with pytest.raises(RuntimeError, match="no backward"):
+        embed.segment_embed_sorted(tables.requires_grad_(), gid, seg.sort().values,
+                                   num_segments=90)
+
+
+@pytest.mark.parametrize("cross_rank", [0, 4])
+def test_dcn_kernel_on_card(cuda, cross_rank):
+    """DCN-v2 at the CPU tests' widths, multi-hot: K5 on == the plain path on
+    the same module, through the serve and retrieval steps."""
+    cfg = DCNConfig(table_rows=500, embed_dim=8, n_cross_layers=2, mlp=(32, 16),
+                    cross_rank=cross_rank, multi_hot=4, kernel=True)
+    model = dcn_init(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    plain = dataclasses.replace(cfg, kernel=False)
+    batch = next(recsys_batches(cfg, 64, seed=1))
+    ids = torch.from_numpy(batch["sparse_ids"]).to(cuda)
+    with torch.no_grad():
+        before = embed.launches
+        bags = embedding_bag(model.tables, ids, cfg)
+        assert embed.launches == before + 1
+        torch.testing.assert_close(bags, embedding_bag(model.tables, ids, plain),
+                                   rtol=1e-5, atol=1e-6)
+    serve = build_step("dcn-v2", "serve_p99")
+    on = serve.fn(model, batch)
+    model.cfg = plain
+    off = serve.fn(model, batch)
+    torch.testing.assert_close(on, off, rtol=1e-4, atol=1e-5)
+    batch["candidates"] = np.random.default_rng(2).normal(size=(5000, 8)).astype(np.float32)
+    retr = build_step("dcn-v2", "retrieval_cand")
+    off = retr.fn(model, batch)
+    model.cfg = cfg
+    torch.testing.assert_close(retr.fn(model, batch), off, rtol=1e-4, atol=1e-5)

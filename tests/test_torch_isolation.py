@@ -34,7 +34,10 @@ def test_port_files_found():
             "src/repro_torch/kernels/build.py", "src/repro_torch/core/prune.py",
             "src/repro_torch/core/charikar.py", "src/repro_torch/core/exact.py",
             "src/repro_torch/refine/loads.py", "src/repro_torch/refine/engine.py",
-            "src/repro_torch/refine/certify.py"} <= names
+            "src/repro_torch/refine/certify.py", "src/repro_torch/kernels/embed.py",
+            "src/repro_torch/models/recsys.py", "src/repro_torch/models/convert.py",
+            "src/repro_torch/configs/common.py", "src/repro_torch/configs/dcn_v2.py",
+            "src/repro_torch/data/pipeline.py", "src/repro_torch/launch/steps.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -53,15 +56,22 @@ def test_scan_catches_forbidden_imports(tmp_path):
 
 
 @pytest.mark.parametrize("entry", ["pbahmani", "kcore_decompose", "cbds_p",
-                                   "pbahmani_pruned", "plan_for_graph", "refine"])
+                                   "pbahmani_pruned", "plan_for_graph", "refine",
+                                   "dcn_init", "build_step"])
 def test_default_device_needs_cuda(monkeypatch, entry):
     """device=None means the GPU: with no CUDA it raises and names the way
     out, instead of running on the CPU."""
     import repro_torch.core as tcore
     import repro_torch.refine as trefine
+    from repro_torch.configs import get_arch
     from repro_torch.graphs.generators import small_named
+    from repro_torch.launch import build_step
+    from repro_torch.models import dcn_init
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    fn = getattr(tcore, entry, None) or getattr(trefine, entry)
+    calls = {"dcn_init": lambda: dcn_init(get_arch("dcn-v2").smoke),
+             "build_step": lambda: build_step("dcn-v2", "serve_p99")}
+    fn = calls.get(entry) or (lambda: (getattr(tcore, entry, None)
+                                       or getattr(trefine, entry))(small_named("petersen")))
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        fn(small_named("petersen"))
+        fn()

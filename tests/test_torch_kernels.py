@@ -1,12 +1,12 @@
-"""The port's sorted segment-sum (K1) and peel_update against the JAX
-package's Pallas kernels (interpret mode on the CPU, as tests/test_kernels.py
-runs them).
+"""The port's sorted segment-sum (K1), peel_update and fused
+gather-and-segment-sum (K5, segment_embed) against the JAX package's Pallas
+kernels (interpret mode on the CPU, as tests/test_kernels.py runs them).
 
 On the CPU the port's wrappers run their plain versions
 (tests/test_torch_gpu.py holds the CUDA kernel against them on the card).
 Tolerances: 1e-5 for random float32 and 2e-2 for
 bfloat16 (the summation order differs, as in tests/test_kernels.py); exact
-for 0/1 and integer lanes.
+for 0/1 and integer lanes; rtol 1e-5, atol 1e-6 for K5's float32 sums.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops  # noqa: E402
-from repro_torch.kernels import ops, ref, segsum  # noqa: E402
+from repro_torch.kernels import embed, ops, ref, segsum  # noqa: E402
 
 
 def _problem(rng, e, d, v, sorted_=True):
@@ -172,3 +172,127 @@ def test_peel_update_unsorted_lanes(er_graph):
     s, d = g.src[:g.n_directed], g.dst[:g.n_directed]
     np.testing.assert_array_equal(out.numpy(),
                                   np.bincount(d[failed[s]], minlength=g.n_nodes))
+
+
+# ---------------------------------------------------------------------------
+# K5: the fused gather and segment-sum (segment_embed)
+# ---------------------------------------------------------------------------
+EMBED_TOL = dict(rtol=1e-5, atol=1e-6)  # float32 sums in another order
+
+
+def _embed_problem(rng, n, d, e, v, weighted, invalid=False):
+    table = rng.normal(size=(n, d)).astype(np.float32)
+    lo, hi = (-n, 2 * n) if invalid else (0, n)
+    gid = rng.integers(lo, hi, e).astype(np.int32)
+    seg = np.sort(rng.integers(-3 if invalid else 0, v + 3 if invalid else v, e)).astype(np.int32)
+    w = rng.random(e).astype(np.float32) if weighted else None
+    return table, gid, seg, w
+
+
+def _jax_embed(table, gid, seg, w, v, impl="pallas", presorted=True):
+    return np.asarray(jops.segment_embed(
+        jnp.asarray(table), jnp.asarray(gid), jnp.asarray(seg),
+        None if w is None else jnp.asarray(w), num_segments=v, impl=impl,
+        presorted=presorted))
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("n,d,e,v,weighted,invalid", [
+    (50, 16, 1000, 300, True, False),    # the three cases of tests/test_kernels.py
+    (20, 64, 200, 64, False, False),
+    (100, 8, 64, 8, True, False),
+    (50, 16, 1000, 300, True, True),     # ids < 0 and >= R, seg ids < 0 and >= V
+    (30, 7, 500, 40, False, True),
+])
+def test_segment_embed_matches_jax(n, d, e, v, weighted, invalid):
+    rng = np.random.default_rng(n + e)
+    table, gid, seg, w = _embed_problem(rng, n, d, e, v, weighted, invalid)
+    if invalid:
+        assert (gid < 0).any() and (gid >= n).any() and (seg < 0).any() and (seg >= v).any()
+    out = ops.segment_embed(_t(table), _t(gid), _t(seg), _t(w), num_segments=v)
+    assert out.shape == (v, d) and out.dtype == torch.float32
+    for impl in ("pallas", "xla"):
+        np.testing.assert_allclose(out.numpy(), _jax_embed(table, gid, seg, w, v, impl),
+                                   **EMBED_TOL)
+    plain = ref.segment_embed_ref(_t(table), _t(gid), _t(seg), _t(w), v)
+    np.testing.assert_allclose(plain.numpy(), out.numpy(), **EMBED_TOL)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_segment_embed_batched_tables_match_jax(weighted):
+    """T tables with one shared, unsorted seg in one call: [V, T, D], table
+    t's sums at out[:, t], each equal to JAX's single-table call; one sort
+    (one count) for all tables."""
+    rng = np.random.default_rng(21 + weighted)
+    t_, n, d, e, v = 5, 40, 8, 300, 37
+    tables = rng.normal(size=(t_, n, d)).astype(np.float32)
+    gid = rng.integers(-2, n + 2, (t_, e)).astype(np.int32)
+    seg = rng.integers(0, v + 2, e).astype(np.int32)
+    w = rng.random((t_, e)).astype(np.float32) if weighted else None
+    before = ops.unsorted_fallback_count
+    out = ops.segment_embed(_t(tables), _t(gid), _t(seg), _t(w), num_segments=v,
+                            presorted=False)
+    assert ops.unsorted_fallback_count == before + 1
+    assert out.shape == (v, t_, d)
+    for k in range(t_):
+        exp = _jax_embed(tables[k], gid[k], seg, None if w is None else w[k], v,
+                         presorted=False)
+        np.testing.assert_allclose(out[:, k].numpy(), exp, **EMBED_TOL)
+    plain = ref.segment_embed_ref(_t(tables), _t(gid), torch.sort(_t(seg)).values,
+                                  None, v)
+    assert plain.shape == (v, t_, d)
+
+
+def test_segment_embed_empty_bags_and_lanes():
+    table = torch.ones(4, 8)
+    seg = torch.tensor([1, 1, 3], dtype=torch.int32)
+    out = ops.segment_embed(table, torch.tensor([0, 3, 2], dtype=torch.int32), seg,
+                            num_segments=5)
+    assert out.sum(1).tolist() == [0.0, 16.0, 0.0, 8.0, 0.0]
+    none = ops.segment_embed(table, torch.zeros(0, dtype=torch.int32),
+                             torch.zeros(0, dtype=torch.int32), num_segments=3)
+    assert torch.equal(none, torch.zeros(3, 8))
+
+
+def test_segment_embed_sorted_rejects_unsorted_ids_on_cpu():
+    seg = torch.tensor([0, 2, 1], dtype=torch.int32)
+    with pytest.raises(ValueError, match="ascending"):
+        embed.segment_embed_sorted(torch.ones(3, 4), torch.zeros(3, dtype=torch.int32),
+                                   seg, num_segments=3)
+
+
+def test_segment_embed_refuses_autograd():
+    """No backward yet: an input that requires a gradient raises while grad
+    mode is on, so backward() cannot silently skip the tables; under
+    no_grad the same call runs."""
+    table = torch.ones(6, 4, requires_grad=True)
+    gid, seg = torch.tensor([0, 5], dtype=torch.int32), torch.tensor([0, 1], dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.segment_embed(table, gid, seg, num_segments=2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.segment_embed(torch.ones(6, 4), gid, seg,
+                          torch.ones(2, requires_grad=True), num_segments=2)
+    with torch.no_grad():
+        assert ops.segment_embed(table, gid, seg, num_segments=2).sum() == 8
+
+
+@pytest.mark.parametrize("case", ["table_dtype", "ids_dtype", "ids_shape", "weights_shape",
+                                  "devices"])
+def test_segment_embed_rejects_bad_inputs(case):
+    table, gid = torch.ones(6, 4), torch.zeros(3, dtype=torch.int32)
+    seg, w = torch.zeros(3, dtype=torch.int32), None
+    if case == "table_dtype":
+        table = table.double()
+    elif case == "ids_dtype":
+        gid = gid.long()
+    elif case == "ids_shape":
+        table = torch.ones(2, 6, 4)
+    elif case == "weights_shape":
+        w = torch.ones(4)
+    else:
+        table = table.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        embed.segment_embed_sorted(table, gid, seg, w, num_segments=2)
