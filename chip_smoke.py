@@ -19,20 +19,28 @@ takes a plain gather), and the kernel switched on. Phases:
   1. card and build: ``nvidia-smi`` name and power limit, versions, build time;
   2. the kernels against their plain versions on the card, at the cases of
      ``tests/test_kernels.py`` (K5: also invalid ids, empty bags, segment ids
-     past V, the scalar path, 26 tables at once) and at K1's main-path shape,
-     with times;
+     past V, the scalar path, 26 tables at once), K1 at the main path's shape
+     for its three value types (float32 sums bitwise equal across two runs)
+     and the fused edge stage K2 at the same shape (with and without a live
+     mask and the charges, its vertex state in shared memory and through
+     L1/L2, against the eager stage with K1 that it replaced), with times;
   3. ``peel_threshold`` float32 bits, card against CPU and numpy;
-  4. P-Bahmani, kernel on against kernel off and the numpy oracle;
+  4. P-Bahmani, kernel on against kernel off and the numpy oracle; one K2
+     launch a pass, no K1;
   5. CBDS-P and k-core, kernel on against kernel off and the numpy oracles;
+     one K2 launch a fixpoint iteration, one K1 launch an augmentation round;
   6. the pruned peel on the planted block: plan, pruned with kernels on and
-     off, unpruned, the numpy oracle; K3/K4 launches; every bucket rung K1
-     sees is dst-sorted; wall times split into plan, host, upload, device;
+     off, unpruned, the numpy oracle; K2 launches (one a device pass and a
+     plan iteration), K3/K4 launches; every bucket rung K2 sees is
+     dst-sorted; wall times split into plan, host, upload, device;
   7. K3 and K4 at the pruned path's own inputs against their plain versions
      and one PyTorch call each, with times;
   8. the pruned peel on the RMAT graph, where pass 0 leaves more lanes than
-     the largest bucket: it falls back to the unpruned peel, equal triple;
+     the largest bucket: it falls back to the unpruned peel, equal triple,
+     one K2 launch a pass and a plan iteration;
   9. refinement: ``pbahmani(refine_rounds=3)`` and ``refine`` with the
-     kernel on and off, and each round against ``refine_round_np``;
+     kernel on and off (one K2 launch a pass), and each round against
+     ``refine_round_np``;
  10. DCN-v2 at full width through ``launch.steps.build_step``: 8 serve_p99
      requests (B = 512), one serve_bulk batch (B = 262,144) and one
      retrieval_cand query (1,000,448 candidates), K5 launches counted; kernel
@@ -65,11 +73,14 @@ EDGE_FACTOR = 16
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 REPLACES = {"segment_sum_sorted": "src/repro/kernels/segsum.py:118",
+            "peel_edges": "src/repro/kernels/ops.py:208 (peel_update; reaches "
+                          "pl.pallas_call through K1 at ops.py:200)",
             "prefix_sum": "src/repro/kernels/compact.py:73",
             "stream_compact": "src/repro/kernels/compact.py:88",
             "segment_embed": "src/repro/kernels/ops.py:254 (reaches pl.pallas_call "
                              "through K1 at ops.py:251)"}
 SOURCES = {"segment_sum_sorted": "src/repro_torch/csrc/segsum.cu",
+           "peel_edges": "src/repro_torch/csrc/peel.cu",
            "prefix_sum": "src/repro_torch/csrc/compact.cu",
            "stream_compact": "src/repro_torch/csrc/compact.cu",
            "segment_embed": "src/repro_torch/csrc/embed.cu"}
@@ -158,10 +169,77 @@ def wall_s(fn, runs: int) -> list[float]:
     return out
 
 
+def profile_call(fn) -> dict:
+    """Where one ``fn()`` call's time goes on the card, by torch.profiler:
+    the device's busy time (the union of its kernel, memset and copy
+    intervals), its idle share of the profiled window (host clock, so the
+    profiler's own overhead counts as idle), and the busiest kernels. Empty
+    when the profiler records no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        spans.append((ev.time_range.start, ev.time_range.end))
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    if not spans:
+        return {}
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(window_ms=window_us / 1e3, busy_ms=busy / 1e3,
+                idle_share=1.0 - busy / window_us, device_launches=len(spans),
+                top_ms={k[:60]: t / 1e3 for k, t in top})
+
+
 def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class CallCount:
+    """Counts the calls of ``module.name`` while active (a wrapper put in
+    place and taken out again): the passes and fixpoint iterations that
+    reach the edge stage, to hold K2's launch count against."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.n = module, name, 0
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def counted(*a, **k):
+            self.n += 1
+            return self.real(*a, **k)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def edge_stage_calls():
+    """Counters of the edge-stage calls made by P-Bahmani's pass and by the
+    k-core fixpoint (each of which is one K2 launch with the kernel on)."""
+    import importlib
+
+    return tuple(CallCount(importlib.import_module(f"repro_torch.core.{m}"), "peel_edges")
+                 for m in ("pbahmani", "kcore"))
 
 
 # ---------------------------------------------------------------------------
@@ -286,25 +364,117 @@ def phase_kernels(g, device: str) -> tuple[dict, dict]:
             f"device_ms={dev:.6f} "
             f"plain_ms={plain:.6f} library_ms={lib:.6f} bound_ms={b:.6f} ({by})")
 
-    # peel_update (K2): a wrapper on K1, exact against its plain version
-    failed = torch.from_numpy(np.random.default_rng(2).random(v) < 0.3).to(device)
-    out = ops.peel_update(src_s, dst_s, failed, n_nodes=v)
-    exp = ref.peel_update_ref(src_s, dst_s, failed, v)
+    # float32 sums of random values: bitwise equal across two runs
+    noise = torch.from_numpy(lane_rng.normal(size=e).astype(np.float32)).to(device)
+    a = segsum.segment_sum_sorted(noise, dst_s, num_segments=v)
+    b = segsum.segment_sum_sorted(noise, dst_s, num_segments=v)
     torch.cuda.synchronize()
-    check(out.dtype == torch.int32 and torch.equal(out, exp), "peel_update differs")
-    ms = time_ms(lambda: ops.peel_update(src_s, dst_s, failed, n_nodes=v))
-    plain = time_ms(lambda: ref.peel_update_ref(src_s, dst_s, failed, v))
+    check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+          "K1 float32 sums differ between two runs")
+    # against the exact sums, within 1e-6 of each row's sum of |values| (the
+    # plain version's atomic adds change their order from run to run)
+    exact = ref.segment_sum_ref(noise.double(), dst_s, v, torch.float64)
+    scale = ref.segment_sum_ref(noise.double().abs(), dst_s, v, torch.float64)
+    err = float((a.double() - exact).abs().max())
+    check(bool(((a.double() - exact).abs() <= 1e-6 * scale + 1e-6).all()),
+          f"K1 float32 sums stray from the float64 sums by up to {err:g}")
+    log(f"  K1 main shape float32 random values: bitwise equal across two runs; max abs "
+        f"err {err:g} against float64 (bound 1e-6 * row sum of |values| + 1e-6)")
+    return dict(results["bool -> int32 (peel_delta)"], max_abs_err=max_err,
+                by_type=results), phase_peel_kernel(src_s, dst_s, v, device)
+
+
+def inline_stage_k1(src, dst, active, failed, n):
+    """The edge stage as the main path ran it before K2: the elementwise ops
+    and gathers in eager PyTorch, then K1 for the degree decrement."""
+    import torch
+
+    from repro_torch.kernels import segsum
+
+    src_c, dst_c = src.clamp(max=n - 1), dst.clamp(max=n - 1)
+    live = ((src < n) & (dst < n) & active.index_select(0, src_c)
+            & active.index_select(0, dst_c))
+    fail_s = failed.index_select(0, src_c) & live
+    fail_d = failed.index_select(0, dst_c) & live
+    return (segsum.segment_sum_sorted(fail_s, dst, num_segments=n, out_dtype=torch.int32),
+            (fail_s | fail_d).sum(dtype=torch.int32))
+
+
+def phase_peel_kernel(src_s, dst_s, v: int, device: str) -> dict:
+    """K2 at the main path's shape against its plain version (with and
+    without a live mask and the charges), with times: the shared-memory and
+    the L1/L2 state paths, the stage it replaced (eager ops + K1), the
+    scatter tier and one gather + ``index_add_``."""
+    import torch
+
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import ops, peel, ref
+
+    e = dst_s.shape[0]
+    rng = np.random.default_rng(2)
+    active = torch.from_numpy(rng.random(v) < 0.9).to(device)
+    failed = active & torch.from_numpy(rng.random(v) < 0.3).to(device)
+    max_err = 0
+    for act in (active, None):
+        for charge in (False, True):
+            got = peel.peel_edges_sorted(src_s, dst_s, act, failed, n_nodes=v, charge=charge)
+            want = ref.peel_edges_ref(src_s, dst_s, act, failed, v, charge)
+            torch.cuda.synchronize()
+            check(all(x.dtype == torch.int32 for x in got),
+                  "K2 returns a tensor that is not int32")
+            err = max(int((x.long() - w.long()).abs().max()) for x, w in zip(got, want))
+            max_err = max(max_err, err)
+            check(err == 0, f"K2 (active={'mask' if act is not None else None}, "
+                  f"charge={charge}) differs from peel_edges_ref by up to {err}")
+    got, want = (ops.peel_update(src_s, dst_s, failed, n_nodes=v),
+                 ref.peel_update_ref(src_s, dst_s, failed, v))
+    err = int((got.long() - want.long()).abs().max())
+    max_err = max(max_err, err)
+    check(err == 0, f"peel_update (K2, active=None) differs from its plain version by {err}")
+    check(torch.equal(inline_stage_k1(src_s, dst_s, active, failed, v)[0],
+                      peel.peel_edges_sorted(src_s, dst_s, active, failed, n_nodes=v)[0]),
+          "the eager stage with K1 differs from K2")
+    log(f"  K2 main shape E={e} V={v}: == peel_edges_ref with a live mask and with "
+        f"active=None, with and without charges; peel_update == its plain version")
+
+    def k2(charge=False):
+        return peel.peel_edges_sorted(src_s, dst_s, active, failed, n_nodes=v, charge=charge)
+
+    ms = time_ms(k2)
+    dev = graph_ms(k2)
+    dev_charge = graph_ms(lambda: k2(True))
+    # the packed state read through L1/L2, as vertex counts past the
+    # shared-memory limit take it
+    saved = peel.SHARED_STATE_BYTES
+    peel.SHARED_STATE_BYTES = 0
+    try:
+        check(all(torch.equal(x, w) for x, w in zip(k2(True), ref.peel_edges_ref(
+            src_s, dst_s, active, failed, v, True))), "K2 (state through L1/L2) differs")
+        dev_l2, dev_l2_charge = graph_ms(k2), graph_ms(lambda: k2(True))
+    finally:
+        peel.SHARED_STATE_BYTES = saved
+    plain = time_ms(lambda: ref.peel_edges_ref(src_s, dst_s, active, failed, v))
+    scatter = time_ms(lambda: dispatch.peel_edges(src_s, dst_s, active, failed, v, False))
+    before = time_ms(lambda: inline_stage_k1(src_s, dst_s, active, failed, v))
+    before_dev = graph_ms(lambda: inline_stage_k1(src_s, dst_s, active, failed, v))
+    # yardstick: one gather and one index_add_ (delta alone, no live mask)
     acc = torch.zeros(v + 1, dtype=torch.int32, device=device)
     ids = dst_s.clamp(max=v)
     src_c = src_s.clamp(max=v - 1)
     lib = time_ms(lambda: acc.index_add_(0, ids, failed[src_c].to(torch.int32)))
-    # src, dst lanes and failed read once, delta written once
-    b, by = bound_ms(e * 8 + v * 1 + v * 4, 2 * e)
-    peel = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by)
-    log(f"  peel_update main shape: exact; wrapper_ms={ms:.6f} plain_ms={plain:.6f} "
-        f"library_ms={lib:.6f} bound_ms={b:.6f} ({by})")
-    return dict(results["bool -> int32 (peel_delta)"], max_abs_err=max_err,
-                by_type=results), peel
+    # src and dst read once, active and failed once, delta and removed written once
+    b, by = bound_ms(e * 8 + v * 2 + v * 4 + 4, 8 * e)
+    b_charge = bound_ms(e * 8 + v * 2 + v * 8 + 4, 10 * e)[0]
+    log(f"  K2 main shape: kernel_ms={ms:.6f} device_ms={dev:.6f} (charge {dev_charge:.6f}; "
+        f"state through L1/L2 {dev_l2:.6f}, charge {dev_l2_charge:.6f}) "
+        f"plain_ms={plain:.6f} library_ms={lib:.6f} (gather + index_add_) bound_ms={b:.6f} "
+        f"({by}; charge {b_charge:.6f}); the stage it replaced (eager ops + K1) "
+        f"{before:.6f} ms a call, {before_dev:.6f} on the card; scatter tier {scatter:.6f}")
+    return dict(ms=ms, device_ms=dev, plain_ms=plain, library_ms=lib, bound_ms=b,
+                bound_by=by, max_abs_err=float(max_err), device_ms_charge=dev_charge, bound_ms_charge=b_charge,
+                device_ms_l2_state=dev_l2, device_ms_l2_state_charge=dev_l2_charge,
+                eager_plus_k1_ms=before, eager_plus_k1_device_ms=before_dev,
+                scatter_ms=scatter, state_bytes=peel.load_library().peel_state_bytes(v))
 
 
 # ---------------------------------------------------------------------------
@@ -336,19 +506,21 @@ def phase_threshold(device: str, n: int = 4096) -> None:
 # ---------------------------------------------------------------------------
 def phase_pbahmani(g, device: str, scale: int, timed_runs: int = 3) -> tuple[int, dict]:
     from repro_torch.core import pbahmani, pbahmani_np
-    from repro_torch.kernels import segsum
+    from repro_torch.kernels import peel, segsum
 
     launches, times = 0, {}
     for eps in (0.1, 0.0):
         t0 = time.perf_counter()
         rho_n, mask_n, passes_n = pbahmani_np(g, eps=eps)
         t_np = time.perf_counter() - t0
-        segsum.launches = 0
+        peel.launches = segsum.launches = 0
         rho_k, mask_k, passes_k = pbahmani(g, eps=eps, kernel=True, device=device)
-        n_launch = segsum.launches
+        n_launch = peel.launches
         rho_s, mask_s, passes_s = pbahmani(g, eps=eps, kernel=False, device=device)
-        check(n_launch == passes_k, f"eps={eps}: K1 launched {n_launch} times in "
+        check(n_launch == passes_k, f"eps={eps}: K2 launched {n_launch} times in "
               f"{passes_k} passes")
+        check(segsum.launches == 0, f"eps={eps}: the peel launched K1 {segsum.launches} "
+              f"times; its edge stage is K2's")
         check(rho_k == rho_s and passes_k == passes_s and np.array_equal(mask_k, mask_s),
               f"eps={eps}: kernel on {rho_k, passes_k} differs from off {rho_s, passes_s}")
         check(passes_k == passes_n and np.array_equal(mask_k, mask_n)
@@ -361,17 +533,30 @@ def phase_pbahmani(g, device: str, scale: int, timed_runs: int = 3) -> tuple[int
         on = wall_s(lambda: pbahmani(g, eps=eps, kernel=True, device=device), timed_runs)
         off = wall_s(lambda: pbahmani(g, eps=eps, kernel=False, device=device), timed_runs)
         times[eps] = dict(kernel_s=statistics.median(on), scatter_s=statistics.median(off),
-                          passes=passes_k)
+                          passes=passes_k,
+                          profile=profile_call(lambda: pbahmani(g, eps=eps, kernel=True,
+                                                                device=device)))
+        prof = times[eps]["profile"]
+        if prof:  # the profiler slows the host: the busy time against the plain wall too
+            prof["idle_share_of_wall"] = 1.0 - prof["busy_ms"] / (times[eps]["kernel_s"] * 1e3)
+        log(f"  P-Bahmani eps={eps} profiled: " + (
+            f"window {prof['window_ms']:.6f} ms, device busy {prof['busy_ms']:.6f} ms "
+            f"(idle share {prof['idle_share']:.4f} of the window, "
+            f"{prof['idle_share_of_wall']:.4f} of the wall), {prof['device_launches']} device "
+            f"launches; busiest: " + "; ".join(f"{k} {t:.6f}" for k, t in
+                                              prof["top_ms"].items())
+            if prof else "no device activity recorded (not measured)"))
         log(f"  P-Bahmani eps={eps}: density={rho_k!r} |S|={int(mask_k.sum())} "
             f"passes={passes_k}; on == off == pbahmani_np (numpy {t_np:.2f} s); "
-            f"K1 launches={n_launch}; wall median of {timed_runs}: kernel "
+            f"K2 launches={n_launch}; wall median of {timed_runs}: kernel "
             f"{times[eps]['kernel_s']:.6f} s, scatter {times[eps]['scatter_s']:.6f} s")
     return launches, times
 
 
-def phase_cbds(g, g_small, device: str, scale: int) -> tuple[int, dict]:
+def phase_cbds(g, g_small, device: str, scale: int) -> tuple[int, int, dict]:
+    """Returns (K2 launches, K1 launches, times) of CBDS-P on ``g``."""
     from repro_torch.core import cbds_np, cbds_p, kcore_decompose, kcore_np
-    from repro_torch.kernels import segsum
+    from repro_torch.kernels import peel, segsum
 
     # numpy oracles at the smaller scale
     core_n = kcore_np(g_small)
@@ -389,12 +574,16 @@ def phase_cbds(g, g_small, device: str, scale: int) -> tuple[int, dict]:
     log(f"  small graph |V|={g_small.n_nodes}: kcore and cbds_p (kernel on and off) "
         f"== kcore_np, cbds_np (k*={core_n[2]}, m_v={core_n[3]}, m_e={core_n[4]})")
 
-    segsum.launches = 0
+    peel.launches = segsum.launches = 0
+    _, kcore_calls = edge_stage_calls()
     t0 = time.perf_counter()
-    cb_k = cbds_p(g, rounds=1, kernel=True, device=device)
+    with kcore_calls:
+        cb_k = cbds_p(g, rounds=1, kernel=True, device=device)
     t_cb_k = time.perf_counter() - t0
-    n_cbds = segsum.launches
-    check(n_cbds > 0, "CBDS-P did not launch K1")
+    n_cbds, n_k1 = peel.launches, segsum.launches
+    check(n_cbds == kcore_calls.n and n_cbds > 0,
+          f"CBDS-P launched K2 {n_cbds} times in {kcore_calls.n} fixpoint iterations")
+    check(n_k1 == 1, f"CBDS-P rounds=1 launched K1 {n_k1} times, expected one (e_into)")
     t0 = time.perf_counter()
     cb_s = cbds_p(g, rounds=1, kernel=False, device=device)
     t_cb_s = time.perf_counter() - t0
@@ -402,31 +591,42 @@ def phase_cbds(g, g_small, device: str, scale: int) -> tuple[int, dict]:
           f"cbds_p kernel on {cb_k['density'], cb_k['k_star']} differs from off "
           f"{cb_s['density'], cb_s['k_star']}")
 
-    segsum.launches = 0
+    peel.launches = 0
     t0 = time.perf_counter()
     core_k = kcore_decompose(g, kernel=True, device=device)
     t_core_k = time.perf_counter() - t0
-    n_core = segsum.launches
+    n_core = peel.launches
     t0 = time.perf_counter()
     core_s = kcore_decompose(g, kernel=False, device=device)
     t_core_s = time.perf_counter() - t0
     check(np.array_equal(core_k[0], core_s[0]) and core_k[1:] == core_s[1:],
           f"kcore kernel on {core_k[1:]} differs from off {core_s[1:]}")
-    check(n_core == n_cbds, f"kcore launched K1 {n_core} times, CBDS-P {n_cbds}")
+    check(n_core == n_cbds, f"kcore launched K2 {n_core} times, CBDS-P {n_cbds}")
     want = EXPECTED_CORE.get(scale)
     check(want is None or want == core_k[2:],
           f"(k*, m_v, m_e) = {core_k[2:]}, expected {want}")
     check(cb_k["k_star"] == core_k[2] and cb_k["core_density"] == core_k[1],
           "cbds_p's core phase differs from kcore_decompose")
+    prof = profile_call(lambda: cbds_p(g, rounds=1, kernel=True, device=device))
+    if prof:  # the profiler slows the host: the busy time against the plain wall too
+        prof["idle_share_of_wall"] = 1.0 - prof["busy_ms"] / (t_cb_k * 1e3)
+    log(f"  CBDS-P profiled: " + (
+        f"window {prof['window_ms']:.6f} ms, device busy {prof['busy_ms']:.6f} ms (idle "
+        f"share {prof['idle_share']:.4f} of the window, {prof['idle_share_of_wall']:.4f} "
+        f"of the wall), {prof['device_launches']} device launches; "
+        f"busiest: " + "; ".join(f"{k} {t:.6f}" for k, t in prof["top_ms"].items())
+        if prof else "no device activity recorded (not measured)"))
     times = dict(cbds_kernel_s=t_cb_k, cbds_scatter_s=t_cb_s, kcore_kernel_s=t_core_k,
-                 kcore_scatter_s=t_core_s, launches=n_cbds)
+                 profile=prof,
+                 kcore_scatter_s=t_core_s, launches=n_cbds, k1_launches=n_k1)
     log(f"  CBDS-P rounds=1: density={cb_k['density']!r} k*={cb_k['k_star']} "
         f"n_legit={cb_k['n_legit']} |S|={int(cb_k['member_mask'].sum())}; on == off; "
-        f"K1 launches={n_cbds}; wall kernel {t_cb_k:.6f} s, scatter {t_cb_s:.6f} s")
+        f"K2 launches={n_cbds} (one a fixpoint iteration), K1 {n_k1}; wall kernel "
+        f"{t_cb_k:.6f} s, scatter {t_cb_s:.6f} s")
     log(f"  k-core: max coreness={int(core_k[0].max())} k*={core_k[2]} m_v={core_k[3]} "
-        f"m_e={core_k[4]} density={core_k[1]!r}; on == off; K1 launches={n_core}; "
+        f"m_e={core_k[4]} density={core_k[1]!r}; on == off; K2 launches={n_core}; "
         f"wall kernel {t_core_k:.6f} s, scatter {t_core_s:.6f} s")
-    return n_cbds, times
+    return n_cbds, n_k1, times
 
 
 # ---------------------------------------------------------------------------
@@ -494,9 +694,9 @@ def phase_pruned(g, device: str, timed_runs: int = 3) -> tuple[dict, dict, dict]
     import torch
 
     from repro_torch.core import pbahmani, pbahmani_np, prune
-    from repro_torch.kernels import compact, ops, segsum
+    from repro_torch.kernels import compact, peel
 
-    launches = {"segment_sum_sorted": 0, "prefix_sum": 0, "stream_compact": 0}
+    launches = {"peel_edges": 0, "prefix_sum": 0, "stream_compact": 0}
     times, inputs = {}, {}
     u, v = prune.slot_arrays(g)
     deg = g.degrees().astype(np.int32)
@@ -511,14 +711,21 @@ def phase_pruned(g, device: str, timed_runs: int = 3) -> tuple[dict, dict, dict]
         check(isinstance(pd, prune.PrunedDispatch),
               f"eps={eps}: pass 0 leaves no bucket-sized subproblem ({pd!r:.80})")
 
-        segsum.launches = compact.prefix_sum_launches = compact.stream_compact_launches = 0
-        on = pbahmani(g, eps=eps, pruned=True, kernel=True, device=device)
-        n_k1, n_k3, n_k4 = (segsum.launches, compact.prefix_sum_launches,
+        peel.launches = compact.prefix_sum_launches = compact.stream_compact_launches = 0
+        pass_calls, kcore_calls = edge_stage_calls()
+        with pass_calls, kcore_calls:
+            on = pbahmani(g, eps=eps, pruned=True, kernel=True, device=device)
+        n_k2, n_k3, n_k4 = (peel.launches, compact.prefix_sum_launches,
                             compact.stream_compact_launches)
-        check(n_k3 > 0 and n_k4 > 0 and n_k1 > 0,
-              f"eps={eps}: the pruned path launched K1 {n_k1}, K3 {n_k3}, K4 {n_k4} "
+        check(n_k3 > 0 and n_k4 > 0 and n_k2 > 0,
+              f"eps={eps}: the pruned path launched K2 {n_k2}, K3 {n_k3}, K4 {n_k4} "
               f"times: the bucket peel did not run")
-        for name, n in zip(launches, (n_k1, n_k3, n_k4)):
+        # pass 0 runs on the host; every later pass and every fixpoint
+        # iteration of the plan is one K2 launch
+        check(pass_calls.n == on[2] - 1 and n_k2 == pass_calls.n + kcore_calls.n,
+              f"eps={eps}: K2 launched {n_k2} times for {on[2] - 1} device passes "
+              f"({pass_calls.n} edge stages) and {kcore_calls.n} plan iterations")
+        for name, n in zip(launches, (n_k2, n_k3, n_k4)):
             launches[name] += n
         off = pbahmani(g, eps=eps, pruned=True, kernel=False, device=device)
         full_on = pbahmani(g, eps=eps, kernel=True, device=device)
@@ -533,29 +740,29 @@ def phase_pruned(g, device: str, timed_runs: int = 3) -> tuple[dict, dict, dict]
               and abs(on[0] - rho_n) <= 1e-6 * rho_n,
               f"eps={eps}: pruned {on[0], on[2]} differs from pbahmani_np {rho_n, passes_n}")
 
-        # every lane array handed to K1 in one run ascends (checked once per
+        # every dst array handed to K2 in one run ascends (checked once per
         # array, on the card), and the K4 calls' inputs are kept for phase 7
         seen, sorted_rungs, k4_calls = set(), [], []
-        real_k1, real_k4 = ops.segment_sum_sorted, prune.stream_compact
+        real_k2, real_k4 = peel.peel_edges_sorted, prune.stream_compact
 
-        def k1_checked(values, seg_ids, **kw):
-            key = (seg_ids.data_ptr(), seg_ids.numel())
+        def k2_checked(src, dst, active, failed, **kw):
+            key = (dst.data_ptr(), dst.numel())
             if key not in seen:
                 seen.add(key)
-                ok = bool(torch.all(seg_ids[1:] >= seg_ids[:-1]))
-                check(ok, f"eps={eps}: a K1 hand-off of {seg_ids.numel()} lanes is unsorted")
-                sorted_rungs.append(seg_ids.numel())
-            return real_k1(values, seg_ids, **kw)
+                ok = bool(torch.all(dst[1:] >= dst[:-1]))
+                check(ok, f"eps={eps}: a K2 hand-off of {dst.numel()} lanes is unsorted")
+                sorted_rungs.append(dst.numel())
+            return real_k2(src, dst, active, failed, **kw)
 
         def k4_kept(values, live, **kw):
             k4_calls.append((values.clone(), live.clone(), kw))
             return real_k4(values, live, **kw)
 
-        ops.segment_sum_sorted, prune.stream_compact = k1_checked, k4_kept
+        peel.peel_edges_sorted, prune.stream_compact = k2_checked, k4_kept
         try:
             again = pbahmani(g, eps=eps, pruned=True, kernel=True, device=device)
         finally:
-            ops.segment_sum_sorted, prune.stream_compact = real_k1, real_k4
+            peel.peel_edges_sorted, prune.stream_compact = real_k2, real_k4
         check(again[2] == on[2] and np.array_equal(again[1], on[1]), "rerun differs")
         check(len(k4_calls) == 2, f"eps={eps}: {len(k4_calls)} K4 calls, expected 2")
         if eps == 0.0:
@@ -592,14 +799,16 @@ def phase_pruned(g, device: str, timed_runs: int = 3) -> tuple[dict, dict, dict]
             device_kernel_s=t_dev_on, device_scatter_s=t_dev_off, merge_s=t_merge,
             passes=on[2], n_v1=pd.n_v1, lanes1=2 * pd.n_e1, buckets=list(pd.plan.buckets),
             ladder_vertices=ladder_v, ladder_lanes=ladder_lanes,
-            launches=dict(zip(launches, (n_k1, n_k3, n_k4))))
+            launches=dict(zip(launches, (n_k2, n_k3, n_k4))),
+            plan_iterations=kcore_calls.n)
         log(f"  pruned eps={eps}: density={on[0]!r} |S|={int(on[1].sum())} passes={on[2]}; "
             f"pruned on == off == unpruned on == off == pbahmani_np (numpy {t_np:.2f} s)")
         log(f"    plan rho_lb={plan.rho_lb!r} k={plan.k} candidates={plan.n_candidates}; "
             f"pass 0 leaves {pd.n_v1} vertices, {2 * pd.n_e1} lanes; buckets "
             f"{pd.plan.buckets}; ladder handed {ladder_v} vertices, {ladder_lanes} lanes")
-        log(f"    launches K1={n_k1} K3={n_k3} K4={n_k4}; K1 lane arrays checked sorted "
-            f"on the card: {sorted_rungs}")
+        log(f"    launches K2={n_k2} ({pass_calls.n} device passes + {kcore_calls.n} plan "
+            f"iterations) K3={n_k3} K4={n_k4}; K2 lane arrays checked sorted on the card: "
+            f"{sorted_rungs}")
         log(f"    wall median of {timed_runs}: pruned kernel {times[eps]['pruned_kernel_s']:.6f} s, "
             f"pruned scatter {times[eps]['pruned_scatter_s']:.6f} s, unpruned kernel "
             f"{times[eps]['unpruned_kernel_s']:.6f} s; split: plan {t_plan:.6f}, host prep "
@@ -675,30 +884,36 @@ def phase_compact_timing(inputs: dict) -> dict:
 # ---------------------------------------------------------------------------
 def phase_pruned_fallback(g, device: str) -> int:
     from repro_torch.core import pbahmani, prune
-    from repro_torch.kernels import compact, segsum
+    from repro_torch.kernels import compact, peel
 
     u, v = prune.slot_arrays(g)
     deg = g.degrees().astype(np.int32)
     plan = prune.plan_for_graph(g, kernel=True, device=device)
-    n_k1 = 0
+    n_k2 = 0
     for eps in (0.1, 0.0):
         _, a1, _, _ = prune._pass0_host(deg, g.n_edges, eps)
         lanes1 = 2 * prune._induced_slots(u, v, a1).size
         check(prune.prepare_pruned_peel(u, v, deg, g.n_edges, eps, plan) is None,
               f"eps={eps}: expected the pruned path to fall back on this graph")
-        segsum.launches = compact.prefix_sum_launches = compact.stream_compact_launches = 0
-        got = pbahmani(g, eps=eps, pruned=True, kernel=True, device=device)
+        peel.launches = compact.prefix_sum_launches = compact.stream_compact_launches = 0
+        pass_calls, kcore_calls = edge_stage_calls()
+        with pass_calls, kcore_calls:
+            got = pbahmani(g, eps=eps, pruned=True, kernel=True, device=device)
         check(compact.prefix_sum_launches == compact.stream_compact_launches == 0,
               "the fallback launched the compaction kernels")
-        n_k1 += segsum.launches
+        check(pass_calls.n == got[2] and peel.launches == got[2] + kcore_calls.n,
+              f"eps={eps}: K2 launched {peel.launches} times for {got[2]} passes and "
+              f"{kcore_calls.n} plan iterations")
+        n_k2 += peel.launches
         want = pbahmani(g, eps=eps, kernel=True, device=device)
         check(got[0] == want[0] and got[2] == want[2] and np.array_equal(got[1], want[1]),
               f"eps={eps}: pruned (fallen back) {got[0], got[2]} differs from unpruned")
         log(f"  rmat pruned eps={eps}: fell back to the unpruned peel: pass 0 leaves "
             f"{int(a1.sum())} vertices and {lanes1} lanes, over the largest bucket "
             f"{plan.bucket_e} (half of next_pow2({g.src.shape[0]})); triple == unpruned "
-            f"(density={got[0]!r}, passes={got[2]})")
-    return n_k1
+            f"(density={got[0]!r}, passes={got[2]}); K2 launches {peel.launches} "
+            f"({got[2]} passes + {kcore_calls.n} plan iterations)")
+    return n_k2
 
 
 # ---------------------------------------------------------------------------
@@ -711,16 +926,17 @@ def phase_refine(g, g_small, device: str) -> tuple[int, dict]:
 
     from repro_torch.core import pbahmani
     from repro_torch.graphs.convert import to_device
-    from repro_torch.kernels import segsum
+    from repro_torch.kernels import peel
     from repro_torch.refine import refine, refine_round_np
     from repro_torch.refine.loads import _refine_round
 
-    segsum.launches = 0
+    peel.launches = 0
     t0 = time.perf_counter()
     on = pbahmani(g, eps=0.1, refine_rounds=3, kernel=True, device=device)
     t_on = time.perf_counter() - t0
-    n_k1 = segsum.launches
-    check(n_k1 > 0, "refinement did not launch K1")
+    n_k2 = peel.launches
+    check(n_k2 == on[2], f"refinement launched K2 {n_k2} times in {on[2]} passes "
+          f"(the seed peel's and three rounds')")
     t0 = time.perf_counter()
     off = pbahmani(g, eps=0.1, refine_rounds=3, kernel=False, device=device)
     t_off = time.perf_counter() - t0
@@ -735,7 +951,7 @@ def phase_refine(g, g_small, device: str) -> tuple[int, dict]:
           and r_on.history == r_off.history and np.array_equal(r_on.mask, r_off.mask),
           "refine: kernel on and off give different certificates or history")
     log(f"  pbahmani(rmat, eps=0.1, refine_rounds=3): density={on[0]!r} passes={on[2]}; "
-        f"on == off; K1 launches={n_k1}; wall kernel {t_on:.6f} s, scatter {t_off:.6f} s")
+        f"on == off; K2 launches={n_k2}; wall kernel {t_on:.6f} s, scatter {t_off:.6f} s")
     log(f"  refine(max_rounds=3): certificate {c_on.best_ne}/{c_on.best_nv} <= rho* <= "
         f"{c_on.dual_num}/{c_on.dual_den}, rel_gap {c_on.rel_gap!r}; on == off, history "
         f"equal over {len(r_on.history)} rounds")
@@ -797,7 +1013,7 @@ def phase_refine(g, g_small, device: str) -> tuple[int, dict]:
               and np.array_equal(state[4].cpu().numpy(), best_np[3]),
               f"refine round {r + 1} differs from refine_round_np at |V|={n}")
     log(f"  |V|={n}: 3 refine rounds (kernel on) == refine_round_np, loads and best")
-    return n_k1, dict(refine_rounds3_kernel_s=t_on, refine_rounds3_scatter_s=t_off,
+    return n_k2, dict(refine_rounds3_kernel_s=t_on, refine_rounds3_scatter_s=t_off,
                       split=split, certificate=dataclasses.asdict(c_on))
 
 
@@ -1075,7 +1291,7 @@ def main() -> int:
         return 2
     try:
         from repro_torch.graphs.generators import planted_dense, rmat
-        from repro_torch.kernels import build, compact, embed, segsum
+        from repro_torch.kernels import build, compact, embed, peel, segsum
     except ImportError as exc:
         print(f"chip_smoke: the repro_torch package is not beside this script ({exc})",
               file=sys.stderr)
@@ -1089,12 +1305,12 @@ def main() -> int:
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, capability {torch.cuda.get_device_capability(0)}")
     t0 = time.perf_counter()
-    build.build_all([segsum.SOURCE, compact.SOURCE, embed.SOURCE])  # one nvcc each, at once
-    segsum.load_library()
-    compact.load_library()
-    embed.load_library()
-    log(f"  K1, K3, K4, K5 built and loaded in {time.perf_counter() - t0:.3f} s from "
-        f"{segsum.SOURCE.name}, {compact.SOURCE.name}, {embed.SOURCE.name}")
+    sources = [segsum.SOURCE, peel.SOURCE, compact.SOURCE, embed.SOURCE]
+    build.build_all(sources)  # one nvcc each, all at once
+    for module in (segsum, peel, compact, embed):
+        module.load_library()
+    log(f"  K1, K2, K3, K4, K5 built and loaded in {time.perf_counter() - t0:.3f} s from "
+        f"{', '.join(src.name for src in sources)}")
     for source, text in build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -1114,7 +1330,7 @@ def main() -> int:
         f"block density {block_density!r}")
 
     log("phase 2: kernels against their plain versions on the card")
-    k1, peel = phase_kernels(g, device)
+    k1, k2 = phase_kernels(g, device)
     compact_err = phase_compact_cases(device)
     embed_err = phase_embed_cases(device)
 
@@ -1125,7 +1341,7 @@ def main() -> int:
     peel_launches, peel_times = phase_pbahmani(g, device, SCALE)
 
     log("phase 5: CBDS-P at full width")
-    cbds_launches, cbds_times = phase_cbds(g, g_small, device, SCALE)
+    cbds_launches, cbds_k1_launches, cbds_times = phase_cbds(g, g_small, device, SCALE)
 
     log("phase 6: pruned P-Bahmani on the planted block at full width")
     pruned_launches, pruned_times, k4_inputs = phase_pruned(g_planted, device)
@@ -1145,15 +1361,17 @@ def main() -> int:
     dcn_times["phase_s"] = time.perf_counter() - t0
     log(f"  phase 10 took {dcn_times['phase_s']:.3f} s")
 
-    k1_launches = (peel_launches + cbds_launches + pruned_launches["segment_sum_sorted"]
+    k2_launches = (peel_launches + cbds_launches + pruned_launches["peel_edges"]
                    + fallback_launches + refine_launches)
-    log(f"main path: K1 launches P-Bahmani (eps 0.1 and 0) {peel_launches}, CBDS-P "
-        f"{cbds_launches}, pruned {pruned_launches['segment_sum_sorted']}, pruned fallback "
-        f"{fallback_launches}, refinement {refine_launches}; K3 {pruned_launches['prefix_sum']}"
-        f", K4 {pruned_launches['stream_compact']} (pruned, eps 0.1 and 0); K5 {k5_launches} "
+    log(f"main path: K2 launches P-Bahmani (eps 0.1 and 0) {peel_launches}, CBDS-P "
+        f"{cbds_launches}, pruned {pruned_launches['peel_edges']}, pruned fallback "
+        f"{fallback_launches}, refinement {refine_launches}; K1 {cbds_k1_launches} (CBDS-P's "
+        f"augmentation round); K3 {pruned_launches['prefix_sum']}, K4 "
+        f"{pruned_launches['stream_compact']} (pruned, eps 0.1 and 0); K5 {k5_launches} "
         f"(DCN-v2: 8 serve_p99, 1 serve_bulk, 1 retrieval_cand)")
     rows = {
-        "segment_sum_sorted": (k1_launches, k1["max_abs_err"], k1),
+        "segment_sum_sorted": (cbds_k1_launches, k1["max_abs_err"], k1),
+        "peel_edges": (k2_launches, k2["max_abs_err"], k2),
         "prefix_sum": (pruned_launches["prefix_sum"], compact_err, compact_times["prefix_sum"]),
         "stream_compact": (pruned_launches["stream_compact"], compact_err,
                            compact_times["stream_compact_edge"]),
@@ -1174,9 +1392,8 @@ def main() -> int:
         "library_ms": t["library_ms"],
         "parity": "ok",
     } for name, (n, err, t) in rows.items()]
-    log(json.dumps({"wrappers": [dict(name="peel_update", kernel="segment_sum_sorted",
-                                      library="gather + index_add_", parity="ok", **peel)],
-                    "k1_by_type": k1["by_type"],
+    log(json.dumps({"k1_by_type": k1["by_type"],
+                    "k2": k2,
                     "compact_by_call": compact_times,
                     "end_to_end_s": {"pbahmani": {str(k): v for k, v in peel_times.items()},
                                      "cbds": cbds_times,

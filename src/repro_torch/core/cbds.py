@@ -14,8 +14,10 @@ Device adaptation: the paper's per-thread ``eligible_vector``/``legit_vector``
 + critical sections become two reductions over the edge lanes:
   e_into_S[v]   = sum over edges (v,u) of S_mask[u]        (one scatter-add)
   cross(L)      = sum over edges of L[src] & L[dst] / 2    (one masked sum)
-The first reduces onto *src*, which is unsorted in either lane layout, so it
-stays on the scatter tier; only phase 1 uses the sorted segment-sum K1.
+The first is reduced onto *dst* by the mirror identity the peel uses (the
+lanes are symmetric, so lane (u -> v) carries lane (v -> u)'s test), through
+``peel_delta``: the sorted segment-sum K1 with the kernel on. Phase 1 runs on
+the fused edge-stage kernel K2.
 Self-edges are absent by the simple-graph convention; the paper's 0.5
 self-edge counting is therefore a no-op here.
 
@@ -30,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.dispatch import resolve_device, resolve_kernel
+from repro_torch.core.dispatch import peel_delta, resolve_device, resolve_kernel
 from repro_torch.core.kcore import _kcore, kcore_np
 from repro_torch.graphs.convert import to_device
 from repro_torch.graphs.graph import Graph
@@ -43,8 +45,10 @@ def _augment_once(
     src: torch.Tensor,
     dst: torch.Tensor,
     n_nodes: int,
+    kernel: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One phase-2 round. Returns (member', m_v', m_e', n_added).
+    """One phase-2 round. Returns (member', m_v', m_e', n_added). ``kernel``
+    sums ``e_into`` with K1 over dst-sorted lanes (the same integers).
 
     The legitimacy test ``e_into > rho`` is evaluated in exact integer
     arithmetic: for integer e_into, ``e_into > m_e / m_v`` iff
@@ -56,12 +60,11 @@ def _augment_once(
     dst_c = dst.clamp(max=n_nodes - 1)
     valid = (src < n_nodes) & (dst < n_nodes)
 
-    # e_into_S[v]: edges from v into the current member set (paper's `legits`)
-    into = (valid & member.index_select(0, dst_c)
-            & ~member.index_select(0, src_c))
-    e_into = torch.zeros(n_nodes + 1, dtype=torch.int32, device=src.device)
-    e_into.index_add_(0, src.clamp(max=n_nodes), into.to(torch.int32))
-    e_into = e_into[:n_nodes]
+    # e_into_S[v]: edges from v into the current member set (paper's `legits`);
+    # lane (u -> v) tests its mirror (v -> u): u a member, v not
+    into_mirror = (valid & member.index_select(0, src_c)
+                   & ~member.index_select(0, dst_c))
+    e_into = peel_delta(into_mirror, dst, n_nodes, kernel)
 
     legit = ~member & (e_into > m_e // m_v.clamp(min=1))
     n_added = legit.sum(dtype=torch.int32)
@@ -85,7 +88,8 @@ def cbds_p(
     """Run CBDS-P. rounds=1 is the paper-faithful configuration.
 
     ``device`` and ``kernel`` resolve as in ``pbahmani``; ``kernel`` selects
-    K1 for the k-core phase (on dst-sorted lanes) and changes no result.
+    K2 for the k-core phase and K1 for each augmentation round (on dst-sorted
+    lanes) and changes no result.
     """
     device = resolve_device(device)
     kernel = resolve_kernel(kernel, device)
@@ -97,7 +101,8 @@ def cbds_p(
 
     n_legit = torch.tensor(0, dtype=torch.int32, device=device)
     for _ in range(int(rounds)):
-        member, m_v, m_e, n_added = _augment_once(member, m_v, m_e, src, dst, n_nodes)
+        member, m_v, m_e, n_added = _augment_once(member, m_v, m_e, src, dst, n_nodes,
+                                                  kernel)
         n_legit = n_legit + n_added
 
     density = m_e.to(torch.float32) / m_v.clamp(min=1).to(torch.float32)

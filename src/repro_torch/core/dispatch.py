@@ -1,26 +1,33 @@
 """Device and kernel-tier dispatch for the peel hot loop.
 
-Every peel-family recurrence reduces a per-edge boolean onto its
-destination vertex — the paper's part-2 atomicSub. Two implementations:
+Every peel-family pass runs the same edge stage: mark the live lanes,
+gather which of their ends failed, reduce the failed-src lanes onto their
+destination vertex (the paper's part-2 atomicSub) and count the dying
+lanes. Two implementations:
 
-  * **scatter** — an int32 ``index_add_`` over ``n_nodes + 1`` segments with
-    the sentinel row dropped, on any device;
-  * **kernel** — the sorted segment-sum K1 (``kernels.ops.segment_sum``):
-    the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor.
-    It needs dst-sorted lanes, which ``graphs.convert.to_device`` supplies.
+  * **scatter** — elementwise ops and gathers over the lanes, then int32
+    ``index_add_`` over ``n_nodes + 1`` segments with the sentinel row
+    dropped, on any device;
+  * **kernel** — the fused edge-stage kernel K2
+    (``kernels.peel.peel_edges_sorted``) for the pass, the sorted
+    segment-sum K1 (``kernels.ops.segment_sum``) for a lone reduction: the
+    CUDA kernels on a CUDA tensor, their plain versions on a CPU tensor.
+    They need dst-sorted lanes, which ``graphs.convert.to_device``
+    supplies.
 
-:func:`peel_delta` is the single switch point ``pbahmani_pass`` and
-``kcore._level_fixpoint`` route through. Both paths sum the same 0/1 lanes
-in int32, so (density, mask, passes) triples match bit for bit with the
-knob on or off. The kernel's int32 sums are exact at any size; the 2^24
-envelope of the JAX kernel's float32 sums is still asserted at the same API
-points, so both packages accept and refuse the same graphs.
+:func:`peel_edges` is the single switch point ``pbahmani_pass``,
+``kcore._level_fixpoint`` and ``refine_pass`` route through;
+:func:`peel_delta` reduces one per-lane boolean. Both paths count in int32,
+so (density, mask, passes) triples match bit for bit with the knob on or
+off. The kernels' int32 sums are exact at any size; the 2^24 envelope of
+the JAX kernel's float32 sums is still asserted at the same API points, so
+both packages accept and refuse the same graphs.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ops import segment_sum
+from repro_torch.kernels import ops, peel
 
 # float32 integer-exactness envelope of the JAX package's kernel tier
 EXACT_ENVELOPE = 1 << 24
@@ -64,12 +71,48 @@ def peel_delta(
     ``kernel`` the lanes must be dst-sorted.
     """
     if kernel:
-        return segment_sum(fail, dst, num_segments=n_nodes,
-                           out_dtype=torch.int32)
+        return ops.segment_sum(fail, dst, num_segments=n_nodes,
+                               out_dtype=torch.int32)
     out = torch.zeros(n_nodes + 1, dtype=torch.int32, device=dst.device)
     out.index_add_(0, dst.clamp(max=n_nodes), fail.to(torch.int32))
     return out[:n_nodes]
 
 
+def peel_edges(
+    src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor,
+    failed: torch.Tensor, n_nodes: int, kernel: bool, charge: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """The edge stage of one peel pass: int32 ``(delta, removed)``, with
+    ``charge`` also ``inc`` (``ref.peel_edges_ref`` defines them).
+
+    ``delta[v]`` counts v's live neighbours that failed, ``removed`` the
+    directed lanes that die, ``inc[v]`` the dying edges charged to v. With
+    ``kernel`` this is one K2 call over dst-sorted lanes; without, the
+    elementwise ops and two or three ``index_add_`` scatters.
+    """
+    if kernel:
+        return peel.peel_edges_sorted(src, dst, active, failed, n_nodes=n_nodes,
+                                      charge=charge)
+    src_c = src.clamp(max=n_nodes - 1)
+    dst_c = dst.clamp(max=n_nodes - 1)
+    live_edge = ((src < n_nodes) & (dst < n_nodes) & active.index_select(0, src_c)
+                 & active.index_select(0, dst_c))
+    fail_s = failed.index_select(0, src_c) & live_edge
+    fail_d = failed.index_select(0, dst_c) & live_edge
+    # fail_s aggregated on *dst* counts, per survivor, its failed neighbors
+    # (the mirror entry of every (u failed -> v) edge lands the same
+    # information symmetrically)
+    out = (peel_delta(fail_s, dst, n_nodes, False),
+           (fail_s | fail_d).sum(dtype=torch.int32))
+    if not charge:
+        return out
+    # edge charging: (u->v) charges u iff u failed and (v survived or u<v);
+    # exactly one of the two directed entries charges. Aggregated on *dst*
+    # via the mirror identity (lane (v->u) has its src-side charge equal to
+    # this lane's assign_d), so every reduction runs onto dst.
+    assign_d = fail_d & (~fail_s | (dst_c < src_c))
+    return out + (peel_delta(assign_d, dst, n_nodes, False),)
+
+
 __all__ = ["EXACT_ENVELOPE", "resolve_device", "resolve_kernel",
-           "assert_exact_envelope", "peel_delta"]
+           "assert_exact_envelope", "peel_delta", "peel_edges"]

@@ -3,9 +3,10 @@
 PKC processes levels k = 0, 1, 2, ... with per-thread work queues (``buff``)
 and atomic degree decrements. The device version replaces the queues with a
 *level-synchronous fixpoint*: at level k, repeatedly fail every live vertex
-with deg <= k and subtract its edge contributions via one segment-sum
-(core/dispatch.py:peel_delta), until no vertex fails; then k += 1. k-core
-decomposition is confluent, so this computes identical coreness values.
+with deg <= k and subtract its edge contributions via one pass over the
+edge lanes (core/dispatch.py:peel_edges), until no vertex fails; then
+k += 1. k-core decomposition is confluent, so this computes identical
+coreness values.
 
 Following the paper's modification of PKC, the sweep also records, for every
 k, the density of the (k+1)-core that remains once level k completes — the
@@ -24,7 +25,7 @@ import torch
 
 from repro_torch.core.density import degrees_from_coo
 from repro_torch.core.dispatch import (
-    assert_exact_envelope, peel_delta, resolve_device, resolve_kernel,
+    assert_exact_envelope, peel_edges, resolve_device, resolve_kernel,
 )
 from repro_torch.graphs.convert import to_device
 from repro_torch.graphs.graph import Graph
@@ -48,22 +49,15 @@ def _level_fixpoint(
     kernel: bool = False,
 ) -> CoreState:
     """Remove all vertices of degree <= k until none remain (inner loop).
-    ``kernel`` routes the degree decrement through the sorted segment-sum
-    K1 (core/dispatch.py) — bit-identical coreness either way."""
+    ``kernel`` routes the edge stage through the fused kernel K2
+    (core/dispatch.py) — bit-identical coreness either way."""
     s = state
-    src_c = src.clamp(max=n_nodes - 1)
-    dst_c = dst.clamp(max=n_nodes - 1)
-    valid = (src < n_nodes) & (dst < n_nodes)
     while True:
         failed = s.active & (s.deg <= s.k)
         if not failed.any().item():  # the one host sync of each iteration
             return s
-        live_edge = (valid & s.active.index_select(0, src_c)
-                     & s.active.index_select(0, dst_c))
-        fail_s = failed.index_select(0, src_c) & live_edge
-        fail_d = failed.index_select(0, dst_c) & live_edge
-        removed_directed = (fail_s | fail_d).sum(dtype=torch.int32)
-        delta_to_dst = peel_delta(fail_s, dst, n_nodes, kernel)
+        delta_to_dst, removed_directed = peel_edges(src, dst, s.active, failed,
+                                                    n_nodes, kernel)
         active_new = s.active & ~failed
         s = s._replace(
             deg=torch.where(active_new, s.deg - delta_to_dst, 0),

@@ -3,8 +3,8 @@
 Device formulation: the paper's two "parts" per pass map to
 
   part 1 (parallel fail-scan)   -> masked vector compare over all vertices
-  part 2 (atomic degree update) -> one segment-sum over the edge lanes
-                                   (core/dispatch.py:peel_delta)
+  part 2 (atomic degree update) -> one pass over the edge lanes: the fused
+                                   edge stage (core/dispatch.py:peel_edges)
   barrier                       -> the data dependence between passes
 
 State is fixed-shape (degree array + masks + 0-d tensors). The loop over
@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core.density import degrees_from_coo, peel_threshold
 from repro_torch.core.dispatch import (
-    assert_exact_envelope, peel_delta, resolve_device, resolve_kernel,
+    assert_exact_envelope, peel_edges, resolve_device, resolve_kernel,
 )
 from repro_torch.graphs.convert import to_device
 from repro_torch.graphs.graph import Graph
@@ -72,27 +72,16 @@ def pbahmani_pass(
     """One peeling pass: fail every live vertex with deg <= 2(1+eps)·rho.
 
     Edge-centric (load-balanced by construction — every edge does O(1)
-    work). ``kernel`` selects the sorted segment-sum K1 for the part-2
-    degree update (core/dispatch.py); results are bit-identical either way.
+    work). ``kernel`` selects the fused edge-stage kernel K2 for part 2
+    (core/dispatch.py); results are bit-identical either way.
     """
     thr = peel_threshold(state.n_e, state.n_v, eps)
     failed = state.active & (state.deg.to(torch.float32) <= thr)
 
-    src_c = src.clamp(max=n_nodes - 1)
-    dst_c = dst.clamp(max=n_nodes - 1)
-    valid = (src < n_nodes) & (dst < n_nodes)
-    live_edge = (valid & state.active.index_select(0, src_c)
-                 & state.active.index_select(0, dst_c))
-
-    fail_s = failed.index_select(0, src_c) & live_edge
-    fail_d = failed.index_select(0, dst_c) & live_edge
     # paper part 2: atomicSub on neighbor degrees -> one deterministic
-    # reduction onto dst. fail_s aggregated on *dst* counts, per survivor,
-    # its failed neighbors (the mirror entry of every (u failed -> v) edge
-    # lands the same information symmetrically).
-    delta_to_dst = peel_delta(fail_s, dst, n_nodes, kernel)
-
-    removed_directed = (fail_s | fail_d).sum(dtype=torch.int32)
+    # reduction onto dst, and the count of dying directed lanes
+    delta_to_dst, removed_directed = peel_edges(src, dst, state.active, failed,
+                                                n_nodes, kernel)
     n_e_new = state.n_e - removed_directed // 2
 
     active_new = state.active & ~failed
@@ -126,10 +115,10 @@ def pbahmani(
     Guarantee (Bahmani et al. 2012): best_density >= rho*(G) / (2 + 2·eps).
 
     ``device=None`` means the GPU, and raises where there is none.
-    ``kernel=None`` means the sorted segment-sum K1 on a CUDA device and the
-    scatter tier elsewhere; ``True`` forces K1 (its plain version on the
-    CPU). With K1 the edge lanes come from ``graph.dst_sorted()``, uploaded
-    once, and the triple is bit-identical to the scatter path.
+    ``kernel=None`` means the fused edge-stage kernel K2 on a CUDA device
+    and the scatter tier elsewhere; ``True`` forces K2 (its plain version on
+    the CPU). With K2 the edge lanes come from ``graph.dst_sorted()``,
+    uploaded once, and the triple is bit-identical to the scatter path.
 
     ``pruned=True`` runs the candidate-pruned peel (core/prune.py, with K3
     and K4 in its compaction ladder when ``kernel`` is on): the same triple.

@@ -17,8 +17,8 @@ module peels a *compacted fixed-shape subproblem* instead:
   3. the peel runs inside the bucket on the device, with a second,
      bucket-width compaction ladder for the trajectory's tail: K4
      (``kernels/compact.py:stream_compact``, K3 inside it) repacks the edge
-     lanes and pulls the degrees when ``kernel`` is on, and K1 carries every
-     pass's degree update.
+     lanes and pulls the degrees when ``kernel`` is on, and K2 carries every
+     pass's edge stage.
 
 Exactness-preservation invariant: the pruned peel returns the bit-identical
 (density, mask, passes) triple of the unpruned peel. Pass 0 is simulated
@@ -28,10 +28,10 @@ order-preserving relabelling, so every integer the recurrence reads is
 unchanged and every float32 scalar is computed from identical integers; best
 tracking uses the same strict ``>`` at every merge point.
 
-Order on the card: K1 needs dst-sorted lanes. ``_emit_buckets`` emits the
+Order on the card: K2 needs dst-sorted lanes. ``_emit_buckets`` emits the
 bucket dst-sorted, the ladder's compaction keeps lane order under the
 monotone ``perm``, and the fill (the child's vertex count) sorts after every
-live id, so every rung reaches K1 sorted.
+live id, so every rung reaches K2 sorted.
 
 This is the JAX package's ``core/prune.py`` without the vmapped and sharded
 variants (ROADMAP slices 9 and 11). Its ``lax.while_loop``s are host loops
@@ -360,7 +360,7 @@ def _bucket_peel_body(
     The host compaction emits compact ids as a dense prefix, so the live
     mask is ``arange < n_v`` and degrees are one bucket-width histogram: no
     full-lane-width work on the device. ``kernel`` routes the degree
-    updates (K1) and the ladder's compaction (K4) through the kernels; the
+    updates (K2) and the ladder's compaction (K4) through the kernels; the
     triple is bit-identical either way.
     """
     dev = b_src.device
@@ -432,7 +432,7 @@ def _emit_buckets(
     bucket_e: int,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Remap the slots ``idx`` into sentinel(=bucket_v)-padded symmetric COO
-    bucket arrays, **emitted dst-sorted**: K1's precondition, and it
+    bucket arrays, **emitted dst-sorted**: K2's precondition, and it
     survives every ladder rung without re-sorting. The scatter tier's sums
     are order-invariant, so the order changes nothing there. Returns (perm,
     bucket_src, bucket_dst)."""
@@ -583,7 +583,7 @@ def pruned_peel_host(
     Returns (density, mask, passes, observed_handoff, plan); ``plan`` may
     have grown or shrunk to the observed survivor set. Returns ``None``
     when the survivor set fits no legal bucket; the caller runs its
-    unpruned path. ``kernel`` selects K1 and K4 inside the bucket peel.
+    unpruned path. ``kernel`` selects K2 and K4 inside the bucket peel.
     ``mesh`` (the sharded bucket peel) is not ported yet and raises.
     """
     if mesh is not None:
@@ -609,7 +609,7 @@ def plan_for_graph(
     device: torch.device | str | None = None,
 ) -> PrunePlan:
     """Analyze a static graph on ``device``: rho~ bootstrap + candidate core
-    + buckets. ``kernel`` routes the analysis' core fixpoint through K1
+    + buckets. ``kernel`` routes the analysis' core fixpoint through K2
     (fed the cached dst-sorted lanes); the plan integers are identical."""
     device = resolve_device(device)
     n = graph.n_nodes

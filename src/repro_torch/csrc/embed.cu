@@ -156,8 +156,7 @@ extern "C" int segment_embed_f32(const void* tables, long long n_rows, int d, in
   if (n_bags <= 0 || d <= 0 || n_tables <= 0) return 0;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   int* off = static_cast<int*>(scratch);
-  row_offsets::launch<0>(static_cast<const int*>(seg), n_lanes, n_bags, off, nullptr,
-                         nullptr, stream);
+  row_offsets::launch(static_cast<const int*>(seg), n_lanes, n_bags, off, stream);
   const bool vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(tables) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const float* tab = static_cast<const float*>(tables);

@@ -1,5 +1,5 @@
-// Row offsets of sorted segment ids, shared by the segment-sum (K1,
-// segsum.cu) and the gather-and-segment-sum (K5, embed.cu).
+// Row offsets of sorted segment ids, shared by the segment-sum's [E, D] path
+// (K1, segsum.cu) and the gather-and-segment-sum (K5, embed.cu).
 //
 // For seg ascending over n_lanes lanes, fills off[r] = lower_bound(seg, r)
 // for every r in [0, n_rows], so the lanes of row r are [off[r], off[r+1]).
@@ -8,9 +8,6 @@
 //
 // One thread per lane, coalesced: lane e starts the rows (id[e-1], id[e]],
 // so it writes off[r] = e for them and every off[r] is written exactly once.
-// With LONG > 0 a lane that starts a run longer than LONG lanes also appends
-// its row to long_rows (K1 reduces those rows a warp each); with LONG == 0
-// no list is kept and long_rows, n_long may be null.
 
 #pragma once
 
@@ -31,32 +28,25 @@ __device__ __forceinline__ int row_of(const int* __restrict__ seg, long long e,
   return s < 0 ? -1 : (s > n_rows ? n_rows : s);
 }
 
-template <int LONG>
 __global__ void __launch_bounds__(THREADS)
 row_offsets_kernel(const int* __restrict__ seg, long long n_lanes, int n_rows,
-                   int* __restrict__ off, int* __restrict__ long_rows,
-                   int* __restrict__ n_long) {
+                   int* __restrict__ off) {
   const long long stride = static_cast<long long>(gridDim.x) * THREADS;
   for (long long e = blockIdx.x * static_cast<long long>(THREADS) + threadIdx.x;
        e <= n_lanes; e += stride) {
     const int cur = row_of(seg, e, n_lanes, n_rows);
     const int prev = row_of(seg, e - 1, n_lanes, n_rows);
     for (int r = prev + 1; r <= cur; ++r) off[r] = static_cast<int>(e);
-    if (LONG > 0 && cur > prev && cur < n_rows && e + LONG < n_lanes &&
-        seg[e + LONG] == cur)
-      long_rows[atomicAdd(n_long, 1)] = cur;  // list order is free; each row sums alone
   }
 }
 
 // Launches the pass on `stream` (n_lanes + 1 threads, grid-stride past
 // MAX_BLOCKS blocks). The caller checks cudaGetLastError().
-template <int LONG>
 inline void launch(const int* seg, long long n_lanes, int n_rows, int* off,
-                   int* long_rows, int* n_long, cudaStream_t stream) {
+                   cudaStream_t stream) {
   const long long blocks = (n_lanes + THREADS) / THREADS;
-  row_offsets_kernel<LONG><<<static_cast<int>(blocks < MAX_BLOCKS ? blocks : MAX_BLOCKS),
-                             THREADS, 0, stream>>>(seg, n_lanes, n_rows, off, long_rows,
-                                                   n_long);
+  row_offsets_kernel<<<static_cast<int>(blocks < MAX_BLOCKS ? blocks : MAX_BLOCKS), THREADS,
+                       0, stream>>>(seg, n_lanes, n_rows, off);
 }
 
 }  // namespace row_offsets

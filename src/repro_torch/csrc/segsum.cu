@@ -5,122 +5,132 @@
 // for seg ascending; ids outside [0, n_rows) contribute nothing.
 //
 // Replaces: src/repro/kernels/segsum.py:segment_sum_sorted (Pallas body
-// _segsum_kernel), the JAX package's one-hot MXU segment-sum. It carries the
-// peel's degree update (core/dispatch.py:peel_delta) for P-Bahmani and the
-// k-core fixpoint of CBDS-P.
+// _segsum_kernel), the JAX package's one-hot MXU segment-sum. It carries
+// core/dispatch.py:peel_delta, ops.segment_sum and the GNN caller to come;
+// the peel's own edge stage runs on the same core in peel.cu (K2).
 //
 // What bounds it: memory. Each lane is read once (a 4-byte id plus a 1- or
 // 4-byte value) and each row written once, against one add per lane, so the
 // least time is bytes / 3.35 TB/s: 23.7 us at the main path's shape (15.5 M
 // bool lanes onto 524 K int32 rows).
 //
-// What the design does about it: sortedness turns the scatter into a
-// reduction over contiguous runs, so no atomics on the sums and no sentinel
-// tail are needed, and the summation order depends only on the data (the
-// results are deterministic). The work is balanced by lanes, not by rows:
-// Graph500 RMAT graphs put a large share of the lanes on a few low vertex
-// ids (one row of 40 K lanes at scale 19), so a block that owned a fixed
-// range of consecutive rows would hold the card waiting on the first few
-// blocks. Two launches:
+// What the design does about it (D = 1): one pass of the segmented-reduction
+// core of seg_reduce.cuh. Warps own tiles of 512 consecutive lanes (balanced
+// by lanes, so RMAT's hub rows cost no more than any other lanes), load ids
+// and values with 16-byte vector loads, sum runs in registers and across the
+// warp by a segmented shuffle scan, and store each row from the thread that
+// ends it. Launches: a memset of the output; the reduction; for float32 a
+// short carry launch that adds the partials of rows crossing tile edges in
+// tile order (deterministic); int32 adds them with atomicAdd (exact).
+// Values may arrive as 1-byte bools, read 16 a load with no conversion pass;
+// values that start off a 16-byte boundary relative to the ids (a view such
+// as values[3:]) are read lane by lane.
 //
-//   1. row_offsets (row_offsets.cuh, shared with K5): one thread per lane,
-//      coalesced. Lane e starts the rows (id[e-1], id[e]], so it writes
-//      off[r] = e for them: every off[r] = lower_bound(seg, r) is written
-//      exactly once. A lane that starts a run longer than LONG lanes also
-//      appends its row to a list of long rows.
-//   2. reduce (D = 1): one thread per short row, which sums its run serially
-//      (consecutive threads read neighbouring runs, so the warp's loads share
-//      cache lines); and a fixed set of warps that take the long rows off
-//      the list, each long row reduced by one warp with 16-byte vector loads
-//      (16 bool lanes a load) and a shuffle tree. For D > 1, one warp per
-//      row with lanes over the columns.
+// D > 1 (not on the main path): the row-offset pass of row_offsets.cuh, then
+// one warp per row with lanes over the columns.
 //
-// Values may arrive as 1-byte bools; no conversion pass is made for them.
 // Launched on the caller's stream; it neither allocates nor synchronises:
-// the caller passes the scratch (row offsets and the long-row list).
+// the caller passes the scratch (float32 carries, or the D > 1 row offsets).
 // Each C entry point returns cudaGetLastError() after its launches.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "row_offsets.cuh"
+#include "seg_reduce.cuh"
 
 namespace {
 
+using seg_reduce::ITEMS;
+using seg_reduce::TILE;
+
 constexpr int THREADS = 256;       // 8 warps a block
 constexpr int WARPS = THREADS / 32;
-constexpr int LONG = 64;           // runs longer than this are reduced by a warp
-constexpr int LONG_BLOCKS = 1056;  // 8 448 warps: 64 on each of 132 SMs
-constexpr unsigned FULL = 0xffffffffu;
 
-template <typename A>
-__device__ __forceinline__ A warp_sum(A x) {
+__device__ __forceinline__ int from_bits(unsigned x, int) { return static_cast<int>(x); }
+__device__ __forceinline__ float from_bits(unsigned x, float) { return __uint_as_float(x); }
+
+// A chunk's 16 values as loaded: four bytes or one 4-byte value a word.
+template <typename T>
+struct RawVals {
+  unsigned w[ITEMS * sizeof(T) / 4];
+};
+
+// 16-byte loads when VEC (the chunk lies inside the lanes and the address is
+// aligned), else lane by lane; lanes outside [0, n_lanes) read 0.
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_vals(const T* __restrict__ vals, long long l0,
+                                          long long n_lanes, RawVals<T>& r) {
+  constexpr int N = ITEMS * sizeof(T) / 4;
+  if (VEC && l0 >= 0 && l0 + ITEMS <= n_lanes) {
+    const uint4* p = reinterpret_cast<const uint4*>(vals + l0);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(FULL, x, off);
-  return x;  // lane 0 holds the sum
+    for (int k = 0; k < N / 4; ++k) {
+      const uint4 q = __ldcs(p + k);
+      r.w[4 * k] = q.x, r.w[4 * k + 1] = q.y, r.w[4 * k + 2] = q.z, r.w[4 * k + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) r.w[k] = 0;
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const long long e = l0 + j;
+      if (e < 0 || e >= n_lanes) continue;
+      if constexpr (sizeof(T) == 1)
+        r.w[j / 4] |= static_cast<unsigned>(vals[e]) << (8 * (j % 4));
+      else
+        r.w[j] = reinterpret_cast<const unsigned*>(vals)[e];
+    }
+  }
 }
 
-// Sum of one 16-byte vector of values, in the accumulator's type.
-template <typename T, typename A> struct Vec;
-template <> struct Vec<float, float> {
-  static constexpr int N = 4;
-  __device__ static float sum(uint4 v) {
-    return __uint_as_float(v.x) + __uint_as_float(v.y) + __uint_as_float(v.z) +
-           __uint_as_float(v.w);
-  }
-};
-template <> struct Vec<int, int> {
-  static constexpr int N = 4;
-  __device__ static int sum(uint4 v) {
-    return static_cast<int>(v.x + v.y + v.z + v.w);
-  }
-};
-template <> struct Vec<unsigned char, int> {
-  static constexpr int N = 16;
-  __device__ static int sum(uint4 v) {  // byte sums of each word
-    return static_cast<int>(__vsadu4(v.x, 0u) + __vsadu4(v.y, 0u) +
-                            __vsadu4(v.z, 0u) + __vsadu4(v.w, 0u));
-  }
-};
-
 template <typename T, typename A>
+__device__ __forceinline__ A lane_val(const RawVals<T>& r, int j) {
+  if constexpr (sizeof(T) == 1)
+    return static_cast<A>((r.w[j / 4] >> (8 * (j % 4))) & 0xffu);
+  else
+    return static_cast<A>(from_bits(r.w[j], T()));
+}
+
+// D = 1: warp tiles walked grid-stride. int32 sums add the crossing rows
+// with atomicAdd; float32 sums write them to the carry slots (2 a tile).
+template <typename T, typename A, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-reduce_d1_kernel(const T* __restrict__ vals, const int* __restrict__ off, int n_rows,
-                 int n_short_blocks, const int* __restrict__ long_rows,
-                 const int* __restrict__ n_long, A* __restrict__ out) {
-  if (blockIdx.x < n_short_blocks) {
-    const int r = blockIdx.x * THREADS + threadIdx.x;
-    if (r >= n_rows) return;
-    const int a = off[r], b = off[r + 1];
-    if (b - a > LONG) return;  // on the long-row list
-    A acc = 0;
-    for (int e = a; e < b; ++e) acc += static_cast<A>(vals[e]);
-    out[r] = acc;
-    return;
-  }
-  // Long rows: one warp per row off the list, 16-byte loads for the aligned
-  // body, scalar lanes for the unaligned head and the tail (< 16 lanes each).
-  using V = Vec<T, A>;
-  const int lane = threadIdx.x & 31;
-  const int count = *n_long;
-  const int n_warps = (gridDim.x - n_short_blocks) * WARPS;
-  for (int k = (blockIdx.x - n_short_blocks) * WARPS + (threadIdx.x >> 5); k < count;
-       k += n_warps) {
-    const int r = long_rows[k];
-    const int a = off[r], b = off[r + 1];
-    const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(vals + a) % 16 / sizeof(T));
-    const int body = mis ? min(b, a + (V::N - mis)) : a;  // first aligned lane
-    const int n_vec = (b - body) / V::N;
-    const int tail = body + n_vec * V::N;
-    A acc = 0;
-    if (lane < body - a) acc += static_cast<A>(vals[a + lane]);
-    if (lane < b - tail) acc += static_cast<A>(vals[tail + lane]);
-    const uint4* vec = reinterpret_cast<const uint4*>(vals + body);
-#pragma unroll 4
-    for (int i = lane; i < n_vec; i += 32) acc += V::sum(vec[i]);
-    acc = warp_sum(acc);
-    if (lane == 0) out[r] = acc;
-  }
+reduce_d1_kernel(const T* __restrict__ vals, const int* __restrict__ seg,
+                 long long n_lanes, int pad, long long n_tiles, int n_rows,
+                 A* __restrict__ out, int* __restrict__ carry_rows,
+                 A* __restrict__ carry_vals) {
+  using Chunk = seg_reduce::Chunk<RawVals<T>>;
+  seg_reduce::walk_tiles<RawVals<T>>(
+      seg, n_lanes, pad, n_tiles, n_rows, WARPS,
+      [&](long long l0, RawVals<T>& r) { load_vals<T, VEC>(vals, l0, n_lanes, r); },
+      [&](long long t, const Chunk& c) {
+        A v[ITEMS];
+#pragma unroll
+        for (int j = 0; j < ITEMS; ++j) v[j] = lane_val<T, A>(c.extra, j);
+        const auto carry = seg_reduce::reduce_tile<A>(
+            c.rows, v, c.prev, c.next, n_rows, [&](int r, A total) { out[r] = total; });
+        if ((threadIdx.x & 31) != 0) return;
+        if constexpr (std::is_integral<A>::value) {  // int32: exact atomics
+          if (carry.head_row >= 0) atomicAdd(out + carry.head_row, carry.head_val);
+          if (carry.tail_row >= 0) atomicAdd(out + carry.tail_row, carry.tail_val);
+        } else {
+          carry_rows[2 * t] = carry.head_row;
+          carry_vals[2 * t] = carry.head_val;
+          carry_rows[2 * t + 1] = carry.tail_row;
+          carry_vals[2 * t + 1] = carry.tail_val;
+        }
+      });
+}
+
+template <typename T, typename A, bool VEC>
+void launch_d1(const T* vals, const int* seg, long long n_lanes, int pad, long long n_tiles,
+               int n_rows, A* out, int* carry_rows, A* carry_vals, cudaStream_t stream) {
+  auto kernel = reduce_d1_kernel<T, A, VEC>;
+  const int blocks = seg_reduce::persistent_blocks(kernel, THREADS, 0, n_tiles);
+  kernel<<<blocks, THREADS, 0, stream>>>(vals, seg, n_lanes, pad, n_tiles, n_rows, out,
+                                         carry_rows, carry_vals);
 }
 
 // D > 1: one warp per row (grid-stride), lanes over the columns.
@@ -142,37 +152,57 @@ reduce_dn_kernel(const T* __restrict__ vals, const int* __restrict__ off, int n_
 }
 
 template <typename T, typename A>
-int launch(const void* vals, const void* seg, long long n_lanes, int n_rows, int d,
-           void* out, void* scratch, void* stream_ptr) {
+int launch(const void* vals_ptr, const void* seg_ptr, long long n_lanes, int n_rows, int d,
+           void* out_ptr, void* scratch, void* stream_ptr) {
   if (n_rows <= 0 || d <= 0) return 0;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  // scratch: off [n_rows + 1], n_long [1], long_rows [n_lanes / LONG + 1]
-  int* off = static_cast<int*>(scratch);
-  int* n_long = off + n_rows + 1;
-  int* long_rows = n_long + 1;
-  const cudaError_t err = cudaMemsetAsync(n_long, 0, sizeof(int), stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  row_offsets::launch<LONG>(static_cast<const int*>(seg), n_lanes, n_rows, off, long_rows,
-                            n_long, stream);
+  const T* vals = static_cast<const T*>(vals_ptr);
+  const int* seg = static_cast<const int*>(seg_ptr);
+  A* out = static_cast<A*>(out_ptr);
   if (d == 1) {
-    const int short_blocks = (n_rows + THREADS - 1) / THREADS;
-    reduce_d1_kernel<T, A><<<short_blocks + LONG_BLOCKS, THREADS, 0, stream>>>(
-        static_cast<const T*>(vals), off, n_rows, short_blocks, long_rows, n_long,
-        static_cast<A*>(out));
-  } else {
-    const long long row_blocks = (static_cast<long long>(n_rows) + WARPS - 1) / WARPS;
-    reduce_dn_kernel<T, A><<<static_cast<int>(row_blocks < 8448 ? row_blocks : 8448),
-                             THREADS, 0, stream>>>(static_cast<const T*>(vals), off,
-                                                   n_rows, d, static_cast<A*>(out));
+    const cudaError_t err = cudaMemsetAsync(out, 0, sizeof(A) * n_rows, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (n_lanes == 0) return static_cast<int>(cudaGetLastError());
+    const int pad = seg_reduce::pad_of(seg);
+    const long long n_tiles = seg_reduce::tiles_of(n_lanes, pad);
+    // scratch (float32 sums only): carry rows [2 * n_tiles], then values
+    int* carry_rows = static_cast<int*>(scratch);
+    A* carry_vals = reinterpret_cast<A*>(carry_rows + 2 * n_tiles);
+    // values take 16-byte loads when their chunks start on the ids' 16-byte
+    // boundary, lane-by-lane loads otherwise
+    const bool vec = (reinterpret_cast<uintptr_t>(vals) - sizeof(T) * pad) % 16 == 0;
+    if (vec)
+      launch_d1<T, A, true>(vals, seg, n_lanes, pad, n_tiles, n_rows, out, carry_rows,
+                            carry_vals, stream);
+    else
+      launch_d1<T, A, false>(vals, seg, n_lanes, pad, n_tiles, n_rows, out, carry_rows,
+                             carry_vals, stream);
+    if constexpr (!std::is_integral<A>::value) {  // float32: add the carries in tile order
+      const long long blocks = (n_tiles + THREADS - 1) / THREADS;
+      seg_reduce::carry_f32_kernel<<<static_cast<int>(blocks < 8448 ? blocks : 8448),
+                                     THREADS, 0, stream>>>(carry_rows, carry_vals, n_tiles,
+                                                           out);
+    }
+    return static_cast<int>(cudaGetLastError());
   }
+  // D > 1: scratch holds the row offsets [n_rows + 1]
+  int* off = static_cast<int*>(scratch);
+  row_offsets::launch(seg, n_lanes, n_rows, off, stream);
+  const long long row_blocks = (static_cast<long long>(n_rows) + WARPS - 1) / WARPS;
+  reduce_dn_kernel<T, A><<<static_cast<int>(row_blocks < 8448 ? row_blocks : 8448), THREADS,
+                           0, stream>>>(vals, off, n_rows, d, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Scratch ints the caller must pass for n_lanes lanes onto n_rows rows.
-extern "C" long long segsum_scratch_ints(long long n_lanes, int n_rows) {
-  return static_cast<long long>(n_rows) + 2 + n_lanes / LONG + 1;
+// Scratch ints the caller must pass for n_lanes lanes onto n_rows rows of
+// width d: the float32 carries at d = 1 (for any alignment of the ids), the
+// row offsets at d > 1, none for int32 sums at d = 1.
+extern "C" long long segsum_scratch_ints(long long n_lanes, int n_rows, int d,
+                                         int float_sums) {
+  if (d > 1) return static_cast<long long>(n_rows) + 1;
+  return float_sums ? 4 * seg_reduce::tiles_of(n_lanes, 3) : 0;
 }
 
 // float32 values -> float32 sums, [E] or [E, d] row-major.

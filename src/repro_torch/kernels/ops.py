@@ -1,5 +1,5 @@
-"""Public kernel ops over the sorted segment-sum (K1) and the fused
-gather-and-segment-sum (K5).
+"""Public kernel ops over the sorted segment-sum (K1), the fused peel edge
+stage (K2) and the fused gather-and-segment-sum (K5).
 
 Edges must be sorted by the segment id for the kernel. ``Graph`` caches a
 dst-sorted view (``graphs.graph.Graph.dst_sorted``, uploaded once by
@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.embed import segment_embed_sorted
+from repro_torch.kernels.peel import peel_edges_sorted
 from repro_torch.kernels.segsum import segment_sum_sorted
 
 unsorted_fallback_count = 0  # presorted=False calls, each one a full sort
@@ -49,12 +50,15 @@ def peel_update(
     """Paper part 2 (the OpenMP atomicSub loop): per-vertex count of failed
     neighbors, **int32** (the peel recurrence's type). ``src``/``dst`` are
     the symmetric COO lanes (sentinel-padded); for the kernel they must be
-    sorted by ``dst``. The sum runs in int32, exact at any size."""
-    src_c = src.clamp(max=n_nodes - 1)
-    valid = (src < n_nodes) & (dst < n_nodes)
-    vals = failed.index_select(0, src_c) & valid
-    return segment_sum(vals, dst, num_segments=n_nodes, presorted=presorted,
-                       out_dtype=torch.int32)
+    sorted by ``dst`` (``presorted=False`` sorts them first, stably, and
+    counts it). The JAX package's contract: every valid lane counts, with no
+    live mask; it is K2 with ``active=None``. Exact at any size."""
+    global unsorted_fallback_count
+    if not presorted:
+        unsorted_fallback_count += 1
+        dst, order = torch.sort(dst, stable=True)
+        src = src.index_select(0, order)
+    return peel_edges_sorted(src, dst, None, failed, n_nodes=n_nodes)[0]
 
 
 def segment_embed(

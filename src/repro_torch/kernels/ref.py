@@ -31,15 +31,38 @@ def segment_sum_ref(
     return out[:, 0] if squeeze else out
 
 
+def peel_edges_ref(
+    src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor | None,
+    failed: torch.Tensor, n_nodes: int, charge: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """The peel's edge stage over symmetric COO lanes (ids in [0, n_nodes],
+    n_nodes the sentinel): a lane is live when both ends are valid and
+    active (``active`` None: every vertex), ``fs``/``fd`` when its src/dst
+    failed too. Returns int32 ``(delta, removed)``, with ``delta[v]`` the
+    ``fs`` lanes onto dst v and ``removed`` the count of ``fs | fd`` lanes;
+    with ``charge`` also ``inc[v]``, the lanes onto v that charge their
+    dying edge to v (``fd & (~fs | dst < src)``, refinement's loads)."""
+    src_c = src.clamp(max=n_nodes - 1)
+    dst_c = dst.clamp(max=n_nodes - 1)
+    live = (src < n_nodes) & (dst < n_nodes)
+    if active is not None:
+        live = live & active.index_select(0, src_c) & active.index_select(0, dst_c)
+    fail_s = failed.index_select(0, src_c) & live
+    fail_d = failed.index_select(0, dst_c) & live
+    out = (segment_sum_ref(fail_s, dst, n_nodes, torch.int32),
+           (fail_s | fail_d).sum(dtype=torch.int32))
+    if not charge:
+        return out
+    assign_d = fail_d & (~fail_s | (dst_c < src_c))
+    return out + (segment_sum_ref(assign_d, dst, n_nodes, torch.int32),)
+
+
 def peel_update_ref(
     src: torch.Tensor, dst: torch.Tensor, failed: torch.Tensor, n_nodes: int,
 ) -> torch.Tensor:
     """Paper part 2: delta[v] = # failed neighbors of v (atomicSub analogue),
     int32 (the peel recurrence's type)."""
-    src_c = src.clamp(max=n_nodes - 1)
-    valid = (src < n_nodes) & (dst < n_nodes)
-    vals = failed.index_select(0, src_c) & valid
-    return segment_sum_ref(vals, dst, n_nodes, out_dtype=torch.int32)
+    return peel_edges_ref(src, dst, None, failed, n_nodes)[0]
 
 
 def segment_embed_ref(
@@ -90,5 +113,5 @@ def stream_compact_ref(
     return out
 
 
-__all__ = ["segment_sum_ref", "peel_update_ref", "segment_embed_ref",
-           "prefix_sum_ref", "stream_compact_ref"]
+__all__ = ["segment_sum_ref", "peel_edges_ref", "peel_update_ref",
+           "segment_embed_ref", "prefix_sum_ref", "stream_compact_ref"]

@@ -1,8 +1,9 @@
 """K1 on Hopper: the sorted segment-sum as a CUDA kernel written by hand.
 
 Replaces the JAX package's ``kernels/segsum.py:segment_sum_sorted`` (a
-one-hot MXU grid on the TPU). The kernel is ``csrc/segsum.cu``; its header
-says what bounds it and how its design answers that. It computes exactly
+one-hot MXU grid on the TPU). The kernel is ``csrc/segsum.cu`` on the
+one-pass segmented-reduction core ``csrc/seg_reduce.cuh``; their headers
+say what bounds it and how the design answers that. It computes exactly
 K1's function:
 
     out[v, :] = sum over e with seg_ids[e] == v of values[e, :]
@@ -57,7 +58,8 @@ def load_library() -> ctypes.CDLL:
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.segsum_scratch_ints.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    lib.segsum_scratch_ints.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_int]
     lib.segsum_scratch_ints.restype = ctypes.c_longlong
     _lib = lib
     return lib
@@ -82,9 +84,10 @@ def segment_sum_sorted(
 
     Returns [V] (for 1-D values) or [V, D] of ``out_dtype``. On a CPU tensor
     this is the plain version (``ref.segment_sum_ref``), after a check that
-    the ids ascend (``ValueError`` if not); on a CUDA tensor
-    it is one call of the kernel (two CUDA launches: row offsets, then the
-    reduction), counted once in ``launches``.
+    the ids ascend (``ValueError`` if not); on a CUDA tensor it is one call
+    of the kernel, counted once in ``launches`` (for 1-D values a memset and
+    one pass over the lanes, plus a short carry launch for float32 sums; for
+    [E, D] values a row-offset pass and a warp per row).
     """
     global launches
     accepted = _ACCEPTS.get(out_dtype)
@@ -124,8 +127,9 @@ def segment_sum_sorted(
                       dtype=out_dtype, device=values.device)
     if num_segments == 0 or d == 0:
         return out
-    # row offsets and the long-row list, filled by the kernel's first launch
-    scratch = torch.empty(lib.segsum_scratch_ints(n_lanes, num_segments),
+    # float32 carries at d = 1, row offsets at d > 1 (none for int32 at d = 1)
+    scratch = torch.empty(lib.segsum_scratch_ints(n_lanes, num_segments, d,
+                                                  int(out_dtype == torch.float32)),
                           dtype=torch.int32, device=values.device)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -52,10 +52,11 @@ class DCNConfig:
 class DCNv2(nn.Module):
     """DCN-v2's parameters and forward. The parameters are allocated, not
     initialised: ``dcn_init`` draws them, ``convert.dcn_params_from_jax``
-    copies JAX's."""
+    copies JAX's. ``device`` None means the GPU, and raises without one."""
 
     def __init__(self, cfg: DCNConfig, *, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         d_in = cfg.d_in
         self.tables = nn.Parameter(torch.empty(cfg.n_sparse, cfg.table_rows, cfg.embed_dim,

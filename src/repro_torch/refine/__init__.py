@@ -3,7 +3,7 @@
 # certificates, between the (2+2eps)-approximate peels and the exact flow
 # solver.
 #
-#   loads.py   — edge-load state + the weighted-peel pass and round (K1)
+#   loads.py   — edge-load state + the weighted-peel pass and round (K2)
 #   certify.py — LP-duality gap certificates (exact ints) + numpy bit-oracle
 #   engine.py  — refine(graph, target_gap=...) anytime API with history
 from repro_torch.refine.certify import (

@@ -85,7 +85,7 @@ def refine_resident(
     history). The loop stops as soon as ``rel_gap <= target_gap``; a
     negative target runs exactly ``max_rounds`` rounds. ``max_rounds`` is
     floored at 1: a certificate needs a load round for its dual side.
-    ``kernel`` routes each round's reductions through K1 (the caller
+    ``kernel`` routes each round's edge stage through K2 (the caller
     supplies dst-sorted lanes); certificates are bit-identical either way.
     ``mesh`` (rounds over sharded lanes) is not ported yet and raises.
     """
@@ -157,7 +157,7 @@ def refine(
     routes the seed through the candidate-pruned path). The result's
     ``density`` is certified within ``rel_gap`` of the optimum and is never
     below the seed's (exact-rational guard, not a float comparison).
-    ``device`` and ``kernel`` resolve as in ``pbahmani``; with K1 the lanes
+    ``device`` and ``kernel`` resolve as in ``pbahmani``; with K2 the lanes
     are the cached dst-sorted view, and the certificates are the same.
     """
     device = resolve_device(device)

@@ -33,7 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.dispatch import peel_delta
+from repro_torch.core.dispatch import peel_edges
 
 
 class RefinePeelState(NamedTuple):
@@ -96,32 +96,18 @@ def refine_pass(
     live vertex with load+deg <= threshold (or at the live minimum), charge
     each dying edge to exactly one failing endpoint (the smaller id wins a
     tie), and decrement survivor degrees: ``pbahmani_pass`` plus loads.
-    ``kernel`` routes both reductions through K1 (dst-sorted lanes); the
-    trajectory is bit-identical either way."""
+    ``kernel`` routes the edge stage, both reductions and the charges,
+    through the fused kernel K2 (dst-sorted lanes); the trajectory is
+    bit-identical either way."""
     key = (state.loads + state.deg).to(torch.float32)
     thr = refine_threshold(state.load_sum, state.n_e, state.n_v, eps)
     min_key = torch.where(state.active, key, torch.inf).min()
     failed = state.active & ((key <= thr) | (key <= min_key))
 
-    src_c = src.clamp(max=n_nodes - 1)
-    dst_c = dst.clamp(max=n_nodes - 1)
-    valid = (src < n_nodes) & (dst < n_nodes)
-    live_edge = (valid & state.active.index_select(0, src_c)
-                 & state.active.index_select(0, dst_c))
-    fail_s = failed.index_select(0, src_c) & live_edge
-    fail_d = failed.index_select(0, dst_c) & live_edge
-
-    # survivor degree decrement: mirror-entry aggregation as in pbahmani_pass
-    delta_to_dst = peel_delta(fail_s, dst, n_nodes, kernel)
-    # edge charging: (u->v) charges u iff u failed and (v survived or u<v);
-    # exactly one of the two directed entries charges. Aggregated on *dst*
-    # via the mirror identity (lane (v->u) has its src-side charge equal to
-    # this lane's assign_d), so both reductions run over the dst-sorted
-    # layout K1 needs.
-    assign_d = fail_d & (~fail_s | (dst_c < src_c))
-    inc = peel_delta(assign_d, dst, n_nodes, kernel)
-
-    removed_directed = (fail_s | fail_d).sum(dtype=torch.int32)
+    # survivor degree decrement as in pbahmani_pass, and each dying edge
+    # charged to one failing endpoint (core/dispatch.py:peel_edges)
+    delta_to_dst, removed_directed, inc = peel_edges(
+        src, dst, state.active, failed, n_nodes, kernel, charge=True)
     n_e_new = state.n_e - removed_directed // 2
     active_new = state.active & ~failed
     deg_new = torch.where(active_new, state.deg - delta_to_dst, 0)

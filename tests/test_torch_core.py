@@ -208,3 +208,143 @@ def test_whole_slice_rmat():
         np.testing.assert_array_equal(got[0], want_core[0])
         assert (_bits(got[1]), *got[2:]) == (_bits(want_core[1]), *want_core[2:])
         assert_same_cbds(tcore.cbds_p(tg, rounds=1, kernel=kernel, device="cpu"), want_cbds)
+
+
+# ---------------------------------------------------------------------------
+# The fused edge stage (K2, core/dispatch.py:peel_edges) against one JAX
+# pass from the same numpy-seeded state, kernel on (K2's plain version on
+# dst-sorted lanes) and off (the scatter tier)
+# ---------------------------------------------------------------------------
+PEEL_CASES = ["sentinel", "src_past_n", "all_failed", "none_failed", "all_dead",
+              "isolated", "hub"]
+
+
+def peel_case(name, seed=0):
+    """(n, src, dst, active, failed): dst-sorted symmetric COO lanes padded
+    with sentinel lanes (src = dst = n), a live mask and a failed subset of
+    it, each made from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    n = {"isolated": 200, "hub": 1500}.get(name, 64)
+    k = 40 if name == "isolated" else n  # vertices 40.. of "isolated" have no edges
+    u = rng.integers(0, k, 4 * n)
+    v = rng.integers(0, k, 4 * n)
+    if name == "hub":  # vertex 3 joined to every other vertex
+        u = np.r_[u, np.full(n, 3)]
+        v = np.r_[v, np.arange(n)]
+    keep = u != v
+    src, dst = np.r_[u[keep], v[keep]], np.r_[v[keep], u[keep]]
+    if name == "src_past_n":  # lanes whose src is past the sentinel
+        src[:30] = n + rng.integers(0, 4, 30)
+    order = np.argsort(dst, kind="stable")
+    pad = 17
+    src = np.r_[src[order], np.full(pad, n)].astype(np.int32)
+    dst = np.r_[dst[order], np.full(pad, n)].astype(np.int32)
+    active = rng.random(n) < (0.0 if name == "all_dead" else 0.85)
+    failed = active & ({"all_failed": 1.0, "none_failed": 0.0}.get(name, 0.3)
+                       > rng.random(n))
+    return n, src, dst, active, failed
+
+
+def peel_oracle(n, src, dst, active, failed):
+    """numpy: (delta, removed, inc) of the edge stage."""
+    s, d = src.astype(np.int64), dst.astype(np.int64)
+    ok = (s < n) & (d < n)
+    sc, dc = np.minimum(s, n - 1), np.minimum(d, n - 1)
+    live = ok & active[sc] & active[dc]
+    fs, fd = failed[sc] & live, failed[dc] & live
+    assign = fd & (~fs | (dc < sc))
+    return (np.bincount(dc[fs], minlength=n).astype(np.int32), int((fs | fd).sum()),
+            np.bincount(dc[assign], minlength=n).astype(np.int32))
+
+
+def _pass_state(n, src, dst, active, failed, rng):
+    """deg 0 on the failed vertices and far above any threshold elsewhere, so
+    a pass fails exactly ``failed``; counts as the live subgraph's."""
+    deg = np.where(active, np.where(failed, 0, 1 << 20), 0).astype(np.int32)
+    n_v = int(active.sum())
+    ok = (src < n) & (dst < n)
+    live = ok & active[np.minimum(src, n - 1)] & active[np.minimum(dst, n - 1)]
+    n_e = int(live.sum()) // 2
+    loads = np.where(active, rng.integers(0, 3, n), 0).astype(np.int32)
+    return deg, n_v, n_e, loads
+
+
+@pytest.mark.parametrize("case", PEEL_CASES)
+@pytest.mark.parametrize("kernel", [False, True])
+def test_peel_edges_matches_oracle(case, kernel):
+    n, src, dst, active, failed = peel_case(case)
+    want = peel_oracle(n, src, dst, active, failed)
+    t = [torch.from_numpy(a) for a in (src, dst, active, failed)]
+    delta, removed = tdispatch.peel_edges(*t, n, kernel)
+    got = tdispatch.peel_edges(*t, n, kernel, charge=True)
+    assert all(x.dtype == torch.int32 for x in got) and removed.dim() == 0
+    np.testing.assert_array_equal(delta.numpy(), want[0])
+    assert int(removed) == want[1]
+    for x, w in zip(got, want):
+        np.testing.assert_array_equal(x.numpy(), w)
+
+
+@pytest.mark.parametrize("case", PEEL_CASES)
+def test_peel_edges_matches_jax_pbahmani_pass(case):
+    """One pass from the same state: the port's whole new state equals
+    JAX's, kernel on and off, and delta/removed read back from JAX's state
+    (deg - deg_new on survivors, n_e - n_e_new) equal peel_edges'."""
+    from repro.core.pbahmani import PeelState as JState, pbahmani_pass as jpass
+    from repro_torch.core.pbahmani import PeelState as TState, pbahmani_pass as tpass
+
+    n, src, dst, active, failed = peel_case(case)
+    deg, n_v, n_e, _ = _pass_state(n, src, dst, active, failed, np.random.default_rng(1))
+    mask = np.zeros(n, bool)
+    jstate = JState(jnp.asarray(deg), jnp.asarray(active), jnp.int32(n_v),
+                           jnp.int32(n_e), jnp.float32(0.0), jnp.asarray(mask), jnp.int32(0))
+    want = jpass(jstate, jnp.asarray(src), jnp.asarray(dst), n, 0.1)
+    surv = np.asarray(want.active)
+    t = [torch.from_numpy(a) for a in (src, dst, active, failed)]
+    for kernel in (False, True):
+        tstate = TState(torch.from_numpy(deg), torch.from_numpy(active),
+                               torch.tensor(n_v, dtype=torch.int32),
+                               torch.tensor(n_e, dtype=torch.int32), torch.tensor(0.0),
+                               torch.from_numpy(mask), torch.tensor(0, dtype=torch.int32))
+        got = tpass(tstate, t[0], t[1], n, 0.1, kernel)
+        for field, w in zip(got, want):
+            np.testing.assert_array_equal(field.numpy(), np.asarray(w))
+        delta, removed = tdispatch.peel_edges(*t, n, kernel)
+        np.testing.assert_array_equal(np.asarray(want.deg)[surv], deg[surv] - delta.numpy()[surv])
+        assert n_e - int(want.n_e) == int(removed) // 2
+    np.testing.assert_array_equal(np.asarray(want.active), active & ~failed)
+
+
+@pytest.mark.parametrize("case", PEEL_CASES)
+def test_peel_edges_matches_jax_refine_pass(case):
+    """One refinement pass from the same state: the port's new state equals
+    JAX's, kernel on and off, and JAX's loads_new - loads equals inc (the
+    edge charges) with the failed set the pass chose."""
+    import repro.refine.loads as jl
+    import repro_torch.refine.loads as tl
+
+    n, src, dst, active, failed = peel_case(case)
+    deg, n_v, n_e, loads = _pass_state(n, src, dst, active, failed, np.random.default_rng(2))
+    load_sum = int(loads[active].sum())
+    mask = np.zeros(n, bool)
+    jstate = jl.RefinePeelState(
+        jnp.asarray(deg), jnp.asarray(loads), jnp.asarray(active), jnp.int32(n_v),
+        jnp.int32(n_e), jnp.int32(load_sum), jnp.float32(0.0), jnp.int32(0), jnp.int32(0),
+        jnp.asarray(mask), jnp.int32(0))
+    want = jl.refine_pass(jstate, jnp.asarray(src), jnp.asarray(dst), n, 0.1)
+    chosen = active & ~np.asarray(want.active)   # the failed set of this pass
+    t = [torch.from_numpy(a) for a in (src, dst, active, chosen)]
+    for kernel in (False, True):
+        tstate = tl.RefinePeelState(
+            torch.from_numpy(deg), torch.from_numpy(loads), torch.from_numpy(active),
+            *(torch.tensor(x, dtype=torch.int32) for x in (n_v, n_e, load_sum)),
+            torch.tensor(0.0), torch.tensor(0, dtype=torch.int32),
+            torch.tensor(0, dtype=torch.int32), torch.from_numpy(mask),
+            torch.tensor(0, dtype=torch.int32))
+        got = tl.refine_pass(tstate, t[0], t[1], n, 0.1, kernel)
+        for field, w in zip(got, want):
+            np.testing.assert_array_equal(field.numpy(), np.asarray(w))
+        delta, removed, inc = tdispatch.peel_edges(*t, n, kernel, charge=True)
+        np.testing.assert_array_equal(np.asarray(want.loads) - loads, inc.numpy())
+        assert n_e - int(want.n_e) == int(removed) // 2
+        oracle = peel_oracle(n, src, dst, active, chosen)
+        np.testing.assert_array_equal(delta.numpy(), oracle[0])

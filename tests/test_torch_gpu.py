@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import cbds_p, kcore_decompose, pbahmani, pbahmani_np  # noqa: E402
 from repro_torch.data import recsys_batches  # noqa: E402
 from repro_torch.graphs.generators import planted_dense, rmat  # noqa: E402
-from repro_torch.kernels import compact, embed, ops, ref, segsum  # noqa: E402
+from repro_torch.kernels import compact, embed, ops, peel, ref, segsum  # noqa: E402
 from repro_torch.launch import build_step  # noqa: E402
 from repro_torch.models import DCNConfig, dcn_init, embedding_bag  # noqa: E402
 from repro_torch.refine import refine  # noqa: E402
@@ -109,11 +109,11 @@ def test_peel_update_matches_plain(cuda):
 
 @pytest.mark.parametrize("eps", [0.0, 0.1])
 def test_pbahmani_kernel_on_card(cuda, eps):
-    """Kernel on == kernel off == the numpy oracle, one K1 call a pass."""
+    """Kernel on == kernel off == the numpy oracle, one K2 call a pass."""
     g = rmat(12, 16, seed=0)
-    before = segsum.launches
+    before = peel.launches
     on = pbahmani(g, eps=eps, kernel=True, device=cuda)
-    assert segsum.launches == before + on[2]
+    assert peel.launches == before + on[2]
     off = pbahmani(g, eps=eps, kernel=False, device=cuda)
     want = pbahmani_np(g, eps=eps)
     assert on[0] == off[0] and on[2] == off[2] == want[2]
@@ -124,12 +124,158 @@ def test_pbahmani_kernel_on_card(cuda, eps):
 
 def test_kcore_and_cbds_kernel_on_card(cuda):
     g = rmat(12, 16, seed=0)
-    on, off = (kcore_decompose(g, kernel=k, device=cuda) for k in (True, False))
+    before = peel.launches
+    on = kcore_decompose(g, kernel=True, device=cuda)
+    assert peel.launches > before
+    off = kcore_decompose(g, kernel=False, device=cuda)
     np.testing.assert_array_equal(on[0], off[0])
     assert on[1:] == off[1:]
-    c_on, c_off = (cbds_p(g, rounds=3, kernel=k, device=cuda) for k in (True, False))
+    before = segsum.launches
+    c_on = cbds_p(g, rounds=3, kernel=True, device=cuda)
+    assert segsum.launches == before + 3  # K1: one e_into sum a round
+    c_off = cbds_p(g, rounds=3, kernel=False, device=cuda)
     np.testing.assert_array_equal(c_on.pop("member_mask"), c_off.pop("member_mask"))
     assert c_on == c_off
+
+
+# ---------------------------------------------------------------------------
+# K1 on the one-pass segmented-reduction core: rows across warp tiles
+# (seg_reduce.cuh: 512 lanes a tile), empty rows at tile edges, views off
+# the 16-byte boundary, lane counts off a multiple of 16, float32 sums
+# bitwise equal across runs
+# ---------------------------------------------------------------------------
+TILE = 512
+
+
+def _tile_edge_lanes(rng):
+    """Rows ending just before, on and after tile edges, a row longer than
+    four tiles, and gaps of empty rows where tiles meet."""
+    rows = [np.zeros(4 * TILE + 37, np.int32), np.full(TILE - 38, 2, np.int32),
+            np.full(1, 5, np.int32), np.full(TILE, 9, np.int32),
+            np.repeat(np.arange(12, 12 + 2 * 300, 2), 3).astype(np.int32),
+            np.full(7, 700, np.int32)]
+    return np.r_[np.full(3, -1, np.int32), np.concatenate(rows), np.full(5, 701, np.int32)]
+
+
+def _values(rng, kind, shape):
+    return {"bool": lambda: rng.random(shape) < 0.5,
+            "int32": lambda: rng.integers(-3, 4, shape).astype(np.int32),
+            "quarters": lambda: (rng.integers(-8, 8, shape) / 4).astype(np.float32)}[kind]()
+
+
+@pytest.mark.parametrize("kind", ["bool", "int32", "quarters"])
+@pytest.mark.parametrize("lanes", ["3 tiles + 5", "tile edges", "2^20 + 3 random"])
+def test_kernel_tiles(cuda, kind, lanes):
+    rng = np.random.default_rng(len(lanes) + len(kind))
+    seg = {"3 tiles + 5": lambda: np.sort(rng.integers(0, 40, 3 * TILE + 5)).astype(np.int32),
+           "tile edges": lambda: _tile_edge_lanes(rng),
+           "2^20 + 3 random": lambda: np.sort(rng.integers(0, 50_000, (1 << 20) + 3))
+           .astype(np.int32)}[lanes]()
+    v = 701 if lanes == "tile edges" else int(seg.max()) + 1
+    vals = torch.from_numpy(_values(rng, kind, seg.size)).to(cuda)
+    ts = torch.from_numpy(seg).to(cuda)
+    out_dtype = torch.float32 if kind == "quarters" else torch.int32
+    out = segsum.segment_sum_sorted(vals, ts, num_segments=v, out_dtype=out_dtype)
+    assert torch.equal(out, ref.segment_sum_ref(vals, ts, v, out_dtype))
+
+
+@pytest.mark.parametrize("kind", ["int32", "quarters"])
+@pytest.mark.parametrize("shift", range(1, 16))
+def test_kernel_unaligned_views(cuda, kind, shift):
+    """4-byte values and the ids themselves off the 16-byte boundary."""
+    rng = np.random.default_rng(100 + shift)
+    seg = _tile_edge_lanes(rng)
+    base = torch.from_numpy(_values(rng, kind, seg.size + 16)).to(cuda)
+    vals = base[shift:shift + seg.size]
+    seg_base = torch.from_numpy(np.r_[np.full(16, -1, np.int32), seg]).to(cuda)
+    ids = seg_base[shift:shift + seg.size]
+    out_dtype = torch.float32 if kind == "quarters" else torch.int32
+    for ts in (torch.from_numpy(seg).to(cuda), ids):
+        v = vals[:ts.numel()]
+        out = segsum.segment_sum_sorted(v, ts, num_segments=701, out_dtype=out_dtype)
+        assert torch.equal(out, ref.segment_sum_ref(v, ts, 701, out_dtype))
+
+
+def test_kernel_float_sums_bitwise_repeatable(cuda):
+    """float32 sums of random values: bitwise equal across two runs
+    (crossing rows are added in tile order) and within 1e-6 of each row's
+    sum of |values| of the exact (float64) sum. The plain version's atomic
+    adds change their order from run to run, so the bound is taken against
+    float64, not against them: a 40,000-lane row of normals has |sum| near
+    200 and sum |values| near 32,000, and float32 rounding in any order
+    leaves a few 1e-3 of error there."""
+    rng = np.random.default_rng(8)
+    seg = torch.from_numpy(np.r_[np.zeros(40_000, np.int32),
+                                 np.sort(rng.integers(1, 5000, 300_000)).astype(np.int32)]).to(cuda)
+    vals = torch.from_numpy(rng.normal(size=seg.numel()).astype(np.float32)).to(cuda)
+    a = segsum.segment_sum_sorted(vals, seg, num_segments=5000)
+    b = segsum.segment_sum_sorted(vals, seg, num_segments=5000)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    exact = ref.segment_sum_ref(vals.double(), seg, 5000, torch.float64)
+    scale = ref.segment_sum_ref(vals.double().abs(), seg, 5000, torch.float64)
+    assert bool(((a.double() - exact).abs() <= 1e-6 * scale + 1e-6).all())
+
+
+# ---------------------------------------------------------------------------
+# K2 (peel_edges): the fused edge stage against its plain version, with the
+# vertex state in shared memory and through L1/L2
+# ---------------------------------------------------------------------------
+def _peel_lanes(rng, n, e, hub=0, src_past_n=0, sentinels=9):
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    dst[:hub] = n // 3
+    src[hub:hub + src_past_n] = n + rng.integers(0, 3, src_past_n)
+    order = np.argsort(dst, kind="stable")
+    return (np.r_[src[order], np.full(sentinels, n)].astype(np.int32),
+            np.r_[dst[order], np.full(sentinels, n)].astype(np.int32))
+
+
+@pytest.mark.parametrize("shared_state", [True, False])
+@pytest.mark.parametrize("n,e,p_fail,p_active,hub,src_past_n", [
+    (50, 3000, 0.3, 0.8, 0, 0),
+    (1000, 3 * TILE + 5, 0.5, 0.9, 0, 40),    # src past the sentinel
+    (300, 20_000, 1.0, 1.0, 0, 0),            # all failed
+    (300, 20_000, 0.0, 1.0, 0, 0),            # none failed
+    (300, 20_000, 0.5, 0.0, 0, 0),            # all dead
+    (5000, 600, 0.4, 0.7, 0, 0),              # mostly isolated vertices
+    (200, 60_000, 0.3, 0.9, 50_000, 0),       # a 50,000-lane hub row
+    (1 << 19, 1 << 21, 0.3, 0.9, 0, 0),       # the main path's vertex count
+])
+def test_peel_edges_matches_plain(cuda, monkeypatch, shared_state, n, e, p_fail, p_active,
+                                  hub, src_past_n):
+    """K2 with its vertex state in shared memory and through L1/L2."""
+    if not shared_state:
+        monkeypatch.setattr(peel, "SHARED_STATE_BYTES", 0)
+    rng = np.random.default_rng(n + e)
+    src, dst = (torch.from_numpy(a).to(cuda)
+                for a in _peel_lanes(rng, n, e, hub=hub, src_past_n=src_past_n))
+    active = torch.from_numpy(rng.random(n) < p_active).to(cuda)
+    failed = active & torch.from_numpy(rng.random(n) < p_fail).to(cuda)
+    for act in (active, None):
+        for charge in (False, True):
+            before = peel.launches
+            got = peel.peel_edges_sorted(src, dst, act, failed, n_nodes=n, charge=charge)
+            want = ref.peel_edges_ref(src, dst, act, failed, n, charge)
+            torch.cuda.synchronize()
+            assert peel.launches == before + 1
+            assert len(got) == len(want)
+            for x, w in zip(got, want):
+                assert x.dtype == torch.int32 and torch.equal(x, w)
+    assert torch.equal(ops.peel_update(src, dst, failed, n_nodes=n),
+                       ref.peel_update_ref(src, dst, failed, n))
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_peel_edges_unaligned_views(cuda, shift):
+    rng = np.random.default_rng(shift)
+    src, dst = _peel_lanes(rng, 700, 9000)
+    sb = torch.from_numpy(np.r_[np.zeros(shift, np.int32), src]).to(cuda)[shift:]
+    db = torch.from_numpy(np.r_[np.zeros(shift, np.int32), dst]).to(cuda)[shift:]
+    for s, d in ((sb, db), (sb, torch.from_numpy(dst).to(cuda))):
+        active = torch.from_numpy(rng.random(700) < 0.8).to(cuda)
+        failed = active & torch.from_numpy(rng.random(700) < 0.4).to(cuda)
+        got = peel.peel_edges_sorted(s, d, active, failed, n_nodes=700, charge=True)
+        for x, w in zip(got, ref.peel_edges_ref(s, d, active, failed, 700, True)):
+            assert torch.equal(x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -213,8 +359,10 @@ def test_pruned_kernel_on_card(cuda, eps):
     small planted block, with two K4 calls (and two K3 scans) a query."""
     g, _, _ = planted_dense(4096, 64, seed=0)
     compact.prefix_sum_launches = compact.stream_compact_launches = 0
+    before = peel.launches
     on = pbahmani(g, eps=eps, pruned=True, kernel=True, device=cuda)
     assert (compact.prefix_sum_launches, compact.stream_compact_launches) == (2, 2)
+    assert peel.launches > before
     off = pbahmani(g, eps=eps, pruned=True, kernel=False, device=cuda)
     plain = pbahmani(g, eps=eps, kernel=True, device=cuda)
     want = pbahmani_np(g, eps=eps)
@@ -227,8 +375,10 @@ def test_pruned_kernel_on_card(cuda, eps):
 
 def test_refine_kernel_on_card(cuda):
     g = rmat(11, 16, seed=0)
-    on, off = (refine(g, target_gap=-1.0, max_rounds=3, eps=0.1, kernel=k, device=cuda)
-               for k in (True, False))
+    before = peel.launches
+    on = refine(g, target_gap=-1.0, max_rounds=3, eps=0.1, kernel=True, device=cuda)
+    assert peel.launches > before
+    off = refine(g, target_gap=-1.0, max_rounds=3, eps=0.1, kernel=False, device=cuda)
     assert on.certificate == off.certificate and on.history == off.history
     np.testing.assert_array_equal(on.mask, off.mask)
 

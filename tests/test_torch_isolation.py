@@ -57,7 +57,7 @@ def test_scan_catches_forbidden_imports(tmp_path):
 
 @pytest.mark.parametrize("entry", ["pbahmani", "kcore_decompose", "cbds_p",
                                    "pbahmani_pruned", "plan_for_graph", "refine",
-                                   "dcn_init", "build_step"])
+                                   "dcn_init", "build_step", "DCNv2"])
 def test_default_device_needs_cuda(monkeypatch, entry):
     """device=None means the GPU: with no CUDA it raises and names the way
     out, instead of running on the CPU."""
@@ -66,11 +66,12 @@ def test_default_device_needs_cuda(monkeypatch, entry):
     from repro_torch.configs import get_arch
     from repro_torch.graphs.generators import small_named
     from repro_torch.launch import build_step
-    from repro_torch.models import dcn_init
+    from repro_torch.models import DCNv2, dcn_init
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {"dcn_init": lambda: dcn_init(get_arch("dcn-v2").smoke),
-             "build_step": lambda: build_step("dcn-v2", "serve_p99")}
+             "build_step": lambda: build_step("dcn-v2", "serve_p99"),
+             "DCNv2": lambda: DCNv2(get_arch("dcn-v2").smoke)}
     fn = calls.get(entry) or (lambda: (getattr(tcore, entry, None)
                                        or getattr(trefine, entry))(small_named("petersen")))
     with pytest.raises(RuntimeError, match="device='cpu'"):

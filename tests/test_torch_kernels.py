@@ -1,6 +1,7 @@
-"""The port's sorted segment-sum (K1), peel_update and fused
-gather-and-segment-sum (K5, segment_embed) against the JAX package's Pallas
-kernels (interpret mode on the CPU, as tests/test_kernels.py runs them).
+"""The port's sorted segment-sum (K1), fused peel edge stage (K2,
+peel_update and peel_edges) and fused gather-and-segment-sum (K5,
+segment_embed) against the JAX package's Pallas kernels (interpret mode on
+the CPU, as tests/test_kernels.py runs them) and its ``impl="xla"`` path.
 
 On the CPU the port's wrappers run their plain versions
 (tests/test_torch_gpu.py holds the CUDA kernel against them on the card).
@@ -15,7 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops  # noqa: E402
-from repro_torch.kernels import embed, ops, ref, segsum  # noqa: E402
+from repro_torch.kernels import embed, ops, peel, ref, segsum  # noqa: E402
 
 
 def _problem(rng, e, d, v, sorted_=True):
@@ -296,3 +297,80 @@ def test_segment_embed_rejects_bad_inputs(case):
         table = table.to("meta")
     with pytest.raises((TypeError, ValueError)):
         embed.segment_embed_sorted(table, gid, seg, w, num_segments=2)
+
+
+def _k2_lanes(g, variant, rng):
+    """dst-sorted lanes of ``g`` (sentinel-padded), optionally with lanes
+    whose src is past the sentinel or with a hub row of 3,000 lanes."""
+    src, dst = (a.copy() for a in g.dst_sorted())
+    n = g.n_nodes
+    if variant == "src_past_n":
+        src[rng.choice(g.n_directed, 50, replace=False)] = n + rng.integers(0, 3, 50)
+    if variant == "hub":
+        hub_src = rng.integers(0, n, 3000).astype(np.int32)
+        src, dst = np.r_[hub_src, src], np.r_[np.zeros(3000, np.int32), dst]
+        order = np.argsort(dst, kind="stable")
+        src, dst = src[order], dst[order]
+    return src, dst
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("variant,p_fail", [("plain", 0.0), ("plain", 0.3), ("plain", 1.0),
+                                            ("src_past_n", 0.5), ("hub", 0.4)])
+def test_peel_edges_active_none_matches_jax_peel_update(er_graph, impl, variant, p_fail):
+    """K2 with active=None keeps JAX's peel_update contract: every valid
+    lane counts, no live mask; removed counts the lanes with a failed end."""
+    rng = np.random.default_rng(11)
+    g = er_graph
+    src, dst = _k2_lanes(g, variant, rng)
+    failed = rng.random(g.n_nodes) < p_fail
+    exp = np.asarray(jops.peel_update(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(failed),
+                                      n_nodes=g.n_nodes, impl=impl))
+    t = [torch.from_numpy(a) for a in (src, dst, failed)]
+    delta, removed, inc = peel.peel_edges_sorted(t[0], t[1], None, t[2], n_nodes=g.n_nodes,
+                                         charge=True)
+    np.testing.assert_array_equal(delta.numpy(), exp)
+    np.testing.assert_array_equal(ops.peel_update(*t, n_nodes=g.n_nodes).numpy(), exp)
+    n = g.n_nodes
+    valid = (src < n) & (dst < n)
+    fs = failed[np.minimum(src, n - 1)] & valid
+    fd = failed[np.minimum(dst, n - 1)] & valid
+    assert int(removed) == int((fs | fd).sum())
+    charge = fd & (~fs | (dst < src))
+    np.testing.assert_array_equal(inc.numpy(), np.bincount(dst[charge], minlength=n))
+
+
+def test_peel_edges_plain_version_is_ref(er_graph):
+    """On the CPU the wrapper returns exactly ref.peel_edges_ref."""
+    rng = np.random.default_rng(12)
+    g = er_graph
+    t = [torch.from_numpy(a) for a in g.dst_sorted()]
+    active = torch.from_numpy(rng.random(g.n_nodes) < 0.8)
+    failed = active & torch.from_numpy(rng.random(g.n_nodes) < 0.4)
+    for charge in (False, True):
+        got = peel.peel_edges_sorted(*t, active, failed, n_nodes=g.n_nodes, charge=charge)
+        want = ref.peel_edges_ref(*t, active, failed, g.n_nodes, charge)
+        assert len(got) == len(want) == 2 + charge
+        for x, w in zip(got, want):
+            assert x.dtype == torch.int32 and torch.equal(x, w)
+
+
+def test_peel_edges_sorted_rejects_bad_input():
+    """dst must ascend (the kernel's precondition): unsorted lanes raise on
+    the CPU too; wrong types and mask shapes raise."""
+    src = torch.tensor([1, 0, 2, 1], dtype=torch.int32)
+    dst = torch.tensor([0, 2, 1, 3], dtype=torch.int32)
+    failed = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="ascending"):
+        peel.peel_edges_sorted(src, dst, None, failed, n_nodes=4)
+    with pytest.raises(ValueError, match="ascending"):
+        ops.peel_update(src, dst, failed, n_nodes=4)
+    ok = torch.tensor([0, 1, 2, 3], dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        peel.peel_edges_sorted(src.long(), ok, None, failed, n_nodes=4)
+    with pytest.raises(ValueError, match="bool"):
+        peel.peel_edges_sorted(src, ok, None, failed.int(), n_nodes=4)
+    with pytest.raises(ValueError, match="bool"):
+        peel.peel_edges_sorted(src, ok, torch.ones(3, dtype=torch.bool), failed, n_nodes=4)
+    delta, removed = peel.peel_edges_sorted(src, ok, None, failed, n_nodes=4)
+    assert delta.tolist() == [1, 1, 1, 1] and int(removed) == 4
