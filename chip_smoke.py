@@ -18,8 +18,10 @@ takes a plain gather), and the kernel switched on. Phases:
 
   1. card and build: ``nvidia-smi`` name and power limit, versions, build time;
   2. the kernels against their plain versions on the card, at the cases of
-     ``tests/test_kernels.py`` (K5: also invalid ids, empty bags, segment ids
-     past V, the scalar path, 26 tables at once), K1 at the main path's shape
+     ``tests/test_kernels.py`` (K4: also the edges of its 4,096-lane tiles and
+     a fill tail of many tiles; K5: also invalid ids, empty bags, segment ids
+     past V, the scalar path, 26 tables at once, ids as a strided [T, B, M]
+     view bitwise equal to a contiguous copy), K1 at the main path's shape
      for its three value types (float32 sums bitwise equal across two runs)
      and the fused edge stage K2 at the same shape (with and without a live
      mask and the charges, its vertex state in shared memory and through
@@ -31,10 +33,12 @@ takes a plain gather), and the kernel switched on. Phases:
      one K2 launch a fixpoint iteration, one K1 launch an augmentation round;
   6. the pruned peel on the planted block: plan, pruned with kernels on and
      off, unpruned, the numpy oracle; K2 launches (one a device pass and a
-     plan iteration), K3/K4 launches; every bucket rung K2 sees is
-     dst-sorted; wall times split into plan, host, upload, device;
+     plan iteration), K4 launched twice a query and K3 never; every bucket
+     rung K2 sees is dst-sorted; wall times split into plan, host, upload,
+     device;
   7. K3 and K4 at the pruned path's own inputs against their plain versions
-     and one PyTorch call each, with times;
+     and one PyTorch call each, with times (K4: one launch a call, its host
+     time a call);
   8. the pruned peel on the RMAT graph, where pass 0 leaves more lanes than
      the largest bucket: it falls back to the unpruned peel, equal triple,
      one K2 launch a pass and a plan iteration;
@@ -45,9 +49,15 @@ takes a plain gather), and the kernel switched on. Phases:
      requests (B = 512), one serve_bulk batch (B = 262,144) and one
      retrieval_cand query (1,000,448 candidates), K5 launches counted; kernel
      on against the plain path on the same module (bags and logits) and the
-     bags of 64 rows against a float64 numpy oracle; step times kernel on and
-     off, the split into sort, bag, cross and MLP, and K5 at the serve_bulk
-     shape against its plain version and ``F.embedding_bag``;
+     bags of 64 rows against a float64 numpy oracle, no sort of the bag ids;
+     step times kernel on and off, the split into bag ids, K5, cross and
+     MLP; K5 at the serve_bulk shape (on the ids' [T, B, M] view) against its
+     plain version and ``F.embedding_bag``, bitwise equal across runs, beside
+     the gather ceiling (``embed.gather_ceiling``: the same rows read with no
+     bag structure, table by table, in pairs, interleaved, on a contiguous
+     copy of the ids, and in pairs with K5's stores) and the transposing copy
+     it no longer needs; K5 at serve_p99 with its bound and where the
+     wrapper's host time goes;
  11. a JSON line of every kernel, then the card's name and power limit, then
      the result line ``{"ok": true, "device": {...}}``.
 
@@ -154,6 +164,22 @@ def graph_ms(fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Mean host time of one ``fn()`` in microseconds over ``iters`` calls
+    with no synchronisation between them: what the caller's thread spends
+    on the call (checks, allocation, launch), not the card's time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
 
 
 def wall_s(fn, runs: int) -> list[float]:
@@ -675,6 +701,14 @@ def phase_compact_cases(device: str) -> float:
                   rng.random(400) < 0.6, 256, 256))
     comps.append(("all dead, negative fill", np.arange(300, dtype=np.int32),
                   np.zeros(300, bool), 64, -7))
+    tile = compact.TILE  # the one-pass kernel's tiles: edges, several, a long fill tail
+    for e, d, out_size, p_live in [(tile - 1, 2, tile, 0.5), (tile, 0, tile, 1.0),
+                                   (tile + 1, 2, 2 * tile, 0.5), (37 * tile + 5, 2, 8 * tile, 0.2),
+                                   (37 * tile + 5, 0, 3 * tile, 0.9), (5 * tile, 3, 50 * tile, 0.3),
+                                   (9 * tile + 1, 0, 9 * tile + 1, 0.0)]:
+        vals = rng.integers(-10_000, 10_000, (e, d) if d else e).astype(np.int32)
+        comps.append((f"e={e} d={d} out={out_size} p_live={p_live} (tiles of {tile})", vals,
+                      rng.random(e) < p_live, out_size, -3))
     for name, vals, live, out_size, fill in comps:
         tv, tl = t(vals), t(live)
         out = compact.stream_compact(tv, tl, out_size=out_size, fill=fill)
@@ -717,9 +751,9 @@ def phase_pruned(g, device: str, timed_runs: int = 3) -> tuple[dict, dict, dict]
             on = pbahmani(g, eps=eps, pruned=True, kernel=True, device=device)
         n_k2, n_k3, n_k4 = (peel.launches, compact.prefix_sum_launches,
                             compact.stream_compact_launches)
-        check(n_k3 > 0 and n_k4 > 0 and n_k2 > 0,
+        check(n_k2 > 0 and n_k4 == 2 and n_k3 == 0,
               f"eps={eps}: the pruned path launched K2 {n_k2}, K3 {n_k3}, K4 {n_k4} "
-              f"times: the bucket peel did not run")
+              f"times (expected K2 > 0, K3 0 and K4 2 a query)")
         # pass 0 runs on the host; every later pass and every fixpoint
         # iteration of the plan is one K2 launch
         check(pass_calls.n == on[2] - 1 and n_k2 == pass_calls.n + kcore_calls.n,
@@ -848,10 +882,15 @@ def phase_compact_timing(inputs: dict) -> dict:
     for label in ("edge", "degree"):
         vals, live, kw = inputs[label]
         out_size, fill = kw["out_size"], kw["fill"]
+        k3_before, k4_before = compact.prefix_sum_launches, compact.stream_compact_launches
         out = compact.stream_compact(vals, live, **kw)
         exp = ref.stream_compact_ref(vals, live, out_size, fill)
         torch.cuda.synchronize()
         check(torch.equal(out, exp), f"K4 ({label}) differs from its plain version")
+        check((compact.prefix_sum_launches - k3_before,
+               compact.stream_compact_launches - k4_before) == (0, 1),
+              f"K4 ({label}) launched K3 {compact.prefix_sum_launches - k3_before} and K4 "
+              f"{compact.stream_compact_launches - k4_before} times for one call")
         d = 1 if vals.dim() == 1 else vals.shape[1]
         n_live = int(live.sum())
 
@@ -865,17 +904,20 @@ def phase_compact_timing(inputs: dict) -> dict:
         plain = time_ms(lambda: ref.stream_compact_ref(vals, live, out_size, fill))
         lib = time_ms(library)
         dev = graph_ms(lambda: compact.stream_compact(vals, live, **kw))
+        host = host_us(lambda: compact.stream_compact(vals, live, **kw))
         # bytes this input needs: the mask, the live lanes' values, the output
         b, by = bound_ms(live.numel() + min(n_live, out_size) * d * 4 + out_size * d * 4,
                          live.numel())
         res[f"stream_compact_{label}"] = dict(
-            ms=ms, device_ms=dev, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
+            ms=ms, device_ms=dev, host_us=host, plain_ms=plain, library_ms=lib, bound_ms=b,
+            bound_by=by,
             shape=f"[{vals.shape[0]}{', %d' % d if vals.dim() == 2 else ''}] -> {out_size}",
             live=n_live, bound_ms_all_values=bound_ms(
                 live.numel() + vals.numel() * 4 + out_size * d * 4, live.numel())[0])
         log(f"  K4 {label} call {res[f'stream_compact_{label}']['shape']}, {n_live} live: "
-            f"exact; kernel_ms={ms:.6f} device_ms={dev:.6f} plain_ms={plain:.6f} "
-            f"library_ms={lib:.6f} (values[live] + pad) bound_ms={b:.6f} ({by})")
+            f"exact, one K4 launch and no K3; kernel_ms={ms:.6f} device_ms={dev:.6f} "
+            f"host_us={host:.3f} plain_ms={plain:.6f} library_ms={lib:.6f} "
+            f"(values[live] + pad) bound_ms={b:.6f} ({by})")
     return res
 
 
@@ -1067,7 +1109,25 @@ def phase_embed_cases(device: str) -> float:
     err = compare(embed.segment_embed_sorted(table, gid, seg, num_segments=100),
                   ref.segment_embed_ref(table, gid, seg, None, 100), EMBED_TOL)
     log(f"  K5 table off a 16-byte boundary (scalar path): ok (max abs err {err:g})")
-    return max(max_err, err)
+    max_err = max(max_err, err)
+    # strided ids: the [T, B, M] view of [B, T, M] ids that DCN-v2 passes,
+    # bitwise equal to the same lanes in a contiguous [T, B * M] copy
+    for b, t, m in [(4096, 26, 4), (999, 5, 3), (300, 3, 1), (77, 2, 9)]:
+        ids = torch.from_numpy(rng.integers(-2, 1002, (b, t, m)).astype(np.int32)).to(device)
+        tables = torch.from_numpy(rng.normal(size=(t, 1000, 16)).astype(np.float32)).to(device)
+        seg = torch.arange(b, dtype=torch.int32, device=device)[:, None].expand(b, m).reshape(-1)
+        view = ids.permute(1, 0, 2)
+        out = embed.segment_embed_sorted(tables, view, seg, num_segments=b)
+        err = compare(out, ref.segment_embed_ref(tables, view, seg, None, b), EMBED_TOL)
+        flat = embed.segment_embed_sorted(tables, view.reshape(t, -1).contiguous(), seg,
+                                          num_segments=b)
+        torch.cuda.synchronize()
+        check(torch.equal(out, flat), f"K5 on strided ids [{t}, {b}, {m}] differs from the "
+                                      f"same lanes copied contiguous")
+        max_err = max(max_err, err)
+        log(f"  K5 strided ids [{t}, {b}, {m}] (a view of [{b}, {t}, {m}]): ok (max abs err "
+            f"{err:g}), bitwise equal to the contiguous copy")
+    return max_err
 
 
 # ---------------------------------------------------------------------------
@@ -1084,7 +1144,7 @@ def phase_dcn(device: str, timed_runs: int = 3) -> tuple[int, dict, dict]:
 
     from repro_torch.configs import get_arch
     from repro_torch.data import recsys_batches
-    from repro_torch.kernels import embed, ops, ref
+    from repro_torch.kernels import build, embed, ops, ref
     from repro_torch.launch import build_step
     from repro_torch.models import dcn_init, embedding_bag
 
@@ -1118,6 +1178,7 @@ def phase_dcn(device: str, timed_runs: int = 3) -> tuple[int, dict, dict]:
 
     # the main path, as a user calls it: host batches through the steps
     embed.launches = 0
+    sorts = ops.unsorted_fallback_count
     logits_p99 = [steps["serve_p99"].fn(model, r) for r in requests]
     logits_bulk = steps["serve_bulk"].fn(model, bulk)
     scores = steps["retrieval_cand"].fn(model, query)
@@ -1125,6 +1186,8 @@ def phase_dcn(device: str, timed_runs: int = 3) -> tuple[int, dict, dict]:
     n_k5 = embed.launches
     check(n_k5 > 0, "DCN-v2 serving did not launch K5")
     check(n_k5 == 10, f"K5 launched {n_k5} times for 10 embedding_bag calls")
+    check(ops.unsorted_fallback_count == sorts,
+          f"the bags were sorted {ops.unsorted_fallback_count - sorts} times on the main path")
     shapes = {"serve_p99": (steps["serve_p99"].meta["rows"],),
               "serve_bulk": (steps["serve_bulk"].meta["rows"],),
               "retrieval_cand": (1, steps["retrieval_cand"].meta["rows"])}
@@ -1190,28 +1253,24 @@ def phase_dcn(device: str, timed_runs: int = 3) -> tuple[int, dict, dict]:
                                          / times[label]["kernel_s"] / 1e12)
     upload = med(lambda: dev(requests[0]))
 
-    # the split of a serve step (kernel on): what embedding_bag does, piece by piece
+    # the split of a serve step (kernel on): what embedding_bag does, piece by
+    # piece (bag ids, then K5 on the [T, B, M] view of the ids: no copy, no sort)
     splits = {}
     with torch.inference_mode():
         for label, batch in (("serve_p99", p99_dev[0]), ("serve_bulk", bulk_dev)):
             ids = batch["sparse_ids"]
             b, t = ids.shape[0], cfg.n_sparse
-            flat_ids = ids.permute(1, 0, 2).reshape(t, -1)
-            bag = torch.arange(b, dtype=torch.int32, device=device).repeat_interleave(4)
 
-            def sort():
-                s, order = torch.sort(bag, stable=True)
-                return s, flat_ids.index_select(-1, order)
+            def bag_ids():
+                return torch.arange(b, dtype=torch.int32, device=device)[:, None].expand(
+                    b, 4).contiguous().view(-1)
 
-            seg_s, ids_s = sort()
+            seg_b, view = bag_ids(), ids.permute(1, 0, 2)
             x0 = torch.cat([batch["dense"], model.embed(ids)], dim=-1)
             x = model.cross_net(x0)
             splits[label] = dict(
-                bag_ids_s=med(lambda: (ids.permute(1, 0, 2).reshape(t, -1),
-                                       torch.arange(b, dtype=torch.int32, device=device)
-                                       .repeat_interleave(4))),
-                sort_s=med(sort),
-                k5_s=med(lambda: embed.segment_embed_sorted(model.tables, ids_s, seg_s,
+                bag_ids_s=med(bag_ids),
+                k5_s=med(lambda: embed.segment_embed_sorted(model.tables, view, seg_b,
                                                             num_segments=b)),
                 embedding_bag_s=med(lambda: model.embed(ids)),
                 cross_s=med(lambda: model.cross_net(x0)),
@@ -1226,17 +1285,25 @@ def phase_dcn(device: str, timed_runs: int = 3) -> tuple[int, dict, dict]:
             + ", ".join(f"{k[:-2]} {v:.6f}" for k, v in sp.items()) + " s")
     log(f"  upload of one serve_p99 request: {upload:.6f} s")
 
-    # K5 at the serve_bulk shape: its time, its plain version's, F.embedding_bag's
+    # K5 at the serve_bulk shape, on the [T, B, M] view of the ids as the main
+    # path hands it: its time, its plain version's, F.embedding_bag's, the
+    # same lanes copied contiguous, and the gather ceiling on the same ids
     t, r, d = model.tables.shape
     b = ids_bulk.shape[0]
     with torch.inference_mode():
-        flat_ids = ids_bulk.permute(1, 0, 2).reshape(t, -1)
-        seg = torch.arange(b, dtype=torch.int32, device=device).repeat_interleave(4)
+        view = ids_bulk.permute(1, 0, 2)
+        flat_ids = view.reshape(t, -1).contiguous()
+        seg = torch.arange(b, dtype=torch.int32, device=device)[:, None].expand(b, 4).reshape(-1)
         e = seg.shape[0]
-        out = embed.segment_embed_sorted(model.tables, flat_ids, seg, num_segments=b)
-        exp = ref.segment_embed_ref(model.tables, flat_ids, seg, None, b)
+
+        def k5():
+            return embed.segment_embed_sorted(model.tables, view, seg, num_segments=b)
+
+        out = k5()
+        exp = ref.segment_embed_ref(model.tables, view, seg, None, b)
         torch.cuda.synchronize()
         max_err = max(max_err, compare(out, exp, EMBED_TOL))
+        check(torch.equal(out, k5()), "K5 sums differ between two runs at serve_bulk")
         flat_tables = model.tables.view(t * r, d)
         global_ids = (flat_ids.long() + torch.arange(t, device=device)[:, None] * r).reshape(-1)
         offsets = torch.arange(0, t * e, 4, device=device)
@@ -1247,34 +1314,79 @@ def phase_dcn(device: str, timed_runs: int = 3) -> tuple[int, dict, dict]:
         check(torch.allclose(library().view(t, b, d).permute(1, 0, 2), out,
                              rtol=EMBED_TOL[0], atol=EMBED_TOL[1]),
               "F.embedding_bag yardstick differs from K5")
-        ms = time_ms(lambda: embed.segment_embed_sorted(model.tables, flat_ids, seg,
-                                                        num_segments=b))
-        dev_ms = graph_ms(lambda: embed.segment_embed_sorted(model.tables, flat_ids, seg,
-                                                             num_segments=b))
-        plain_ms = time_ms(lambda: ref.segment_embed_ref(model.tables, flat_ids, seg, None, b),
+        ms = time_ms(k5)
+        dev_ms = graph_ms(k5)
+        flat_dev_ms = graph_ms(lambda: embed.segment_embed_sorted(model.tables, flat_ids, seg,
+                                                                  num_segments=b))
+        copy_ms = graph_ms(lambda: view.reshape(t, -1).contiguous())
+        sums = torch.empty_like(out)
+        ceiling = {
+            "table_major": graph_ms(lambda: embed.gather_ceiling(model.tables, view,
+                                                                 tables_a_pass=1)),
+            "paired": graph_ms(lambda: embed.gather_ceiling(model.tables, view,
+                                                            tables_a_pass=2)),
+            "interleaved": graph_ms(lambda: embed.gather_ceiling(model.tables, view,
+                                                                 tables_a_pass=t)),
+            "table_major_contiguous_ids": graph_ms(
+                lambda: embed.gather_ceiling(model.tables, flat_ids, tables_a_pass=1)),
+            "paired_with_sums": graph_ms(
+                lambda: embed.gather_ceiling(model.tables, view, tables_a_pass=2, out=sums)),
+        }
+        plain_ms = time_ms(lambda: ref.segment_embed_ref(model.tables, view, seg, None, b),
                            iters=5)
         lib_ms = time_ms(library)
         distinct = int(torch.unique(global_ids).numel())
         # ids and seg read once, each distinct row read once, the sums written once
         b_ms, by = bound_ms(t * e * 4 + e * 4 + distinct * d * 4 + b * t * d * 4, t * e * d)
         all_lanes = bound_ms(t * e * 4 + e * 4 + t * e * d * 4 + b * t * d * 4, t * e * d)[0]
-        p99_ids = p99_dev[0]["sparse_ids"].permute(1, 0, 2).reshape(t, -1)
-        n_p99 = p99_ids.shape[1] // 4
-        p99_seg = torch.arange(n_p99, dtype=torch.int32, device=device).repeat_interleave(4)
-        p99_ms = time_ms(lambda: embed.segment_embed_sorted(model.tables, p99_ids, p99_seg,
-                                                            num_segments=n_p99))
-        p99_dev_ms = graph_ms(lambda: embed.segment_embed_sorted(model.tables, p99_ids,
-                                                                 p99_seg, num_segments=n_p99))
+
+        # K5 at serve_p99: the same, and where the wrapper's host time goes
+        p99_view = p99_dev[0]["sparse_ids"].permute(1, 0, 2)
+        n_p99 = p99_view.shape[1]
+        p99_seg = torch.arange(n_p99, dtype=torch.int32, device=device)[:, None].expand(
+            n_p99, 4).reshape(-1)
+
+        def k5_p99():
+            return embed.segment_embed_sorted(model.tables, p99_view, p99_seg,
+                                              num_segments=n_p99)
+
+        check(torch.allclose(k5_p99(), ref.segment_embed_ref(model.tables, p99_view, p99_seg,
+                                                             None, n_p99),
+                             rtol=EMBED_TOL[0], atol=EMBED_TOL[1]),
+              "K5 differs from its plain version at serve_p99")
+        p99_ms = time_ms(k5_p99)
+        p99_dev_ms = graph_ms(k5_p99)
+        p99_distinct = int(torch.unique(p99_view.reshape(t, -1).long()
+                                        + torch.arange(t, device=device)[:, None] * r).numel())
+        e99 = p99_seg.shape[0]
+        p99_bound = bound_ms(t * e99 * 4 + e99 * 4 + p99_distinct * d * 4 + n_p99 * t * d * 4,
+                             t * e99 * d)[0]
+        host = dict(
+            wrapper_us=host_us(k5_p99),
+            check_us=host_us(lambda: embed._check(model.tables, p99_view, p99_seg, None)),
+            alloc_us=host_us(lambda: torch.empty((n_p99, t, d), device=device)),
+            on_device_us=host_us(lambda: build.on_device(model.tables.device, lambda s: 0)))
     k5 = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
               bound_ms=b_ms, bound_by=by,
               bound_ms_all_lanes=all_lanes, distinct_rows=distinct,
-              shape=f"[{t}, {r}, {d}] tables, [{t}, {e}] ids, {b} bags",
-              serve_p99_ms=p99_ms, serve_p99_device_ms=p99_dev_ms, max_abs_err=max_err)
+              contiguous_ids_device_ms=flat_dev_ms, transpose_copy_device_ms=copy_ms,
+              gather_ceiling_ms=ceiling["table_major"],
+              gather_ceiling_interleaved_ms=ceiling["interleaved"],
+              gather_ceiling_all_ms=ceiling,
+              shape=f"[{t}, {r}, {d}] tables, [{t}, {b}, 4] ids (a view), {b} bags",
+              serve_p99_ms=p99_ms, serve_p99_device_ms=p99_dev_ms,
+              serve_p99_bound_ms=p99_bound, serve_p99_distinct_rows=p99_distinct,
+              serve_p99_host=host, max_abs_err=max_err)
     log(f"  K5 at serve_bulk ({k5['shape']}, {distinct} distinct rows): kernel_ms={ms:.6f} "
-        f"device_ms={dev_ms:.6f} plain_ms={plain_ms:.6f} library_ms={lib_ms:.6f} "
-        f"(F.embedding_bag) bound_ms={b_ms:.6f} ({by}; "
-        f"{all_lanes:.6f} counting every lane's row)")
-    log(f"  K5 at serve_p99 ({n_p99} bags): kernel_ms={p99_ms:.6f} device_ms={p99_dev_ms:.6f}")
+        f"device_ms={dev_ms:.6f} (on a contiguous copy of the ids {flat_dev_ms:.6f}; the copy "
+        f"{copy_ms:.6f}) plain_ms={plain_ms:.6f} "
+        f"library_ms={lib_ms:.6f} (F.embedding_bag) bound_ms={b_ms:.6f} ({by}; "
+        f"{all_lanes:.6f} counting every lane's row); sums bitwise equal across runs")
+    log(f"  gather ceiling on the same ids (device ms): "
+        + ", ".join(f"{k} {v:.6f}" for k, v in ceiling.items()))
+    log(f"  K5 at serve_p99 ({n_p99} bags, {p99_distinct} distinct rows): kernel_ms={p99_ms:.6f} "
+        f"device_ms={p99_dev_ms:.6f} bound_ms={p99_bound:.6f}; host us a call: "
+        + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in host.items()))
     return n_k5, k5, dict(steps=times, splits=splits, upload_p99_s=upload,
                           init_s=t_init, batches_s=t_data, oracle_err=oracle_err,
                           unsorted_fallback_count=ops.unsorted_fallback_count)
@@ -1312,9 +1424,14 @@ def main() -> int:
     log(f"  K1, K2, K3, K4, K5 built and loaded in {time.perf_counter() - t0:.3f} s from "
         f"{', '.join(src.name for src in sources)}")
     for source, text in build.build_logs.items():
+        fn, spills = "?", ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas {source}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = line.split("Function properties for")[-1].strip()
+            elif "spill" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                log(f"  ptxas {source} {fn[:72]}: {line.split(':', 1)[-1].strip()}; {spills}")
 
     t0 = time.perf_counter()
     g = rmat(SCALE, EDGE_FACTOR, seed=0)

@@ -16,9 +16,9 @@ module peels a *compacted fixed-shape subproblem* instead:
      vertex index map);
   3. the peel runs inside the bucket on the device, with a second,
      bucket-width compaction ladder for the trajectory's tail: K4
-     (``kernels/compact.py:stream_compact``, K3 inside it) repacks the edge
-     lanes and pulls the degrees when ``kernel`` is on, and K2 carries every
-     pass's edge stage.
+     (``kernels/compact.py:stream_compact``, one pass over the mask) repacks
+     the edge lanes and pulls the degrees when ``kernel`` is on, and K2
+     carries every pass's edge stage.
 
 Exactness-preservation invariant: the pruned peel returns the bit-identical
 (density, mask, passes) triple of the unpruned peel. Pass 0 is simulated

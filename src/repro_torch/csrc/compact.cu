@@ -17,9 +17,9 @@
 // 12.5 us, for 8,388,608 bool lanes). The compaction reads the mask and the
 // live lanes' values once and writes each output slot once.
 //
-// What the design does about it. Hopper's blocks run in any order, so the
-// TPU kernel's carry down a sequential grid becomes three launches, each a
-// pass at full memory width:
+// What the design does about it. Hopper's blocks run in any order, so K3
+// turns the TPU kernel's carry down a sequential grid into three launches,
+// each a pass at full memory width:
 //
 //   1. tile_sums: one block per TILE = 4,096 lanes, 16 consecutive lanes a
 //      thread (one 16-byte load of bool lanes, read as bytes with no
@@ -31,19 +31,29 @@
 //      warp shuffles, adds the tile offset and writes with 16-byte stores.
 //
 // Every sum is int32, so the scan is exact at any length below 2^31 lanes
-// (the JAX kernel's float32 is exact only below 2^24). K4 is K3's scan
-// followed by one scatter launch in which every output slot has exactly one
-// writer: lane e with pos[e] - 1 = j < out_size writes slot j, and slots at
-// or past the live count get `fill`. No atomics, so the output is
+// (the JAX kernel's float32 is exact only below 2^24).
+//
+// K4 does not go through K3 or K1 (a segmented sum is the wrong tool for a
+// permutation): it is one pass over the mask with decoupled look-back, so
+// the mask is read once and no position array is written. Blocks take 4,096-
+// lane tiles in order from a ticket counter, count their live lanes,
+// publish the count, learn the live lanes before them from their
+// predecessors' published counts, and copy their live lanes' rows, reading
+// `values` only for live lanes, to consecutive output slots. Every output
+// slot has exactly one writer: no atomics on the output, so it is
 // deterministic, and survivors keep their lane order (a dst-sorted input
-// stays dst-sorted). It does not go through K1 as the TPU version does: a
-// segmented sum is the wrong tool for a permutation. A single-pass scan with
-// decoupled look-back would save the second read of the input; that is later
-// work.
+// stays dst-sorted). Lanes past out_size drop. The fill tail [live count,
+// out_size) is written by the kernel's own blocks once the last tile has
+// published the total: each block, when no tile is left, waits for it and
+// fills a grid-stride share, so no block writes the whole tail and no second
+// launch is needed. The tile status words and the ticket start at zero:
+// the caller passes them and the C entry point zeroes them with one
+// cudaMemsetAsync on the same stream, so calls on two streams never share
+// them.
 //
 // Launched on the caller's stream; nothing here allocates or synchronises:
-// the caller passes the scratch (tile offsets and the total). Each C entry
-// point returns cudaGetLastError() after its launches.
+// the caller passes the scratch (K3's tile offsets and total, K4's status
+// words). Each C entry point returns cudaGetLastError() after its launches.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -54,7 +64,6 @@ constexpr int THREADS = 256;                // 8 warps a block
 constexpr int ITEMS = 16;                   // consecutive lanes a thread
 constexpr int TILE = THREADS * ITEMS;       // 4,096 lanes a block
 constexpr int SCAN_THREADS = 1024;          // the one block of phase 2
-constexpr int SCATTER_BLOCKS = 132 * 16;    // grid-stride cap: 16 blocks an SM
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -213,25 +222,121 @@ int scan(const void* x, long long n, void* out, void* scratch, void* stream_ptr)
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4's scatter: one writer per output slot. Lane e, live with j = pos[e] - 1
-// < out_size, copies its d values to row j; rows from the live count (pos[n -
-// 1], clipped to out_size) onwards get `fill`.
-__global__ void __launch_bounds__(THREADS)
-compact_scatter_kernel(const int* __restrict__ values, int d,
-                       const unsigned char* __restrict__ live,
-                       const int* __restrict__ pos, long long n, long long out_size,
-                       int fill, int* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
-  const long long first = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  for (long long e = first; e < n; e += stride) {
-    if (!live[e]) continue;
-    const long long j = static_cast<long long>(pos[e]) - 1;
-    if (j >= out_size) continue;  // overflow lanes drop
-    for (int c = 0; c < d; ++c) out[j * d + c] = values[e * d + c];
+// K4: one pass with decoupled look-back (Merrill and Garland, "Single-pass
+// parallel prefix scan with decoupled look-back", 2016). A tile's status
+// word holds a flag in its high half and a count in its low half: the tile's
+// own live count (AGGREGATE) as soon as the tile is loaded, then the live
+// count of every lane up to its end (INCLUSIVE) once its look-back is done.
+constexpr unsigned long long AGGREGATE = 1ull << 32;
+constexpr unsigned long long INCLUSIVE = 2ull << 32;
+
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long flag,
+                                             int count) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = flag | static_cast<unsigned>(count);
+}
+
+// The live lanes before `tile`: warp 0 reads the status of the 32 tiles
+// before it at once, waits until each has published, adds the counts up to
+// the nearest INCLUSIVE one, and moves 32 tiles back while there is none.
+// Tile 0 publishes INCLUSIVE at once, so the walk ends. Every lane of warp 0
+// calls it and gets the sum.
+__device__ int look_back(const unsigned long long* status, int tile) {
+  const int lane = threadIdx.x & 31;
+  int excl = 0;
+  for (int top = tile - 1;; top -= 32) {
+    const int k = top - lane;
+    unsigned long long s = k >= 0 ? load_status(status + k) : INCLUSIVE;
+    while (__any_sync(FULL, (s >> 32) == 0)) {
+      if ((s >> 32) == 0) {
+        __nanosleep(32);
+        s = load_status(status + k);
+      }
+    }
+    const unsigned inclusive = __ballot_sync(FULL, (s >> 32) == 2);
+    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
+    int x = lane <= stop ? static_cast<int>(static_cast<unsigned>(s)) : 0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
+    excl += x;
+    if (inclusive) return excl;
   }
-  const long long n_live = n > 0 ? static_cast<long long>(pos[n - 1]) : 0;
-  const long long kept = n_live < out_size ? n_live : out_size;
-  for (long long s = kept * d + first; s < out_size * d; s += stride) out[s] = fill;
+}
+
+// Each block takes tiles in order from a ticket counter, so a tile's
+// predecessors are all held by running blocks and the look-back never waits
+// on a block that has not started. For each tile: one 16-byte load of the
+// mask a thread, a block scan of the counts, AGGREGATE published, the tile's
+// live lanes listed in shared memory in lane order, the look-back (warp 0),
+// INCLUSIVE published, then the live lanes' rows copied to out[excl + k]
+// with consecutive threads on consecutive slots. When no tile is left, the
+// block waits for the last tile's INCLUSIVE count (every tile is then held
+// by a running block) and fills its share of the slots from the live count
+// to out_size.
+__global__ void __launch_bounds__(THREADS)
+compact_kernel(const int* __restrict__ values, int d, const unsigned char* __restrict__ live,
+               long long n, long long out_size, int fill, int* __restrict__ out,
+               unsigned long long* status, unsigned int* ticket, int n_tiles) {
+  __shared__ unsigned short lanes[TILE];  // the tile's live lanes, in order
+  __shared__ int ws[THREADS / 32 + 1];
+  __shared__ int s_tile, s_excl;
+  const bool pairs = d == 2 && reinterpret_cast<uintptr_t>(values) % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  for (;;) {
+    if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(ticket, 1u));
+    __syncthreads();
+    const int tile = s_tile;
+    if (tile >= n_tiles) break;
+    const long long base = static_cast<long long>(tile) * TILE;
+    int v[ITEMS];
+    Lanes<unsigned char>::load(live, base + threadIdx.x * ITEMS, n, v);
+    int count = 0;
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) count += v[j];
+    int agg;
+    int at = block_exclusive<THREADS>(count, ws, agg);
+    if (threadIdx.x == 0) store_status(status + tile, tile == 0 ? INCLUSIVE : AGGREGATE, agg);
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j)
+      if (v[j]) lanes[at++] = static_cast<unsigned short>(threadIdx.x * ITEMS + j);
+    if (threadIdx.x < 32) {
+      const int excl = tile == 0 ? 0 : look_back(status, tile);
+      if (threadIdx.x == 0) {
+        if (tile != 0) store_status(status + tile, INCLUSIVE, excl + agg);
+        s_excl = excl;
+      }
+    }
+    __syncthreads();
+    const long long excl = s_excl;
+    const long long end = min(static_cast<long long>(agg), out_size - excl);  // drop overflow
+    for (long long k = threadIdx.x; k < end; k += THREADS) {
+      const long long e = base + lanes[k], slot = excl + k;
+      if (pairs) {
+        reinterpret_cast<int2*>(out)[slot] = __ldg(reinterpret_cast<const int2*>(values) + e);
+      } else {
+        for (int c = 0; c < d; ++c) out[slot * d + c] = __ldg(values + e * d + c);
+      }
+    }
+    __syncthreads();  // lanes, s_tile and s_excl are reused
+  }
+  __shared__ long long s_kept;
+  if (threadIdx.x == 0) {
+    long long total = 0;
+    if (n_tiles > 0) {
+      unsigned long long s;
+      while (((s = load_status(status + n_tiles - 1)) >> 32) != 2) __nanosleep(64);
+      total = static_cast<unsigned>(s);
+    }
+    s_kept = total < out_size ? total : out_size;
+  }
+  __syncthreads();
+  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
+  for (long long s = s_kept * d + blockIdx.x * static_cast<long long>(THREADS) + threadIdx.x;
+       s < out_size * d; s += stride)
+    out[s] = fill;
 }
 
 }  // namespace
@@ -253,21 +358,37 @@ extern "C" int prefix_sum_i32(const void* x, long long n, void* out, void* scrat
   return scan<int>(x, n, out, scratch, stream);
 }
 
-// Compaction of int32 rows [n, d] under the bool mask `live`, with `pos`
-// the inclusive scan of `live` (K3's output; unread when n == 0), into
-// out [out_size, d].
-extern "C" int stream_compact_i32(const void* values, int d, const void* live,
-                                  const void* pos, long long n, long long out_size,
-                                  int fill, void* out, void* stream_ptr) {
+// Lanes a K4 tile: the caller passes one 8-byte status word a tile and one
+// for the ticket counter.
+extern "C" int compact_tile_lanes() { return TILE; }
+
+// Compaction of int32 rows [n, d] under the bool mask `live` into out
+// [out_size, d]. `status` holds ceil(n / TILE) + 1 8-byte words; they are
+// zeroed here, on the stream, before the kernel (one memset, one
+// kernel launch).
+extern "C" int stream_compact_i32(const void* values, int d, const void* live, long long n,
+                                  long long out_size, int fill, void* out, void* status,
+                                  void* stream_ptr) {
   if (out_size <= 0 || d <= 0) return 0;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const long long work = n > out_size * d ? n : out_size * d;
-  const long long blocks = (work + THREADS - 1) / THREADS;
-  compact_scatter_kernel<<<static_cast<unsigned>(blocks < SCATTER_BLOCKS ? blocks
-                                                                         : SCATTER_BLOCKS),
-                           THREADS, 0, stream>>>(
-      static_cast<const int*>(values), d, static_cast<const unsigned char*>(live),
-      static_cast<const int*>(pos), n, out_size, fill, static_cast<int*>(out));
+  const long long n_tiles = (n + TILE - 1) / TILE;
+  cudaError_t err = cudaMemsetAsync(status, 0, (n_tiles + 1) * 8, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  // every tile, or enough blocks to fill the output in a few strides, at most
+  // what the card holds at once (2,048 threads an SM)
+  const long long fill_blocks = (out_size * d + THREADS * ITEMS - 1) / (THREADS * ITEMS);
+  long long blocks = n_tiles > fill_blocks ? n_tiles : fill_blocks;
+  const long long resident = static_cast<long long>(sms) * (2048 / THREADS);
+  if (blocks > resident) blocks = resident;
+  if (blocks < 1) blocks = 1;
+  auto* words = static_cast<unsigned long long*>(status);
+  compact_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+      static_cast<const int*>(values), d, static_cast<const unsigned char*>(live), n, out_size,
+      fill, static_cast<int*>(out), words, reinterpret_cast<unsigned int*>(words + n_tiles),
+      static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,5 @@
-// Row offsets of sorted segment ids, shared by the segment-sum's [E, D] path
-// (K1, segsum.cu) and the gather-and-segment-sum (K5, embed.cu).
+// Row offsets of sorted segment ids, for the segment-sum's [E, D] path (K1,
+// segsum.cu).
 //
 // For seg ascending over n_lanes lanes, fills off[r] = lower_bound(seg, r)
 // for every r in [0, n_rows], so the lanes of row r are [off[r], off[r+1]).

@@ -18,6 +18,8 @@ import os
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -78,6 +80,25 @@ def load(source: Path) -> ctypes.CDLL:
     return lib
 
 
+def on_device(device: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` on ``device``'s current CUDA stream with
+    ``device`` current: a C entry point's launch. Enters
+    ``torch.cuda.device`` only when another device is current, and reads
+    the raw stream pointer without building a ``torch.cuda.Stream``: both
+    cost more host time than a small kernel takes on the card. Returns what
+    ``fn`` returns, a CUDA error code."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return fn(*args, _raw_stream(index))
+    return fn(*args, _raw_stream(index))
+
+
+def _raw_stream(index: int) -> int:
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)  # PyTorch's own launchers use it
+    return get(index) if get else torch.cuda.current_stream(index).cuda_stream
+
+
 def launch_error(lib: ctypes.CDLL, strerror: str, err: int, what: str) -> RuntimeError:
     """The exception for a C entry point that returned CUDA error ``err``;
     ``strerror`` names the library's wrapper of ``cudaGetErrorString``."""
@@ -87,4 +108,4 @@ def launch_error(lib: ctypes.CDLL, strerror: str, err: int, what: str) -> Runtim
 
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_logs", "build_all", "load",
-           "library_path", "launch_error"]
+           "library_path", "on_device", "launch_error"]

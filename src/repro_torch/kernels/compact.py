@@ -10,9 +10,11 @@ header says what bounds them and how the design answers that. They compute:
     stream_compact(values, live, out_size=S, fill=f):
         out = full(S, f); out[cumsum(live) - 1] = values[live]  (extra drop)
 
-``stream_compact`` is ``prefix_sum`` of the mask (one K3 call, counted in
-``prefix_sum_launches``) followed by the scatter kernel (counted in
-``stream_compact_launches``). Both sum in int32, so they are exact at any
+``prefix_sum`` is three launches (tile sums, their scan, the tile scans),
+counted once a call in ``prefix_sum_launches``. ``stream_compact`` does not
+call it: it is one pass over the mask with decoupled look-back (a memset of
+its tile status words, then one kernel launch), counted in
+``stream_compact_launches``. Both sum in int32, so they are exact at any
 size; the JAX kernels sum in float32 and are exact below 2^24, where the two
 give the same arrays. Survivors keep their lane order.
 
@@ -32,7 +34,8 @@ from repro_torch.kernels.ref import prefix_sum_ref, stream_compact_ref
 SOURCE = build.CSRC / "compact.cu"
 
 prefix_sum_launches = 0      # K3 calls that launched the kernel
-stream_compact_launches = 0  # K4 scatter launches (each after one K3 call)
+stream_compact_launches = 0  # K4 calls that launched the kernel
+TILE = 4096  # lanes a K4 tile (csrc/compact.cu); one 8-byte status word each
 _lib: ctypes.CDLL | None = None
 _SCAN_ENTRY = {torch.bool: "prefix_sum_u8", torch.int32: "prefix_sum_i32"}
 
@@ -48,10 +51,14 @@ def load_library() -> ctypes.CDLL:
     for name in _SCAN_ENTRY.values():
         getattr(lib, name).argtypes = [p, ll, p, p, p]
         getattr(lib, name).restype = i
-    lib.stream_compact_i32.argtypes = [p, i, p, p, ll, ll, i, p, p]
+    lib.stream_compact_i32.argtypes = [p, i, p, ll, ll, i, p, p, p]
     lib.stream_compact_i32.restype = i
     lib.compact_scratch_ints.argtypes = [ll]
     lib.compact_scratch_ints.restype = ll
+    lib.compact_tile_lanes.restype = i
+    if lib.compact_tile_lanes() != TILE:
+        raise RuntimeError(f"{SOURCE.name} has tiles of {lib.compact_tile_lanes()} lanes, "
+                           f"its wrapper {TILE}")
     _lib = lib
     return lib
 
@@ -85,11 +92,8 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     lib = load_library()
     scratch = torch.empty(lib.compact_scratch_ints(x.shape[0]), dtype=torch.int32,
                           device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _SCAN_ENTRY[x.dtype])(x.data_ptr(), x.shape[0],
-                                                 out.data_ptr(), scratch.data_ptr(),
-                                                 stream)
+    err = build.on_device(x.device, getattr(lib, _SCAN_ENTRY[x.dtype]), x.data_ptr(),
+                          x.shape[0], out.data_ptr(), scratch.data_ptr())
     if err:
         raise build.launch_error(lib, "compact_error_string", err, "prefix-sum kernel")
     prefix_sum_launches += 1
@@ -105,8 +109,9 @@ def stream_compact(
     bool ``[E]``.
 
     On a CPU tensor this is ``ref.stream_compact_ref``; on a CUDA tensor one
-    ``prefix_sum`` of ``live`` and one launch of the scatter kernel, counted
-    in ``stream_compact_launches``.
+    call of the one-pass kernel (a memset of its status words, then one
+    launch), counted in ``stream_compact_launches``. The output and the
+    kernel's status words come from one allocation (``out`` is a view of it).
     """
     global stream_compact_launches
     if values.dtype != torch.int32 or values.dim() not in (1, 2):
@@ -123,19 +128,18 @@ def stream_compact(
     if values.device.type == "cpu":
         return stream_compact_ref(values, live, out_size, fill)
     _check_cuda(values, live)
-    d = 1 if values.dim() == 1 else values.shape[1]
-    out = torch.empty((out_size,) + tuple(values.shape[1:]), dtype=torch.int32,
-                      device=values.device)
+    n, d = values.shape[0], 1 if values.dim() == 1 else values.shape[1]
+    # the status words (one a tile and the ticket, 8 bytes each, padded to
+    # 256 bytes), then out
+    head = (2 * (-(-n // TILE) + 1) + 63) // 64 * 64
+    buf = torch.empty(head + out_size * d, dtype=torch.int32, device=values.device)
+    out = buf[head:].view((out_size,) + tuple(values.shape[1:]))
     if out.numel() == 0:
         return out
-    pos = prefix_sum(live)
-    lib = load_library()
-    n = values.shape[0]
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.stream_compact_i32(values.data_ptr(), d, live.data_ptr(),
-                                     pos.data_ptr() if n else None, n, out_size,
-                                     int(fill), out.data_ptr(), stream)
+    lib = _lib or load_library()
+    err = build.on_device(values.device, lib.stream_compact_i32, values.data_ptr(), d,
+                          live.data_ptr(), n, out_size, int(fill), out.data_ptr(),
+                          buf.data_ptr())
     if err:
         raise build.launch_error(lib, "compact_error_string", err,
                                  "stream-compaction kernel")

@@ -75,12 +75,16 @@ def segment_embed(
 
         out[s, :] = sum over e with seg_ids[e]==s of weights[e] * table[gather_ids[e], :]
 
-    ``table`` may be [T, R, D] with [T, E] ids (one call for all tables,
-    [V, T, D] out). ``presorted=False`` sorts the shared ``seg_ids`` once,
-    stably, and carries every table's ids and weights along with it."""
+    ``table`` may be [T, R, D] with [T, E] ids, or a [T, E1, E2] view of
+    them (one call for all tables, [V, T, D] out). ``presorted=False`` sorts
+    the shared ``seg_ids`` once, stably, and carries every table's ids and
+    weights along with it."""
     global unsorted_fallback_count
     if not presorted:
         unsorted_fallback_count += 1
+        if table.dim() == 3 and gather_ids.dim() == 3:
+            gather_ids = gather_ids.reshape(gather_ids.shape[0], -1)
+            weights = None if weights is None else weights.reshape(weights.shape[0], -1)
         seg_ids, order = torch.sort(seg_ids, stable=True)
         gather_ids = gather_ids.index_select(-1, order)
         if weights is not None:

@@ -110,12 +110,10 @@ def peel_edges_sorted(
     buf = torch.empty(lib.peel_buffer_ints(n_nodes, int(charge)), dtype=torch.int32,
                       device=dst.device)
     if n_nodes > 0:
-        with torch.cuda.device(dst.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.peel_edges(src.data_ptr(), dst.data_ptr(), n_lanes, n_nodes,
-                                 None if active is None else active.data_ptr(),
-                                 failed.data_ptr(), int(charge), SHARED_STATE_BYTES,
-                                 buf.data_ptr(), stream)
+        err = build.on_device(dst.device, lib.peel_edges, src.data_ptr(), dst.data_ptr(),
+                              n_lanes, n_nodes, None if active is None else active.data_ptr(),
+                              failed.data_ptr(), int(charge), SHARED_STATE_BYTES,
+                              buf.data_ptr())
         if err:
             raise build.launch_error(lib, "peel_error_string", err, "peel kernel")
         launches += 1

@@ -72,8 +72,10 @@ def segment_embed_ref(
     """out[s] = sum_e w[e] * table[gather_ids[e]] over seg_ids[e] == s.
 
     ``table`` [R, D] with ``gather_ids`` (and ``weights``) [E] gives [V, D];
-    the batched form, [T, R, D] tables with [T, E] ids and one shared
-    ``seg_ids`` [E], gives [V, T, D] (table t's sums at ``out[:, t]``). As the
+    the batched form, [T, R, D] tables with [T, E] ids (or a [T, E1, E2]
+    view, flattened here to [T, E1 * E2] row-major, as the kernel reads it)
+    and one shared ``seg_ids`` [E], gives [V, T, D] (table t's sums at
+    ``out[:, t]``). As the
     JAX package's ``segment_embed_ref``: gather ids are clamped to R - 1, rows
     whose id is outside [0, R) are zeroed after the weights are applied,
     segment ids outside [0, V) drop, and the sums are float32.
@@ -82,6 +84,9 @@ def segment_embed_ref(
     if single:
         table, gather_ids = table[None], gather_ids[None]
         weights = None if weights is None else weights[None]
+    elif gather_ids.dim() == 3:
+        gather_ids = gather_ids.reshape(gather_ids.shape[0], -1)
+        weights = None if weights is None else weights.reshape(weights.shape[0], -1)
     n_tables, n_rows, d = table.shape
     ids = gather_ids.long().clamp(0, max(n_rows - 1, 0))
     rows = table[torch.arange(n_tables, device=table.device)[:, None], ids].float()

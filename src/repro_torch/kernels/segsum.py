@@ -131,10 +131,8 @@ def segment_sum_sorted(
     scratch = torch.empty(lib.segsum_scratch_ints(n_lanes, num_segments, d,
                                                   int(out_dtype == torch.float32)),
                           dtype=torch.int32, device=values.device)
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(values.data_ptr(), seg_ids.data_ptr(), n_lanes, num_segments,
-                 d, out.data_ptr(), scratch.data_ptr(), stream)
+    err = build.on_device(values.device, fn, values.data_ptr(), seg_ids.data_ptr(), n_lanes,
+                          num_segments, d, out.data_ptr(), scratch.data_ptr())
     if err:
         raise build.launch_error(lib, "segsum_error_string", err, "segment-sum kernel")
     launches += 1

@@ -137,15 +137,16 @@ def embedding_bag(tables: torch.Tensor, ids: torch.Tensor, cfg: DCNConfig) -> to
         flat = i.clamp(0, r - 1) + torch.arange(t, device=ids.device) * r     # [B, T]
         rows = tables.reshape(t * r, d).index_select(0, flat.reshape(-1)).view(b, t, d)
         return torch.where(ok[..., None], rows, float("nan")).reshape(b, -1)
-    # multi-hot: bag e of row b sums `multi_hot` rows of each table
-    flat_ids = ids.permute(1, 0, 2).reshape(t, -1)                 # [T, B*M], a copy
-    bag = torch.arange(b, dtype=torch.int32, device=ids.device).repeat_interleave(
-        cfg.multi_hot)                                             # [B*M]
+    # multi-hot: bag e of row b sums `multi_hot` rows of each table. The ids
+    # go as a [T, B, M] view (no copy; K5 reads them through the strides),
+    # and the bag ids ascend as built, so nothing is sorted.
+    ids_t = ids.permute(1, 0, 2)                                   # [T, B, M], a view
+    bag = torch.arange(b, dtype=torch.int32, device=ids.device)[:, None].expand(
+        b, cfg.multi_hot).contiguous().view(-1)                    # [B*M], ascending
     if resolve_kernel(cfg.kernel, tables.device):
-        out = kops.segment_embed(tables, flat_ids, bag, num_segments=b,
-                                 presorted=False)                  # [B, T, D]
+        out = kops.segment_embed(tables, ids_t, bag, num_segments=b)   # [B, T, D]
     else:
-        out = segment_embed_ref(tables, flat_ids, bag, None, b)
+        out = segment_embed_ref(tables, ids_t, bag, None, b)
     return out.reshape(b, -1)
 
 

@@ -93,6 +93,32 @@ def test_stream_compact_all_dead_all_live_match_jax():
     assert torch.equal(got, torch.full((4, 2), 9, dtype=torch.int32))
 
 
+K4_TILE = compact.TILE  # lanes a tile of the one-pass K4 kernel
+
+
+@pytest.mark.parametrize("e,d,out_size,p_live", [
+    (K4_TILE - 1, 2, K4_TILE, 0.5),        # one tile, not full
+    (K4_TILE, 0, K4_TILE, 0.7),            # exactly one tile
+    (K4_TILE + 1, 2, 2 * K4_TILE, 0.5),    # a second tile of one lane
+    (3 * K4_TILE + 7, 2, 2 * K4_TILE, 0.6),  # several tiles; out_size below the live count
+    (2 * K4_TILE + 3, 0, 5 * K4_TILE, 0.2),  # a fill tail longer than one tile
+    (2 * K4_TILE, 0, K4_TILE, 0.0),        # all dead
+    (2 * K4_TILE + 1, 2, 3 * K4_TILE, 1.0),  # all live
+])
+def test_stream_compact_tile_edges_match_jax(e, d, out_size, p_live):
+    """K4's plain version against JAX's stream_compact (Pallas interpret) at
+    the edges of the port's kernel tiles, where the look-back, the overflow
+    drop and the fill tail change hands between blocks."""
+    rng = np.random.default_rng(e + d + out_size)
+    values = rng.integers(-10_000, 10_000, (e, d) if d else e).astype(np.int32)
+    live = rng.random(e) < p_live
+    got, want = _compact_both(values, live, out_size, -5)
+    np.testing.assert_array_equal(got, want)
+    k = min(int(live.sum()), out_size)
+    np.testing.assert_array_equal(got[:k], values[live][:k])
+    assert (got[k:] == -5).all()
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError):
         compact.prefix_sum(torch.ones(4, dtype=torch.int64))

@@ -353,15 +353,69 @@ def test_stream_compact_keeps_order(cuda):
     assert bool((packed[k:] == 4096).all())
 
 
+@pytest.mark.parametrize("e,d,out_size,p_live", [
+    (1, 2, 4, 1.0),
+    (compact.TILE - 1, 2, compact.TILE, 0.5),
+    (compact.TILE, 0, compact.TILE, 1.0),
+    (compact.TILE + 1, 1, 3 * compact.TILE, 0.4),      # a fill tail of over a tile
+    ((1 << 20) + 1, 2, 1 << 17, 0.3),                 # out_size below the live count
+    ((1 << 26) + 3, 2, 1 << 24, 0.2),                 # 16,385 tiles: more than one wave
+])
+def test_stream_compact_tiles_and_waves(cuda, e, d, out_size, p_live):
+    """The one-pass kernel across its tile edges and past one wave of
+    resident blocks, where the look-back must wait on tiles still running."""
+    rng = np.random.default_rng(e % 1000 + d)
+    values = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (e, d) if d > 1 else e,
+                                           dtype=np.int64).astype(np.int32)).to(cuda)
+    live = torch.from_numpy(rng.random(e) < p_live).to(cuda)
+    before = (compact.prefix_sum_launches, compact.stream_compact_launches)
+    out = compact.stream_compact(values, live, out_size=out_size, fill=-9)
+    torch.cuda.synchronize()
+    assert (compact.prefix_sum_launches, compact.stream_compact_launches) == (
+        before[0], before[1] + 1)
+    assert torch.equal(out, ref.stream_compact_ref(values, live, out_size, -9))
+
+
+def test_stream_compact_back_to_back_masks(cuda):
+    """Three calls in a row with a different mask each, the last smaller than
+    the first: stale tile status from an earlier call would show here."""
+    rng = np.random.default_rng(11)
+    for e, p_live in [(3_000_017, 0.5), (2_000_003, 0.9), (70_001, 0.1)]:
+        values = torch.from_numpy(rng.integers(0, 1 << 30, (e, 2)).astype(np.int32)).to(cuda)
+        live = torch.from_numpy(rng.random(e) < p_live).to(cuda)
+        out = compact.stream_compact(values, live, out_size=e // 2, fill=7)
+        assert torch.equal(out, ref.stream_compact_ref(values, live, e // 2, 7))
+
+
+def test_stream_compact_two_streams(cuda):
+    """Calls on two streams at once: each takes its own status words."""
+    rng = np.random.default_rng(12)
+    inputs = [(torch.from_numpy(rng.integers(0, 1000, 1_500_007).astype(np.int32)).to(cuda),
+               torch.from_numpy(rng.random(1_500_007) < p).to(cuda)) for p in (0.3, 0.7)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = [[], []]
+    for _ in range(4):
+        for k, (stream, (values, live)) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(stream):
+                outs[k].append(compact.stream_compact(values, live, out_size=1_000_000,
+                                                      fill=-1))
+    torch.cuda.synchronize()
+    for k, (values, live) in enumerate(inputs):
+        exp = ref.stream_compact_ref(values, live, 1_000_000, -1)
+        assert all(torch.equal(o, exp) for o in outs[k])
+
+
 @pytest.mark.parametrize("eps", [0.0, 0.1])
 def test_pruned_kernel_on_card(cuda, eps):
     """Pruned with the kernels on == off == unpruned == the numpy oracle on a
-    small planted block, with two K4 calls (and two K3 scans) a query."""
+    small planted block, with two K4 calls a query and no K3 scan (K4 is one
+    pass of its own)."""
     g, _, _ = planted_dense(4096, 64, seed=0)
     compact.prefix_sum_launches = compact.stream_compact_launches = 0
     before = peel.launches
     on = pbahmani(g, eps=eps, pruned=True, kernel=True, device=cuda)
-    assert (compact.prefix_sum_launches, compact.stream_compact_launches) == (2, 2)
+    assert (compact.prefix_sum_launches, compact.stream_compact_launches) == (0, 2)
     assert peel.launches > before
     off = pbahmani(g, eps=eps, pruned=True, kernel=False, device=cuda)
     plain = pbahmani(g, eps=eps, kernel=True, device=cuda)
@@ -460,6 +514,54 @@ def test_segment_embed_unsorted_and_checks(cuda):
     with pytest.raises(RuntimeError, match="no backward"):
         embed.segment_embed_sorted(tables.requires_grad_(), gid, seg.sort().values,
                                    num_segments=90)
+
+
+@pytest.mark.parametrize("t,m,shift,weighted", [(1, 4, 0, False), (26, 4, 0, False),
+                                                (26, 4, 1, False), (5, 3, 0, True),
+                                                (26, 1, 0, False), (3, 9, 2, True)])
+def test_segment_embed_strided_ids(cuda, t, m, shift, weighted):
+    """Ids (and weights) as the [T, B, M] view of [B, T, M] arrays (what
+    embedding_bag hands K5): equal to the plain version, bitwise equal to
+    the same lanes copied contiguous and across repeated calls; invalid ids
+    drop; tables off a 16-byte boundary (shift) take the scalar path."""
+    rng = np.random.default_rng(t * 10 + m + shift)
+    b, n, d = 3000, 500, 16
+    base = torch.from_numpy(rng.normal(size=t * n * d + 4).astype(np.float32)).to(cuda)
+    tables = base[shift:shift + t * n * d].view(t, n, d)
+    ids = torch.from_numpy(rng.integers(-3, n + 3, (b, t, m)).astype(np.int32)).to(cuda)
+    view = ids.permute(1, 0, 2)
+    w = (torch.from_numpy(rng.random((b, t, m)).astype(np.float32)).to(cuda).permute(1, 0, 2)
+         if weighted else None)
+    seg = torch.arange(b, dtype=torch.int32, device=cuda)[:, None].expand(b, m).contiguous()
+    seg = seg.view(-1)
+    before = embed.launches
+    out = embed.segment_embed_sorted(tables, view, seg, w, num_segments=b)
+    again = embed.segment_embed_sorted(tables, view, seg, w, num_segments=b)
+    flat = embed.segment_embed_sorted(tables, view.reshape(t, -1).contiguous(), seg,
+                                      None if w is None else w.reshape(t, -1).contiguous(),
+                                      num_segments=b)
+    torch.cuda.synchronize()
+    assert embed.launches == before + 3
+    assert torch.equal(out, again) and torch.equal(out, flat)
+    torch.testing.assert_close(out, ref.segment_embed_ref(tables, view, seg, w, b),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("t", [1, 26])
+def test_segment_embed_bag_sizes(cuda, t):
+    """Empty bags and bags of 1, 4 and 1,000 lanes side by side (the bounds'
+    guess misses and the search takes over), with invalid ids; quarter-
+    integer data, so the sums are exact in any order."""
+    rng = np.random.default_rng(40 + t)
+    sizes = np.array([0, 1, 4, 1000, 0, 4, 4, 1, 0, 0, 4, 1000, 1, 4] * 20)
+    seg = torch.from_numpy(np.repeat(np.arange(sizes.size), sizes).astype(np.int32)).to(cuda)
+    n, d, e = 800, 16, int(sizes.sum())
+    tables = torch.from_numpy((rng.integers(-8, 8, (t, n, d)) / 4).astype(np.float32)).to(cuda)
+    gid = torch.from_numpy(rng.integers(-5, n + 5, (t, e)).astype(np.int32)).to(cuda)
+    out = embed.segment_embed_sorted(tables, gid, seg, num_segments=sizes.size + 2)
+    exp = ref.segment_embed_ref(tables, gid, seg, None, sizes.size + 2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, exp)
 
 
 @pytest.mark.parametrize("cross_rank", [0, 4])

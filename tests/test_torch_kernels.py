@@ -247,6 +247,41 @@ def test_segment_embed_batched_tables_match_jax(weighted):
     assert plain.shape == (v, t_, d)
 
 
+@pytest.mark.parametrize("b,t_,m,weighted", [(40, 5, 4, False), (33, 3, 3, True),
+                                              (20, 4, 1, False), (7, 2, 9, True)])
+def test_segment_embed_strided_ids_match_jax(b, t_, m, weighted):
+    """Gather ids as the [T, B, M] view of [B, T, M] ids (what DCN-v2's
+    embedding_bag hands K5, no copy): equal to JAX's segment_embed, Pallas
+    interpret and xla, on the transposed copy, table by table; the plain
+    version flattens the view itself. Bags of M lanes, plus one bag id past
+    V and invalid row ids."""
+    rng = np.random.default_rng(b * 10 + m)
+    n, d = 30, 8
+    tables = rng.normal(size=(t_, n, d)).astype(np.float32)
+    ids = rng.integers(-2, n + 2, (b, t_, m)).astype(np.int32)
+    seg = np.repeat(np.arange(b, dtype=np.int32), m)
+    seg[-1] = b  # past V: dropped
+    w = rng.random((b, t_, m)).astype(np.float32) if weighted else None
+    view = torch.from_numpy(ids).permute(1, 0, 2)
+    wview = None if w is None else torch.from_numpy(w).permute(1, 0, 2)
+    assert not view.is_contiguous()
+    out = ops.segment_embed(_t(tables), view, _t(seg), wview, num_segments=b)
+    assert out.shape == (b, t_, d)
+    flat = ids.transpose(1, 0, 2).reshape(t_, -1)
+    wflat = None if w is None else w.transpose(1, 0, 2).reshape(t_, -1)
+    for k in range(t_):
+        for impl in ("pallas", "xla"):
+            exp = _jax_embed(tables[k], flat[k], seg, None if w is None else wflat[k], b, impl)
+            np.testing.assert_allclose(out[:, k].numpy(), exp, **EMBED_TOL)
+    same = ref.segment_embed_ref(_t(tables), _t(np.ascontiguousarray(flat)), _t(seg),
+                                 _t(None if w is None else np.ascontiguousarray(wflat)), b)
+    assert torch.equal(out, same)
+    # presorted=False flattens the view before it carries the ids through the sort
+    resorted = ops.segment_embed(_t(tables), view, _t(seg), wview, num_segments=b,
+                                 presorted=False)
+    assert torch.equal(resorted, out)
+
+
 def test_segment_embed_empty_bags_and_lanes():
     table = torch.ones(4, 8)
     seg = torch.tensor([1, 1, 3], dtype=torch.int32)

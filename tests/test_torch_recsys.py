@@ -146,12 +146,13 @@ def test_embedding_bag_invalid_ids_match_jax(multi_hot, kernel):
     assert np.isnan(out).any() == (multi_hot == 1)
 
 
-@pytest.mark.parametrize("kernel,multi_hot,bumps", [(True, 4, 1), (False, 4, 0),
+@pytest.mark.parametrize("kernel,multi_hot,bumps", [(True, 4, 0), (False, 4, 0),
                                                      (True, 1, 0)])
 def test_unsorted_fallback_counted_once_per_bag_call(kernel, multi_hot, bumps):
-    """The multi-hot bag ids go to K5 with presorted=False: one stable sort
-    (and one count) per embedding_bag call, for all 26 tables. The plain path
-    sorts nothing and the one-hot gather reaches no K5."""
+    """The multi-hot bag ids are built ascending and go to K5 with
+    presorted=True, so no embedding_bag call sorts or bumps the counter,
+    with the kernel on or off; the one-hot gather reaches no K5. (JAX's
+    embedding_bag passes presorted=False and counts every call.)"""
     model = _port_model(multi_hot=multi_hot, kernel=kernel)
     ids = torch.from_numpy(_ids(4, 5, multi_hot))
     before = ops.unsorted_fallback_count
@@ -159,6 +160,30 @@ def test_unsorted_fallback_counted_once_per_bag_call(kernel, multi_hot, bumps):
         embedding_bag(model.tables, ids, model.cfg)
         embedding_bag(model.tables, ids, model.cfg)
     assert ops.unsorted_fallback_count == before + 2 * bumps
+
+
+@pytest.mark.parametrize("b", [1, 5])
+def test_kernel_bag_hands_k5_the_ids_view_and_contiguous_bag_ids(monkeypatch, b):
+    """What the CUDA wrapper needs, checked here where the plain path does
+    not need it: the ids go to K5 as the [T, B, M] view of the batch (no
+    copy, last axis contiguous) and the bag ids are contiguous and
+    ascending, also for a batch of one row (where a reshape of the expanded
+    ids would be a stride-0 view)."""
+    seen, real = [], ops.segment_embed_sorted
+
+    def spy(tables, gather_ids, seg_ids, weights=None, *, num_segments):
+        seen.append((gather_ids, seg_ids))
+        return real(tables, gather_ids, seg_ids, weights, num_segments=num_segments)
+
+    monkeypatch.setattr(ops, "segment_embed_sorted", spy)
+    model = _port_model(multi_hot=4, kernel=True)
+    ids = torch.from_numpy(_ids(6, b, 4))
+    with torch.no_grad():
+        embedding_bag(model.tables, ids, model.cfg)
+    (gid, seg), = seen
+    assert gid.shape == (26, b, 4) and gid.data_ptr() == ids.data_ptr() and gid.stride(-1) == 1
+    assert seg.is_contiguous() and seg.dtype == torch.int32
+    assert torch.equal(seg, torch.arange(b, dtype=torch.int32).repeat_interleave(4))
 
 
 def test_kernel_bag_refuses_autograd():
@@ -194,6 +219,31 @@ def test_dcn_forward_matches_jax(cross_rank, impl, kernel):
     with torch.no_grad():
         out = dcn_forward(model, {k: torch.from_numpy(v) for k, v in batch.items()})
     assert out.shape == (16,)
+    np.testing.assert_allclose(out.numpy(), exp, **OUT_TOL)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("b", [1, 33])
+@pytest.mark.parametrize("cross_rank", [0, 4])
+def test_presorted_bag_forward_matches_jax(cross_rank, b, impl):
+    """The kernel path's bag (ids as a [T, B, M] view, bag ids built
+    ascending and passed presorted, no sort) against JAX, which transposes
+    and sorts: the bags and the full- and low-rank forward at multi_hot 4,
+    for a single row and an odd batch, with no sort counted."""
+    batch = _batch(11 + b, b=b)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    exp_bag = np.asarray(jrec.embedding_bag(_jax_params(cross_rank)["tables"],
+                                            jb["sparse_ids"], _jcfg(4, cross_rank, impl)))
+    exp = np.asarray(jrec.dcn_forward(_jax_params(cross_rank), jb, _jcfg(4, cross_rank, impl)))
+    model = _port_model(cross_rank, multi_hot=4, kernel=True)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    before = ops.unsorted_fallback_count
+    with torch.no_grad():
+        bag = embedding_bag(model.tables, tb["sparse_ids"], model.cfg)
+        out = dcn_forward(model, tb)
+    assert ops.unsorted_fallback_count == before
+    np.testing.assert_allclose(bag.numpy(), exp_bag, **BAG_TOL)
+    assert out.shape == (b,)
     np.testing.assert_allclose(out.numpy(), exp, **OUT_TOL)
 
 
