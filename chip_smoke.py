@@ -31,17 +31,24 @@ takes a plain gather), and the kernel switched on. Phases:
      launch a pass, no K1;
   5. CBDS-P and k-core, kernel on against kernel off and the numpy oracles;
      one K2 launch a fixpoint iteration, one K1 launch an augmentation round;
-  6. the pruned peel on the planted block: plan, pruned with kernels on and
-     off, unpruned, the numpy oracle; K2 launches (one a device pass and a
-     plan iteration), K4 launched twice a query and K3 never; every bucket
-     rung K2 sees is dst-sorted; wall times split into plan, host, upload,
-     device;
+  6. the pruned peel on the planted block, resident on the card: plan, the
+     resident prep equal to the host prep field for field (kernels on and
+     off), pruned with kernels on and off, unpruned, the host path, the
+     numpy oracle; launches a query: K2 one a pass (pass 0 included) and a
+     plan iteration, K1 three (the plan's, the prep's and the bucket's
+     degrees), K3 two and K4 three (the prep's and the ladder's); every bucket rung K2 sees is dst-sorted; wall times
+     split into plan, resident prep, bucket peel and merge, the host path's
+     host prep, host half and upload timed once more for the record, and
+     the query profiled;
   7. K3 and K4 at the pruned path's own inputs against their plain versions
-     and one PyTorch call each, with times (K4: one launch a call, its host
-     time a call);
+     and one PyTorch call each, with times (K3 at both callers' masks and at
+     the ladder's [8,388,608] bool edge mask; K3 and K4 one launch a call,
+     their host time a call);
   8. the pruned peel on the RMAT graph, where pass 0 leaves more lanes than
-     the largest bucket: it falls back to the unpruned peel, equal triple,
-     one K2 launch a pass and a plan iteration;
+     the largest bucket: the resident prep decides it after its pass 0 and
+     before any K3 or K4 launch, and the query falls back to the unpruned
+     peel, equal triple, one K2 launch a pass and a plan iteration plus the
+     prep's pass 0;
   9. refinement: ``pbahmani(refine_rounds=3)`` and ``refine`` with the
      kernel on and off (one K2 launch a pass), and each round against
      ``refine_round_np``;
@@ -678,11 +685,20 @@ def phase_compact_cases(device: str) -> float:
               ("int32 zeros 513", np.zeros(513, np.int32)),
               ("int32 signed 4194321", rng.integers(-5, 6, 4_194_321).astype(np.int32)),
               ("bool ones 2^24+5 (total past 2^24)", np.ones((1 << 24) + 5, bool))]
+    # the one-pass kernel at a thread's and a tile's edges, one tile past a
+    # wave of resident blocks, and 2^26 + 3 lanes
+    wave = (torch.cuda.get_device_properties(0).multi_processor_count * 8 + 1) * compact.TILE + 5
+    for e in (0, 15, 16, 4095, 4096, 4097, 8191, 8192, 8193, wave, (1 << 26) + 3):
+        scans += [(f"bool e={e}", rng.random(e) < 0.4),
+                  (f"int32 e={e}", rng.integers(-7, 8, e).astype(np.int32))]
     for name, x in scans:
         tx = t(x)
+        before = compact.prefix_sum_launches
         out = compact.prefix_sum(tx)
         exp = ref.prefix_sum_ref(tx)
         torch.cuda.synchronize()
+        check(compact.prefix_sum_launches == before + (x.size > 0),
+              f"K3 {name}: {compact.prefix_sum_launches - before} launches for one call")
         max_err = max(max_err, compare(out, exp, None))
         if name.startswith("bool ones 2^24"):
             check(int(out[-1]) == x.size, f"K3 total {int(out[-1])}, expected {x.size}")
@@ -722,18 +738,36 @@ def phase_compact_cases(device: str) -> float:
 # ---------------------------------------------------------------------------
 # phase 6: the pruned peel on the planted block
 # ---------------------------------------------------------------------------
+def same_prep(got, want) -> bool:
+    """Every field of the resident prep (device tensors) equal to the host
+    prep's: the integers, best_d1's bits, the masks, perm where a1 holds,
+    the plan and the bucket arrays lane for lane."""
+    a1 = got.a1.cpu().numpy()
+    return ((got.n_v1, got.n_e1, got.better1, got.observed, got.plan)
+            == (want.n_v1, want.n_e1, want.better1, want.observed, want.plan)
+            and np.float32(got.best_d1).view(np.int32) == np.float32(want.best_d1).view(np.int32)
+            and np.array_equal(a1, want.a1)
+            and np.array_equal(got.active0.cpu().numpy(), want.active0)
+            and np.array_equal(got.perm.cpu().numpy()[a1], want.perm[want.a1])
+            and np.array_equal(got.b_src.cpu().numpy(), want.b_src)
+            and np.array_equal(got.b_dst.cpu().numpy(), want.b_dst))
+
+
 def phase_pruned(g, device: str, timed_runs: int = 3) -> tuple[dict, dict, dict]:
     """Returns (launches by kernel on the pruned main path, times by eps,
     the K3/K4 inputs the main path gave its kernels at eps 0)."""
     import torch
 
     from repro_torch.core import pbahmani, pbahmani_np, prune
-    from repro_torch.kernels import compact, peel
+    from repro_torch.graphs.convert import to_device
+    from repro_torch.kernels import compact, peel, segsum
 
-    launches = {"peel_edges": 0, "prefix_sum": 0, "stream_compact": 0}
+    launches = {"peel_edges": 0, "segment_sum_sorted": 0, "prefix_sum": 0,
+                "stream_compact": 0}
     times, inputs = {}, {}
     u, v = prune.slot_arrays(g)
     deg = g.degrees().astype(np.int32)
+    src, dst = to_device(g, device, sorted=True)
     for eps in (0.1, 0.0):
         t0 = time.perf_counter()
         rho_n, mask_n, passes_n = pbahmani_np(g, eps=eps)
@@ -744,28 +778,39 @@ def phase_pruned(g, device: str, timed_runs: int = 3) -> tuple[dict, dict, dict]
         pd = prune.prepare_pruned_peel(u, v, deg, g.n_edges, eps, plan)
         check(isinstance(pd, prune.PrunedDispatch),
               f"eps={eps}: pass 0 leaves no bucket-sized subproblem ({pd!r:.80})")
+        for kernel in (True, False):
+            rd = prune.prepare_pruned_peel_resident(src, dst, g.n_nodes, g.n_edges, eps, plan,
+                                                    kernel)
+            check(isinstance(rd, prune.PrunedDispatch) and same_prep(rd, pd),
+                  f"eps={eps}: the resident prep (kernel={kernel}) differs from the host prep")
 
-        peel.launches = compact.prefix_sum_launches = compact.stream_compact_launches = 0
+        peel.launches = segsum.launches = 0
+        compact.prefix_sum_launches = compact.stream_compact_launches = 0
         pass_calls, kcore_calls = edge_stage_calls()
         with pass_calls, kcore_calls:
             on = pbahmani(g, eps=eps, pruned=True, kernel=True, device=device)
-        n_k2, n_k3, n_k4 = (peel.launches, compact.prefix_sum_launches,
-                            compact.stream_compact_launches)
-        check(n_k2 > 0 and n_k4 == 2 and n_k3 == 0,
-              f"eps={eps}: the pruned path launched K2 {n_k2}, K3 {n_k3}, K4 {n_k4} "
-              f"times (expected K2 > 0, K3 0 and K4 2 a query)")
-        # pass 0 runs on the host; every later pass and every fixpoint
+        counts = dict(zip(launches, (peel.launches, segsum.launches,
+                                     compact.prefix_sum_launches,
+                                     compact.stream_compact_launches)))
+        n_k2 = counts["peel_edges"]
+        check(n_k2 > 0 and (counts["segment_sum_sorted"], counts["prefix_sum"],
+                            counts["stream_compact"]) == (3, 2, 3),
+              f"eps={eps}: the pruned path launched {counts} (expected K2 > 0, K1 3 for the "
+              f"plan's, the prep's and the bucket's degrees, K3 2 and K4 3 a query)")
+        # pass 0 runs on the card too: every pass and every fixpoint
         # iteration of the plan is one K2 launch
-        check(pass_calls.n == on[2] - 1 and n_k2 == pass_calls.n + kcore_calls.n,
-              f"eps={eps}: K2 launched {n_k2} times for {on[2] - 1} device passes "
+        check(pass_calls.n == on[2] and n_k2 == pass_calls.n + kcore_calls.n,
+              f"eps={eps}: K2 launched {n_k2} times for {on[2]} passes "
               f"({pass_calls.n} edge stages) and {kcore_calls.n} plan iterations")
-        for name, n in zip(launches, (n_k2, n_k3, n_k4)):
+        for name, n in counts.items():
             launches[name] += n
         off = pbahmani(g, eps=eps, pruned=True, kernel=False, device=device)
         full_on = pbahmani(g, eps=eps, kernel=True, device=device)
         full_off = pbahmani(g, eps=eps, kernel=False, device=device)
+        host = prune.pruned_peel_host(u, v, deg, g.n_edges, eps, plan, kernel=True,
+                                      device=device)
         for label, other in (("pruned, kernel off", off), ("unpruned, kernel on", full_on),
-                             ("unpruned, kernel off", full_off)):
+                             ("unpruned, kernel off", full_off), ("the host path", host)):
             check(np.float32(other[0]).view(np.int32) == np.float32(on[0]).view(np.int32)
                   and other[2] == on[2] and np.array_equal(other[1], on[1]),
                   f"eps={eps}: pruned with kernels {on[0], on[2]} differs from "
@@ -775,9 +820,10 @@ def phase_pruned(g, device: str, timed_runs: int = 3) -> tuple[dict, dict, dict]
               f"eps={eps}: pruned {on[0], on[2]} differs from pbahmani_np {rho_n, passes_n}")
 
         # every dst array handed to K2 in one run ascends (checked once per
-        # array, on the card), and the K4 calls' inputs are kept for phase 7
-        seen, sorted_rungs, k4_calls = set(), [], []
-        real_k2, real_k4 = peel.peel_edges_sorted, prune.stream_compact
+        # array, on the card), and the K3 and K4 calls' inputs are kept for
+        # phase 7
+        seen, sorted_rungs, k3_calls, k4_calls = set(), [], [], []
+        real_k2, real_k3, real_k4 = peel.peel_edges_sorted, prune.prefix_sum, prune.stream_compact
 
         def k2_checked(src, dst, active, failed, **kw):
             key = (dst.data_ptr(), dst.numel())
@@ -788,66 +834,93 @@ def phase_pruned(g, device: str, timed_runs: int = 3) -> tuple[dict, dict, dict]
                 sorted_rungs.append(dst.numel())
             return real_k2(src, dst, active, failed, **kw)
 
+        def k3_kept(x):
+            k3_calls.append(x.clone())
+            return real_k3(x)
+
         def k4_kept(values, live, **kw):
             k4_calls.append((values.clone(), live.clone(), kw))
             return real_k4(values, live, **kw)
 
-        peel.peel_edges_sorted, prune.stream_compact = k2_checked, k4_kept
+        peel.peel_edges_sorted, prune.prefix_sum, prune.stream_compact = (
+            k2_checked, k3_kept, k4_kept)
         try:
             again = pbahmani(g, eps=eps, pruned=True, kernel=True, device=device)
         finally:
-            peel.peel_edges_sorted, prune.stream_compact = real_k2, real_k4
+            peel.peel_edges_sorted, prune.prefix_sum, prune.stream_compact = (
+                real_k2, real_k3, real_k4)
         check(again[2] == on[2] and np.array_equal(again[1], on[1]), "rerun differs")
-        check(len(k4_calls) == 2, f"eps={eps}: {len(k4_calls)} K4 calls, expected 2")
+        check(len(k3_calls) == 2 and len(k4_calls) == 3,
+              f"eps={eps}: {len(k3_calls)} K3 and {len(k4_calls)} K4 calls, expected 2 and 3")
         if eps == 0.0:
-            inputs = {"edge": k4_calls[0], "degree": k4_calls[1]}
-        ladder_v, ladder_lanes = int(k4_calls[1][1].sum()), int(k4_calls[0][1].sum())
+            inputs = {"k3_prep": k3_calls[0], "k3_ladder": k3_calls[1],
+                      "prep_edge": k4_calls[0], "edge": k4_calls[1], "degree": k4_calls[2]}
+        ladder_v, ladder_lanes = int(k4_calls[2][1].sum()), int(k4_calls[1][1].sum())
 
         # wall times: medians of timed_runs after the warm runs above
         def med(fn):
             return statistics.median(wall_s(fn, timed_runs))
 
         t_plan = med(lambda: prune.plan_for_graph(g, kernel=True, device=device))
-        t_prep = med(lambda: (prune.slot_arrays(g), g.degrees()))
-        t_host = med(lambda: prune.prepare_pruned_peel(u, v, deg, g.n_edges, eps, plan))
-        t_up = med(lambda: prune.upload_buckets(pd, device))
-        b_src, b_dst = prune.upload_buckets(pd, device)
+        t_prep = med(lambda: prune.prepare_pruned_peel_resident(
+            src, dst, g.n_nodes, g.n_edges, eps, plan, True))
+        rd = prune.prepare_pruned_peel_resident(src, dst, g.n_nodes, g.n_edges, eps, plan, True)
 
-        def device_peel(kernel):
-            return prune._bucket_peel(b_src, b_dst, pd.n_v1, pd.n_e1, float(pd.best_d1), 1,
-                                      eps, *pd.plan.buckets, kernel)
+        def bucket_peel(kernel):
+            return prune._bucket_peel(rd.b_src, rd.b_dst, rd.n_v1, rd.n_e1, float(rd.best_d1),
+                                      1, eps, *rd.plan.buckets, kernel)
 
-        t_dev_on, t_dev_off = med(lambda: device_peel(True)), med(lambda: device_peel(False))
-        d_b, m_b, p_b = device_peel(True)
-        t0 = time.perf_counter()
-        merged = prune.merge_pruned_peel(pd, d_b.item(), m_b.cpu().numpy(), p_b.item())
-        t_merge = time.perf_counter() - t0
+        t_dev_on, t_dev_off = med(lambda: bucket_peel(True)), med(lambda: bucket_peel(False))
+        d_b, m_b, p_b = bucket_peel(True)
+        t_merge = med(lambda: prune.merge_pruned_peel_resident(rd, d_b, m_b, p_b))
+        merged = prune.merge_pruned_peel_resident(rd, d_b, m_b, p_b)
         check(merged[2] == on[2] and np.array_equal(merged[1], on[1]), "split run differs")
+        # the host path, once more for the record: host prep, host half, upload
+        host_path = dict(
+            host_prep_s=med(lambda: (prune.slot_arrays(g), g.degrees())),
+            host_half_s=med(lambda: prune.prepare_pruned_peel(u, v, deg, g.n_edges, eps, plan)),
+            upload_s=med(lambda: prune.upload_buckets(pd, device)),
+            query_s=med(lambda: prune.pruned_peel_host(u, v, deg, g.n_edges, eps, plan,
+                                                       kernel=True, device=device)))
+        pruned_s = med(lambda: pbahmani(g, eps=eps, pruned=True, kernel=True, device=device))
+        prof = profile_call(lambda: pbahmani(g, eps=eps, pruned=True, kernel=True,
+                                             device=device))
+        if prof:  # the profiler slows the host: the busy time against the plain wall too
+            prof["idle_share_of_wall"] = 1.0 - prof["busy_ms"] / (pruned_s * 1e3)
         times[eps] = dict(
-            pruned_kernel_s=med(lambda: pbahmani(g, eps=eps, pruned=True, kernel=True,
-                                                 device=device)),
+            pruned_kernel_s=pruned_s,
             pruned_scatter_s=med(lambda: pbahmani(g, eps=eps, pruned=True, kernel=False,
                                                   device=device)),
             unpruned_kernel_s=med(lambda: pbahmani(g, eps=eps, kernel=True, device=device)),
-            plan_s=t_plan, host_prep_s=t_prep, host_half_s=t_host, upload_s=t_up,
-            device_kernel_s=t_dev_on, device_scatter_s=t_dev_off, merge_s=t_merge,
-            passes=on[2], n_v1=pd.n_v1, lanes1=2 * pd.n_e1, buckets=list(pd.plan.buckets),
-            ladder_vertices=ladder_v, ladder_lanes=ladder_lanes,
-            launches=dict(zip(launches, (n_k2, n_k3, n_k4))),
-            plan_iterations=kcore_calls.n)
+            plan_s=t_plan, resident_prep_s=t_prep, bucket_peel_kernel_s=t_dev_on,
+            bucket_peel_scatter_s=t_dev_off, merge_s=t_merge, host_path=host_path,
+            passes=on[2], n_v1=rd.n_v1, lanes1=2 * rd.n_e1, buckets=list(rd.plan.buckets),
+            ladder_vertices=ladder_v, ladder_lanes=ladder_lanes, launches=counts,
+            plan_iterations=kcore_calls.n, profile=prof)
         log(f"  pruned eps={eps}: density={on[0]!r} |S|={int(on[1].sum())} passes={on[2]}; "
-            f"pruned on == off == unpruned on == off == pbahmani_np (numpy {t_np:.2f} s)")
+            f"pruned on == off == unpruned on == off == host path == pbahmani_np "
+            f"(numpy {t_np:.2f} s); resident prep == host prep (kernels on and off)")
         log(f"    plan rho_lb={plan.rho_lb!r} k={plan.k} candidates={plan.n_candidates}; "
-            f"pass 0 leaves {pd.n_v1} vertices, {2 * pd.n_e1} lanes; buckets "
-            f"{pd.plan.buckets}; ladder handed {ladder_v} vertices, {ladder_lanes} lanes")
-        log(f"    launches K2={n_k2} ({pass_calls.n} device passes + {kcore_calls.n} plan "
-            f"iterations) K3={n_k3} K4={n_k4}; K2 lane arrays checked sorted on the card: "
-            f"{sorted_rungs}")
-        log(f"    wall median of {timed_runs}: pruned kernel {times[eps]['pruned_kernel_s']:.6f} s, "
-            f"pruned scatter {times[eps]['pruned_scatter_s']:.6f} s, unpruned kernel "
-            f"{times[eps]['unpruned_kernel_s']:.6f} s; split: plan {t_plan:.6f}, host prep "
-            f"{t_prep:.6f}, host half {t_host:.6f}, upload {t_up:.6f}, device {t_dev_on:.6f} "
-            f"(scatter {t_dev_off:.6f}), merge {t_merge:.6f} s")
+            f"pass 0 leaves {rd.n_v1} vertices, {2 * rd.n_e1} lanes; buckets "
+            f"{rd.plan.buckets}; ladder handed {ladder_v} vertices, {ladder_lanes} lanes")
+        log(f"    launches K2={n_k2} ({pass_calls.n} passes + {kcore_calls.n} plan "
+            f"iterations) K1={counts['segment_sum_sorted']} K3={counts['prefix_sum']} "
+            f"K4={counts['stream_compact']}; K3 inputs {[x.numel() for x in k3_calls]}, K4 "
+            f"inputs {[tuple(c[0].shape) for c in k4_calls]}; K2 lane arrays checked sorted "
+            f"on the card: {sorted_rungs}")
+        log(f"    wall median of {timed_runs}: pruned kernel {pruned_s:.6f} s, pruned scatter "
+            f"{times[eps]['pruned_scatter_s']:.6f} s, unpruned kernel "
+            f"{times[eps]['unpruned_kernel_s']:.6f} s; split: plan {t_plan:.6f}, resident "
+            f"prep {t_prep:.6f}, bucket peel {t_dev_on:.6f} (scatter {t_dev_off:.6f}), merge "
+            f"{t_merge:.6f} s; host path for the record: host prep "
+            f"{host_path['host_prep_s']:.6f}, host half {host_path['host_half_s']:.6f}, "
+            f"upload {host_path['upload_s']:.6f}, whole query {host_path['query_s']:.6f} s")
+        log(f"    profiled: " + (
+            f"window {prof['window_ms']:.6f} ms, device busy {prof['busy_ms']:.6f} ms (idle "
+            f"share {prof['idle_share']:.4f} of the window, {prof['idle_share_of_wall']:.4f} "
+            f"of the wall), {prof['device_launches']} device launches; busiest: "
+            + "; ".join(f"{k} {t:.6f}" for k, t in prof["top_ms"].items())
+            if prof else "no device activity recorded (not measured)"))
     return launches, times, inputs
 
 
@@ -860,26 +933,40 @@ def phase_compact_timing(inputs: dict) -> dict:
     from repro_torch.kernels import compact, ref
 
     res = {}
-    edge_vals, edge_live, edge_kw = inputs["edge"]
-    n = edge_live.shape[0]
-    out = compact.prefix_sum(edge_live)
-    exp = ref.prefix_sum_ref(edge_live)
-    torch.cuda.synchronize()
-    check(torch.equal(out, exp), "K3 differs from its plain version at the path's input")
-    ms = time_ms(lambda: compact.prefix_sum(edge_live))
-    plain = time_ms(lambda: ref.prefix_sum_ref(edge_live))
-    lib = time_ms(lambda: torch.cumsum(edge_live, 0, dtype=torch.int32))
-    dev = graph_ms(lambda: compact.prefix_sum(edge_live))
-    lib_dev = graph_ms(lambda: torch.cumsum(edge_live, 0, dtype=torch.int32))
-    b, by = bound_ms(n * 1 + n * 4, n)
-    res["prefix_sum"] = dict(ms=ms, device_ms=dev, plain_ms=plain, library_ms=lib,
-                             library_device_ms=lib_dev, bound_ms=b, bound_by=by,
-                             shape=f"[{n}] bool -> int32")
-    log(f"  K3 path input [{n}] bool: exact; kernel_ms={ms:.6f} device_ms={dev:.6f} "
-        f"(cumsum device_ms={lib_dev:.6f}) plain_ms={plain:.6f} "
-        f"library_ms={lib:.6f} (cumsum) bound_ms={b:.6f} ({by})")
+    # K3 at its two callers' inputs (the prep's vertex mask, the ladder's
+    # bucket mask) and at the [8,388,608] bool mask of the ladder's K4 edge
+    # call, the shape of the earlier tables
+    for label, x in (("prep", inputs["k3_prep"]), ("ladder", inputs["k3_ladder"]),
+                     ("edge_mask", inputs["edge"][1])):
+        n = x.shape[0]
+        before = compact.prefix_sum_launches
+        out = compact.prefix_sum(x)
+        exp = ref.prefix_sum_ref(x)
+        torch.cuda.synchronize()
+        check(torch.equal(out, exp), f"K3 ({label}) differs from its plain version")
+        check(compact.prefix_sum_launches == before + 1, f"K3 ({label}) launched "
+              f"{compact.prefix_sum_launches - before} times for one call")
+        ms = time_ms(lambda: compact.prefix_sum(x))
+        plain = time_ms(lambda: ref.prefix_sum_ref(x))
+        lib = time_ms(lambda: torch.cumsum(x, 0, dtype=torch.int32))
+        # 200 replays: a call of 0.01-0.03 ms is noisy over 20
+        dev = graph_ms(lambda: compact.prefix_sum(x), 200)
+        lib_dev = graph_ms(lambda: torch.cumsum(x, 0, dtype=torch.int32), 200)
+        host = host_us(lambda: compact.prefix_sum(x))
+        # the same pass with no look-back (tile-local sums): what the wait costs
+        ceiling = graph_ms(lambda: compact.scan_ceiling(x), 200)
+        b, by = bound_ms(n * x.element_size() + n * 4, n)
+        res[f"prefix_sum_{label}"] = dict(
+            ms=ms, device_ms=dev, host_us=host, plain_ms=plain, library_ms=lib,
+            library_device_ms=lib_dev, no_look_back_device_ms=ceiling, bound_ms=b,
+            bound_by=by, shape=f"[{n}] {str(x.dtype).split('.')[-1]} -> int32")
+        log(f"  K3 {label} [{n}] {x.dtype}: exact, one launch; kernel_ms={ms:.6f} "
+            f"device_ms={dev:.6f} (without the look-back {ceiling:.6f}) host_us={host:.3f} "
+            f"(cumsum device_ms={lib_dev:.6f}) plain_ms={plain:.6f} library_ms={lib:.6f} "
+            f"(cumsum) bound_ms={b:.6f} ({by})")
+    res["prefix_sum"] = res["prefix_sum_edge_mask"]
 
-    for label in ("edge", "degree"):
+    for label in ("prep_edge", "edge", "degree"):
         vals, live, kw = inputs[label]
         out_size, fill = kw["out_size"], kw["fill"]
         k3_before, k4_before = compact.prefix_sum_launches, compact.stream_compact_launches
@@ -924,38 +1011,52 @@ def phase_compact_timing(inputs: dict) -> dict:
 # ---------------------------------------------------------------------------
 # phase 8: the pruned peel where pass 0 overflows the bucket
 # ---------------------------------------------------------------------------
-def phase_pruned_fallback(g, device: str) -> int:
+def phase_pruned_fallback(g, device: str) -> tuple[int, int]:
+    """Returns (K2 launches, K1 launches) of the pruned queries that fell back."""
     from repro_torch.core import pbahmani, prune
-    from repro_torch.kernels import compact, peel
+    from repro_torch.graphs.convert import to_device
+    from repro_torch.kernels import compact, peel, segsum
 
     u, v = prune.slot_arrays(g)
     deg = g.degrees().astype(np.int32)
+    src, dst = to_device(g, device, sorted=True)
     plan = prune.plan_for_graph(g, kernel=True, device=device)
-    n_k2 = 0
+    n_k2 = n_k1 = 0
     for eps in (0.1, 0.0):
         _, a1, _, _ = prune._pass0_host(deg, g.n_edges, eps)
         lanes1 = 2 * prune._induced_slots(u, v, a1).size
         check(prune.prepare_pruned_peel(u, v, deg, g.n_edges, eps, plan) is None,
               f"eps={eps}: expected the pruned path to fall back on this graph")
-        peel.launches = compact.prefix_sum_launches = compact.stream_compact_launches = 0
+        check(prune.prepare_pruned_peel_resident(src, dst, g.n_nodes, g.n_edges, eps, plan,
+                                                 True) is None,
+              f"eps={eps}: expected the resident prep to fall back on this graph")
+        peel.launches = segsum.launches = 0
+        compact.prefix_sum_launches = compact.stream_compact_launches = 0
         pass_calls, kcore_calls = edge_stage_calls()
         with pass_calls, kcore_calls:
             got = pbahmani(g, eps=eps, pruned=True, kernel=True, device=device)
         check(compact.prefix_sum_launches == compact.stream_compact_launches == 0,
               "the fallback launched the compaction kernels")
-        check(pass_calls.n == got[2] and peel.launches == got[2] + kcore_calls.n,
-              f"eps={eps}: K2 launched {peel.launches} times for {got[2]} passes and "
-              f"{kcore_calls.n} plan iterations")
-        n_k2 += peel.launches
+        # the resident prep's pass 0 (one K2 launch, K1 for the degrees)
+        # decides the fallback; the unpruned peel then starts from scratch
+        check(segsum.launches == 2, f"eps={eps}: the fallback launched K1 {segsum.launches} "
+              f"times, expected two (the plan's and the prep's degrees)")
+        check(pass_calls.n == got[2] + 1 and peel.launches == got[2] + 1 + kcore_calls.n,
+              f"eps={eps}: K2 launched {peel.launches} times for {got[2]} passes, the "
+              f"prep's pass 0 and {kcore_calls.n} plan iterations")
+        k2, k1 = peel.launches, segsum.launches
+        n_k2 += k2
+        n_k1 += k1
         want = pbahmani(g, eps=eps, kernel=True, device=device)
         check(got[0] == want[0] and got[2] == want[2] and np.array_equal(got[1], want[1]),
               f"eps={eps}: pruned (fallen back) {got[0], got[2]} differs from unpruned")
         log(f"  rmat pruned eps={eps}: fell back to the unpruned peel: pass 0 leaves "
             f"{int(a1.sum())} vertices and {lanes1} lanes, over the largest bucket "
             f"{plan.bucket_e} (half of next_pow2({g.src.shape[0]})); triple == unpruned "
-            f"(density={got[0]!r}, passes={got[2]}); K2 launches {peel.launches} "
-            f"({got[2]} passes + {kcore_calls.n} plan iterations)")
-    return n_k2
+            f"(density={got[0]!r}, passes={got[2]}); no K3 or K4; K2 launches "
+            f"{k2} ({got[2]} passes + the prep's pass 0 + {kcore_calls.n} plan "
+            f"iterations), K1 {k1}")
+    return n_k2, n_k1
 
 
 # ---------------------------------------------------------------------------
@@ -1467,7 +1568,7 @@ def main() -> int:
     compact_times = phase_compact_timing(k4_inputs)
 
     log("phase 8: pruned P-Bahmani on the RMAT graph (falls back)")
-    fallback_launches = phase_pruned_fallback(g, device)
+    fallback_launches, fallback_k1 = phase_pruned_fallback(g, device)
 
     log("phase 9: refinement")
     refine_launches, refine_times = phase_refine(g, g_small, device)
@@ -1480,14 +1581,18 @@ def main() -> int:
 
     k2_launches = (peel_launches + cbds_launches + pruned_launches["peel_edges"]
                    + fallback_launches + refine_launches)
+    k1_launches = cbds_k1_launches + pruned_launches["segment_sum_sorted"] + fallback_k1
     log(f"main path: K2 launches P-Bahmani (eps 0.1 and 0) {peel_launches}, CBDS-P "
         f"{cbds_launches}, pruned {pruned_launches['peel_edges']}, pruned fallback "
-        f"{fallback_launches}, refinement {refine_launches}; K1 {cbds_k1_launches} (CBDS-P's "
-        f"augmentation round); K3 {pruned_launches['prefix_sum']}, K4 "
-        f"{pruned_launches['stream_compact']} (pruned, eps 0.1 and 0); K5 {k5_launches} "
-        f"(DCN-v2: 8 serve_p99, 1 serve_bulk, 1 retrieval_cand)")
+        f"{fallback_launches}, refinement {refine_launches}; K1 {k1_launches} (CBDS-P's "
+        f"augmentation round {cbds_k1_launches}, the degrees of the pruned queries' plans, "
+        f"preps and buckets {pruned_launches['segment_sum_sorted']}, of the fallbacks' plans "
+        f"and preps {fallback_k1}); K3 "
+        f"{pruned_launches['prefix_sum']}, K4 {pruned_launches['stream_compact']} (pruned, "
+        f"eps 0.1 and 0); K5 {k5_launches} (DCN-v2: 8 serve_p99, 1 serve_bulk, 1 "
+        f"retrieval_cand)")
     rows = {
-        "segment_sum_sorted": (cbds_k1_launches, k1["max_abs_err"], k1),
+        "segment_sum_sorted": (k1_launches, k1["max_abs_err"], k1),
         "peel_edges": (k2_launches, k2["max_abs_err"], k2),
         "prefix_sum": (pruned_launches["prefix_sum"], compact_err, compact_times["prefix_sum"]),
         "stream_compact": (pruned_launches["stream_compact"], compact_err,

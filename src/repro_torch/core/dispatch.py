@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.density import degrees_from_coo
 from repro_torch.kernels import ops, peel
 
 # float32 integer-exactness envelope of the JAX package's kernel tier
@@ -78,6 +79,19 @@ def peel_delta(
     return out[:n_nodes]
 
 
+def lane_degrees(
+    src: torch.Tensor, dst: torch.Tensor, n_nodes: int, kernel: bool
+) -> torch.Tensor:
+    """int32 ``[n_nodes]`` degrees of symmetric lanes. With ``kernel`` one K1
+    launch over dst-sorted lanes: a vertex's lanes in are the mirrors of its
+    lanes out, so the count onto dst is ``Graph.degrees``, and sentinel
+    lanes drop in the kernel instead of piling atomics onto one row. Without,
+    the histogram of src (``density.degrees_from_coo``)."""
+    if kernel:
+        return peel_delta(dst < n_nodes, dst, n_nodes, True)
+    return degrees_from_coo(src, n_nodes)
+
+
 def peel_edges(
     src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor,
     failed: torch.Tensor, n_nodes: int, kernel: bool, charge: bool = False,
@@ -115,4 +129,4 @@ def peel_edges(
 
 
 __all__ = ["EXACT_ENVELOPE", "resolve_device", "resolve_kernel",
-           "assert_exact_envelope", "peel_delta", "peel_edges"]
+           "assert_exact_envelope", "lane_degrees", "peel_delta", "peel_edges"]

@@ -10,28 +10,40 @@ module peels a *compacted fixed-shape subproblem* instead:
      achieved subgraph density, hence a sound lower bound on rho*), and the
      k-core machinery (``kcore._level_fixpoint``) runs to the
      ceil(rho~)-core: the plan's candidate counts and bucket sizes;
-  2. the peel's pass 0 is simulated on the host from the degree array, and
-     the survivors' induced edges are compacted on the host into pow-2
-     buckets (remapped COO, emitted dst-sorted, plus an order-preserving
-     vertex index map);
+  2. the peel's pass 0 runs on the device over the cached dst-sorted lanes
+     (degrees from K1, one ``pbahmani_pass``), the host reads the three
+     counts that size the buckets in one sync, and the survivors' induced
+     edges are compacted on the device (``_compact_edges``: K3 for the
+     order-preserving vertex index map, K4 for the lanes when ``kernel`` is
+     on) into pow-2 buckets that come out dst-sorted with no sort;
   3. the peel runs inside the bucket on the device, with a second,
-     bucket-width compaction ladder for the trajectory's tail: K4
-     (``kernels/compact.py:stream_compact``, one pass over the mask) repacks
-     the edge lanes and pulls the degrees when ``kernel`` is on, and K2
-     carries every pass's edge stage.
+     bucket-width compaction ladder for the trajectory's tail (K3 and K4
+     again), K2 carries every pass's edge stage, and the bucket result is
+     merged back into the full vertex space on the device.
+
+The JAX package does steps 2 and 3's merge on the host, because there a
+device compaction cost more than a peel pass; on the H100 the one-pass K3
+and K4 cost less than one. Its host half stays here as well
+(``prepare_pruned_peel``, ``compact_candidates``, ``upload_buckets``,
+``merge_pruned_peel``, ``pruned_peel_host``) for callers that hold host
+slot arrays; both halves give the same arrays, lane for lane.
 
 Exactness-preservation invariant: the pruned peel returns the bit-identical
-(density, mask, passes) triple of the unpruned peel. Pass 0 is simulated
-with the same int32 degrees and the same float32 threshold; a pass depends
+(density, mask, passes) triple of the unpruned peel. Pass 0 is the peel's
+own pass on the device, or is simulated on the host with the same int32
+degrees and the same float32 threshold; a pass depends
 only on the induced live subgraph and the scalar state, and compaction is an
 order-preserving relabelling, so every integer the recurrence reads is
 unchanged and every float32 scalar is computed from identical integers; best
 tracking uses the same strict ``>`` at every merge point.
 
-Order on the card: K2 needs dst-sorted lanes. ``_emit_buckets`` emits the
-bucket dst-sorted, the ladder's compaction keeps lane order under the
-monotone ``perm``, and the fill (the child's vertex count) sorts after every
-live id, so every rung reaches K2 sorted.
+Order on the card: K2 needs dst-sorted lanes. The resident prep compacts
+the graph's dst-sorted lanes, ``_emit_buckets`` sorts the host's, every
+compaction keeps lane order under the monotone ``perm``, and the fill (the
+child's vertex count) sorts after every live id, so every rung reaches K2
+sorted. A graph's lanes are its undirected slots then their mirrors, so the
+stable dst sort orders a pair of lanes as ``_emit_buckets`` orders them and
+the two preps give the same bucket arrays.
 
 This is the JAX package's ``core/prune.py`` without the vmapped and sharded
 variants (ROADMAP slices 9 and 11). Its ``lax.while_loop``s are host loops
@@ -44,15 +56,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.density import degrees_from_coo, subgraph_density
+from repro_torch.core.density import subgraph_density
 from repro_torch.core.dispatch import (
-    assert_exact_envelope, resolve_device, resolve_kernel,
+    assert_exact_envelope, lane_degrees, resolve_device, resolve_kernel,
 )
 from repro_torch.core.kcore import CoreState, _level_fixpoint
 from repro_torch.core.pbahmani import PeelState, pbahmani, pbahmani_pass
 from repro_torch.graphs.convert import to_device
 from repro_torch.graphs.graph import Graph
-from repro_torch.kernels.compact import stream_compact
+from repro_torch.kernels.compact import prefix_sum, stream_compact
 from repro_torch.utils.num import next_pow2
 
 MIN_BUCKET_V = 64     # smallest compacted vertex space (pow-2 buckets above)
@@ -115,9 +127,11 @@ def _plan(
     rho_lb only takes densities of actual subgraphs of the graph (live
     graph, re-validated previous mask, iterated cores), so rho_lb <= rho*.
     The loop over core levels runs on the host, one sync a level.
+    ``kernel`` takes the degrees from K1 and each fixpoint iteration from
+    K2 (the lanes must then be dst-sorted).
     """
     dev = src.device
-    deg = degrees_from_coo(src, n_nodes)
+    deg = lane_degrees(src, dst, n_nodes, kernel)
     active = deg > 0
     n_v = active.sum(dtype=torch.int32)
     n_e = torch.tensor(n_edges, dtype=torch.int32, device=dev)
@@ -253,16 +267,17 @@ def _compact_edges(
     kernel: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Remap of the subgraph induced by ``live_v`` into bucket lanes (the
-    in-bucket ladder step). ``kernel`` packs the lanes with K4; otherwise a
-    cumsum and a scatter. Both pack survivors as a dense prefix in lane
-    order (overflow lanes drop), so the outputs are identical, and a
-    dst-sorted parent hands a dst-sorted child to the next rung because
-    ``perm`` is monotone. Returns (perm, bucket_src, bucket_dst)."""
+    resident prep and the in-bucket ladder step). ``kernel`` scans
+    ``live_v`` with K3 and packs the lanes with K4; otherwise a cumsum and a
+    scatter. Both pack survivors as a dense prefix in lane order (overflow
+    lanes drop), so the outputs are identical, and a dst-sorted parent hands
+    a dst-sorted child to the next rung because ``perm`` is monotone.
+    Returns (perm, bucket_src, bucket_dst)."""
     src_c = src.clamp(max=n_nodes - 1)
     dst_c = dst.clamp(max=n_nodes - 1)
     valid = (src < n_nodes) & (dst < n_nodes)
     live = valid & live_v.index_select(0, src_c) & live_v.index_select(0, dst_c)
-    perm = torch.cumsum(live_v, 0, dtype=torch.int32) - 1
+    perm = (prefix_sum(live_v) if kernel else torch.cumsum(live_v, 0, dtype=torch.int32)) - 1
     p_src, p_dst = perm.index_select(0, src_c), perm.index_select(0, dst_c)
     if kernel:
         packed = stream_compact(torch.stack([p_src, p_dst], dim=1), live,
@@ -357,16 +372,17 @@ def _bucket_peel_body(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Peel the compacted subproblem to completion (with the ladder).
 
-    The host compaction emits compact ids as a dense prefix, so the live
-    mask is ``arange < n_v`` and degrees are one bucket-width histogram: no
-    full-lane-width work on the device. ``kernel`` routes the degree
-    updates (K2) and the ladder's compaction (K4) through the kernels; the
-    triple is bit-identical either way.
+    Both preps emit compact ids as a dense prefix, so the live mask is
+    ``arange < n_v``. ``kernel`` routes the degrees (K1 over the bucket's
+    dst-sorted lanes, whose sentinel tail would otherwise pile every
+    histogram atomic onto one row), the degree updates (K2) and the
+    ladder's compaction (K3 and K4) through the kernels; the triple is
+    bit-identical either way.
     """
     dev = b_src.device
     final = _staged_peel(
         PeelState(
-            deg=degrees_from_coo(b_src, bucket_v),
+            deg=lane_degrees(b_src, b_dst, bucket_v, kernel),
             active=torch.arange(bucket_v, dtype=torch.int32, device=dev) < n_v,
             n_v=n_v,
             n_e=n_e,
@@ -385,7 +401,8 @@ def _bucket_peel(
     bucket_v2: int, bucket_e2: int, kernel: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The device bucket peel from host scalars; the lanes are already on
-    the device (``upload_buckets``). Returns (density, mask, passes)."""
+    the device (the resident prep's, or ``upload_buckets``). Returns
+    (density, mask, passes) as device tensors."""
     if b_src.shape != (bucket_e,):
         raise ValueError(f"bucket lanes {tuple(b_src.shape)} do not match "
                          f"bucket_e={bucket_e}")
@@ -472,23 +489,56 @@ def compact_candidates(
 
 @dataclass
 class PrunedDispatch:
-    """A host-prepared compacted subproblem awaiting its device bucket peel.
+    """A prepared compacted subproblem awaiting its device bucket peel.
 
-    Produced by :func:`prepare_pruned_peel`, consumed by
-    :func:`merge_pruned_peel` once the device returns the bucket triple."""
+    Produced by :func:`prepare_pruned_peel` (numpy arrays, merged by
+    :func:`merge_pruned_peel`) or :func:`prepare_pruned_peel_resident`
+    (the same arrays as tensors on the device, merged by
+    :func:`merge_pruned_peel_resident`)."""
 
     b_src: np.ndarray        # [bucket_e] sentinel(=bucket_v)-padded COO
     b_dst: np.ndarray
     n_v1: int                # pass-0 survivor count
     n_e1: int                # surviving undirected edges
-    best_d1: np.float32      # best density after the host pass-0/1 merge
+    best_d1: np.float32      # best density after the pass-0/1 merge
     eps: float
     plan: PrunePlan          # may have regrown/shrunk relative to the input
     perm: np.ndarray         # full id -> compact id (valid where ``a1``)
     a1: np.ndarray           # pass-0 survivor mask (full vertex space)
     active0: np.ndarray      # pass-0 live mask
-    better1: bool            # host pass-1 density beat pass-0's
+    better1: bool            # pass-1 density beat pass-0's
     observed: tuple[int, int]  # (n_v1, lanes1) handoff for bucket sizing
+
+
+def _fit_plan(
+    plan: PrunePlan, n_v1: int, lanes1: int, node_width: int, lane_width: int,
+) -> PrunePlan | None:
+    """``plan`` sized for the pass-0 handoff (n_v1 survivors, lanes1 live
+    lanes): regrown to the observed size on the plan's own sizing basis
+    (``node_width``/``lane_width`` stand in where the plan has none) when it
+    does not fit, None when no legal bucket holds it, else shrunk when
+    ``maybe_shrink_plan`` says so."""
+    if n_v1 > plan.bucket_v or lanes1 > plan.bucket_e:
+        plan = build_plan(
+            plan.rho_lb, plan.k, plan.n_candidates, plan.n_candidate_edges,
+            node_width=plan.node_width or node_width,
+            lane_width=plan.lane_width or lane_width,
+            observed=(n_v1, lanes1), n_vertices=plan.n_vertices or None,
+        )
+        if (not plan.enabled or n_v1 > plan.bucket_v
+                or lanes1 > plan.bucket_e):
+            return None
+        return plan
+    return maybe_shrink_plan(plan, n_v1, lanes1) or plan
+
+
+def _best_after_pass0(n_v1: int, n_e1: int, rho0: np.float32) -> tuple[bool, np.float32]:
+    """(better1, best_d1): whether the pass-0 survivors' float32 density
+    beats ``rho0`` (strict ``>``), and the best of the two."""
+    rho1 = (np.float32(n_e1) / np.float32(max(n_v1, 1))
+            if n_v1 > 0 else np.float32(0.0))
+    better1 = bool(rho1 > rho0)
+    return better1, np.float32(rho1 if better1 else rho0)
 
 
 def prepare_pruned_peel(
@@ -512,32 +562,17 @@ def prepare_pruned_peel(
     n_v1 = int(a1.sum())
     idx = _induced_slots(u, v, a1)
     lanes1 = 2 * idx.size
-    if n_v1 > plan.bucket_v or lanes1 > plan.bucket_e:
-        # regrow to the observed size (pow-2 + slack) on the plan's own
-        # sizing basis; the host knows the exact size before dispatch
-        plan = build_plan(
-            plan.rho_lb, plan.k, plan.n_candidates, plan.n_candidate_edges,
-            node_width=plan.node_width or n_nodes,
-            lane_width=plan.lane_width or u.shape[0] * 2,
-            observed=(n_v1, lanes1), n_vertices=plan.n_vertices or None,
-        )
-        if (not plan.enabled or n_v1 > plan.bucket_v
-                or lanes1 > plan.bucket_e):
-            return None
-    else:
-        shrunk = maybe_shrink_plan(plan, n_v1, lanes1)
-        if shrunk is not None:
-            plan = shrunk
+    # the host knows the exact size before dispatch
+    plan = _fit_plan(plan, n_v1, lanes1, n_nodes, u.shape[0] * 2)
+    if plan is None:
+        return None
     perm, b_src, b_dst = _emit_buckets(u, v, idx, a1, plan.bucket_v,
                                        plan.bucket_e)
     n_e1 = lanes1 // 2
-    rho1 = (np.float32(n_e1) / np.float32(max(n_v1, 1))
-            if n_v1 > 0 else np.float32(0.0))
-    better1 = bool(rho1 > rho0)
-    best_d1 = rho1 if better1 else rho0
+    better1, best_d1 = _best_after_pass0(n_v1, n_e1, rho0)
     return PrunedDispatch(
         b_src=b_src, b_dst=b_dst, n_v1=n_v1, n_e1=n_e1,
-        best_d1=np.float32(best_d1), eps=float(eps), plan=plan, perm=perm,
+        best_d1=best_d1, eps=float(eps), plan=plan, perm=perm,
         a1=a1, active0=active0, better1=better1, observed=(n_v1, lanes1),
     )
 
@@ -602,6 +637,94 @@ def pruned_peel_host(
     return merge_pruned_peel(pd, d_b.item(), mask_b.cpu().numpy(), passes_b.item())
 
 
+# ---------------------------------------------------------------------------
+# resident: the pruned query's pass 0, compaction and merge on the device
+# ---------------------------------------------------------------------------
+def prepare_pruned_peel_resident(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    n_nodes: int,
+    n_edges: int,
+    eps: float,
+    plan: PrunePlan,
+    kernel: bool = False,
+) -> (PrunedDispatch
+      | tuple[float, np.ndarray, int, tuple[int, int], PrunePlan] | None):
+    """:func:`prepare_pruned_peel` on the device, over the graph's resident
+    dst-sorted lanes (``to_device(graph, device, sorted=True)``, whatever
+    ``kernel`` is: the bucket's lane order is theirs).
+
+    The degrees are K1 over the lanes with ``kernel`` (``lane_degrees``; by
+    the mirror identity the int32 of ``Graph.degrees``) and pass 0 is one
+    ``pbahmani_pass`` (one K2 launch), the peel's own float32 threshold. The
+    host reads (n_v0, n_v1, n_e1) in one sync and sizes the plan as the host
+    prep does, so a survivor set that fits no bucket returns None before K3
+    or K4 runs. The compaction is ``_compact_edges`` (K3 and K4 with
+    ``kernel``). Returns a :class:`PrunedDispatch` whose arrays are device
+    tensors equal to the host prep's (``perm`` where ``a1``), the finished
+    result for an edgeless graph, or None."""
+    dev = src.device
+    deg = lane_degrees(src, dst, n_nodes, kernel)
+    active0 = deg > 0
+    n_v0_t = active0.sum(dtype=torch.int32)
+    n_e = torch.tensor(n_edges, dtype=torch.int32, device=dev)
+    rho0_t = n_e.to(torch.float32) / n_v0_t.clamp(min=1).to(torch.float32)
+    s1 = pbahmani_pass(
+        PeelState(deg=deg, active=active0, n_v=n_v0_t, n_e=n_e, best_density=rho0_t,
+                  best_mask=active0, passes=torch.zeros((), dtype=torch.int32, device=dev)),
+        src, dst, n_nodes, float(eps), kernel)
+    n_v0, n_v1, n_e1 = torch.stack([n_v0_t, s1.n_v, s1.n_e]).tolist()  # the one sync
+    rho0 = np.float32(n_edges) / np.float32(max(n_v0, 1))
+    if n_v0 == 0:
+        return float(rho0), active0.cpu().numpy(), 0, (0, 0), plan
+    # a symmetric graph's live lanes are twice its live edges; the lane
+    # width stands in as the host prep's (its slots plus one pad, doubled)
+    lanes1 = 2 * n_e1
+    plan = _fit_plan(plan, n_v1, lanes1, n_nodes, 2 * (n_edges + 1))
+    if plan is None:
+        return None
+    perm, b_src, b_dst = _compact_edges(src, dst, s1.active, n_nodes, plan.bucket_v,
+                                        plan.bucket_e, kernel)
+    better1, best_d1 = _best_after_pass0(n_v1, n_e1, rho0)
+    return PrunedDispatch(
+        b_src=b_src, b_dst=b_dst, n_v1=n_v1, n_e1=n_e1, best_d1=best_d1, eps=float(eps),
+        plan=plan, perm=perm, a1=s1.active, active0=active0, better1=better1,
+        observed=(n_v1, lanes1),
+    )
+
+
+def merge_pruned_peel_resident(
+    pd: PrunedDispatch, d_b: torch.Tensor, mask_b: torch.Tensor, passes_b: torch.Tensor,
+) -> tuple[float, np.ndarray, int, tuple[int, int], PrunePlan]:
+    """:func:`merge_pruned_peel` on the device for a resident dispatch: the
+    same strict-``>`` merge, then the mask comes back with one copy."""
+    back = pd.a1 & mask_b.index_select(0, pd.perm.clamp(0, pd.plan.bucket_v - 1))
+    mask = torch.where(d_b > float(pd.best_d1), back, pd.a1 if pd.better1 else pd.active0)
+    mask = mask.cpu().numpy()
+    return float(d_b.item()), mask, int(passes_b.item()), pd.observed, pd.plan
+
+
+def pruned_peel_resident(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    n_nodes: int,
+    n_edges: int,
+    eps: float,
+    plan: PrunePlan,
+    kernel: bool = False,
+) -> tuple[float, np.ndarray, int, tuple[int, int], PrunePlan] | None:
+    """The full pruned query on the lanes' device: resident prep, bucket peel
+    (no upload: it takes the prep's tensors), device merge. Returns what
+    :func:`pruned_peel_host` returns, None included."""
+    prep = prepare_pruned_peel_resident(src, dst, n_nodes, n_edges, eps, plan, kernel)
+    if prep is None or isinstance(prep, tuple):
+        return prep
+    d_b, mask_b, passes_b = _bucket_peel(
+        prep.b_src, prep.b_dst, prep.n_v1, prep.n_e1, float(prep.best_d1), 1, float(eps),
+        *prep.plan.buckets, kernel)
+    return merge_pruned_peel_resident(prep, d_b, mask_b, passes_b)
+
+
 def plan_for_graph(
     graph: Graph, prev_mask: np.ndarray | None = None,
     observed: tuple[int, int] | None = None,
@@ -609,8 +732,9 @@ def plan_for_graph(
     device: torch.device | str | None = None,
 ) -> PrunePlan:
     """Analyze a static graph on ``device``: rho~ bootstrap + candidate core
-    + buckets. ``kernel`` routes the analysis' core fixpoint through K2
-    (fed the cached dst-sorted lanes); the plan integers are identical."""
+    + buckets. ``kernel`` routes the analysis' degrees through K1 and its
+    core fixpoint through K2 (fed the cached dst-sorted lanes); the plan
+    integers are identical."""
     device = resolve_device(device)
     n = graph.n_nodes
     if n == 0 or graph.n_edges == 0:
@@ -642,19 +766,19 @@ def pbahmani_pruned(
     """Candidate-pruned P-Bahmani: bit-identical to ``pbahmani(graph, eps)``
     (density, mask and pass count) at bucket-width device cost. ``device``
     and ``kernel`` resolve as in ``pbahmani``; the triple is the same with
-    the kernels on or off. Falls back to the unpruned peel when the pass-0
-    survivors fit no bucket smaller than the graph."""
+    the kernels on or off. The query runs resident on ``device``
+    (:func:`pruned_peel_resident` over the graph's cached dst-sorted lanes).
+    Falls back to the unpruned peel when the pass-0 survivors fit no bucket
+    smaller than the graph."""
     device = resolve_device(device)
     kernel = resolve_kernel(kernel, device)
     if plan is None:
         plan = plan_for_graph(graph, kernel=kernel, device=device)
     if not plan.enabled or graph.n_nodes == 0:
         return pbahmani(graph, eps=eps, kernel=kernel, device=device)
-    u, v = slot_arrays(graph)
-    res = pruned_peel_host(
-        u, v, graph.degrees().astype(np.int32), graph.n_edges, float(eps),
-        plan, kernel=kernel, device=device,
-    )
+    src, dst = to_device(graph, device, sorted=True)
+    res = pruned_peel_resident(src, dst, graph.n_nodes, graph.n_edges, float(eps), plan,
+                               kernel)
     if res is None:
         return pbahmani(graph, eps=eps, kernel=kernel, device=device)
     density, mask, passes, _, _ = res
@@ -666,6 +790,9 @@ __all__ = [
     "PrunedDispatch",
     "prepare_pruned_peel",
     "merge_pruned_peel",
+    "prepare_pruned_peel_resident",
+    "merge_pruned_peel_resident",
+    "pruned_peel_resident",
     "upload_buckets",
     "build_plan",
     "maybe_shrink_plan",

@@ -17,53 +17,61 @@
 // 12.5 us, for 8,388,608 bool lanes). The compaction reads the mask and the
 // live lanes' values once and writes each output slot once.
 //
-// What the design does about it. Hopper's blocks run in any order, so K3
-// turns the TPU kernel's carry down a sequential grid into three launches,
-// each a pass at full memory width:
+// What the design does about it. Hopper's blocks run in any order, so the
+// TPU kernel's carry down a sequential grid becomes decoupled look-back
+// (Merrill and Garland, "Single-pass parallel prefix scan with decoupled
+// look-back", 2016), and both kernels are one pass over their input:
 //
-//   1. tile_sums: one block per TILE = 4,096 lanes, 16 consecutive lanes a
-//      thread (one 16-byte load of bool lanes, read as bytes with no
-//      conversion pass; four for int32), reduced to one sum per tile;
-//   2. scan_tile_sums: one block turns the tile sums into exclusive tile
-//      offsets (a loop of 1,024-wide block scans with a running carry);
-//   3. scan_tiles: each block reloads its tile, scans each thread's 16
-//      lanes in registers, scans the thread totals across the block with
-//      warp shuffles, adds the tile offset and writes with 16-byte stores.
-//
-// Every sum is int32, so the scan is exact at any length below 2^31 lanes
-// (the JAX kernel's float32 is exact only below 2^24).
+// K3 is one launch after one memset. Each block of 512 threads takes the
+// next tile of 8,192 lanes from a ticket counter, 16 consecutive lanes a thread
+// (one 16-byte load of bool lanes, read as bytes with no conversion pass;
+// four for int32), scans each thread's 16 lanes in registers and the thread
+// totals across the block with warp shuffles, publishes the tile's sum
+// (AGGREGATE), stages its sums in shared memory (swizzled, so neither the
+// stores nor the reads conflict on a bank) while warp 0 learns the sum of
+// every lane before the tile from its predecessors' status words (the
+// look-back), publishes the running total (INCLUSIVE), and writes each
+// int32 once, consecutive threads on consecutive 16-byte words. The input
+// is read once; no tile sums go through memory and no block scans them
+// alone. Every sum is int32, so the scan is exact at any length below 2^31
+// lanes (the JAX kernel's float32 is exact only below 2^24). What keeps it
+// off its bound is the look-back's wait, which holds each block's slot:
+// scan_ceiling_u8 runs the same pass without it to measure that.
 //
 // K4 does not go through K3 or K1 (a segmented sum is the wrong tool for a
-// permutation): it is one pass over the mask with decoupled look-back, so
-// the mask is read once and no position array is written. Blocks take 4,096-
-// lane tiles in order from a ticket counter, count their live lanes,
-// publish the count, learn the live lanes before them from their
-// predecessors' published counts, and copy their live lanes' rows, reading
-// `values` only for live lanes, to consecutive output slots. Every output
-// slot has exactly one writer: no atomics on the output, so it is
-// deterministic, and survivors keep their lane order (a dst-sorted input
-// stays dst-sorted). Lanes past out_size drop. The fill tail [live count,
-// out_size) is written by the kernel's own blocks once the last tile has
-// published the total: each block, when no tile is left, waits for it and
-// fills a grid-stride share, so no block writes the whole tail and no second
-// launch is needed. The tile status words and the ticket start at zero:
-// the caller passes them and the C entry point zeroes them with one
-// cudaMemsetAsync on the same stream, so calls on two streams never share
-// them.
+// permutation): it is the same look-back over the mask, so the mask is read
+// once and no position array is written. Blocks take 4,096-lane tiles in
+// order from a ticket counter, count their live lanes, publish the count,
+// learn the live lanes before them from their predecessors' published
+// counts, and copy their live lanes' rows, reading `values` only for live
+// lanes, to consecutive output slots. Every output slot has exactly one
+// writer: no atomics on the output, so it is deterministic, and survivors
+// keep their lane order (a dst-sorted input stays dst-sorted). Lanes past
+// out_size drop. The fill tail [live count, out_size) is written by the
+// kernel's own blocks once the last tile has published the total: each
+// block, when no tile is left, waits for it and fills a grid-stride share,
+// so no block writes the whole tail and no second launch is needed.
 //
-// Launched on the caller's stream; nothing here allocates or synchronises:
-// the caller passes the scratch (K3's tile offsets and total, K4's status
-// words). Each C entry point returns cudaGetLastError() after its launches.
+// Both kernels take tiles in ticket order, so a tile's predecessors are all
+// held by blocks that have started and the look-back never waits on a block
+// that has not. Their tile status words and the ticket start at zero: the
+// caller passes them and the C entry point zeroes them with one
+// cudaMemsetAsync on the same stream, so calls on two streams, or back to
+// back, never share them.
+//
+// Launched on the caller's stream; nothing here allocates or synchronises.
+// Each C entry point returns cudaGetLastError() after its launch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;                // 8 warps a block
+constexpr int THREADS = 256;                // 8 warps a K4 block
 constexpr int ITEMS = 16;                   // consecutive lanes a thread
-constexpr int TILE = THREADS * ITEMS;       // 4,096 lanes a block
-constexpr int SCAN_THREADS = 1024;          // the one block of phase 2
+constexpr int TILE = THREADS * ITEMS;       // 4,096 lanes a K4 block
+constexpr int SCAN_THREADS = 512;           // 16 warps a K3 block
+constexpr int SCAN_TILE = SCAN_THREADS * ITEMS;  // 8,192 lanes a K3 block
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -145,88 +153,12 @@ __device__ __forceinline__ int block_exclusive(int x, int* ws, int& total) {
   return excl;
 }
 
-// Phase 1: one sum per tile.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-tile_sums_kernel(const T* __restrict__ x, long long n, int* __restrict__ sums) {
-  __shared__ int ws[THREADS / 32 + 1];
-  const long long i = static_cast<long long>(blockIdx.x) * TILE + threadIdx.x * ITEMS;
-  int v[ITEMS];
-  Lanes<T>::load(x, i, n, v);
-  int s = 0;
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) s += v[j];
-  int total;
-  block_exclusive<THREADS>(s, ws, total);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
-}
-
-// Phase 2: tile sums -> exclusive tile offsets, in place; the grand total
-// goes to *total.
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_tile_sums_kernel(int* __restrict__ sums, int n_tiles, int* __restrict__ total) {
-  __shared__ int ws[SCAN_THREADS / 32 + 1];
-  int carry = 0;
-  for (int base = 0; base < n_tiles; base += SCAN_THREADS) {
-    const int t = base + static_cast<int>(threadIdx.x);
-    const int x = t < n_tiles ? sums[t] : 0;
-    int chunk;
-    const int ex = block_exclusive<SCAN_THREADS>(x, ws, chunk);
-    if (t < n_tiles) sums[t] = carry + ex;
-    carry += chunk;
-  }
-  if (threadIdx.x == 0) *total = carry;
-}
-
-// Phase 3: the scan of each tile plus its offset.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-scan_tiles_kernel(const T* __restrict__ x, long long n, const int* __restrict__ offsets,
-                  int* __restrict__ out) {
-  __shared__ int ws[THREADS / 32 + 1];
-  const long long i = static_cast<long long>(blockIdx.x) * TILE + threadIdx.x * ITEMS;
-  int v[ITEMS];
-  Lanes<T>::load(x, i, n, v);
-#pragma unroll
-  for (int j = 1; j < ITEMS; ++j) v[j] += v[j - 1];  // inclusive, in registers
-  int total;
-  const int base = offsets[blockIdx.x] + block_exclusive<THREADS>(v[ITEMS - 1], ws, total);
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) v[j] += base;
-  if (i + ITEMS <= n && aligned16(out + i)) {
-    int4* p = reinterpret_cast<int4*>(out + i);
-#pragma unroll
-    for (int k = 0; k < ITEMS / 4; ++k)
-      p[k] = make_int4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < ITEMS; ++j)
-      if (i + j < n) out[i + j] = v[j];
-  }
-}
-
-template <typename T>
-int scan(const void* x, long long n, void* out, void* scratch, void* stream_ptr) {
-  if (n <= 0) return 0;
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const long long n_tiles = (n + TILE - 1) / TILE;
-  // scratch: tile offsets [n_tiles], total [1]
-  int* offsets = static_cast<int*>(scratch);
-  int* total = offsets + n_tiles;
-  const T* xs = static_cast<const T*>(x);
-  tile_sums_kernel<T><<<static_cast<unsigned>(n_tiles), THREADS, 0, stream>>>(xs, n, offsets);
-  scan_tile_sums_kernel<<<1, SCAN_THREADS, 0, stream>>>(offsets, static_cast<int>(n_tiles),
-                                                        total);
-  scan_tiles_kernel<T><<<static_cast<unsigned>(n_tiles), THREADS, 0, stream>>>(
-      xs, n, offsets, static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K4: one pass with decoupled look-back (Merrill and Garland, "Single-pass
-// parallel prefix scan with decoupled look-back", 2016). A tile's status
-// word holds a flag in its high half and a count in its low half: the tile's
-// own live count (AGGREGATE) as soon as the tile is loaded, then the live
-// count of every lane up to its end (INCLUSIVE) once its look-back is done.
+// The look-back of K3 and K4. A tile's status word holds a flag in its high
+// half and a sum in its low half (an int32's bits): the tile's own sum (K3)
+// or live count (K4) as AGGREGATE as soon as the tile is loaded, then the
+// sum over every lane up to its end (INCLUSIVE) once its look-back is done.
+// The sum and its flag are one 8-byte word, so a reader never sees one
+// without the other and no fence is needed.
 constexpr unsigned long long AGGREGATE = 1ull << 32;
 constexpr unsigned long long INCLUSIVE = 2ull << 32;
 
@@ -239,11 +171,11 @@ __device__ __forceinline__ void store_status(unsigned long long* p, unsigned lon
   *reinterpret_cast<volatile unsigned long long*>(p) = flag | static_cast<unsigned>(count);
 }
 
-// The live lanes before `tile`: warp 0 reads the status of the 32 tiles
+// The sum over the lanes before `tile`: warp 0 reads the status of the 32 tiles
 // before it at once, waits until each has published, adds the counts up to
 // the nearest INCLUSIVE one, and moves 32 tiles back while there is none.
 // Tile 0 publishes INCLUSIVE at once, so the walk ends. Every lane of warp 0
-// calls it and gets the sum.
+// calls it and gets the sum. int32 sums wrap as int32 does.
 __device__ int look_back(const unsigned long long* status, int tile) {
   const int lane = threadIdx.x & 31;
   int excl = 0;
@@ -266,9 +198,72 @@ __device__ int look_back(const unsigned long long* status, int tile) {
   }
 }
 
-// Each block takes tiles in order from a ticket counter, so a tile's
-// predecessors are all held by running blocks and the look-back never waits
-// on a block that has not started. For each tile: one 16-byte load of the
+// K3. The thread's 16 sums are staged in shared memory as 4 int4 words,
+// word k of thread t at t * 4 + (k ^ ((t >> 1) & 3)): each quarter warp's
+// 16-byte stores then cover all 32 banks once, and so do the reads of 8
+// consecutive words that feed the coalesced stores to `out`.
+__device__ __forceinline__ int staged_word(int q) {  // int4 word q of the tile
+  const int owner = q >> 2;
+  return owner * 4 + ((q & 3) ^ ((owner >> 1) & 3));
+}
+
+// One block a tile, its tile from the ticket (grid = n_tiles): the loaded
+// lanes scanned in registers, then across the block, AGGREGATE published,
+// the sums staged, the look-back (warp 0), INCLUSIVE published, and the
+// tile's int32s written once each with the tile's offset added. Blocks of
+// 512 threads held to 32 registers, so 4 fit an SM: the look-back stalls a
+// block, and more blocks in flight hide more of it. LOOK_BACK false is a
+// diagnostic, not a scan: each tile's sums without its offset, the same
+// traffic with no wait, which shows what the look-back costs.
+template <typename T, bool LOOK_BACK = true>
+__global__ void __launch_bounds__(SCAN_THREADS, 4)
+scan_kernel(const T* __restrict__ x, long long n, int* __restrict__ out,
+            unsigned long long* status, unsigned int* ticket) {
+  __shared__ int4 staged[SCAN_TILE / 4];
+  __shared__ int ws[SCAN_THREADS / 32 + 1];
+  __shared__ int s_tile, s_excl;
+  if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(ticket, 1u));
+  __syncthreads();
+  const int tile = s_tile;
+  const long long base = static_cast<long long>(tile) * SCAN_TILE;
+  int v[ITEMS];
+  Lanes<T>::load(x, base + threadIdx.x * ITEMS, n, v);
+#pragma unroll
+  for (int j = 1; j < ITEMS; ++j) v[j] += v[j - 1];  // inclusive, in registers
+  int agg;
+  const int at = block_exclusive<SCAN_THREADS>(v[ITEMS - 1], ws, agg);
+  if (threadIdx.x == 0) store_status(status + tile, tile == 0 ? INCLUSIVE : AGGREGATE, agg);
+#pragma unroll
+  for (int k = 0; k < ITEMS / 4; ++k)
+    staged[staged_word(threadIdx.x * 4 + k)] =
+        make_int4(v[4 * k] + at, v[4 * k + 1] + at, v[4 * k + 2] + at, v[4 * k + 3] + at);
+  if (threadIdx.x < 32) {
+    const int excl = tile == 0 || !LOOK_BACK ? 0 : look_back(status, tile);
+    if (threadIdx.x == 0) {
+      if (tile != 0) store_status(status + tile, INCLUSIVE, excl + agg);
+      s_excl = excl;
+    }
+  }
+  __syncthreads();
+  const int excl = s_excl;
+  int* o = out + base;
+  const long long m = n - base < SCAN_TILE ? n - base : SCAN_TILE;
+  if (m == SCAN_TILE && aligned16(o)) {
+#pragma unroll
+    for (int r = 0; r < SCAN_TILE / 4 / SCAN_THREADS; ++r) {
+      const int q = r * SCAN_THREADS + threadIdx.x;
+      const int4 w = staged[staged_word(q)];
+      reinterpret_cast<int4*>(o)[q] = make_int4(w.x + excl, w.y + excl, w.z + excl, w.w + excl);
+    }
+  } else {  // the ragged last tile, or an out that is not 16-byte aligned
+    const int* words = reinterpret_cast<const int*>(staged);
+    for (int i = threadIdx.x; i < m; i += SCAN_THREADS)
+      o[i] = words[staged_word(i >> 2) * 4 + (i & 3)] + excl;
+  }
+}
+
+// K4. Each block takes tiles in order from the ticket, in a loop, because
+// its blocks also write the fill tail. For each tile: one 16-byte load of the
 // mask a thread, a block scan of the counts, AGGREGATE published, the tile's
 // live lanes listed in shared memory in lane order, the look-back (warp 0),
 // INCLUSIVE published, then the live lanes' rows copied to out[excl + k]
@@ -339,23 +334,43 @@ compact_kernel(const int* __restrict__ values, int d, const unsigned char* __res
     out[s] = fill;
 }
 
+template <typename T, bool LOOK_BACK = true>
+int scan(const void* x, long long n, void* out, void* status, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const long long n_tiles = (n + SCAN_TILE - 1) / SCAN_TILE;
+  cudaError_t err = cudaMemsetAsync(status, 0, (n_tiles + 1) * 8, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto* words = static_cast<unsigned long long*>(status);
+  scan_kernel<T, LOOK_BACK><<<static_cast<unsigned>(n_tiles), SCAN_THREADS, 0, stream>>>(
+      static_cast<const T*>(x), n, static_cast<int*>(out), words,
+      reinterpret_cast<unsigned int*>(words + n_tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Scratch ints the caller passes for a scan of n lanes.
-extern "C" long long compact_scratch_ints(long long n) {
-  return (n + TILE - 1) / TILE + 1;
-}
-
-// Inclusive scan of bool (one byte, 0 or 1) lanes, int32 out.
-extern "C" int prefix_sum_u8(const void* x, long long n, void* out, void* scratch,
+// Inclusive scan of bool (one byte, 0 or 1) lanes, int32 out. `status` holds
+// ceil(n / SCAN_TILE) + 1 8-byte words (a tile's status each, then the
+// ticket), which ceil(n / TILE) + 1 covers; they are zeroed here, on the
+// stream, before the kernel (one memset, one kernel launch).
+extern "C" int prefix_sum_u8(const void* x, long long n, void* out, void* status,
                              void* stream) {
-  return scan<unsigned char>(x, n, out, scratch, stream);
+  return scan<unsigned char>(x, n, out, status, static_cast<cudaStream_t>(stream));
 }
 
-// Inclusive scan of int32 lanes, int32 out (wrapping as int32 does).
-extern "C" int prefix_sum_i32(const void* x, long long n, void* out, void* scratch,
+// Inclusive scan of int32 lanes, int32 out (wrapping as int32 does); `status`
+// as for prefix_sum_u8.
+extern "C" int prefix_sum_i32(const void* x, long long n, void* out, void* status,
                               void* stream) {
-  return scan<int>(x, n, out, scratch, stream);
+  return scan<int>(x, n, out, status, static_cast<cudaStream_t>(stream));
+}
+
+// The diagnostic pass of K3 over bool lanes: the same memset, loads and
+// stores with no look-back, so each tile's sums lack their offset. Its time
+// is what K3 would take if the look-back cost nothing.
+extern "C" int scan_ceiling_u8(const void* x, long long n, void* out, void* status,
+                               void* stream) {
+  return scan<unsigned char, false>(x, n, out, status, static_cast<cudaStream_t>(stream));
 }
 
 // Lanes a K4 tile: the caller passes one 8-byte status word a tile and one

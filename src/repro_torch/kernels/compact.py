@@ -10,13 +10,13 @@ header says what bounds them and how the design answers that. They compute:
     stream_compact(values, live, out_size=S, fill=f):
         out = full(S, f); out[cumsum(live) - 1] = values[live]  (extra drop)
 
-``prefix_sum`` is three launches (tile sums, their scan, the tile scans),
-counted once a call in ``prefix_sum_launches``. ``stream_compact`` does not
-call it: it is one pass over the mask with decoupled look-back (a memset of
-its tile status words, then one kernel launch), counted in
-``stream_compact_launches``. Both sum in int32, so they are exact at any
-size; the JAX kernels sum in float32 and are exact below 2^24, where the two
-give the same arrays. Survivors keep their lane order.
+Both are one pass with decoupled look-back over ticketed tiles (8,192 lanes
+for K3, 4,096 for K4): one memset of their tile status words, then one
+kernel launch, counted once a call in ``prefix_sum_launches`` and
+``stream_compact_launches``. ``stream_compact`` does not call
+``prefix_sum``. Both sum in int32, so they are exact at any size; the JAX
+kernels sum in float32 and are exact below 2^24, where the two give the
+same arrays. Survivors keep their lane order.
 
 On a CPU tensor each wrapper runs its plain version (``ref.py``); on a CUDA
 tensor it launches the kernel or raises. The source is built at first use
@@ -35,7 +35,8 @@ SOURCE = build.CSRC / "compact.cu"
 
 prefix_sum_launches = 0      # K3 calls that launched the kernel
 stream_compact_launches = 0  # K4 calls that launched the kernel
-TILE = 4096  # lanes a K4 tile (csrc/compact.cu); one 8-byte status word each
+TILE = 4096  # lanes a K4 tile (a K3 tile is twice it, csrc/compact.cu); one 8-byte
+             # status word a tile, so K3's words fit K4's count
 _lib: ctypes.CDLL | None = None
 _SCAN_ENTRY = {torch.bool: "prefix_sum_u8", torch.int32: "prefix_sum_i32"}
 
@@ -51,10 +52,10 @@ def load_library() -> ctypes.CDLL:
     for name in _SCAN_ENTRY.values():
         getattr(lib, name).argtypes = [p, ll, p, p, p]
         getattr(lib, name).restype = i
+    lib.scan_ceiling_u8.argtypes = [p, ll, p, p, p]
+    lib.scan_ceiling_u8.restype = i
     lib.stream_compact_i32.argtypes = [p, i, p, ll, ll, i, p, p, p]
     lib.stream_compact_i32.restype = i
-    lib.compact_scratch_ints.argtypes = [ll]
-    lib.compact_scratch_ints.restype = ll
     lib.compact_tile_lanes.restype = i
     if lib.compact_tile_lanes() != TILE:
         raise RuntimeError(f"{SOURCE.name} has tiles of {lib.compact_tile_lanes()} lanes, "
@@ -72,12 +73,22 @@ def _check_cuda(*tensors: torch.Tensor) -> None:
         raise ValueError("the compaction kernels index lanes in int32")
 
 
+def _with_status(n: int, size: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """One int32 allocation: the tile status words of an ``n``-lane pass (one
+    a tile and the ticket, 8 bytes each, padded to 256 bytes), then ``size``
+    ints of output. Returns (the whole buffer, the output view)."""
+    head = (2 * (-(-n // TILE) + 1) + 63) // 64 * 64
+    buf = torch.empty(head + size, dtype=torch.int32, device=device)
+    return buf, buf[head:]
+
+
 def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum of a 1-D bool or int32 tensor, int32 out.
 
     On a CPU tensor this is ``ref.prefix_sum_ref``; on a CUDA tensor one call
-    of the kernel (three CUDA launches: tile sums, their scan, the tile
-    scans), counted once in ``prefix_sum_launches``.
+    of the one-pass kernel (a memset of its status words, then one launch),
+    counted in ``prefix_sum_launches``. The output and the status words come
+    from one allocation (``out`` is a view of it).
     """
     global prefix_sum_launches
     if x.dim() != 1 or x.dtype not in _SCAN_ENTRY:
@@ -86,17 +97,35 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return prefix_sum_ref(x)
     _check_cuda(x)
-    out = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
-    if x.shape[0] == 0:
+    n = x.shape[0]
+    buf, out = _with_status(n, n, x.device)
+    if n == 0:
         return out
-    lib = load_library()
-    scratch = torch.empty(lib.compact_scratch_ints(x.shape[0]), dtype=torch.int32,
-                          device=x.device)
-    err = build.on_device(x.device, getattr(lib, _SCAN_ENTRY[x.dtype]), x.data_ptr(),
-                          x.shape[0], out.data_ptr(), scratch.data_ptr())
+    lib = _lib or load_library()
+    err = build.on_device(x.device, getattr(lib, _SCAN_ENTRY[x.dtype]), x.data_ptr(), n,
+                          out.data_ptr(), buf.data_ptr())
     if err:
         raise build.launch_error(lib, "compact_error_string", err, "prefix-sum kernel")
     prefix_sum_launches += 1
+    return out
+
+
+def scan_ceiling(x: torch.Tensor) -> torch.Tensor:
+    """A diagnostic, not a scan: K3's pass over a 1-D bool CUDA tensor with
+    no look-back, so each 8,192-lane tile holds its own inclusive sums. The
+    same memset, loads and stores as ``prefix_sum``, so its time beside
+    K3's is what the look-back costs. Not counted in ``prefix_sum_launches``
+    and used by no path."""
+    if x.dim() != 1 or x.dtype != torch.bool:
+        raise TypeError(f"scan_ceiling takes a 1-D bool tensor, got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    _check_cuda(x)
+    buf, out = _with_status(x.shape[0], x.shape[0], x.device)
+    lib = _lib or load_library()
+    err = build.on_device(x.device, lib.scan_ceiling_u8, x.data_ptr(), x.shape[0],
+                          out.data_ptr(), buf.data_ptr())
+    if err:
+        raise build.launch_error(lib, "compact_error_string", err, "scan ceiling")
     return out
 
 
@@ -129,11 +158,8 @@ def stream_compact(
         return stream_compact_ref(values, live, out_size, fill)
     _check_cuda(values, live)
     n, d = values.shape[0], 1 if values.dim() == 1 else values.shape[1]
-    # the status words (one a tile and the ticket, 8 bytes each, padded to
-    # 256 bytes), then out
-    head = (2 * (-(-n // TILE) + 1) + 63) // 64 * 64
-    buf = torch.empty(head + out_size * d, dtype=torch.int32, device=values.device)
-    out = buf[head:].view((out_size,) + tuple(values.shape[1:]))
+    buf, out = _with_status(n, out_size * d, values.device)
+    out = out.view((out_size,) + tuple(values.shape[1:]))
     if out.numel() == 0:
         return out
     lib = _lib or load_library()
@@ -147,4 +173,4 @@ def stream_compact(
     return out
 
 
-__all__ = ["prefix_sum", "stream_compact", "load_library", "SOURCE"]
+__all__ = ["prefix_sum", "stream_compact", "scan_ceiling", "load_library", "SOURCE"]

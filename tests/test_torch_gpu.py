@@ -318,6 +318,102 @@ def test_prefix_sum_unaligned(cuda, shift):
     assert torch.equal(compact.prefix_sum(xi), ref.prefix_sum_ref(xi))
 
 
+def _scan_input(rng, kind, e):
+    if kind == "bool":
+        return rng.random(e) < 0.4
+    return rng.integers(-7, 8, e).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["bool", "int32"])
+@pytest.mark.parametrize("e", [0, 1, 15, 16, 4095, 4096, 4097, 8191, 8192, 8193, "wave",
+                               (1 << 26) + 3])
+def test_prefix_sum_one_pass_lengths(cuda, kind, e):
+    """The one-pass scan at the edges of a thread's 16 lanes and of a tile
+    (8,192 lanes; K4's 4,096 too), past one wave of resident blocks (where
+    the look-back waits on tiles still running) and at 2^26 + 3 lanes; one
+    launch a call."""
+    if e == "wave":  # a tile more than the card holds at once (4 blocks of 8,192
+        # lanes an SM, 8 of K4's 4,096), and a ragged end
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        e = (sms * 8 + 1) * compact.TILE + 5
+    x = torch.from_numpy(_scan_input(np.random.default_rng(e % 997), kind, e)).to(cuda)
+    before = compact.prefix_sum_launches
+    out = compact.prefix_sum(x)
+    torch.cuda.synchronize()
+    assert compact.prefix_sum_launches == before + (1 if e else 0)
+    assert out.dtype == torch.int32 and out.shape == (e,)
+    assert torch.equal(out, ref.prefix_sum_ref(x))
+
+
+@pytest.mark.parametrize("kind", ["bool", "int32"])
+@pytest.mark.parametrize("shift", [1, 5, 16])
+def test_prefix_sum_unaligned_many_tiles(cuda, kind, shift):
+    """A view that starts off a 16-byte boundary and spans many tiles: every
+    thread's lanes take the scalar path and the tiles still chain."""
+    base = torch.from_numpy(_scan_input(np.random.default_rng(shift), kind,
+                                        40 * compact.TILE)).to(cuda)
+    x = base[shift:shift + 37 * compact.TILE + 3]
+    assert torch.equal(compact.prefix_sum(x), ref.prefix_sum_ref(x))
+
+
+def test_prefix_sum_back_to_back(cuda):
+    """Masks in a row, each of another length, the last smaller than the
+    first: stale tile status from an earlier call would show here."""
+    rng = np.random.default_rng(13)
+    xs = [torch.from_numpy(rng.random(e) < p).to(cuda)
+          for e, p in [(3_000_017, 0.5), (2_000_003, 0.9), (70_001, 0.1), (524_288, 0.3)]]
+    outs = [compact.prefix_sum(x) for x in xs]
+    for x, out in zip(xs, outs):
+        assert torch.equal(out, ref.prefix_sum_ref(x))
+
+
+def test_prefix_sum_two_streams(cuda):
+    """Calls on two streams at once: each takes its own status words."""
+    rng = np.random.default_rng(14)
+    xs = [torch.from_numpy(rng.random(1_500_007) < p).to(cuda) for p in (0.3, 0.7)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = [[], []]
+    for _ in range(4):
+        for k, (stream, x) in enumerate(zip(streams, xs)):
+            with torch.cuda.stream(stream):
+                outs[k].append(compact.prefix_sum(x))
+    torch.cuda.synchronize()
+    for k, x in enumerate(xs):
+        exp = ref.prefix_sum_ref(x)
+        assert all(torch.equal(o, exp) for o in outs[k])
+
+
+def test_scan_ceiling_is_tile_local(cuda):
+    """The diagnostic pass without look-back: each 8,192-lane tile holds its
+    own inclusive sums, and it counts no K3 launch."""
+    x = torch.from_numpy(np.random.default_rng(16).random(3 * 8192 + 5) < 0.5).to(cuda)
+    before = compact.prefix_sum_launches
+    out = compact.scan_ceiling(x)
+    assert compact.prefix_sum_launches == before
+    pad = torch.zeros(4 * 8192, dtype=torch.bool, device=cuda)
+    pad[:x.shape[0]] = x
+    exp = torch.cumsum(pad.view(4, 8192), 1, dtype=torch.int32).view(-1)[:x.shape[0]]
+    assert torch.equal(out, exp)
+
+
+def test_prefix_sum_is_one_launch_after_one_memset(cuda):
+    """What the card runs for one call, by the profiler: one memset of the
+    status words and one kernel, whatever the length."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.from_numpy(np.random.default_rng(15).random(8 * 1024 * 1024) < 0.5).to(cuda)
+    compact.prefix_sum(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        compact.prefix_sum(x)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    kernels = [n for n in names if "memset" not in n.lower()]
+    assert len(names) == 2 and len(kernels) == 1 and "scan_kernel" in kernels[0], names
+
+
 @pytest.mark.parametrize("e,d,out_size,p_live", [
     (100, 0, 128, 0.5),
     (1500, 0, 1024, 0.7),
@@ -409,13 +505,13 @@ def test_stream_compact_two_streams(cuda):
 @pytest.mark.parametrize("eps", [0.0, 0.1])
 def test_pruned_kernel_on_card(cuda, eps):
     """Pruned with the kernels on == off == unpruned == the numpy oracle on a
-    small planted block, with two K4 calls a query and no K3 scan (K4 is one
-    pass of its own)."""
+    small planted block, with two K3 and three K4 calls a query (the
+    resident prep's and the ladder's)."""
     g, _, _ = planted_dense(4096, 64, seed=0)
     compact.prefix_sum_launches = compact.stream_compact_launches = 0
     before = peel.launches
     on = pbahmani(g, eps=eps, pruned=True, kernel=True, device=cuda)
-    assert (compact.prefix_sum_launches, compact.stream_compact_launches) == (0, 2)
+    assert (compact.prefix_sum_launches, compact.stream_compact_launches) == (2, 3)
     assert peel.launches > before
     off = pbahmani(g, eps=eps, pruned=True, kernel=False, device=cuda)
     plain = pbahmani(g, eps=eps, kernel=True, device=cuda)
@@ -425,6 +521,33 @@ def test_pruned_kernel_on_card(cuda, eps):
         np.testing.assert_array_equal(got[1], on[1])
     assert on[2] == want[2] and abs(on[0] - want[0]) <= 1e-6 * want[0]
     np.testing.assert_array_equal(on[1], want[1])
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+def test_resident_prep_on_card_matches_host_prep(cuda, eps):
+    """The resident prep on the card (K1, K2, K3, K4) == the host prep on the
+    planted block: every integer, best_d1's bits, the masks, perm where a1
+    holds, the plan and the bucket arrays lane for lane."""
+    from repro_torch.core import prune
+    from repro_torch.graphs.convert import to_device
+
+    g, _, _ = planted_dense(4096, 64, seed=0)
+    plan = prune.plan_for_graph(g, kernel=True, device=cuda)
+    u, v = prune.slot_arrays(g)
+    want = prune.prepare_pruned_peel(u, v, g.degrees(), g.n_edges, eps, plan)
+    src, dst = to_device(g, cuda, sorted=True)
+    got = prune.prepare_pruned_peel_resident(src, dst, g.n_nodes, g.n_edges, eps, plan,
+                                             kernel=True)
+    assert isinstance(want, prune.PrunedDispatch) and isinstance(got, prune.PrunedDispatch)
+    assert (got.n_v1, got.n_e1, got.better1, got.observed, got.plan) == (
+        want.n_v1, want.n_e1, want.better1, want.observed, want.plan)
+    assert np.float32(got.best_d1).view(np.int32) == np.float32(want.best_d1).view(np.int32)
+    a1 = got.a1.cpu().numpy()
+    np.testing.assert_array_equal(a1, want.a1)
+    np.testing.assert_array_equal(got.active0.cpu().numpy(), want.active0)
+    np.testing.assert_array_equal(got.perm.cpu().numpy()[a1], want.perm[want.a1])
+    np.testing.assert_array_equal(got.b_src.cpu().numpy(), want.b_src)
+    np.testing.assert_array_equal(got.b_dst.cpu().numpy(), want.b_dst)
 
 
 def test_refine_kernel_on_card(cuda):
