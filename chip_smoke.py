@@ -65,7 +65,21 @@ takes a plain gather), and the kernel switched on. Phases:
      copy of the ids, and in pairs with K5's stores) and the transposing copy
      it no longer needs; K5 at serve_p99 with its bound and where the
      wrapper's host time goes;
- 11. a JSON line of every kernel, then the card's name and power limit, then
+ 11. the streaming ``DeltaEngine`` on a fraud pipeline's resident graph,
+     ``planted_dense(2**18, 1024, 16 / 2**18, 0.9, seed=0)`` in an engine of
+     ``capacity=1 << 22`` (8,388,608 lanes), ``eps=0.1``, ``refresh_every=4``:
+     8 churn batches of 16,384 events (80 % uniform inserts, 20 % deletes of
+     present edges) with a pruned query after each, three of them epoch
+     refreshes, then a refined query, another after a delete-only batch, and
+     ``cbds(rounds=1)``; a second engine with the kernels off fed the same
+     batches equals it at every query, and a cold ``pbahmani`` of the
+     materialized graph equals it after the first refresh and the last
+     batch; K2 one launch a pass and a plan iteration, K1 two a pruned query
+     (three with a plan), K3 two, K4 three; the lanes dst-sorted after every
+     query; zero audited steady recompiles; ingest, re-sort, query, refresh,
+     refined-query and cbds times, with a sync; the certified skip on the
+     card at a tiny stream;
+ 12. a JSON line of every kernel, then the card's name and power limit, then
      the result line ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure, so the script exits non-zero and prints no
@@ -104,6 +118,12 @@ SOURCES = {"segment_sum_sorted": "src/repro_torch/csrc/segsum.cu",
 EMBED_TOL = (1e-5, 1e-6)     # K5 bags: float32 sums in another order (rtol, atol)
 LOGIT_TOL = (1e-4, 1e-5)     # logits and scores: float32 products in another order
 PLANTED = dict(n=2**19, clique_size=2048, p_background=16 / 2**19, p_planted=0.9, seed=0)
+# phase 11: a fraud pipeline's resident graph (a 1,024-vertex colluding block
+# in 262,144 accounts), 8,388,608 lanes, and its churn batches
+STREAM_GRAPH = dict(n=2**18, clique_size=1024, p_background=16 / 2**18, p_planted=0.9, seed=0)
+STREAM_ENGINE = dict(eps=0.1, capacity=1 << 22, refresh_every=4)
+STREAM_BATCHES = 8
+STREAM_EVENTS = 16384   # a batch: 80 % uniform inserts, 20 % deletes of present edges
 # The JAX package's numpy oracles on rmat(19, 16, seed=0): (passes, |S|) of
 # pbahmani_np per eps, and (k*, m_v, m_e) of kcore_np (minutes on a host
 # CPU, too slow to rerun here; the same oracle is rerun at scale 15 below).
@@ -206,8 +226,10 @@ def profile_call(fn) -> dict:
     """Where one ``fn()`` call's time goes on the card, by torch.profiler:
     the device's busy time (the union of its kernel, memset and copy
     intervals), its idle share of the profiled window (host clock, so the
-    profiler's own overhead counts as idle), and the busiest kernels. Empty
-    when the profiler records no device activity."""
+    profiler's own overhead counts as idle), and the busiest kernels. The
+    ranges that ``obs`` spans name on the device timeline (``obs:<name>``)
+    are annotations, not activity, and are left out. Empty when the
+    profiler records no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -221,7 +243,7 @@ def profile_call(fn) -> dict:
         window_us = (time.perf_counter() - t0) * 1e6
     spans, by_name = [], {}
     for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+        if ev.device_type != DeviceType.CUDA or ev.name.startswith("obs:"):
             continue
         spans.append((ev.time_range.start, ev.time_range.end))
         by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
@@ -1492,6 +1514,220 @@ def phase_dcn(device: str, timed_runs: int = 3) -> tuple[int, dict, dict]:
                           init_s=t_init, batches_s=t_data, oracle_err=oracle_err,
                           unsorted_fallback_count=ops.unsorted_fallback_count)
 
+# ---------------------------------------------------------------------------
+# phase 11: the streaming engine
+# ---------------------------------------------------------------------------
+def launch_counts() -> dict:
+    from repro_torch.kernels import compact, peel, segsum
+
+    return {"segment_sum_sorted": segsum.launches, "peel_edges": peel.launches,
+            "prefix_sum": compact.prefix_sum_launches,
+            "stream_compact": compact.stream_compact_launches}
+
+
+def same_answer(a, b) -> bool:
+    """Two engines' QueryResults agree: the density's and warm density's f32
+    bits, the masks, passes, the path taken and the certificate's ints."""
+    def bits(x):
+        return np.float32(x).view(np.int32)
+
+    def cert(c):
+        return None if c is None else (c.best_ne, c.best_nv, c.dual_num, c.dual_den)
+
+    return (bits(a.density) == bits(b.density) and bits(a.warm_density) == bits(b.warm_density)
+            and a.passes == b.passes and np.array_equal(a.mask, b.mask)
+            and np.array_equal(a.warm_mask, b.warm_mask)
+            and (a.pruned, a.refreshed, a.refine_rounds, a.certified_skip, cert(a.certificate))
+            == (b.pruned, b.refreshed, b.refine_rounds, b.certified_skip, cert(b.certificate)))
+
+
+def phase_stream(device: str, graph: dict = STREAM_GRAPH, engine: dict = STREAM_ENGINE,
+                 n_batches: int = STREAM_BATCHES, events: int = STREAM_EVENTS
+                 ) -> tuple[dict, dict]:
+    """Returns (launches by kernel on the stream's main path, times)."""
+    import torch
+
+    from repro_torch.core import pbahmani
+    from repro_torch.graphs.generators import planted_dense
+    from repro_torch.kernels import compact, peel, segsum
+    from repro_torch.obs import AUDITOR
+    from repro_torch.stream import DeltaEngine
+
+    def synced_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    g, _, _ = planted_dense(**graph)
+    seed_edges = np.stack([g.src[:g.n_edges], g.dst[:g.n_edges]], axis=1)
+    t_graph = time.perf_counter() - t0
+    on = DeltaEngine(g.n_nodes, kernel=True, device=device, **engine)
+    off = DeltaEngine(g.n_nodes, kernel=False, device=device, **engine)
+    rng = np.random.default_rng(1)
+    times = {"ingest_ms": [], "resort_ms": [], "query_ms": [], "query_off_ms": [],
+             "refresh_ms": [], "refresh_off_ms": []}
+    per_query, held = [], []   # launches a query; (graph, answer) for the cold peel
+    compiles0 = DeltaEngine.compile_count()
+    # the host's share: the kernel-on engine's buffer calls, timed in place
+    host_ms = {"apply": [], "epoch_compact": [], "dst_sorted_state": []}
+    for name in host_ms:
+        def timed(*a, _real=getattr(on.buffer, name), _name=name, **k):
+            t0 = time.perf_counter()
+            out = _real(*a, **k)
+            host_ms[_name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(on.buffer, name, timed)
+
+    def ingest(insert=None, delete=None):
+        st, ms = synced_ms(lambda: on.apply_updates(insert=insert, delete=delete))
+        st_off = off.apply_updates(insert=insert, delete=delete)
+        check({k: v for k, v in vars(st).items() if k not in ("latency_ms", "compiled")}
+              == {k: v for k, v in vars(st_off).items() if k not in ("latency_ms", "compiled")},
+              f"UpdateStats differ, kernel on {st} and off {st_off}")
+        return st, ms
+
+    def query(label):
+        """One query on both engines: the kernel-on one re-sorted first (timed
+        apart; a refresh re-uploads sorted lanes instead), its launches and
+        edge stages counted, the two answers held equal."""
+        stale, plans = on.stale, on.metrics.n_plan_builds
+        if not on._sorted and not stale:
+            _, ms = synced_ms(on._resort)
+            times["resort_ms"].append(ms)
+        before = launch_counts()
+        pass_calls, kcore_calls = edge_stage_calls()
+        with pass_calls, kcore_calls:
+            q, ms = synced_ms(on.query)
+        d = {k: v - before[k] for k, v in launch_counts().items()}
+        check(bool(torch.all(on._dst[1:] >= on._dst[:-1])),
+              f"{label}: the kernel-on engine's lanes are not dst-sorted after the query")
+        q_off, ms_off = synced_ms(off.query)
+        check(same_answer(q, q_off), f"{label}: kernel on {q.density!r}/{q.passes} differs "
+              f"from kernel off {q_off.density!r}/{q_off.passes}")
+        check(q.pruned, f"{label}: the query did not take the pruned path")
+        plan_built = on.metrics.n_plan_builds - plans
+        check(d["peel_edges"] == pass_calls.n + kcore_calls.n and pass_calls.n == q.passes,
+              f"{label}: K2 launched {d['peel_edges']} times for {q.passes} passes "
+              f"({pass_calls.n} edge stages) and {kcore_calls.n} plan iterations")
+        check((d["segment_sum_sorted"], d["prefix_sum"], d["stream_compact"])
+              == (2 + plan_built, 2, 3),
+              f"{label}: K1 {d['segment_sum_sorted']}, K3 {d['prefix_sum']}, K4 "
+              f"{d['stream_compact']} launches (expected {2 + plan_built}, 2, 3)")
+        check(not q.compiled, f"{label}: the query loaded a kernel library")
+        (times["refresh_ms" if q.refreshed else "query_ms"]).append(ms)
+        (times["refresh_off_ms" if q.refreshed else "query_off_ms"]).append(ms_off)
+        per_query.append(dict(label=label, refreshed=q.refreshed, passes=q.passes,
+                              plan_built=plan_built, launches=d, ms=ms))
+        return q
+
+    # the main path: every count 0 now, read after the engines' last call (the
+    # kernel-off engine launches no kernel; the cold peels run after the read)
+    segsum.launches = peel.launches = 0
+    compact.prefix_sum_launches = compact.stream_compact_launches = 0
+    _, seed_ms = ingest(insert=seed_edges)
+    q = query("seed")
+    steady0 = AUDITOR.audited_steady_recompiles
+    for b in range(n_batches):
+        u, v = on.buffer.host_view()
+        live = np.flatnonzero(u < on.buffer.sentinel)
+        take = rng.choice(live, events // 5, replace=False)
+        inserts = rng.integers(0, g.n_nodes, (events - events // 5, 2))
+        _, ms = ingest(insert=inserts, delete=np.stack([u[take], v[take]], axis=1))
+        times["ingest_ms"].append(ms)
+        q = query(f"batch {b}")
+        if q.refreshed and not held:
+            held.append(("after the first refresh", on.buffer.to_graph(), q))
+    held.append(("after the last batch", on.buffer.to_graph(), q))
+    # a pruned query's device split, profiled once (the plan and the sorted
+    # lanes reused: a repeat of the last query on the same graph, on both
+    # engines, so that they stay in step)
+    def requery(eng):
+        eng._cached_query = None
+        return eng.query()
+
+    prof = profile_call(lambda: requery(on))
+    check(same_answer(requery(on), requery(off)), "a repeated query differs, kernel on/off")
+    r1, refine_ms = synced_ms(lambda: on.query(refine=True))
+    check(same_answer(r1, off.query(refine=True)), "the refined query differs, kernel on/off")
+    u, v = on.buffer.host_view()
+    take = rng.choice(np.flatnonzero(u < on.buffer.sentinel), 16, replace=False)
+    ingest(delete=np.stack([u[take], v[take]], axis=1))
+    r2, refine2_ms = synced_ms(lambda: on.query(refine=True))
+    check(same_answer(r2, off.query(refine=True)),
+          "the refined query after the delete-only batch differs, kernel on/off")
+    c_on, cbds_ms = synced_ms(lambda: on.cbds(rounds=1))
+    launches = launch_counts()
+    c_off = off.cbds(rounds=1)
+    check(all(np.array_equal(c_on[k], c_off[k]) for k in c_on), "cbds differs, kernel on/off")
+    check(AUDITOR.audited_steady_recompiles == steady0 and DeltaEngine.compile_count()
+          == compiles0, f"{AUDITOR.audited_steady_recompiles - steady0} steady recompiles, "
+          f"{DeltaEngine.compile_count() - compiles0} library loads in the stream")
+
+    # held against a cold peel of the materialized graph on the card
+    for label, gr, ans in held:
+        cold = pbahmani(gr, eps=engine["eps"], kernel=True, device=device)
+        check(np.float32(cold[0]).view(np.int32) == np.float32(ans.density).view(np.int32)
+              and cold[2] == ans.passes and np.array_equal(cold[1], ans.mask),
+              f"{label}: the engine {ans.density!r}/{ans.passes} differs from a cold "
+              f"pbahmani {cold[0]!r}/{cold[2]}")
+    # the certified skip on the card: a proved certificate answers a
+    # delete-only follow-up with no peel (the stream of tests/test_torch_stream.py)
+    tiny = DeltaEngine(8, refresh_every=10**9, kernel=True, device=device)
+    tiny.apply_updates(insert=np.array([[0, 1], [1, 2], [0, 2], [3, 4], [4, 5], [5, 6]]))
+    proved = tiny.query(refine=True, target_gap=0.0, max_refine_rounds=200)
+    tiny.apply_updates(delete=np.array([[4, 5]]))
+    skip = tiny.query(refine=True, target_gap=0.0)
+    check(proved.certificate.proves_optimal and skip.certified_skip and skip.passes == 0
+          and skip.density == 1.0, "the certified skip did not happen on the card")
+
+    med = {k: statistics.median(v) for k, v in times.items() if v}
+    resort_share = (statistics.median(times["resort_ms"])
+                    / statistics.median([a + b for a, b in zip(times["resort_ms"],
+                                                               times["query_ms"])]))
+    log(f"  planted_dense({graph}) built in {t_graph:.3f} s: |V|={g.n_nodes} "
+        f"|E|={g.n_edges}; DeltaEngine({engine}) seeded in {seed_ms / 1e3:.3f} s "
+        f"(host EdgeBuffer.apply of {g.n_edges} edges), kernel on and off")
+    log(f"  {n_batches} batches of {events} events (80 % uniform inserts, 20 % deletes "
+        f"of present edges), a query after each: kernel on == off at every query "
+        f"({len(per_query)}), all pruned; {on.metrics.n_refreshes} refreshes; "
+        f"|E| {on.n_edges}, capacity {on.buffer.capacity}; lanes dst-sorted after every "
+        f"query; the engine == a cold pbahmani {', '.join(h[0] for h in held)}")
+    log(f"  launches a query (K1, K2, K3, K4): " + "; ".join(
+        f"{p['label']}{' (refresh)' if p['refreshed'] else ''}: "
+        f"{p['launches']['segment_sum_sorted']}, {p['launches']['peel_edges']} "
+        f"({p['passes']} passes{', plan' if p['plan_built'] else ''}), "
+        f"{p['launches']['prefix_sum']}, {p['launches']['stream_compact']}"
+        for p in per_query))
+    log(f"  ms, median (all): ingest {med['ingest_ms']:.3f} ({times['ingest_ms']}); re-sort "
+        f"{med['resort_ms']:.3f} ({times['resort_ms']}), {resort_share:.3f} of a query with "
+        f"it; pruned query {med['query_ms']:.3f} ({times['query_ms']}), kernel off "
+        f"{med['query_off_ms']:.3f}; refresh {med['refresh_ms']:.3f} ({times['refresh_ms']})"
+        f", kernel off {med['refresh_off_ms']:.3f}")
+    log(f"  host, median (all) ms: EdgeBuffer.apply {statistics.median(host_ms['apply'][1:]):.3f}"
+        f" a batch ({host_ms['apply']}, the seed first); a refresh's epoch_compact "
+        f"{host_ms['epoch_compact']} and host dst sort {host_ms['dst_sorted_state']}")
+    log(f"  refine: {refine_ms:.3f} ms ({r1.refine_rounds} rounds, rel_gap "
+        f"{r1.certificate.rel_gap!r}); after a delete-only batch of 16 {refine2_ms:.3f} ms "
+        f"(certified skip: {r2.certified_skip}, {r2.refine_rounds} rounds, its seed query a "
+        f"refresh: {r2.refreshed}); cbds(rounds=1) "
+        f"{cbds_ms:.3f} ms (k*={c_on['k_star']}, density {c_on['density']!r}); on == off; "
+        f"zero audited steady recompiles; a proved certificate skips the peel on the card")
+    log(f"  profiled pruned query: " + (
+        f"window {prof['window_ms']:.6f} ms, device busy {prof['busy_ms']:.6f} ms (idle "
+        f"{prof['idle_share']:.4f}), {prof['device_launches']} device launches; busiest: "
+        + "; ".join(f"{k} {t:.6f}" for k, t in prof["top_ms"].items())
+        if prof else "no device activity recorded (not measured)"))
+    times.update(seed_ms=seed_ms, graph_s=t_graph, first_query=per_query[0],
+                 per_query=per_query, refine_ms=refine_ms, refine_rounds=r1.refine_rounds,
+                 refine_after_delete_ms=refine2_ms, certified_skip=r2.certified_skip,
+                 cbds_ms=cbds_ms, resort_share=resort_share, medians=med, profile=prof,
+                 host_ms=host_ms,
+                 n_refreshes=on.metrics.n_refreshes)
+    return launches, times
+
 
 def main() -> int:
     try:
@@ -1579,9 +1815,16 @@ def main() -> int:
     dcn_times["phase_s"] = time.perf_counter() - t0
     log(f"  phase 10 took {dcn_times['phase_s']:.3f} s")
 
+    log("phase 11: the streaming DeltaEngine on a planted block, churn batches")
+    t0 = time.perf_counter()
+    stream_launches, stream_times = phase_stream(device)
+    stream_times["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 11 took {stream_times['phase_s']:.3f} s; launches {stream_launches}")
+
     k2_launches = (peel_launches + cbds_launches + pruned_launches["peel_edges"]
-                   + fallback_launches + refine_launches)
-    k1_launches = cbds_k1_launches + pruned_launches["segment_sum_sorted"] + fallback_k1
+                   + fallback_launches + refine_launches + stream_launches["peel_edges"])
+    k1_launches = (cbds_k1_launches + pruned_launches["segment_sum_sorted"] + fallback_k1
+                   + stream_launches["segment_sum_sorted"])
     log(f"main path: K2 launches P-Bahmani (eps 0.1 and 0) {peel_launches}, CBDS-P "
         f"{cbds_launches}, pruned {pruned_launches['peel_edges']}, pruned fallback "
         f"{fallback_launches}, refinement {refine_launches}; K1 {k1_launches} (CBDS-P's "
@@ -1590,13 +1833,16 @@ def main() -> int:
         f"and preps {fallback_k1}); K3 "
         f"{pruned_launches['prefix_sum']}, K4 {pruned_launches['stream_compact']} (pruned, "
         f"eps 0.1 and 0); K5 {k5_launches} (DCN-v2: 8 serve_p99, 1 serve_bulk, 1 "
-        f"retrieval_cand)")
+        f"retrieval_cand); the stream (phase 11): K1 "
+        f"{stream_launches['segment_sum_sorted']}, K2 {stream_launches['peel_edges']}, K3 "
+        f"{stream_launches['prefix_sum']}, K4 {stream_launches['stream_compact']}")
     rows = {
         "segment_sum_sorted": (k1_launches, k1["max_abs_err"], k1),
         "peel_edges": (k2_launches, k2["max_abs_err"], k2),
-        "prefix_sum": (pruned_launches["prefix_sum"], compact_err, compact_times["prefix_sum"]),
-        "stream_compact": (pruned_launches["stream_compact"], compact_err,
-                           compact_times["stream_compact_edge"]),
+        "prefix_sum": (pruned_launches["prefix_sum"] + stream_launches["prefix_sum"],
+                       compact_err, compact_times["prefix_sum"]),
+        "stream_compact": (pruned_launches["stream_compact"] + stream_launches["stream_compact"],
+                           compact_err, compact_times["stream_compact_edge"]),
         "segment_embed": (k5_launches, max(embed_err, k5["max_abs_err"]), k5),
     }
     kernels = [{
@@ -1623,7 +1869,8 @@ def main() -> int:
                                      "refine": refine_times},
                     "k5_at_serve_bulk": k5,
                     "dcn_v2": dcn_times,
-                    "smoke_s": time.perf_counter() - t_start}))
+                    "stream": stream_times,
+                    "smoke_s": time.perf_counter() - t_start}, default=str))
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

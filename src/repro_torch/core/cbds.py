@@ -81,25 +81,18 @@ def _augment_once(
     return member_new, m_v_new, m_e_new, n_added
 
 
-def cbds_p(
-    graph: Graph, rounds: int = 1, kernel: bool | None = None,
-    device: torch.device | str | None = None,
+def cbds_resident(
+    src: torch.Tensor, dst: torch.Tensor, n_nodes: int, n_edges: int,
+    rounds: int = 1, kernel: bool = False,
 ) -> dict:
-    """Run CBDS-P. rounds=1 is the paper-faithful configuration.
-
-    ``device`` and ``kernel`` resolve as in ``pbahmani``; ``kernel`` selects
-    K2 for the k-core phase and K1 for each augmentation round (on dst-sorted
-    lanes) and changes no result.
-    """
-    device = resolve_device(device)
-    kernel = resolve_kernel(kernel, device)
-    src, dst = to_device(graph, device, sorted=kernel)
-    n_nodes = graph.n_nodes
-    core = _kcore(src, dst, n_nodes, graph.n_edges, kernel)
+    """CBDS-P over COO lanes already on the device (dst-sorted with
+    ``kernel``): the body of :func:`cbds_p`, and what a resident caller such
+    as ``stream.DeltaEngine.cbds`` runs on its own lanes."""
+    core = _kcore(src, dst, n_nodes, n_edges, kernel)
     member = core.coreness >= core.best_k
     m_v, m_e = core.best_n_v, core.best_n_e
 
-    n_legit = torch.tensor(0, dtype=torch.int32, device=device)
+    n_legit = torch.tensor(0, dtype=torch.int32, device=src.device)
     for _ in range(int(rounds)):
         member, m_v, m_e, n_added = _augment_once(member, m_v, m_e, src, dst, n_nodes,
                                                   kernel)
@@ -113,6 +106,22 @@ def cbds_p(
         "member_mask": member.cpu().numpy(),
         "n_legit": int(n_legit),
     }
+
+
+def cbds_p(
+    graph: Graph, rounds: int = 1, kernel: bool | None = None,
+    device: torch.device | str | None = None,
+) -> dict:
+    """Run CBDS-P. rounds=1 is the paper-faithful configuration.
+
+    ``device`` and ``kernel`` resolve as in ``pbahmani``; ``kernel`` selects
+    K2 for the k-core phase and K1 for each augmentation round (on dst-sorted
+    lanes) and changes no result.
+    """
+    device = resolve_device(device)
+    kernel = resolve_kernel(kernel, device)
+    src, dst = to_device(graph, device, sorted=kernel)
+    return cbds_resident(src, dst, graph.n_nodes, graph.n_edges, rounds, kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -147,4 +156,4 @@ def cbds_np(graph: Graph, rounds: int = 1) -> dict:
     }
 
 
-__all__ = ["cbds_p", "cbds_np"]
+__all__ = ["cbds_p", "cbds_resident", "cbds_np"]

@@ -9,6 +9,11 @@ output; nothing falls back.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them, so a first use that needs several kernels pays for the slowest build,
 not the sum.
+
+A library load is what this package builds at run time, so it is what the
+recompile auditor (``obs/audit.py``) counts, under its ``"kernels"``
+provider: the libraries loaded so far, and the CUDA-graph captures that
+register in ``GRAPH_CAPTURES`` (none yet).
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.obs.audit import AUDITOR
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -27,6 +34,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 build_logs: dict[str, str] = {}  # nvcc/ptxas output of builds made by this process
 _libs: dict[Path, ctypes.CDLL] = {}
+# objects with ``_cache_size()`` and ``__name__``, one per CUDA-graph
+# capture site, for the auditor; no path captures a graph yet
+GRAPH_CAPTURES: list = []
+
+
+class _LoadedLibraries:
+    """The auditor's view of ``load``: one cache whose size is the number of
+    kernel libraries this process has loaded."""
+
+    __name__ = "load"
+
+    @staticmethod
+    def _cache_size() -> int:
+        return len(_libs)
+
+
+_LOADED = _LoadedLibraries()  # one object: the auditor keys sizes by identity
+
+
+def _audited() -> list:
+    return [_LOADED] + list(GRAPH_CAPTURES)
+
+
+AUDITOR.register_provider(_audited, name="kernels")
 
 
 def _nvcc() -> str:
@@ -107,5 +138,5 @@ def launch_error(lib: ctypes.CDLL, strerror: str, err: int, what: str) -> Runtim
     return RuntimeError(f"{what} launch failed: {fn(err).decode()} ({err})")
 
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_logs", "build_all", "load",
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "GRAPH_CAPTURES", "build_logs", "build_all", "load",
            "library_path", "on_device", "launch_error"]

@@ -713,3 +713,109 @@ def test_dcn_kernel_on_card(cuda, cross_rank):
     off = retr.fn(model, batch)
     model.cfg = cfg
     torch.testing.assert_close(retr.fn(model, batch), off, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the streaming engine on the card
+# ---------------------------------------------------------------------------
+def _stream_events(rng, n, n_batches, events):
+    """Churn batches of 80 % inserts and 20 % deletes of present edges."""
+    edges: set = set()
+    for _ in range(n_batches):
+        ins = rng.integers(0, n, (events * 4 // 5, 2))
+        pool = np.asarray(sorted(edges)) if edges else np.zeros((0, 2), np.int64)
+        dels = pool[rng.choice(len(pool), min(events // 5, len(pool)), replace=False)]
+        edges -= {(int(u), int(v)) for u, v in dels}
+        edges |= {(min(int(u), int(v)), max(int(u), int(v))) for u, v in ins if u != v}
+        yield ins, dels
+
+
+def _same_answer(a, b):
+    assert np.float32(a.density).view(np.int32) == np.float32(b.density).view(np.int32)
+    assert a.passes == b.passes and (a.pruned, a.refreshed) == (b.pruned, b.refreshed)
+    np.testing.assert_array_equal(a.mask, b.mask)
+    np.testing.assert_array_equal(a.warm_mask, b.warm_mask)
+
+
+def test_stream_engine_on_card_matches_off_and_cpu(cuda):
+    """300 churn batches into engines on the card with the kernels on and
+    off and one on the CPU: the same answer after every batch, the
+    refreshes and refined queries included, and the same cbds."""
+    from repro_torch.stream import DeltaEngine
+
+    cfg = dict(n_nodes=600, eps=0.1, capacity=2048, refresh_every=6)
+    engines = [DeltaEngine(**cfg, kernel=True, device=cuda),
+               DeltaEngine(**cfg, kernel=False, device=cuda),
+               DeltaEngine(**cfg, device="cpu")]
+    before = peel.launches
+    rng = np.random.default_rng(0)
+    for i, (ins, dels) in enumerate(_stream_events(rng, 600, 300, 40)):
+        for eng in engines:
+            eng.apply_updates(insert=ins, delete=dels)
+        answers = [eng.query(refine=i % 50 == 49, max_refine_rounds=4) for eng in engines]
+        for other in answers[1:]:
+            _same_answer(answers[0], other)
+    assert peel.launches > before and engines[0].metrics.n_pruned_queries > 0
+    assert engines[0].metrics.n_refreshes > 10
+    cb = [eng.cbds() for eng in engines]
+    for other in cb[1:]:
+        assert other["density"] == cb[0]["density"] and other["k_star"] == cb[0]["k_star"]
+        np.testing.assert_array_equal(other["member_mask"], cb[0]["member_mask"])
+
+
+def test_stream_kernel_passes_see_sorted_lanes(cuda, monkeypatch):
+    """Every K2 and K1 hand-off of a kernel-mode engine (warm, pruned and
+    refined queries, refreshes, cbds) ascends in dst, checked on the card."""
+    from repro_torch.stream import DeltaEngine
+
+    real_k2, real_k1 = peel.peel_edges_sorted, ops.segment_sum_sorted
+    checked, n_k1 = [], [0]
+
+    def k2(src, dst, active, failed, **kw):
+        checked.append(bool(torch.all(dst[1:] >= dst[:-1])))
+        return real_k2(src, dst, active, failed, **kw)
+
+    def k1(values, seg_ids, **kw):
+        n_k1[0] += 1
+        checked.append(bool(torch.all(seg_ids[1:] >= seg_ids[:-1])))
+        return real_k1(values, seg_ids, **kw)
+
+    monkeypatch.setattr(peel, "peel_edges_sorted", k2)
+    monkeypatch.setattr(ops, "segment_sum_sorted", k1)
+    for pruned in (True, False):
+        eng = DeltaEngine(400, eps=0.1, capacity=2048, refresh_every=5, pruned=pruned,
+                          kernel=True, device=cuda)
+        for i, (ins, dels) in enumerate(_stream_events(np.random.default_rng(1), 400, 30, 60)):
+            eng.apply_updates(insert=ins, delete=dels)
+            eng.query(refine=i % 10 == 9, max_refine_rounds=3)
+        eng.cbds()
+    assert len(checked) > 100 and all(checked)
+    assert n_k1[0] > 0
+
+
+def test_stream_lane_perm_consistent_after_resort(cuda):
+    """Patch, re-sort, patch again, re-sort: dst and the degrees equal a fresh
+    resync's, and lane_perm still sends each slot's two lanes to its (u, v)."""
+    from repro_torch.stream import DeltaEngine
+
+    eng = DeltaEngine(5000, capacity=1 << 15, refresh_every=10**9, pruned=False,
+                      kernel=True, device=cuda)
+    rng = np.random.default_rng(2)
+    eng.apply_updates(insert=rng.integers(0, 5000, (20000, 2)))
+    for _ in range(2):
+        pool = np.asarray(sorted(eng.buffer._slot))
+        eng.apply_updates(insert=rng.integers(0, 5000, (3000, 2)),
+                          delete=pool[rng.choice(len(pool), 2000, replace=False)])
+        assert not eng._sorted
+        eng._lanes()
+        assert bool(torch.all(eng._dst[1:] >= eng._dst[:-1]))
+    got = [x.clone() for x in (eng._src, eng._dst, eng._deg, eng._lane_perm)]
+    eng._resync_device()
+    assert torch.equal(got[1], eng._dst) and torch.equal(got[2], eng._deg)
+    u, v = (torch.from_numpy(a).to(cuda) for a in eng.buffer.host_view())
+    cap = eng.buffer.capacity
+    for s, d, p in ((got[0], got[1], got[3]), (eng._src, eng._dst, eng._lane_perm)):
+        p = p.long()
+        assert torch.equal(s[p[:cap]], u) and torch.equal(d[p[:cap]], v)
+        assert torch.equal(s[p[cap:]], v) and torch.equal(d[p[cap:]], u)
+        assert torch.equal(torch.sort(p).values, torch.arange(2 * cap, device=cuda))

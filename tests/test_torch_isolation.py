@@ -37,7 +37,14 @@ def test_port_files_found():
             "src/repro_torch/refine/certify.py", "src/repro_torch/kernels/embed.py",
             "src/repro_torch/models/recsys.py", "src/repro_torch/models/convert.py",
             "src/repro_torch/configs/common.py", "src/repro_torch/configs/dcn_v2.py",
-            "src/repro_torch/data/pipeline.py", "src/repro_torch/launch/steps.py"} <= names
+            "src/repro_torch/data/pipeline.py", "src/repro_torch/launch/steps.py",
+            "src/repro_torch/utils/timing.py", "src/repro_torch/obs/__init__.py",
+            "src/repro_torch/obs/metrics.py", "src/repro_torch/obs/trace.py",
+            "src/repro_torch/obs/audit.py", "src/repro_torch/obs/export.py",
+            "src/repro_torch/obs/slo.py", "src/repro_torch/obs/scrape.py",
+            "src/repro_torch/obs/collector.py", "src/repro_torch/obs/otlp.py",
+            "src/repro_torch/graphs/io.py", "src/repro_torch/stream/__init__.py",
+            "src/repro_torch/stream/buffer.py", "src/repro_torch/stream/delta.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -57,7 +64,7 @@ def test_scan_catches_forbidden_imports(tmp_path):
 
 @pytest.mark.parametrize("entry", ["pbahmani", "kcore_decompose", "cbds_p",
                                    "pbahmani_pruned", "plan_for_graph", "refine",
-                                   "dcn_init", "build_step", "DCNv2"])
+                                   "dcn_init", "build_step", "DCNv2", "DeltaEngine"])
 def test_default_device_needs_cuda(monkeypatch, entry):
     """device=None means the GPU: with no CUDA it raises and names the way
     out, instead of running on the CPU."""
@@ -67,11 +74,13 @@ def test_default_device_needs_cuda(monkeypatch, entry):
     from repro_torch.graphs.generators import small_named
     from repro_torch.launch import build_step
     from repro_torch.models import DCNv2, dcn_init
+    from repro_torch.stream import DeltaEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {"dcn_init": lambda: dcn_init(get_arch("dcn-v2").smoke),
              "build_step": lambda: build_step("dcn-v2", "serve_p99"),
-             "DCNv2": lambda: DCNv2(get_arch("dcn-v2").smoke)}
+             "DCNv2": lambda: DCNv2(get_arch("dcn-v2").smoke),
+             "DeltaEngine": lambda: DeltaEngine(8)}
     fn = calls.get(entry) or (lambda: (getattr(tcore, entry, None)
                                        or getattr(trefine, entry))(small_named("petersen")))
     with pytest.raises(RuntimeError, match="device='cpu'"):
