@@ -79,7 +79,32 @@ takes a plain gather), and the kernel switched on. Phases:
      query; zero audited steady recompiles; ingest, re-sort, query, refresh,
      refined-query and cbds times, with a sync; the certified skip on the
      card at a tiny stream;
- 12. a JSON line of every kernel, then the card's name and power limit, then
+ 12. the fused multi-tenant service, a fraud/spam deployment with one
+     tenant a customer's account graph: two ``StreamService(fused=True,
+     eps=0.1, refresh_every=4)`` on the card, kernels on and off, fed the
+     same traffic. A lane bucket of 32 tenants at 16,384 vertices and
+     capacity 65,536 (131,072 lanes each, 4,194,304 in the stack; 16 hold a
+     colluding block, ``planted_dense(2**14, 128, 6 / 2**14, 0.9, seed=i)``,
+     pruned; 16 hold 3n uniform pairs, unpruned) and a dense bucket of 64
+     tenants at 512 vertices (``[64, 512, 512]`` float32 adjacency); 4 rounds
+     of ``ingest_many`` (``bench_tenants.py``'s mixed batches, 512 / 128
+     events a tenant), each followed by a coalesced flush of every tenant's
+     ``submit_density`` and ``top_k_densest(10)``, then one fixed-round
+     refined ``query_group`` a bucket. Kernel on == off at every answer, ==
+     a solo ``DeltaEngine`` fed the same stream (every lane-bucket tenant,
+     four dense ones), == a cold ``pbahmani`` after the last round; in every
+     flush one launch of K2's rows entry a batched pass whatever the group
+     size, no tenant's pass on the single-row K2 (its launches there are the
+     plans' k-core iterations), K1's rows entry once a prep and a bucket peel,
+     K3 and K4 once a compacted row; every row dst-sorted after its flush;
+     no error response (the service's fallback watched); no library load
+     or graph capture after the first round. Times with a sync: ingest_many,
+     each flush, top_k, the refined flushes; the 32 lane-bucket tenants
+     queried one by one through solo engines against one ``query_group``
+     (queries a second), both profiled; K2's and K1's rows entries on their
+     own at the lane bucket's shape beside the single-row K2 over the same
+     lanes;
+ 13. a JSON line of every kernel, then the card's name and power limit, then
      the result line ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure, so the script exits non-zero and prints no
@@ -109,12 +134,20 @@ REPLACES = {"segment_sum_sorted": "src/repro/kernels/segsum.py:118",
             "prefix_sum": "src/repro/kernels/compact.py:73",
             "stream_compact": "src/repro/kernels/compact.py:88",
             "segment_embed": "src/repro/kernels/ops.py:254 (reaches pl.pallas_call "
-                             "through K1 at ops.py:251)"}
+                             "through K1 at ops.py:251)",
+            "peel_edges_rows": "src/repro/stream/delta.py:481 _batched_warm_peel_jit (and "
+                               "core/prune.py:533, refine/loads.py:211: the vmapped pass, "
+                               "pl.pallas_call through K1 at kernels/segsum.py:118)",
+            "segment_sum_rows": "src/repro/core/prune.py:533 _batched_bucket_peel_jit (the "
+                                "vmapped bucket degrees, pl.pallas_call at "
+                                "kernels/segsum.py:118)"}
 SOURCES = {"segment_sum_sorted": "src/repro_torch/csrc/segsum.cu",
            "peel_edges": "src/repro_torch/csrc/peel.cu",
            "prefix_sum": "src/repro_torch/csrc/compact.cu",
            "stream_compact": "src/repro_torch/csrc/compact.cu",
-           "segment_embed": "src/repro_torch/csrc/embed.cu"}
+           "segment_embed": "src/repro_torch/csrc/embed.cu",
+           "peel_edges_rows": "src/repro_torch/csrc/peel.cu",
+           "segment_sum_rows": "src/repro_torch/csrc/segsum.cu"}
 EMBED_TOL = (1e-5, 1e-6)     # K5 bags: float32 sums in another order (rtol, atol)
 LOGIT_TOL = (1e-4, 1e-5)     # logits and scores: float32 products in another order
 PLANTED = dict(n=2**19, clique_size=2048, p_background=16 / 2**19, p_planted=0.9, seed=0)
@@ -124,6 +157,14 @@ STREAM_GRAPH = dict(n=2**18, clique_size=1024, p_background=16 / 2**18, p_plante
 STREAM_ENGINE = dict(eps=0.1, capacity=1 << 22, refresh_every=4)
 STREAM_BATCHES = 8
 STREAM_EVENTS = 16384   # a batch: 80 % uniform inserts, 20 % deletes of present edges
+# phase 12: a multi-tenant fraud/spam deployment (one tenant a customer's
+# account graph) through the fused service: a lane bucket of 32 tenants at
+# 16,384 vertices (131,072 lanes each; 16 with a colluding block, pruned, 16
+# uniform) and a dense bucket of 64 tenants at 512 vertices
+FUSED_COO = dict(n=2**14, capacity=1 << 16, tenants=32, planted=16, clique=128,
+                 p_background=6 / 2**14, p_planted=0.9, events=512)
+FUSED_DENSE = dict(n=512, capacity=2048, tenants=64, seed_pairs=1536, events=128)
+FUSED_ROUNDS = 4
 # The JAX package's numpy oracles on rmat(19, 16, seed=0): (passes, |S|) of
 # pbahmani_np per eps, and (k*, m_v, m_e) of kcore_np (minutes on a host
 # CPU, too slow to rerun here; the same oracle is rerun at scale 15 below).
@@ -286,6 +327,23 @@ class CallCount:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.real)
+
+
+class CallLog(CallCount):
+    """CallCount that also keeps each call's arguments and result."""
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+        self.calls = []
+
+        def logged(*a, **k):
+            self.n += 1
+            out = self.real(*a, **k)
+            self.calls.append((a, k, out))
+            return out
+
+        setattr(self.module, self.name, logged)
+        return self
 
 
 def edge_stage_calls():
@@ -1522,7 +1580,15 @@ def launch_counts() -> dict:
 
     return {"segment_sum_sorted": segsum.launches, "peel_edges": peel.launches,
             "prefix_sum": compact.prefix_sum_launches,
-            "stream_compact": compact.stream_compact_launches}
+            "stream_compact": compact.stream_compact_launches,
+            "peel_edges_rows": peel.rows_launches, "segment_sum_rows": segsum.rows_launches}
+
+
+def zero_launch_counts() -> None:
+    from repro_torch.kernels import compact, peel, segsum
+
+    segsum.launches = peel.launches = peel.rows_launches = segsum.rows_launches = 0
+    compact.prefix_sum_launches = compact.stream_compact_launches = 0
 
 
 def same_answer(a, b) -> bool:
@@ -1625,8 +1691,7 @@ def phase_stream(device: str, graph: dict = STREAM_GRAPH, engine: dict = STREAM_
 
     # the main path: every count 0 now, read after the engines' last call (the
     # kernel-off engine launches no kernel; the cold peels run after the read)
-    segsum.launches = peel.launches = 0
-    compact.prefix_sum_launches = compact.stream_compact_launches = 0
+    zero_launch_counts()
     _, seed_ms = ingest(insert=seed_edges)
     q = query("seed")
     steady0 = AUDITOR.audited_steady_recompiles
@@ -1729,6 +1794,411 @@ def phase_stream(device: str, graph: dict = STREAM_GRAPH, engine: dict = STREAM_
     return launches, times
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the fused multi-tenant service
+# ---------------------------------------------------------------------------
+def mixed_batch(rng, eng, n: int, events: int):
+    """``benchmarks/bench_tenants.py:_mixed_batch``'s traffic: half uniform
+    inserts, half deletes of present edges (drawn from the buffer's live
+    slots), so |E| churns at about constant size."""
+    u, v = eng.buffer.host_view()
+    live = np.flatnonzero(u < eng.buffer.sentinel)
+    take = rng.choice(live, min(events // 2, live.size), replace=False)
+    return rng.integers(0, n, (events // 2, 2)), np.stack([u[take], v[take]], axis=1)
+
+
+def rows_kernel_timing(batch, device: str) -> tuple[dict, dict]:
+    """K2's and K1's rows entries on their own at a lane bucket's shape (every
+    row of ``batch``: G x 2*capacity lanes, V vertices a row) against their
+    plain versions, with times, their bounds and one PyTorch call each;
+    beside them the single-row K2 over the same G x L lanes flattened (row r's
+    vertex v as r*(V+1)+v, the sentinel columns inactive), which must give
+    the same delta."""
+    import torch
+
+    from repro_torch.kernels import peel, ref, segsum
+
+    lanes = sorted(batch.lane_of.values())
+    batch.resort(lanes)
+    src, dst, deg, _ = batch.rows(lanes)
+    g, L = src.shape
+    v = batch.node_capacity
+    rng = np.random.default_rng(3)
+    active = deg > 0
+    failed = active & torch.from_numpy(rng.random((g, v)) < 0.3).to(device)
+    got = peel.peel_edges_rows(src, dst, active, failed, n_nodes=v, charge=True)
+    want = ref.peel_edges_rows_ref(src, dst, active, failed, v, True)
+    err = max(int((x.long() - w.long()).abs().max()) for x, w in zip(got, want))
+    check(err == 0, f"K2 rows differs from peel_edges_rows_ref by {err}")
+    k1 = segsum.segment_sum_rows_sorted(dst < v, dst, num_segments=v)
+    err1 = int((k1.long() - ref.segment_sum_rows_ref(dst < v, dst, v).long()).abs().max())
+    check(err1 == 0, f"K1 rows differs from segment_sum_rows_ref by {err1}")
+    check(torch.equal(k1, deg), "K1 rows over the bucket's lanes differs from the degrees")
+    # the same work as one row: keys r*(V+1)+id, sentinel columns never live
+    base = torch.arange(g, dtype=torch.int32, device=device)[:, None] * (v + 1)
+    f_src, f_dst = (base + src).reshape(-1), (base + dst).reshape(-1)
+    pad = torch.zeros((g, 1), dtype=torch.bool, device=device)
+    f_act = torch.cat([active, pad], 1).reshape(-1)
+    f_fail = torch.cat([failed, pad], 1).reshape(-1)
+    nf = g * (v + 1)
+    single = peel.peel_edges_sorted(f_src, f_dst, f_act, f_fail, n_nodes=nf)
+    check(torch.equal(single[0].view(g, v + 1)[:, :v], got[0])
+          and int(single[1]) == int(got[1].sum()),
+          "the single-row K2 over the flattened rows differs from K2 rows")
+
+    def k2_rows():
+        return peel.peel_edges_rows(src, dst, active, failed, n_nodes=v)
+
+    def k1_rows():
+        return segsum.segment_sum_rows_sorted(dst < v, dst, num_segments=v)
+
+    def k2_single():
+        return peel.peel_edges_sorted(f_src, f_dst, f_act, f_fail, n_nodes=nf)
+
+    keys = (base + dst.clamp(max=v)).reshape(-1)
+    acc = torch.zeros(nf, dtype=torch.int32, device=device)
+    src_flat = (base // (v + 1) * v + src.clamp(max=v - 1)).reshape(-1)
+    e = g * L
+    k2 = dict(ms=time_ms(k2_rows), device_ms=graph_ms(k2_rows),
+              plain_ms=time_ms(lambda: ref.peel_edges_rows_ref(src, dst, active, failed, v)),
+              library_ms=time_ms(lambda: acc.index_add_(
+                  0, keys, failed.reshape(-1)[src_flat].to(torch.int32))),
+              single_row_ms=time_ms(k2_single), single_row_device_ms=graph_ms(k2_single),
+              max_abs_err=float(err), shape=f"[{g}, {L}] lanes, V={v}")
+    k2["bound_ms"], k2["bound_by"] = bound_ms(e * 8 + g * v * 2 + g * v * 4 + g * 4, 8 * e)
+    # fewer rows of the same bucket: the rows entry against the one-row K2
+    # over the same lanes, on the card
+    k2["by_rows"] = {}
+    for gs in sorted({4, 16, g} & set(range(1, g + 1))):
+        n_s = gs * (v + 1)
+        sub = (f_src[:gs * L], f_dst[:gs * L], f_act[:n_s], f_fail[:n_s])
+        k2["by_rows"][gs] = dict(
+            rows_device_ms=graph_ms(lambda: peel.peel_edges_rows(
+                src[:gs], dst[:gs], active[:gs], failed[:gs], n_nodes=v)),
+            single_row_device_ms=graph_ms(lambda: peel.peel_edges_sorted(
+                *sub[:2], sub[2], sub[3], n_nodes=n_s)),
+            bound_ms=bound_ms(gs * L * 8 + gs * v * 6 + gs * 4, 8 * gs * L)[0])
+    k1d = dict(ms=time_ms(k1_rows), device_ms=graph_ms(k1_rows),
+               plain_ms=time_ms(lambda: ref.segment_sum_rows_ref(dst < v, dst, v)),
+               library_ms=time_ms(lambda: acc.index_add_(0, keys, (dst < v).reshape(-1).to(
+                   torch.int32))),
+               max_abs_err=float(err1), shape=f"[{g}, {L}] lanes, V={v}")
+    k1d["bound_ms"], k1d["bound_by"] = bound_ms(e * 5 + g * v * 4, e)
+    log(f"  K2 rows at {k2['shape']}: kernel_ms={k2['ms']:.6f} device_ms={k2['device_ms']:.6f}"
+        f" plain_ms={k2['plain_ms']:.6f}"
+        f" library_ms={k2['library_ms']:.6f} (gather + index_add_) bound_ms="
+        f"{k2['bound_ms']:.6f} ({k2['bound_by']}); the single-row K2 over the same "
+        f"{e} lanes {k2['single_row_ms']:.6f} ({k2['single_row_device_ms']:.6f} on the card)")
+    log("  K2 rows by row count (device_ms rows / one-row over the same lanes / bound): "
+        + "; ".join(f"G={gs}: {r['rows_device_ms']:.6f} / {r['single_row_device_ms']:.6f} / "
+                    f"{r['bound_ms']:.6f}" for gs, r in k2["by_rows"].items()))
+    log(f"  K1 rows at {k1d['shape']}: kernel_ms={k1d['ms']:.6f} device_ms="
+        f"{k1d['device_ms']:.6f} plain_ms={k1d['plain_ms']:.6f} library_ms="
+        f"{k1d['library_ms']:.6f} (index_add_) bound_ms={k1d['bound_ms']:.6f} "
+        f"({k1d['bound_by']})")
+    return k2, k1d
+
+
+def phase_fused(device: str, coo: dict = FUSED_COO, dense: dict = FUSED_DENSE,
+                rounds: int = FUSED_ROUNDS) -> tuple[dict, dict, dict, dict]:
+    """Returns (launches by kernel on the fused service's main path, times,
+    K2 rows numbers, K1 rows numbers)."""
+    import importlib
+
+    import torch
+
+    from repro_torch.core import pbahmani
+    from repro_torch.graphs.generators import planted_dense
+    from repro_torch.obs import AUDITOR
+    from repro_torch.stream import DeltaEngine, StreamService, query_group
+
+    sf = importlib.import_module("repro_torch.stream.fused")
+    svc_mod = importlib.import_module("repro_torch.stream.service")
+    batched = importlib.import_module("repro_torch.core.batched")
+    loads = importlib.import_module("repro_torch.refine.loads")
+    prune = importlib.import_module("repro_torch.core.prune")
+    kcore = importlib.import_module("repro_torch.core.kcore")
+    eps, refresh_every = 0.1, 4
+
+    def synced_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    coo_names = [f"coo{i:02d}" for i in range(coo["tenants"])]
+    dense_names = [f"dense{i:02d}" for i in range(dense["tenants"])]
+    pruned_of = {name: i < coo["planted"] for i, name in enumerate(coo_names)}
+    pruned_of.update({name: False for name in dense_names})
+    seeds = {}
+    for i, name in enumerate(coo_names):
+        if pruned_of[name]:
+            g, _, _ = planted_dense(coo["n"], coo["clique"], coo["p_background"],
+                                    coo["p_planted"], seed=i)
+            seeds[name] = (np.stack([g.src[:g.n_edges], g.dst[:g.n_edges]], axis=1), None)
+        else:  # bench_tenants.py's seed rule: 3n uniform pairs
+            seeds[name] = (rng.integers(0, coo["n"], (3 * coo["n"], 2)), None)
+    for name in dense_names:
+        seeds[name] = (rng.integers(0, dense["n"], (dense["seed_pairs"], 2)), None)
+    t_data = time.perf_counter() - t0
+
+    def config(name):
+        return dict(n_nodes=(coo if name.startswith("coo") else dense)["n"],
+                    capacity=(coo if name.startswith("coo") else dense)["capacity"],
+                    pruned=pruned_of[name])
+
+    services = {k: StreamService(max_tenants=len(coo_names) + len(dense_names), fused=True,
+                                 eps=eps, refresh_every=refresh_every,
+                                 coalesce_window_ms=1e9, kernel=k, device=device)
+                for k in (True, False)}
+    for svc in services.values():
+        for name in coo_names + dense_names:
+            r = svc.create_tenant(name, **config(name))
+            check(r.ok and r.value["placement"] == "fused", f"create_tenant {name}: {r}")
+    on, off = services[True], services[False]
+    # the comparisons: solo engines of every lane-bucket tenant (the
+    # sequential baseline too) and of four dense ones, fed the same stream
+    solo = {name: DeltaEngine(eps=eps, refresh_every=refresh_every, kernel=True, device=device,
+                              **config(name)) for name in coo_names + dense_names[:4]}
+    # main-path launches: deltas around the kernel-on service's own calls
+    zero_launch_counts()
+    main_launches = {k: 0 for k in launch_counts()}
+
+    def on_main(fn):
+        before = launch_counts()
+        out, ms = synced_ms(fn)
+        for k, n in launch_counts().items():
+            main_launches[k] += n - before[k]
+        return out, ms
+
+    # every flush's accounting, recorded around fused._flush
+    flush_log: list[dict] = []
+    failures: list = []
+    real_flush, real_qg = sf._flush, svc_mod.query_group
+
+    def counted_flush(batch, members, **kw):
+        if not batch.kernel:
+            return real_flush(batch, members, **kw)
+        lane_passes = (CallCount(batched, "peel_edges_rows"),
+                       CallCount(loads, "peel_edges_rows"))
+        single_pass, kcore_iters = edge_stage_calls()
+        k1_rows = CallCount(prune, "lane_degrees_rows")
+        plans = CallCount(DeltaEngine, "_rebuild_plan")
+        preps = CallLog(sf, "prepare_pruned_peel_rows")
+        buckets = CallLog(sf, "_batched_bucket_peel")
+        before = launch_counts()
+        with lane_passes[0], lane_passes[1], single_pass, kcore_iters, k1_rows, plans, \
+                preps, buckets:
+            out, ms = synced_ms(lambda: real_flush(batch, members, **kw))
+        d = {k: n - before[k] for k, n in launch_counts().items()}
+        fit = sum(isinstance(x, prune.PrunedDispatch) for _, _, res in preps.calls for x in res)
+        rows = sum(a[0].shape[0] for a, _, _ in buckets.calls)
+        rec = dict(bucket=f"{batch.node_capacity}x{batch.edge_capacity}",
+                   members=len(members), ms=ms, launches=d,
+                   lane_passes=lane_passes[0].n + lane_passes[1].n, plans=plans.n,
+                   kcore_iterations=kcore_iters.n, preps_fit=fit, bucket_peels=buckets.n,
+                   bucket_rows=rows, refine=bool(kw.get("refine")))
+        flush_log.append(rec)
+        check(single_pass.n == 0, f"a flush ran {single_pass.n} single-tenant passes")
+        check(d["peel_edges_rows"] == rec["lane_passes"],
+              f"flush {rec}: K2 rows launched {d['peel_edges_rows']} times for "
+              f"{rec['lane_passes']} batched passes")
+        check(d["peel_edges"] == kcore_iters.n,
+              f"flush {rec}: {d['peel_edges']} single-row K2 launches beside "
+              f"{kcore_iters.n} plan iterations (no tenant's pass may be single)")
+        check(d["segment_sum_rows"] == k1_rows.n == (1 if preps.n else 0) + buckets.n,
+              f"flush {rec}: K1 rows {d['segment_sum_rows']} for {preps.n} preps and "
+              f"{buckets.n} bucket peels")
+        check(d["segment_sum_sorted"] == plans.n,
+              f"flush {rec}: K1 {d['segment_sum_sorted']} for {plans.n} plans")
+        check((d["prefix_sum"], d["stream_compact"]) == (fit + rows, fit + 2 * rows),
+              f"flush {rec}: K3 {d['prefix_sum']}, K4 {d['stream_compact']} (expected "
+              f"{fit + rows}, {fit + 2 * rows})")
+        return out
+
+    def watched_qg(*a, **k):
+        try:
+            return real_qg(*a, **k)
+        except Exception as exc:  # the service would hide it behind its fallback
+            failures.append(repr(exc))
+            raise
+
+    sf._flush, svc_mod.query_group = counted_flush, watched_qg
+    times = {"seed_ingest_ms": None, "ingest_ms": [], "flush_ms": [], "top_k_ms": []}
+    per_round = []
+    try:
+        # seeding: one ingest_many a service
+        r_on, times["seed_ingest_ms"] = on_main(lambda: on.ingest_many(seeds))
+        r_off = off.ingest_many(seeds)
+        check(r_on.ok and r_off.ok, f"seeding failed: {r_on.error} / {r_off.error}")
+        for name, (ins, _) in seeds.items():
+            if name in solo:
+                solo[name].apply_updates(insert=ins)
+        compiles0 = steady0 = None
+        for rnd in range(rounds):
+            if rnd == 1:  # every library is loaded by the end of the first round
+                compiles0, steady0 = (DeltaEngine.compile_count(),
+                                      AUDITOR.audited_steady_recompiles)
+            upd = {}
+            for name in coo_names + dense_names:
+                c = coo if name.startswith("coo") else dense
+                upd[name] = mixed_batch(rng, on.registry.get(name), c["n"], c["events"])
+            r_on, ms = on_main(lambda: on.ingest_many(upd))
+            r_off = off.ingest_many(upd)
+            check(r_on.ok and r_off.ok and r_on.error is None,
+                  f"round {rnd}: ingest_many failed: {r_on.error} / {r_off.error}")
+            times["ingest_ms"].append(ms)
+            for name in solo:
+                solo[name].apply_updates(insert=upd[name][0], delete=upd[name][1])
+            n_flush = len(flush_log)
+            tickets = [(on.submit_density(t), off.submit_density(t), t)
+                       for t in coo_names + dense_names]
+            flushed, ms = on_main(on.flush)
+            check(flushed == len(tickets) and off.flush() == len(tickets),
+                  f"round {rnd}: the flushes answered {flushed} of {len(tickets)}")
+            times["flush_ms"].append(ms)
+            refreshed = 0
+            for a, b, t in tickets:
+                ra, rb = on.poll(a), off.poll(b)
+                check(ra is not None and rb is not None and ra.ok and rb.ok
+                      and ra.error is None and rb.error is None,
+                      f"round {rnd} {t}: an error response: {ra} / {rb}")
+                qa, qb = on.registry.get(t)._cached_query, off.registry.get(t)._cached_query
+                check(same_answer(qa, qb), f"round {rnd} {t}: kernel on {qa.density!r}/"
+                      f"{qa.passes} differs from off {qb.density!r}/{qb.passes}")
+                check(ra.value == rb.value, f"round {rnd} {t}: responses differ")
+                refreshed += qa.refreshed
+                if t in solo:
+                    qs = solo[t].query()
+                    check(same_answer(qa, qs), f"round {rnd} {t}: fused {qa.density!r}/"
+                          f"{qa.passes} differs from the solo engine {qs.density!r}/"
+                          f"{qs.passes}")
+            for batch in on.registry.fused_pool.batches.values():
+                for lane in batch.lane_of.values():
+                    check(batch._unsorted[lane] or bool(torch.all(
+                        batch._dst[lane][1:] >= batch._dst[lane][:-1])),
+                          f"round {rnd}: row {lane} of {batch} is not dst-sorted")
+                    check(not batch._unsorted[lane] or not batch.kernel,
+                          f"round {rnd}: row {lane} left unsorted after its query")
+            top, ms = on_main(lambda: on.top_k_densest(10))
+            top_off = off.top_k_densest(10)
+            check(top.ok and top.value == top_off.value, f"round {rnd}: top_k differs")
+            times["top_k_ms"].append(ms)
+            per_round.append(dict(round=rnd, refreshed=refreshed,
+                                  flushes=flush_log[n_flush:], top=top.value[:3]))
+        # refinement per bucket, fixed rounds (bit-identical to solo loops)
+        refined = {}
+        for label, names in (("coo", coo_names), ("dense", dense_names)):
+            engines = {t: on.registry.get(t) for t in names}
+            refined[label], ms = on_main(lambda: query_group(
+                engines, refine=True, target_gap=-1.0, max_refine_rounds=8))
+            times[f"refine_{label}_ms"] = ms
+            ref_off = query_group({t: off.registry.get(t) for t in names}, refine=True,
+                                  target_gap=-1.0, max_refine_rounds=8)
+            for t in names:
+                check(same_answer(refined[label][t], ref_off[t]),
+                      f"refine {t}: kernel on differs from off")
+            for t in [x for x in names if x in solo][:4]:
+                qs = solo[t].query(refine=True, target_gap=-1.0, max_refine_rounds=8)
+                check(same_answer(refined[label][t], qs), f"refine {t}: fused differs "
+                      f"from the solo engine")
+        launches = dict(main_launches)
+    finally:
+        sf._flush, svc_mod.query_group = real_flush, real_qg
+    check(not failures, f"a fused flush raised: {failures}")
+    check(DeltaEngine.compile_count() == compiles0
+          and AUDITOR.audited_steady_recompiles == steady0,
+          f"{DeltaEngine.compile_count() - compiles0} library loads or graph captures and "
+          f"{AUDITOR.audited_steady_recompiles - steady0} steady recompiles after round 1")
+    kernel_flushes = [f for f in flush_log if f["lane_passes"]]
+    check(kernel_flushes and all(f["launches"]["peel_edges_rows"] == f["lane_passes"]
+                                 for f in flush_log),
+          "no flush ran K2 rows once a batched pass")
+    check(any(f["bucket_peels"] for f in flush_log) and launches["segment_sum_rows"] > 0,
+          "no flush ran the batched bucket peel (K1 rows)")
+
+    # every tenant == a cold pbahmani of its materialized graph
+    t_cold = time.perf_counter()
+    for t in coo_names + dense_names:
+        eng = on.registry.get(t)
+        q = eng.query()
+        d, m, p = pbahmani(eng.buffer.to_graph(), eps=eps, kernel=True, device=device)
+        check(np.float32(d).view(np.int32) == np.float32(q.density).view(np.int32)
+              and p == q.passes and np.array_equal(m, q.mask),
+              f"{t}: fused {q.density!r}/{q.passes} differs from a cold pbahmani {d!r}/{p}")
+    t_cold = time.perf_counter() - t_cold
+
+    # sequential dispatch (solo engines, one query a tenant) against one
+    # query_group of the same 32 lane-bucket tenants, memoization defeated
+    fused_coo = {t: on.registry.get(t) for t in coo_names}
+
+    def requery_fused():
+        for eng in fused_coo.values():
+            eng._cached_query = None
+        return query_group(fused_coo)
+
+    def requery_solo():
+        out = {}
+        for t in coo_names:
+            solo[t]._cached_query = None
+            out[t] = solo[t].query()
+        return out
+
+    seq_s, fused_s = [], []
+    for _ in range(3):
+        a, ms_seq = synced_ms(requery_solo)
+        b, ms_fused = synced_ms(requery_fused)
+        seq_s.append(ms_seq / 1e3)
+        fused_s.append(ms_fused / 1e3)
+        check(all(same_answer(a[t], b[t]) for t in coo_names),
+              "a requery differs between the fused and the solo engines")
+    prof = profile_call(requery_fused)
+    prof_seq = profile_call(requery_solo)
+    batch = next(iter(fused_coo.values())).batch
+    k2_rows, k1_rows = rows_kernel_timing(batch, device)
+
+    med = {k: statistics.median(v) for k, v in times.items() if isinstance(v, list) and v}
+    qps_seq = len(coo_names) / statistics.median(seq_s)
+    qps_fused = len(coo_names) / statistics.median(fused_s)
+    kf = [f for f in flush_log if f["bucket"].startswith(str(coo["n"]))]
+    log(f"  data built in {t_data:.3f} s; {len(coo_names)} lane-bucket tenants "
+        f"({coo['planted']} planted_dense({coo['n']}, {coo['clique']}, ...) pruned, the rest "
+        f"3n uniform pairs), {len(dense_names)} dense tenants at {dense['n']} vertices; "
+        f"seeding ingest_many {times['seed_ingest_ms']:.3f} ms (kernel-on service)")
+    log(f"  {rounds} rounds of ingest_many ({coo['events']} / {dense['events']} events a "
+        f"tenant, half inserts, half deletes), a coalesced flush of {len(tickets)} "
+        f"submit_density and top_k_densest(10) each: kernel on == off == solo at every "
+        f"answer; refreshed a round: {[r['refreshed'] for r in per_round]}")
+    for f in flush_log:
+        log(f"  flush {f['bucket']}{' refine' if f['refine'] else ''}: {f['members']} members, "
+            f"{f['ms']:.3f} ms, {f['lane_passes']} batched lane passes, launches "
+            f"{ {k: v for k, v in f['launches'].items() if v} }, plans {f['plans']}, preps fit "
+            f"{f['preps_fit']}, bucket peels {f['bucket_peels']} ({f['bucket_rows']} rows)")
+    log(f"  ms, median (all): ingest_many {med['ingest_ms']:.3f} ({times['ingest_ms']}); "
+        f"coalesced flush {med['flush_ms']:.3f} ({times['flush_ms']}); top_k "
+        f"{med['top_k_ms']:.3f}; refine (8 rounds) lane bucket "
+        f"{times['refine_coo_ms']:.3f}, dense bucket {times['refine_dense_ms']:.3f}")
+    log(f"  every tenant == a cold pbahmani ({t_cold:.3f} s); zero library loads, graph "
+        f"captures and steady recompiles after round 1; no error response")
+    log(f"  sequential ({len(coo_names)} solo DeltaEngines) {seq_s} s vs fused (one query_group) "
+        f"{fused_s} s: {qps_seq:.1f} vs {qps_fused:.1f} queries/s "
+        f"({qps_fused / qps_seq:.2f}x)")
+    for label, pr in (("fused requery", prof), ("sequential requery", prof_seq)):
+        log(f"  profiled {label}: " + (
+            f"window {pr['window_ms']:.6f} ms, device busy {pr['busy_ms']:.6f} ms (idle "
+            f"{pr['idle_share']:.4f}), {pr['device_launches']} device launches; busiest: "
+            + "; ".join(f"{k} {t:.6f}" for k, t in pr["top_ms"].items())
+            if pr else "no device activity recorded (not measured)"))
+    times.update(flushes=flush_log, per_round=per_round, medians=med, cold_check_s=t_cold,
+                 sequential_s=seq_s, fused_s=fused_s, qps_sequential=qps_seq,
+                 qps_fused=qps_fused, profile_fused=prof, profile_sequential=prof_seq,
+                 lane_bucket_flush_ms=[f["ms"] for f in kf], data_s=t_data)
+    return launches, times, k2_rows, k1_rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1821,10 +2291,19 @@ def main() -> int:
     stream_times["phase_s"] = time.perf_counter() - t0
     log(f"  phase 11 took {stream_times['phase_s']:.3f} s; launches {stream_launches}")
 
+    log("phase 12: the fused multi-tenant service (a lane bucket of 32 tenants, a dense "
+        "bucket of 64)")
+    t0 = time.perf_counter()
+    fused_launches, fused_times, k2_rows, k1_rows = phase_fused(device)
+    fused_times["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 12 took {fused_times['phase_s']:.3f} s; launches {fused_launches}")
+
     k2_launches = (peel_launches + cbds_launches + pruned_launches["peel_edges"]
-                   + fallback_launches + refine_launches + stream_launches["peel_edges"])
+                   + fallback_launches + refine_launches + stream_launches["peel_edges"]
+                   + fused_launches["peel_edges"])
     k1_launches = (cbds_k1_launches + pruned_launches["segment_sum_sorted"] + fallback_k1
-                   + stream_launches["segment_sum_sorted"])
+                   + stream_launches["segment_sum_sorted"]
+                   + fused_launches["segment_sum_sorted"])
     log(f"main path: K2 launches P-Bahmani (eps 0.1 and 0) {peel_launches}, CBDS-P "
         f"{cbds_launches}, pruned {pruned_launches['peel_edges']}, pruned fallback "
         f"{fallback_launches}, refinement {refine_launches}; K1 {k1_launches} (CBDS-P's "
@@ -1835,15 +2314,24 @@ def main() -> int:
         f"eps 0.1 and 0); K5 {k5_launches} (DCN-v2: 8 serve_p99, 1 serve_bulk, 1 "
         f"retrieval_cand); the stream (phase 11): K1 "
         f"{stream_launches['segment_sum_sorted']}, K2 {stream_launches['peel_edges']}, K3 "
-        f"{stream_launches['prefix_sum']}, K4 {stream_launches['stream_compact']}")
+        f"{stream_launches['prefix_sum']}, K4 {stream_launches['stream_compact']}; the fused "
+        f"service (phase 12): K2 rows {fused_launches['peel_edges_rows']}, K1 rows "
+        f"{fused_launches['segment_sum_rows']}, K1 {fused_launches['segment_sum_sorted']}, "
+        f"K2 {fused_launches['peel_edges']}, K3 {fused_launches['prefix_sum']}, K4 "
+        f"{fused_launches['stream_compact']}")
     rows = {
         "segment_sum_sorted": (k1_launches, k1["max_abs_err"], k1),
         "peel_edges": (k2_launches, k2["max_abs_err"], k2),
-        "prefix_sum": (pruned_launches["prefix_sum"] + stream_launches["prefix_sum"],
+        "prefix_sum": (pruned_launches["prefix_sum"] + stream_launches["prefix_sum"]
+                       + fused_launches["prefix_sum"],
                        compact_err, compact_times["prefix_sum"]),
-        "stream_compact": (pruned_launches["stream_compact"] + stream_launches["stream_compact"],
+        "stream_compact": (pruned_launches["stream_compact"] + stream_launches["stream_compact"]
+                           + fused_launches["stream_compact"],
                            compact_err, compact_times["stream_compact_edge"]),
         "segment_embed": (k5_launches, max(embed_err, k5["max_abs_err"]), k5),
+        "peel_edges_rows": (fused_launches["peel_edges_rows"], k2_rows["max_abs_err"], k2_rows),
+        "segment_sum_rows": (fused_launches["segment_sum_rows"], k1_rows["max_abs_err"],
+                             k1_rows),
     }
     kernels = [{
         "name": name,
@@ -1870,6 +2358,9 @@ def main() -> int:
                     "k5_at_serve_bulk": k5,
                     "dcn_v2": dcn_times,
                     "stream": stream_times,
+                    "fused": fused_times,
+                    "k2_rows": k2_rows,
+                    "k1_rows": k1_rows,
                     "smoke_s": time.perf_counter() - t_start}, default=str))
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -17,7 +17,10 @@ lanes. Two implementations:
 
 :func:`peel_edges` is the single switch point ``pbahmani_pass``,
 ``kcore._level_fixpoint`` and ``refine_pass`` route through;
-:func:`peel_delta` reduces one per-lane boolean. Both paths count in int32,
+:func:`peel_delta` reduces one per-lane boolean. :func:`peel_edges_rows`
+and :func:`lane_degrees_rows` are their row-batched twins for G independent
+peels ([G, L] lanes, [G, V] vertices: the fused tenants' batched passes),
+one launch of K2's or K1's rows entry with the kernel on. Both paths count in int32,
 so (density, mask, passes) triples match bit for bit with the knob on or
 off. The kernels' int32 sums are exact at any size; the 2^24 envelope of
 the JAX kernel's float32 sums is still asserted at the same API points, so
@@ -28,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.density import degrees_from_coo
-from repro_torch.kernels import ops, peel
+from repro_torch.kernels import ops, peel, segsum
 
 # float32 integer-exactness envelope of the JAX package's kernel tier
 EXACT_ENVELOPE = 1 << 24
@@ -128,5 +131,63 @@ def peel_edges(
     return out + (peel_delta(assign_d, dst, n_nodes, False),)
 
 
+def _row_keys(ids: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Flat keys ``r * (n_nodes + 1) + min(id, n_nodes)`` of [G, L] ids: the
+    scatter tier's one segment space for G rows, sentinel column last."""
+    rows = torch.arange(ids.shape[0], dtype=ids.dtype, device=ids.device)[:, None]
+    return (rows * (n_nodes + 1) + ids.clamp(max=n_nodes)).reshape(-1)
+
+
+def _rows_sum(values: torch.Tensor, ids: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """int32 ``[G, n_nodes]`` sums of [G, L] values onto their rows' ids: one
+    ``index_add_`` over ``[G * (n_nodes + 1)]``, the sentinel column dropped."""
+    g = ids.shape[0]
+    out = torch.zeros(g * (n_nodes + 1), dtype=torch.int32, device=ids.device)
+    out.index_add_(0, _row_keys(ids, n_nodes), values.reshape(-1).to(torch.int32))
+    return out.view(g, n_nodes + 1)[:, :n_nodes]
+
+
+def lane_degrees_rows(
+    src: torch.Tensor, dst: torch.Tensor, n_nodes: int, kernel: bool
+) -> torch.Tensor:
+    """``lane_degrees`` of G rows of symmetric lanes ([G, L], ids in
+    [0, n_nodes]): int32 ``[G, n_nodes]``. With ``kernel`` one launch of K1's
+    rows entry over dst-sorted rows; without, one histogram of src over the
+    flattened ``[G * (n_nodes + 1)]`` space."""
+    if kernel:
+        return segsum.segment_sum_rows_sorted(dst < n_nodes, dst, num_segments=n_nodes)
+    return _rows_sum(torch.ones_like(src), src, n_nodes)
+
+
+def peel_edges_rows(
+    src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor,
+    failed: torch.Tensor, n_nodes: int, kernel: bool, charge: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """The edge stage of G independent passes, ``peel_edges`` of each row:
+    lanes [G, L], masks [G, n_nodes]. Returns int32 ``(delta [G, V],
+    removed [G])``, with ``charge`` also ``inc [G, V]``. With ``kernel`` one
+    launch of K2's rows entry for the whole group (rows dst-sorted); without,
+    the elementwise ops over all rows at once and one ``index_add_`` a
+    reduction over the flattened ``[G * (n_nodes + 1)]`` space."""
+    if kernel:
+        return peel.peel_edges_rows(src, dst, active, failed, n_nodes=n_nodes,
+                                    charge=charge)
+    g = src.shape[0]
+    base = torch.arange(g, dtype=src.dtype, device=src.device)[:, None] * n_nodes
+    fs_idx = (base + src.clamp(max=n_nodes - 1)).reshape(-1)
+    fd_idx = (base + dst.clamp(max=n_nodes - 1)).reshape(-1)
+    act, fail = active.reshape(-1), failed.reshape(-1)
+    live = ((src < n_nodes) & (dst < n_nodes) & act.index_select(0, fs_idx).view_as(src)
+            & act.index_select(0, fd_idx).view_as(src))
+    fail_s = fail.index_select(0, fs_idx).view_as(src) & live
+    fail_d = fail.index_select(0, fd_idx).view_as(src) & live
+    out = (_rows_sum(fail_s, dst, n_nodes), (fail_s | fail_d).sum(dim=1, dtype=torch.int32))
+    if not charge:
+        return out
+    assign_d = fail_d & (~fail_s | (dst < src))
+    return out + (_rows_sum(assign_d, dst, n_nodes),)
+
+
 __all__ = ["EXACT_ENVELOPE", "resolve_device", "resolve_kernel",
-           "assert_exact_envelope", "lane_degrees", "peel_delta", "peel_edges"]
+           "assert_exact_envelope", "lane_degrees", "lane_degrees_rows", "peel_delta",
+           "peel_edges", "peel_edges_rows"]

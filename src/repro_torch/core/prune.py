@@ -45,9 +45,12 @@ sorted. A graph's lanes are its undirected slots then their mirrors, so the
 stable dst sort orders a pair of lanes as ``_emit_buckets`` orders them and
 the two preps give the same bucket arrays.
 
-This is the JAX package's ``core/prune.py`` without the vmapped and sharded
-variants (ROADMAP slices 9 and 11). Its ``lax.while_loop``s are host loops
-that read the live counts once a pass.
+This is the JAX package's ``core/prune.py`` for one device: its
+``lax.while_loop``s are host loops that read the live counts once a pass,
+and its vmapped bucket peel is ``_batched_bucket_peel``, a batch axis
+written out (``core/batched.py``) for the fused tenants, with a row-batched
+resident prep beside it (``prepare_pruned_peel_rows``). The sharded variants
+wait for ROADMAP queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -57,8 +60,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.density import subgraph_density
+from repro_torch.core.batched import init_rows, peel_rows_to_end, pbahmani_pass_rows, run_rows
 from repro_torch.core.dispatch import (
-    assert_exact_envelope, lane_degrees, resolve_device, resolve_kernel,
+    assert_exact_envelope, lane_degrees, lane_degrees_rows, resolve_device, resolve_kernel,
 )
 from repro_torch.core.kcore import CoreState, _level_fixpoint
 from repro_torch.core.pbahmani import PeelState, pbahmani, pbahmani_pass
@@ -725,6 +729,138 @@ def pruned_peel_resident(
     return merge_pruned_peel_resident(prep, d_b, mask_b, passes_b)
 
 
+# ---------------------------------------------------------------------------
+# row-batched: G same-bucket subproblems peeled together (the fused tenants)
+# ---------------------------------------------------------------------------
+def _staged_peel_rows(
+    state: PeelState,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    n_nodes: int,
+    eps: float,
+    bucket_v: int,
+    bucket_e: int,
+    kernel: bool = False,
+) -> PeelState:
+    """``_staged_peel`` of each row of a row-batched state (lanes [G, L]),
+    as the JAX package's vmap runs it: the batched pass runs while any row
+    does not fit (bucket_v, bucket_e), a row that fits or has converged
+    waiting frozen; then every row is compacted on its own (``_compact_edges``
+    and, with ``kernel``, the degree pull: one K3 and two K4 launches a row),
+    the rows are stacked into ``[G, bucket_e]`` lanes and the batched peel
+    finishes inside the bucket. Each row's result equals ``_staged_peel`` of
+    that row."""
+    dev = src.device
+
+    def unfits(s: PeelState) -> torch.Tensor:
+        return (s.n_v > 0) & ((s.n_v > bucket_v) | (2 * s.n_e > bucket_e))
+
+    s1 = run_rows(state, lambda s: pbahmani_pass_rows(s, src, dst, n_nodes, eps, kernel),
+                  live=unfits)
+    perms, b_src, b_dst, b_deg = [], [], [], []
+    for r in range(src.shape[0]):
+        perm, bs, bd = _compact_edges(src[r], dst[r], s1.active[r], n_nodes, bucket_v,
+                                      bucket_e, kernel)
+        if kernel:
+            b_deg.append(stream_compact(s1.deg[r], s1.active[r], out_size=bucket_v, fill=0))
+        else:
+            vslot = torch.where(s1.active[r], perm, bucket_v)
+            b_deg.append(_scatter_drop(bucket_v, 0, vslot, s1.deg[r]))
+        perms.append(perm)
+        b_src.append(bs)
+        b_dst.append(bd)
+    perm = torch.stack(perms)
+    # survivors land as a dense prefix of each row on both tiers
+    b_active = torch.arange(bucket_v, dtype=torch.int32, device=dev)[None, :] < s1.n_v[:, None]
+    s2 = peel_rows_to_end(
+        PeelState(deg=torch.stack(b_deg), active=b_active, n_v=s1.n_v, n_e=s1.n_e,
+                  best_density=s1.best_density,
+                  best_mask=torch.zeros_like(b_active), passes=s1.passes),
+        torch.stack(b_src), torch.stack(b_dst), bucket_v, eps, kernel)
+    improved = s2.best_density > s1.best_density
+    mask_back = s1.active & torch.gather(s2.best_mask, 1, perm.clamp(0, bucket_v - 1).long())
+    return s1._replace(
+        deg=torch.zeros_like(s1.deg),
+        active=torch.zeros_like(s1.active),
+        best_density=s2.best_density,
+        best_mask=torch.where(improved[:, None], mask_back, s1.best_mask),
+        passes=s2.passes,
+        n_v=s2.n_v,
+        n_e=s2.n_e,
+    )
+
+
+def _batched_bucket_peel(
+    b_src: torch.Tensor, b_dst: torch.Tensor, n_v: torch.Tensor, n_e: torch.Tensor,
+    best_density: torch.Tensor, passes: torch.Tensor, eps: float, bucket_v: int,
+    bucket_e: int, bucket_v2: int, bucket_e2: int, kernel: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_bucket_peel`` of G same-bucket subproblems at once (the JAX
+    package's vmapped ``_batched_bucket_peel_jit``): lanes ``[G, bucket_e]``,
+    the scalars int32/float32 ``[G]`` on the lanes' device. The degrees are
+    one launch of K1's rows entry with ``kernel`` (``lane_degrees_rows``), the
+    passes K2's rows entry, the ladder ``_staged_peel_rows``. Returns
+    (density [G], mask [G, bucket_v], passes [G]); row r's equals
+    ``_bucket_peel`` of row r."""
+    if b_src.shape[1:] != (bucket_e,):
+        raise ValueError(f"bucket lanes {tuple(b_src.shape)} do not match "
+                         f"bucket_e={bucket_e}")
+    dev = b_src.device
+    active = torch.arange(bucket_v, dtype=torch.int32, device=dev)[None, :] < n_v[:, None]
+    final = _staged_peel_rows(
+        PeelState(deg=lane_degrees_rows(b_src, b_dst, bucket_v, kernel), active=active,
+                  n_v=n_v.to(torch.int32), n_e=n_e.to(torch.int32),
+                  best_density=best_density.to(torch.float32),
+                  best_mask=torch.zeros_like(active), passes=passes.to(torch.int32)),
+        b_src, b_dst, bucket_v, eps, bucket_v2, bucket_e2, kernel)
+    return final.best_density, final.best_mask, final.passes
+
+
+def prepare_pruned_peel_rows(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    n_nodes: int,
+    n_edges: list[int],
+    eps: float,
+    plans: list[PrunePlan],
+    kernel: bool = False,
+) -> list:
+    """:func:`prepare_pruned_peel_resident` of G graphs at once, lanes
+    ``[G, L]`` (each row dst-sorted, whatever ``kernel`` is, as there): the
+    degrees are one launch of K1's rows entry with ``kernel``, pass 0 one
+    batched pass (K2's rows entry), the host reads every row's (n_v0, n_v1,
+    n_e1) in one sync, and each row whose plan fits is compacted on its own
+    (one K3 and one K4 launch). Returns one entry a row, what
+    :func:`prepare_pruned_peel_resident` returns for it."""
+    dev = src.device
+    g = src.shape[0]
+    deg = lane_degrees_rows(src, dst, n_nodes, kernel)
+    n_e = torch.tensor(n_edges, dtype=torch.int32, device=dev)
+    s0 = init_rows(deg, n_e)
+    s1 = pbahmani_pass_rows(s0, src, dst, n_nodes, float(eps), kernel)
+    counts = torch.stack([s0.n_v, s1.n_v, s1.n_e]).cpu().numpy()  # the one sync
+    out = []
+    for r in range(g):
+        n_v0, n_v1, n_e1 = (int(x) for x in counts[:, r])
+        rho0 = np.float32(n_edges[r]) / np.float32(max(n_v0, 1))
+        if n_v0 == 0:
+            out.append((float(rho0), s0.active[r].cpu().numpy(), 0, (0, 0), plans[r]))
+            continue
+        lanes1 = 2 * n_e1
+        plan = _fit_plan(plans[r], n_v1, lanes1, n_nodes, 2 * (n_edges[r] + 1))
+        if plan is None:
+            out.append(None)
+            continue
+        perm, b_src, b_dst = _compact_edges(src[r], dst[r], s1.active[r], n_nodes,
+                                            plan.bucket_v, plan.bucket_e, kernel)
+        better1, best_d1 = _best_after_pass0(n_v1, n_e1, rho0)
+        out.append(PrunedDispatch(
+            b_src=b_src, b_dst=b_dst, n_v1=n_v1, n_e1=n_e1, best_d1=best_d1,
+            eps=float(eps), plan=plan, perm=perm, a1=s1.active[r], active0=s0.active[r],
+            better1=better1, observed=(n_v1, lanes1)))
+    return out
+
+
 def plan_for_graph(
     graph: Graph, prev_mask: np.ndarray | None = None,
     observed: tuple[int, int] | None = None,
@@ -793,6 +929,7 @@ __all__ = [
     "prepare_pruned_peel_resident",
     "merge_pruned_peel_resident",
     "pruned_peel_resident",
+    "prepare_pruned_peel_rows",
     "upload_buckets",
     "build_plan",
     "maybe_shrink_plan",

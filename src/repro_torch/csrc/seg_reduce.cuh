@@ -16,6 +16,10 @@
 //     partial chunks at the two ends of the lanes are read lane by lane.
 //     Lanes before 0 read as row -1 and lanes at or past n_lanes as row
 //     n_rows: both are dropped, and both keep the ids sorted.
+//   * Keys. A lane's row is computed from its id in registers (Keys):
+//     the id itself (PlainKeys), or, for G rows of L lanes each sorted on
+//     its own, row * (V + 1) + id (RowKeys), so that one pass reduces a
+//     whole batch of rows, [G, L] lanes onto [G, V + 1] keys.
 //   * Reduction. A thread sums its runs in registers and stores every run
 //     that starts and ends inside it. The run that crosses into the next
 //     thread is combined across the warp by a segmented scan on
@@ -64,13 +68,62 @@ __device__ __forceinline__ int clamp_row(int s, int n_rows) {
   return s < 0 ? -1 : (s > n_rows ? n_rows : s);
 }
 
-// Row of lane e: -1 before the lanes and for ids below 0, n_rows after the
-// lanes and for ids at or past n_rows.
+// How a lane's id becomes its row (the segment key the reduction runs on).
+// Keys give the row of one lane, keys(e, id), and of a chunk's 16 lanes
+// from their ids in place, keys.chunk(l0, id) (l0 >= 0, every lane inside
+// the lanes); n_rows is the row count, whose rows [0, n_rows) are kept.
+//
+// PlainKeys: the id itself, -1 below 0 and n_rows at or past it.
+struct PlainKeys {
+  int n_rows;
+  __device__ __forceinline__ int operator()(long long, int id) const {
+    return clamp_row(id, n_rows);
+  }
+  __device__ __forceinline__ void chunk(long long, int (&id)[ITEMS]) const {
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) id[j] = clamp_row(id[j], n_rows);
+  }
+};
+
+// RowKeys: the lanes are rows of `len` lanes, each sorted by its ids in
+// [0, v] (v the sentinel). Lane e, of row r = e / len, has key
+// r * (v + 1) + id with the id clamped to [-1, v], so the rows are segments
+// of one ascending sequence of n_rows = rows * (v + 1) keys: a row's
+// sentinel tail (key r * (v + 1) + v) cannot merge with the next row's
+// vertex 0, and an id below 0 lands on the row before's sentinel key (or
+// -1 in row 0). The caller drops the sentinel keys.
+struct RowKeys {
+  int n_rows, len, v;
+  __device__ __forceinline__ int key(int r, int id) const {
+    return r * (v + 1) + (id < 0 ? -1 : (id > v ? v : id));
+  }
+  __device__ __forceinline__ int operator()(long long e, int id) const {
+    return key(static_cast<int>(e) / len, id);
+  }
+  // Keys of a chunk's 16 lanes from l0 (>= 0): one division a chunk, then
+  // the row advanced lane by lane (len >= 1, so a step of one lane crosses
+  // at most one row edge).
+  __device__ __forceinline__ void chunk(long long l0, int (&id)[ITEMS]) const {
+    int row = static_cast<int>(l0) / len;
+    long long next = static_cast<long long>(row + 1) * len;
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      if (l0 + j >= next) {
+        ++row;
+        next += len;
+      }
+      id[j] = key(row, id[j]);
+    }
+  }
+};
+
+// Row of lane e: -1 before the lanes, n_rows after them, else keys(e, id).
+template <typename Keys>
 __device__ __forceinline__ int row_at(const int* __restrict__ seg, long long e,
-                                      long long n_lanes, int n_rows) {
+                                      long long n_lanes, const Keys& keys) {
   if (e < 0) return -1;
-  if (e >= n_lanes) return n_rows;
-  return clamp_row(__ldg(seg + e), n_rows);
+  if (e >= n_lanes) return keys.n_rows;
+  return keys(e, __ldg(seg + e));
 }
 
 // First lane of this thread's chunk in tile t (may be negative in tile 0).
@@ -80,20 +133,21 @@ __device__ __forceinline__ long long chunk_lane(long long t, int lane, int pad) 
 
 // The 16 rows of a chunk: four 16-byte loads inside the lanes (the chunk is
 // aligned by construction), lane by lane at the two ends.
+template <typename Keys>
 __device__ __forceinline__ void load_rows(const int* __restrict__ seg, long long l0,
-                                          long long n_lanes, int n_rows,
+                                          long long n_lanes, const Keys& keys,
                                           int (&id)[ITEMS]) {
   if (l0 >= 0 && l0 + ITEMS <= n_lanes) {
     const int4* p = reinterpret_cast<const int4*>(seg + l0);
 #pragma unroll
     for (int k = 0; k < ITEMS / 4; ++k) {
       const int4 q = __ldcs(p + k);  // read once: stream past L2
-      id[4 * k] = clamp_row(q.x, n_rows), id[4 * k + 1] = clamp_row(q.y, n_rows);
-      id[4 * k + 2] = clamp_row(q.z, n_rows), id[4 * k + 3] = clamp_row(q.w, n_rows);
+      id[4 * k] = q.x, id[4 * k + 1] = q.y, id[4 * k + 2] = q.z, id[4 * k + 3] = q.w;
     }
+    keys.chunk(l0, id);
   } else {
 #pragma unroll
-    for (int j = 0; j < ITEMS; ++j) id[j] = row_at(seg, l0 + j, n_lanes, n_rows);
+    for (int j = 0; j < ITEMS; ++j) id[j] = row_at(seg, l0 + j, n_lanes, keys);
   }
 }
 
@@ -107,30 +161,30 @@ struct Chunk {
   Extra extra;
 };
 
-template <typename Extra, typename LoadExtra>
+template <typename Extra, typename Keys, typename LoadExtra>
 __device__ __forceinline__ void load_chunk(const int* __restrict__ seg, long long t, int pad,
-                                           long long n_lanes, int n_rows,
+                                           long long n_lanes, const Keys& keys,
                                            LoadExtra&& load_extra, Chunk<Extra>& c) {
   const long long l0 = chunk_lane(t, threadIdx.x & 31, pad);
-  load_rows(seg, l0, n_lanes, n_rows, c.rows);
+  load_rows(seg, l0, n_lanes, keys, c.rows);
   load_extra(l0, c.extra);
   const long long t0 = t * TILE - pad;
-  c.prev = row_at(seg, t0 - 1, n_lanes, n_rows);
-  c.next = row_at(seg, t0 + TILE, n_lanes, n_rows);
+  c.prev = row_at(seg, t0 - 1, n_lanes, keys);
+  c.next = row_at(seg, t0 + TILE, n_lanes, keys);
 }
 
 // Walk this warp's tiles grid-stride, each loaded straight into registers.
 // reduce(t, chunk) does the work of tile t.
-template <typename Extra, typename LoadExtra, typename Reduce>
+template <typename Extra, typename Keys, typename LoadExtra, typename Reduce>
 __device__ __forceinline__ void walk_tiles(const int* __restrict__ seg, long long n_lanes,
-                                           int pad, long long n_tiles, int n_rows,
+                                           int pad, long long n_tiles, const Keys& keys,
                                            int warps_per_block, LoadExtra&& load_extra,
                                            Reduce&& reduce) {
   const long long n_warps = static_cast<long long>(gridDim.x) * warps_per_block;
   for (long long t = blockIdx.x * static_cast<long long>(warps_per_block) + (threadIdx.x >> 5);
        t < n_tiles; t += n_warps) {
     Chunk<Extra> c;
-    load_chunk(seg, t, pad, n_lanes, n_rows, load_extra, c);
+    load_chunk(seg, t, pad, n_lanes, keys, load_extra, c);
     reduce(t, c);
   }
 }

@@ -29,6 +29,15 @@
 // D > 1 (not on the main path): the row-offset pass of row_offsets.cuh, then
 // one warp per row with lanes over the columns.
 //
+// Rows (segsum_rows_*): the sums of G independent rows of L lanes in one
+// launch, int32 out [G, V + 1]. This replaces K1 under the JAX package's
+// vmap, which gives the Pallas grid a batch axis for the fused tenants'
+// bucket peels (src/repro/core/prune.py:533 _batched_bucket_peel_jit, its
+// degrees through segsum.py:118). The same core with RowKeys: lane e of row
+// r is keyed r * (V + 1) + id in registers, so the rows are segments of one
+// ascending sequence and a row's sentinel tail never merges with the next
+// row's vertex 0. Bound by the same bytes as one call over G * L lanes.
+//
 // Launched on the caller's stream; it neither allocates nor synchronises:
 // the caller passes the scratch (float32 carries, or the D > 1 row offsets).
 // Each C entry point returns cudaGetLastError() after its launches.
@@ -95,22 +104,24 @@ __device__ __forceinline__ A lane_val(const RawVals<T>& r, int j) {
 
 // D = 1: warp tiles walked grid-stride. int32 sums add the crossing rows
 // with atomicAdd; float32 sums write them to the carry slots (2 a tile).
-template <typename T, typename A, bool VEC>
+// Keys: seg_reduce::PlainKeys (one row of lanes) or RowKeys (G rows, the
+// output in key space [G, V + 1], its sentinel column dropped by the caller).
+template <typename T, typename A, bool VEC, typename Keys>
 __global__ void __launch_bounds__(THREADS)
 reduce_d1_kernel(const T* __restrict__ vals, const int* __restrict__ seg,
-                 long long n_lanes, int pad, long long n_tiles, int n_rows,
+                 long long n_lanes, int pad, long long n_tiles, Keys keys,
                  A* __restrict__ out, int* __restrict__ carry_rows,
                  A* __restrict__ carry_vals) {
   using Chunk = seg_reduce::Chunk<RawVals<T>>;
   seg_reduce::walk_tiles<RawVals<T>>(
-      seg, n_lanes, pad, n_tiles, n_rows, WARPS,
+      seg, n_lanes, pad, n_tiles, keys, WARPS,
       [&](long long l0, RawVals<T>& r) { load_vals<T, VEC>(vals, l0, n_lanes, r); },
       [&](long long t, const Chunk& c) {
         A v[ITEMS];
 #pragma unroll
         for (int j = 0; j < ITEMS; ++j) v[j] = lane_val<T, A>(c.extra, j);
         const auto carry = seg_reduce::reduce_tile<A>(
-            c.rows, v, c.prev, c.next, n_rows, [&](int r, A total) { out[r] = total; });
+            c.rows, v, c.prev, c.next, keys.n_rows, [&](int r, A total) { out[r] = total; });
         if ((threadIdx.x & 31) != 0) return;
         if constexpr (std::is_integral<A>::value) {  // int32: exact atomics
           if (carry.head_row >= 0) atomicAdd(out + carry.head_row, carry.head_val);
@@ -124,12 +135,12 @@ reduce_d1_kernel(const T* __restrict__ vals, const int* __restrict__ seg,
       });
 }
 
-template <typename T, typename A, bool VEC>
+template <typename T, typename A, bool VEC, typename Keys>
 void launch_d1(const T* vals, const int* seg, long long n_lanes, int pad, long long n_tiles,
-               int n_rows, A* out, int* carry_rows, A* carry_vals, cudaStream_t stream) {
-  auto kernel = reduce_d1_kernel<T, A, VEC>;
+               Keys keys, A* out, int* carry_rows, A* carry_vals, cudaStream_t stream) {
+  auto kernel = reduce_d1_kernel<T, A, VEC, Keys>;
   const int blocks = seg_reduce::persistent_blocks(kernel, THREADS, 0, n_tiles);
-  kernel<<<blocks, THREADS, 0, stream>>>(vals, seg, n_lanes, pad, n_tiles, n_rows, out,
+  kernel<<<blocks, THREADS, 0, stream>>>(vals, seg, n_lanes, pad, n_tiles, keys, out,
                                          carry_rows, carry_vals);
 }
 
@@ -171,11 +182,12 @@ int launch(const void* vals_ptr, const void* seg_ptr, long long n_lanes, int n_r
     // values take 16-byte loads when their chunks start on the ids' 16-byte
     // boundary, lane-by-lane loads otherwise
     const bool vec = (reinterpret_cast<uintptr_t>(vals) - sizeof(T) * pad) % 16 == 0;
+    const seg_reduce::PlainKeys keys{n_rows};
     if (vec)
-      launch_d1<T, A, true>(vals, seg, n_lanes, pad, n_tiles, n_rows, out, carry_rows,
+      launch_d1<T, A, true>(vals, seg, n_lanes, pad, n_tiles, keys, out, carry_rows,
                             carry_vals, stream);
     else
-      launch_d1<T, A, false>(vals, seg, n_lanes, pad, n_tiles, n_rows, out, carry_rows,
+      launch_d1<T, A, false>(vals, seg, n_lanes, pad, n_tiles, keys, out, carry_rows,
                              carry_vals, stream);
     if constexpr (!std::is_integral<A>::value) {  // float32: add the carries in tile order
       const long long blocks = (n_tiles + THREADS - 1) / THREADS;
@@ -191,6 +203,35 @@ int launch(const void* vals_ptr, const void* seg_ptr, long long n_lanes, int n_r
   const long long row_blocks = (static_cast<long long>(n_rows) + WARPS - 1) / WARPS;
   reduce_dn_kernel<T, A><<<static_cast<int>(row_blocks < 8448 ? row_blocks : 8448), THREADS,
                            0, stream>>>(vals, off, n_rows, d, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Rows: values and seg [rows, len] (each row sorted by its own ids in [0, v])
+// onto int32 out [rows, v + 1] in key space, the sentinel column v
+// included: a memset and the reduction with RowKeys, crossing rows added
+// with atomicAdd. No scratch.
+template <typename T>
+int launch_rows(const void* vals_ptr, const void* seg_ptr, int rows, int len, int v,
+                void* out_ptr, void* stream_ptr) {
+  if (rows <= 0 || v < 0) return 0;
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const T* vals = static_cast<const T*>(vals_ptr);
+  const int* seg = static_cast<const int*>(seg_ptr);
+  int* out = static_cast<int*>(out_ptr);
+  const seg_reduce::RowKeys keys{rows * (v + 1), len, v};
+  const cudaError_t err = cudaMemsetAsync(out, 0, sizeof(int) * keys.n_rows, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_lanes = static_cast<long long>(rows) * len;
+  if (n_lanes == 0) return static_cast<int>(cudaGetLastError());
+  const int pad = seg_reduce::pad_of(seg);
+  const long long n_tiles = seg_reduce::tiles_of(n_lanes, pad);
+  const bool vec = (reinterpret_cast<uintptr_t>(vals) - sizeof(T) * pad) % 16 == 0;
+  if (vec)
+    launch_d1<T, int, true>(vals, seg, n_lanes, pad, n_tiles, keys, out, nullptr, nullptr,
+                            stream);
+  else
+    launch_d1<T, int, false>(vals, seg, n_lanes, pad, n_tiles, keys, out, nullptr, nullptr,
+                             stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -224,6 +265,19 @@ extern "C" int segsum_sorted_u8(const void* vals, const void* seg, long long n_l
                                 int n_rows, int d, void* out, void* scratch,
                                 void* stream) {
   return launch<unsigned char, int>(vals, seg, n_lanes, n_rows, d, out, scratch, stream);
+}
+
+// Row-batched int32 sums (K1 over rows): [rows, len] int32 or bool (one
+// byte) values and int32 ids, each row ascending on its own, onto int32 out
+// [rows, v + 1] (column v, the sentinel's, is to be dropped by the caller).
+extern "C" int segsum_rows_i32(const void* vals, const void* seg, int rows, int len, int v,
+                               void* out, void* stream) {
+  return launch_rows<int>(vals, seg, rows, len, v, out, stream);
+}
+
+extern "C" int segsum_rows_u8(const void* vals, const void* seg, int rows, int len, int v,
+                              void* out, void* stream) {
+  return launch_rows<unsigned char>(vals, seg, rows, len, v, out, stream);
 }
 
 // The text of a CUDA error code, for the wrapper's exception.

@@ -57,6 +57,34 @@ def peel_edges_ref(
     return out + (segment_sum_ref(assign_d, dst, n_nodes, torch.int32),)
 
 
+def segment_sum_rows_ref(
+    values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
+) -> torch.Tensor:
+    """``segment_sum_ref`` of each row: [G, L] bool or int32 values and int32
+    ids (each row's ids on their own) onto int32 ``[G, num_segments]``; ids
+    outside ``[0, num_segments)`` drop."""
+    out = torch.zeros((seg_ids.shape[0], num_segments), dtype=torch.int32,
+                      device=seg_ids.device)
+    for r in range(seg_ids.shape[0]):
+        out[r] = segment_sum_ref(values[r], seg_ids[r], num_segments, torch.int32)
+    return out
+
+
+def peel_edges_rows_ref(
+    src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor | None,
+    failed: torch.Tensor, n_nodes: int, charge: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """``peel_edges_ref`` of each row: [G, L] lanes with [G, n_nodes] vertex
+    masks (``active`` None: every vertex). Returns int32 ``(delta [G, V],
+    removed [G])``, with ``charge`` also ``inc [G, V]``."""
+    rows = [peel_edges_ref(src[r], dst[r], None if active is None else active[r],
+                           failed[r], n_nodes, charge) for r in range(src.shape[0])]
+    if not rows:
+        z = torch.zeros((0, n_nodes), dtype=torch.int32, device=src.device)
+        return (z, torch.zeros(0, dtype=torch.int32, device=src.device)) + ((z,) if charge else ())
+    return tuple(torch.stack(parts) for parts in zip(*rows))
+
+
 def peel_update_ref(
     src: torch.Tensor, dst: torch.Tensor, failed: torch.Tensor, n_nodes: int,
 ) -> torch.Tensor:
@@ -118,5 +146,6 @@ def stream_compact_ref(
     return out
 
 
-__all__ = ["segment_sum_ref", "peel_edges_ref", "peel_update_ref",
+__all__ = ["segment_sum_ref", "segment_sum_rows_ref", "peel_edges_ref",
+           "peel_edges_rows_ref", "peel_update_ref",
            "segment_embed_ref", "prefix_sum_ref", "stream_compact_ref"]

@@ -27,7 +27,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import segment_sum_ref
+from repro_torch.kernels.ref import segment_sum_ref, segment_sum_rows_ref
 
 SOURCE = build.CSRC / "segsum.cu"
 
@@ -41,7 +41,8 @@ _ACCEPTS = {
 _ENTRY = {torch.float32: "segsum_sorted_f32", torch.int32: "segsum_sorted_i32",
           torch.bool: "segsum_sorted_u8"}
 
-launches = 0     # kernel launches, counted where the kernel is launched
+launches = 0       # segment_sum_sorted launches, counted where the kernel is launched
+rows_launches = 0  # segment_sum_rows_sorted launches (one for a whole group of rows)
 _lib: ctypes.CDLL | None = None
 
 
@@ -57,6 +58,11 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for name in ("segsum_rows_i32", "segsum_rows_u8"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.segsum_scratch_ints.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                         ctypes.c_int]
@@ -139,4 +145,55 @@ def segment_sum_sorted(
     return out
 
 
-__all__ = ["segment_sum_sorted", "load_library", "SOURCE"]
+def segment_sum_rows_sorted(
+    values: torch.Tensor, seg_ids: torch.Tensor, *, num_segments: int,
+) -> torch.Tensor:
+    """int32 segment sums of G independent rows in one call.
+
+    Args:
+      values:  [G, L] bool or int32.
+      seg_ids: [G, L] int32, each row ascending on its own; ids outside
+               [0, num_segments) dropped.
+      num_segments: V, the output columns.
+
+    Returns int32 [G, V]: row r is ``segment_sum_sorted`` of row r. On a CPU
+    tensor the plain version (``ref.segment_sum_rows_ref``), after a check
+    that every row ascends; on a CUDA tensor one launch of the kernel for
+    the whole group, counted once in ``rows_launches``. The result is a
+    [G, V] view of a [G, V + 1] buffer (the kernel's key space, its last
+    column the sentinel's).
+    """
+    global rows_launches
+    if values.dtype not in (torch.bool, torch.int32):
+        raise TypeError(f"row sums take bool or int32 values, got {values.dtype}")
+    if (seg_ids.dtype != torch.int32 or seg_ids.dim() != 2
+            or values.shape != seg_ids.shape):
+        raise ValueError(f"need seg_ids int32 [G, L] and values of its shape; got "
+                         f"{seg_ids.dtype} {tuple(seg_ids.shape)} and {tuple(values.shape)}")
+    if values.device != seg_ids.device:
+        raise ValueError(f"values on {values.device}, seg_ids on {seg_ids.device}")
+    if values.device.type == "cpu":
+        if bool((seg_ids[:, 1:] < seg_ids[:, :-1]).any()):
+            raise ValueError("segment_sum_rows_sorted needs every row's seg_ids in "
+                             "ascending order (the kernel's precondition)")
+        return segment_sum_rows_ref(values, seg_ids, num_segments)
+    if values.device.type != "cuda":
+        raise ValueError(f"no segment-sum kernel for {values.device}")
+    if not (values.is_contiguous() and seg_ids.is_contiguous()):
+        raise ValueError("the segment-sum kernel needs contiguous tensors")
+    g, n_lanes = seg_ids.shape
+    if g * n_lanes >= 2**31 or g * (num_segments + 1) >= 2**31:
+        raise ValueError("the segment-sum kernel indexes G*L lanes and G*(V+1) keys in int32")
+    lib = load_library()
+    out = torch.empty((g, num_segments + 1), dtype=torch.int32, device=values.device)
+    if g > 0:
+        fn = lib.segsum_rows_u8 if values.dtype == torch.bool else lib.segsum_rows_i32
+        err = build.on_device(values.device, fn, values.data_ptr(), seg_ids.data_ptr(), g,
+                              n_lanes, num_segments, out.data_ptr())
+        if err:
+            raise build.launch_error(lib, "segsum_error_string", err, "segment-sum rows kernel")
+        rows_launches += 1
+    return out[:, :num_segments]
+
+
+__all__ = ["segment_sum_sorted", "segment_sum_rows_sorted", "load_library", "SOURCE"]

@@ -23,8 +23,11 @@ Bahmani's ``2(1+eps)rho`` at zero loads; the ``key <= min_key`` guard makes
 termination robust to float32 rounding of large load sums.
 
 This is the JAX package's ``refine/loads.py`` for one device: the pass, the
-round, and its host loop. The batched, sharded and dense-GEMV round
-programs wait for ROADMAP slices 9 and 11.
+round and its host loop, and the fused buckets' rounds: the row-batched COO
+round (``_batched_refine_round``, one launch of K2's rows entry a pass for
+the group) and the dense round over ``[G, V, V]`` float32 adjacency
+(``_batched_dense_refine_round``, batched products a pass). The sharded
+rounds wait for ROADMAP queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.dispatch import peel_edges
+from repro_torch.core.batched import require_exact_matmul, run_rows
+from repro_torch.core.dispatch import peel_edges, peel_edges_rows
 
 
 class RefinePeelState(NamedTuple):
@@ -166,10 +170,148 @@ def _refine_round(src, dst, deg, n_edges, loads, best_density, best_ne,
         best_mask, passes.to(i32), n_nodes, eps, kernel)
 
 
+# ---------------------------------------------------------------------------
+# row-batched rounds: a bucket of fused tenants refined together
+# ---------------------------------------------------------------------------
+def _fold_best_rows(state: RefinePeelState, n_e_new, n_v_new, active_new):
+    rho_new = n_e_new.to(torch.float32) / n_v_new.clamp(min=1).to(torch.float32)
+    rho_new = torch.where(n_v_new > 0, rho_new, 0.0)
+    better = rho_new > state.best_density
+    return (
+        torch.where(better, rho_new, state.best_density),
+        torch.where(better, n_e_new, state.best_ne),
+        torch.where(better, n_v_new, state.best_nv),
+        torch.where(better[:, None], active_new, state.best_mask),
+    )
+
+
+def _failing_rows(state: RefinePeelState, eps: float) -> torch.Tensor:
+    """Each row's failing set: key <= its threshold, or at its live minimum."""
+    key = (state.loads + state.deg).to(torch.float32)
+    thr = refine_threshold(state.load_sum, state.n_e, state.n_v, eps)
+    min_key = torch.where(state.active, key, torch.inf).min(dim=1).values
+    return state.active & ((key <= thr[:, None]) | (key <= min_key[:, None]))
+
+
+def _advance_rows(state, failed, delta, removed, inc) -> RefinePeelState:
+    n_e_new = state.n_e - removed // 2
+    active_new = state.active & ~failed
+    n_v_new = state.n_v - failed.sum(dim=1, dtype=torch.int32)
+    best_density, best_ne, best_nv, best_mask = _fold_best_rows(
+        state, n_e_new, n_v_new, active_new)
+    return RefinePeelState(
+        deg=torch.where(active_new, state.deg - delta, 0), loads=state.loads + inc,
+        active=active_new, n_v=n_v_new, n_e=n_e_new,
+        load_sum=state.load_sum - torch.where(failed, state.loads, 0).sum(
+            dim=1, dtype=torch.int32),
+        best_density=best_density, best_ne=best_ne, best_nv=best_nv,
+        best_mask=best_mask, passes=state.passes + 1)
+
+
+def refine_pass_rows(
+    state: RefinePeelState, src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
+    eps: float, kernel: bool = False,
+) -> RefinePeelState:
+    """``refine_pass`` of every row of a row-batched state (lanes [G, L],
+    vertex tensors [G, V], scalars [G]): each row's threshold, min key and
+    load sum its own; the edge stage and the charges one call of
+    ``dispatch.peel_edges_rows`` (one launch of K2's rows entry with
+    ``kernel``)."""
+    failed = _failing_rows(state, eps)
+    delta, removed, inc = peel_edges_rows(src, dst, state.active, failed, n_nodes, kernel,
+                                          charge=True)
+    return _advance_rows(state, failed, delta, removed, inc)
+
+
+def _init_rows(deg, n_edges, loads, best_density, best_ne, best_nv, best_mask, passes):
+    i32 = torch.int32
+    active = deg > 0
+    return RefinePeelState(
+        deg=deg.to(i32), loads=loads.to(i32), active=active,
+        n_v=active.sum(dim=1, dtype=i32), n_e=n_edges.to(i32),
+        load_sum=torch.where(active, loads, 0).sum(dim=1, dtype=i32),
+        best_density=best_density.to(torch.float32), best_ne=best_ne.to(i32),
+        best_nv=best_nv.to(i32), best_mask=best_mask, passes=passes.to(i32))
+
+
+def _out(final: RefinePeelState):
+    return (final.loads, final.best_density, final.best_ne, final.best_nv,
+            final.best_mask, final.passes)
+
+
+def _batched_refine_round(src, dst, deg, n_edges, loads, best_density, best_ne,
+                          best_nv, best_mask, passes, n_nodes: int, eps: float,
+                          kernel: bool = False):
+    """One refinement round of G tenants at once (the JAX package's vmapped
+    ``_batched_refine_round_jit``): every argument carries a leading row
+    axis. The batched pass runs while any row is live, a converged row kept
+    as it was, so each row's outputs equal ``_refine_round`` on that row."""
+    state = _init_rows(deg, n_edges, loads, best_density, best_ne, best_nv, best_mask,
+                       passes)
+    return _out(run_rows(state, lambda s: refine_pass_rows(s, src, dst, n_nodes, eps,
+                                                           kernel)))
+
+
+# ---------------------------------------------------------------------------
+# dense (GEMV) variant: the fused small-tenant buckets
+# ---------------------------------------------------------------------------
+def _dense_refine_pass(state: RefinePeelState, adj: torch.Tensor, adj_tri: torch.Tensor,
+                       eps: float) -> RefinePeelState:
+    """``refine_pass_rows`` off the dense adjacency ``[G, V, V]`` float32 kept
+    by the fused buckets under ``DENSE_NODE_CAP``: ``adj @ failed`` counts
+    each vertex's failing neighbours, ``adj_tri @ failed`` (``adj`` masked to
+    column > row) the failing neighbours whose tie it wins, so a failing
+    vertex is charged its edges to survivors plus those ties. Every float32
+    sum is over integers below 2^24, hence exact: the trajectory equals the
+    lane pass's."""
+    failed = _failing_rows(state, eps)
+    f = failed.to(torch.float32)[:, :, None]
+    af = torch.bmm(adj, f)[:, :, 0]
+    aa = torch.bmm(adj, state.active.to(torch.float32)[:, :, None])[:, :, 0]
+    ff = f[:, :, 0]
+    removed = (2.0 * (ff * aa).sum(dim=1) - (ff * af).sum(dim=1)).to(torch.int32)
+    af_i = af.to(torch.int32)
+    tie_wins = torch.bmm(adj_tri, f)[:, :, 0].to(torch.int32)
+    inc = torch.where(failed, state.deg - af_i + tie_wins, 0)
+    return _advance_rows(state, failed, af_i, removed, inc)
+
+
+def _upper(adj: torch.Tensor) -> torch.Tensor:
+    n = adj.shape[-1]
+    idx = torch.arange(n, device=adj.device)
+    return adj * (idx[:, None] < idx[None, :]).to(torch.float32)
+
+
+def dense_refine_round_body(adj, deg, n_edges, loads, best_density, best_ne, best_nv,
+                            best_mask, passes, eps: float):
+    """One refinement round off one tenant's dense adjacency ``[V, V]``: the
+    JAX package's ``dense_refine_round_body``, as a group of one."""
+    out = _batched_dense_refine_round(
+        adj[None], deg[None], n_edges.reshape(1), loads[None], best_density.reshape(1),
+        best_ne.reshape(1), best_nv.reshape(1), best_mask[None], passes.reshape(1), eps)
+    return tuple(x[0] for x in out)
+
+
+def _batched_dense_refine_round(adj, deg, n_edges, loads, best_density, best_ne,
+                                best_nv, best_mask, passes, eps: float):
+    """One refinement round of G dense tenants (``[G, V, V]`` adjacency) at
+    once: batched float32 products a pass, converged rows frozen. Needs
+    ``torch.get_float32_matmul_precision() == "highest"``."""
+    require_exact_matmul()
+    adj_tri = _upper(adj)  # adj is constant over the round
+    state = _init_rows(deg, n_edges, loads, best_density, best_ne, best_nv, best_mask,
+                       passes)
+    return _out(run_rows(state, lambda s: _dense_refine_pass(s, adj, adj_tri, eps)))
+
+
 __all__ = [
     "RefinePeelState",
     "refine_threshold",
     "refine_pass",
     "refine_round_body",
     "_refine_round",
+    "refine_pass_rows",
+    "_batched_refine_round",
+    "dense_refine_round_body",
+    "_batched_dense_refine_round",
 ]

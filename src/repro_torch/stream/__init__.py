@@ -1,17 +1,39 @@
-"""Dynamic graphs: incremental densest-subgraph maintenance on one device.
+"""Dynamic graphs: incremental densest-subgraph maintenance and multi-tenant
+serving on one device.
 
-``EdgeBuffer`` holds a mutable undirected edge set in fixed-capacity,
-sentinel-padded slots; ``DeltaEngine`` keeps its symmetric COO lanes and
-degrees resident on the device, patches them in O(batch) per update and
-answers densest-subgraph queries (warm, pruned, refined) bit for bit as a
-cold peel would. The JAX package's fused multi-tenant engine, graph
-registry and service (``fused``, ``registry``, ``service``) are not ported
-yet (ROADMAP queue 1 item 3).
+  buffer.py   — fixed-capacity sentinel-padded edge buffer (pow-2 growth)
+  delta.py    — incremental maintenance engine (degree deltas + warm peel)
+  fused.py    — fused multi-tenant execution (row-batched bucket peels: one
+                launch of K2's rows entry a pass for a whole bucket)
+  registry.py — multi-tenant named-graph registry (capacity bucketing, LRU)
+  service.py  — batch query front-end with latency/build metrics
+
+The sharded engine (``sharded=True``, ``mesh=``) waits for ROADMAP queue 1
+item 4.
 """
 from repro_torch.stream.buffer import EdgeBuffer
 from repro_torch.stream.delta import (
     DeltaEngine, EngineMetrics, QueryResult, UpdateStats,
 )
+from repro_torch.stream.fused import (
+    FusedEngine, FusedPool, TenantBatch, ingest_group, query_group,
+)
+from repro_torch.stream.registry import GraphRegistry, TenantStats
+from repro_torch.stream.service import ServiceResponse, StreamService
 
-__all__ = ["EdgeBuffer", "DeltaEngine", "QueryResult", "UpdateStats",
-           "EngineMetrics"]
+__all__ = [
+    "EdgeBuffer",
+    "DeltaEngine",
+    "QueryResult",
+    "UpdateStats",
+    "EngineMetrics",
+    "FusedEngine",
+    "FusedPool",
+    "TenantBatch",
+    "ingest_group",
+    "query_group",
+    "GraphRegistry",
+    "TenantStats",
+    "StreamService",
+    "ServiceResponse",
+]

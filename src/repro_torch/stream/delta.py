@@ -55,6 +55,7 @@ from dataclasses import replace as dc_replace
 import numpy as np
 import torch
 
+from repro_torch.core.batched import init_rows, peel_rows_to_end
 from repro_torch.core.cbds import cbds_resident
 from repro_torch.core.density import induced_edge_count
 from repro_torch.core.dispatch import (
@@ -183,6 +184,104 @@ def _warm_peel(
     return final, warm_rho
 
 
+def _batched_apply(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    deg: torch.Tensor,
+    rows: dict[int, tuple],
+    lane_perm: torch.Tensor | None = None,
+    adj: torch.Tensor | None = None,
+) -> list[int]:
+    """``_apply_batch`` of many tenants at once, **in place** on lane stacks
+    ``src``/``dst`` ``[T, 2*capacity]`` and ``deg`` ``[T, V]`` (the JAX
+    package's vmapped ``_batched_apply_jit``): ``rows`` maps a stack row to
+    its padded batch row (host int32 arrays). The rows are translated to
+    flat indices on the host, uploaded once, and applied with one
+    ``index_put_`` a side and two ``index_add_``, so the group costs what one
+    tenant's batch costs. ``lane_perm`` (``[T, 2*capacity]``, kernel mode)
+    maps each row's unsorted lanes to their positions; ``adj`` (``[T, V,
+    V]`` float32, the dense buckets) takes the signed weights at (u, v) and
+    (v, u) too, as exact float32 integers. Returns the stack rows whose
+    lanes were written."""
+    width = src.shape[1]
+    cap, n_nodes = width // 2, deg.shape[1]
+    parts, written = [], []
+    for lane, (slots, su, sv, du, dv, w) in rows.items():
+        real = slots < cap
+        signed = w != 0
+        if real.any():
+            written.append(lane)
+        s = slots[real].astype(np.int64)
+        parts.append((np.concatenate([lane * width + s, lane * width + s + cap]),
+                      np.concatenate([su[real], sv[real]]),
+                      np.concatenate([sv[real], su[real]]),
+                      lane, du[signed], dv[signed], w[signed]))
+    if not parts:
+        return written
+    lanes = np.concatenate([p[0] for p in parts])
+    a = np.concatenate([p[1] for p in parts])
+    b = np.concatenate([p[2] for p in parts])
+    row = np.concatenate([np.full(p[4].shape[0], p[3], np.int64) for p in parts])
+    du = np.concatenate([p[4] for p in parts]).astype(np.int64)
+    dv = np.concatenate([p[5] for p in parts]).astype(np.int64)
+    w = np.concatenate([p[6] for p in parts]).astype(np.int32)
+    k, m = lanes.shape[0], du.shape[0]
+    host = np.concatenate([lanes, row * n_nodes + du, row * n_nodes + dv,
+                           (row * n_nodes + du) * n_nodes + dv,
+                           (row * n_nodes + dv) * n_nodes + du])
+    idx = torch.from_numpy(host).to(src.device)
+    vals = torch.from_numpy(np.concatenate([a, b, w]).astype(np.int32)).to(src.device)
+    flat = idx[:k]
+    if k:
+        if lane_perm is not None:
+            # a slot's lanes move with its row's sort: their position inside
+            # the row, offset back to the row's base
+            base = flat - flat % width
+            flat = base + lane_perm.view(-1).index_select(0, flat).to(torch.int64)
+        src.view(-1).index_put_((flat,), vals[:k])
+        dst.view(-1).index_put_((flat,), vals[k:2 * k])
+    d_w = vals[2 * k:]
+    deg.view(-1).index_add_(0, idx[k:k + m], d_w)
+    deg.view(-1).index_add_(0, idx[k + m:k + 2 * m], d_w)
+    if adj is not None:
+        fw = d_w.to(torch.float32)
+        adj.view(-1).index_put_((idx[k + 2 * m:k + 3 * m],), fw, accumulate=True)
+        adj.view(-1).index_put_((idx[k + 3 * m:],), fw, accumulate=True)
+    return written
+
+
+def _batched_warm_peel(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    deg: torch.Tensor,
+    n_edges: torch.Tensor,
+    prev_mask: torch.Tensor,
+    n_nodes: int,
+    eps: float,
+    kernel: bool = False,
+) -> tuple[PeelState, torch.Tensor]:
+    """``_warm_peel`` of G tenants at once (the JAX package's vmapped
+    ``_batched_warm_peel_jit``): lanes ``[G, L]``, degrees and previous masks
+    ``[G, V]``, ``n_edges`` int32 ``[G]``. One batched pass a step for the
+    whole group (``core.batched``; K2's rows entry with ``kernel``), a row
+    frozen once it has converged, so each row's final state equals the
+    single warm peel's. Returns (final state, float32 ``[G]`` density of each
+    row's ``prev_mask``)."""
+    final = peel_rows_to_end(init_rows(deg, n_edges), src, dst, n_nodes, eps, kernel)
+    g = src.shape[0]
+    base = torch.arange(g, dtype=src.dtype, device=src.device)[:, None] * n_nodes
+    pm = prev_mask.reshape(-1)
+    live = ((src < n_nodes) & (dst < n_nodes)
+            & pm.index_select(0, (base + src.clamp(max=n_nodes - 1)).reshape(-1)).view_as(src)
+            & pm.index_select(0, (base + dst.clamp(max=n_nodes - 1)).reshape(-1)).view_as(src))
+    warm_e = live.sum(dim=1, dtype=torch.int32) // 2
+    warm_v = prev_mask.sum(dim=1, dtype=torch.int32)
+    warm_rho = torch.where(
+        warm_v > 0,
+        warm_e.to(torch.float32) / warm_v.clamp(min=1).to(torch.float32), 0.0)
+    return final, warm_rho
+
+
 def _entry_points() -> list:
     """The auditor's ``"stream"`` provider: the engine's own cached entry
     points. It dispatches eagerly and builds nothing itself (the kernels it
@@ -296,6 +395,7 @@ class DeltaEngine:
         self.refresh_every = int(refresh_every)
         self.pruned = bool(pruned)
         self.kernel = resolve_kernel(kernel, self.device)
+        self.sharded = False      # one device (the sharded engine: item 4)
         # observability identity: a registry overwrites ``tenant`` with the
         # registered name; spans and audit records are labeled with it
         self.tenant = "-"

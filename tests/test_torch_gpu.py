@@ -819,3 +819,99 @@ def test_stream_lane_perm_consistent_after_resort(cuda):
         assert torch.equal(s[p[:cap]], u) and torch.equal(d[p[:cap]], v)
         assert torch.equal(s[p[cap:]], v) and torch.equal(d[p[cap:]], u)
         assert torch.equal(torch.sort(p).values, torch.arange(2 * cap, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# row-batched K1 and K2 (the fused tenants' passes) and the fused flush
+# ---------------------------------------------------------------------------
+def _row_lanes(rng, g, L, v):
+    """[g, L] int32 lanes, each row dst-sorted with a ragged sentinel tail;
+    row 1 (when there is one) all sentinel."""
+    src = rng.integers(0, v, (g, L)).astype(np.int32)
+    dst = rng.integers(0, v, (g, L)).astype(np.int32)
+    for r in range(g):
+        k = 0 if r == 1 else int(rng.integers(0, L + 1))
+        src[r, k:], dst[r, k:] = v, v
+        order = np.argsort(dst[r], kind="stable")
+        src[r], dst[r] = src[r][order], dst[r][order]
+    return src, dst
+
+
+@pytest.mark.parametrize("g,L,v", [(1, 5000, 300), (3, 1, 4), (5, 777, 40), (7, 513, 1),
+                                   (32, 4096, 1024), (4, 70_000, 3), (2, 0, 6),
+                                   (9, 1000, 20_000)])
+def test_peel_edges_rows_matches_plain(cuda, g, L, v):
+    """K2's rows entry against its plain version at ragged G and L: rows
+    shorter than a tile and rows of many tiles, hub runs, an empty row, a
+    row of one vertex, with and without the live mask and the charges, and
+    on unaligned views."""
+    rng = np.random.default_rng(g * 31 + L + v)
+    src, dst = _row_lanes(rng, g, L, v)
+    active = rng.random((g, v)) < 0.85
+    failed = rng.random((g, v)) < 0.35
+    for shift in (0, 1):
+        flat = [torch.from_numpy(np.r_[np.zeros(shift, np.int32), x.ravel()]).to(cuda)
+                for x in (src, dst)]
+        s, d = (t[shift:].view(g, L) for t in flat)
+        a, f = (torch.from_numpy(x).to(cuda) for x in (active, failed))
+        for act in (a, None):
+            for charge in (False, True):
+                before = peel.rows_launches
+                got = peel.peel_edges_rows(s, d, act, f, n_nodes=v, charge=charge)
+                assert peel.rows_launches == before + (1 if g and v else 0)
+                want = ref.peel_edges_rows_ref(s.cpu(), d.cpu(), None if act is None
+                                               else act.cpu(), f.cpu(), v, charge)
+                for x, w in zip(got, want):
+                    assert torch.equal(x.cpu(), w), (shift, act is None, charge)
+
+
+@pytest.mark.parametrize("g,L,v,kind", [(1, 3000, 100, "bool"), (6, 513, 7, "int32"),
+                                        (32, 4096, 1024, "bool"), (3, 1, 1, "bool"),
+                                        (4, 50_000, 2, "int32")])
+def test_segment_sum_rows_matches_plain(cuda, g, L, v, kind):
+    rng = np.random.default_rng(g + L + v)
+    _, seg = _row_lanes(rng, g, L, v)
+    vals = (rng.random((g, L)) < 0.5 if kind == "bool"
+            else rng.integers(-4, 5, (g, L)).astype(np.int32))
+    before = segsum.rows_launches
+    got = segsum.segment_sum_rows_sorted(torch.from_numpy(vals).to(cuda),
+                                         torch.from_numpy(seg).to(cuda), num_segments=v)
+    assert segsum.rows_launches == before + 1
+    want = ref.segment_sum_rows_ref(torch.from_numpy(vals), torch.from_numpy(seg), v)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n", [300, 2000])
+def test_fused_flush_on_card_matches_off_and_cpu(cuda, n):
+    """A bucket of fused tenants (pruned and unpruned) on the card with the
+    kernels on and off, and on the CPU: the same answers after every churn
+    batch, fixed-round refinement included; the kernel-on flush launches
+    K2's rows entry (the dense bucket for its pruned members' pass 0) and
+    leaves every row sorted."""
+    from repro_torch.stream import FusedEngine, FusedPool, ingest_group, query_group
+
+    names = [f"t{i}" for i in range(6)]
+    groups = []
+    for kernel, dev in ((True, cuda), (False, cuda), (None, "cpu")):
+        pool = FusedPool()
+        groups.append({k: FusedEngine(k, pool, n, eps=0.1, capacity=4096, refresh_every=4,
+                                      pruned=i % 2 == 0, kernel=kernel, device=dev)
+                       for i, k in enumerate(names)})
+    rng = np.random.default_rng(n)
+    streams = {k: _stream_events(rng, n, 12, 300) for k in names}
+    before = peel.rows_launches
+    for step in range(12):
+        upd = {k: next(streams[k]) for k in names}
+        answers = []
+        for grp in groups:
+            ingest_group(upd, grp)
+            answers.append(query_group(grp, refine=step % 6 == 5, target_gap=-1.0,
+                                       max_refine_rounds=3))
+        for k in names:
+            for other in answers[1:]:
+                _same_answer(answers[0][k], other[k])
+        batch = groups[0]["t0"].batch
+        for lane in batch.lane_of.values():
+            if not batch._unsorted[lane]:
+                assert bool(torch.all(batch._dst[lane][1:] >= batch._dst[lane][:-1]))
+    assert peel.rows_launches > before

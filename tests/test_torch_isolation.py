@@ -44,7 +44,9 @@ def test_port_files_found():
             "src/repro_torch/obs/slo.py", "src/repro_torch/obs/scrape.py",
             "src/repro_torch/obs/collector.py", "src/repro_torch/obs/otlp.py",
             "src/repro_torch/graphs/io.py", "src/repro_torch/stream/__init__.py",
-            "src/repro_torch/stream/buffer.py", "src/repro_torch/stream/delta.py"} <= names
+            "src/repro_torch/stream/buffer.py", "src/repro_torch/stream/delta.py",
+            "src/repro_torch/stream/fused.py", "src/repro_torch/stream/registry.py",
+            "src/repro_torch/stream/service.py", "src/repro_torch/core/batched.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -64,7 +66,8 @@ def test_scan_catches_forbidden_imports(tmp_path):
 
 @pytest.mark.parametrize("entry", ["pbahmani", "kcore_decompose", "cbds_p",
                                    "pbahmani_pruned", "plan_for_graph", "refine",
-                                   "dcn_init", "build_step", "DCNv2", "DeltaEngine"])
+                                   "dcn_init", "build_step", "DCNv2", "DeltaEngine",
+                                   "FusedEngine", "GraphRegistry", "StreamService"])
 def test_default_device_needs_cuda(monkeypatch, entry):
     """device=None means the GPU: with no CUDA it raises and names the way
     out, instead of running on the CPU."""
@@ -74,13 +77,18 @@ def test_default_device_needs_cuda(monkeypatch, entry):
     from repro_torch.graphs.generators import small_named
     from repro_torch.launch import build_step
     from repro_torch.models import DCNv2, dcn_init
-    from repro_torch.stream import DeltaEngine
+    from repro_torch.stream import (
+        DeltaEngine, FusedEngine, FusedPool, GraphRegistry, StreamService,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {"dcn_init": lambda: dcn_init(get_arch("dcn-v2").smoke),
              "build_step": lambda: build_step("dcn-v2", "serve_p99"),
              "DCNv2": lambda: DCNv2(get_arch("dcn-v2").smoke),
-             "DeltaEngine": lambda: DeltaEngine(8)}
+             "DeltaEngine": lambda: DeltaEngine(8),
+             "FusedEngine": lambda: FusedEngine("t", FusedPool(), 8),
+             "GraphRegistry": lambda: GraphRegistry(fused=True),
+             "StreamService": lambda: StreamService(fused=True)}
     fn = calls.get(entry) or (lambda: (getattr(tcore, entry, None)
                                        or getattr(trefine, entry))(small_named("petersen")))
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -409,3 +409,112 @@ def test_peel_edges_sorted_rejects_bad_input():
         peel.peel_edges_sorted(src, ok, torch.ones(3, dtype=torch.bool), failed, n_nodes=4)
     delta, removed = peel.peel_edges_sorted(src, ok, None, failed, n_nodes=4)
     assert delta.tolist() == [1, 1, 1, 1] and int(removed) == 4
+
+
+# ---------------------------------------------------------------------------
+# row-batched K1 and K2 (the fused tenants' batched passes) against jax.vmap
+# of the JAX package's kernels
+# ---------------------------------------------------------------------------
+def _rows(rng, g, L, v, sentinel_tail=True):
+    """[g, L] lanes, each row dst-sorted with a sentinel tail; row 1 empty
+    (all sentinel) when g > 1."""
+    src = rng.integers(0, v, (g, L)).astype(np.int32)
+    dst = rng.integers(0, v, (g, L)).astype(np.int32)
+    for r in range(g):
+        k = int(rng.integers(0, L + 1)) if sentinel_tail else L
+        if r == 1:
+            k = 0
+        src[r, k:], dst[r, k:] = v, v
+        order = np.argsort(dst[r], kind="stable")
+        src[r], dst[r] = src[r][order], dst[r][order]
+    return src, dst
+
+
+def _jax_rows_stage(src, dst, active, failed, n):
+    """The JAX package's edge stage of one pass (refine_pass's), vmapped over
+    rows, with both sums through its Pallas K1 (peel_delta, kernel=True)."""
+    import jax
+
+    from repro.core.dispatch import peel_delta as j_peel_delta
+
+    def one(s, d, a, f):
+        s_c, d_c = jnp.minimum(s, n - 1), jnp.minimum(d, n - 1)
+        live = (s < n) & (d < n) & a[s_c] & a[d_c]
+        fs, fd = f[s_c] & live, f[d_c] & live
+        assign = fd & (~fs | (d_c < s_c))
+        return (j_peel_delta(fs, d, n, True), jnp.sum((fs | fd).astype(jnp.int32)),
+                j_peel_delta(assign, d, n, True))
+
+    return [np.asarray(x) for x in jax.vmap(one)(*(jnp.asarray(x) for x in (
+        src, dst, active, failed)))]
+
+
+@pytest.mark.parametrize("g,L,v", [(3, 200, 40), (1, 64, 1), (4, 1, 5), (5, 513, 17),
+                                   (2, 0, 8)])
+def test_peel_edges_rows_match_jax_vmap(g, L, v):
+    """Random rows with sentinel tails, an empty row, a row of one vertex,
+    zero lanes: delta, removed and inc per row equal the JAX package's
+    vmapped edge stage over its Pallas K1 (interpret mode)."""
+    rng = np.random.default_rng(g * 100 + L + v)
+    src, dst = _rows(rng, g, L, v)
+    active = rng.random((g, v)) < 0.85
+    failed = rng.random((g, v)) < 0.4
+    got = peel.peel_edges_rows(*(torch.from_numpy(x) for x in (src, dst, active, failed)),
+                               n_nodes=v, charge=True)
+    assert [tuple(x.shape) for x in got] == [(g, v), (g,), (g, v)]
+    assert all(x.dtype == torch.int32 for x in got)
+    if L:
+        want = _jax_rows_stage(src, dst, active, failed, v)
+        for x, w in zip(got, want):
+            np.testing.assert_array_equal(x.numpy(), w)
+    for r in range(g):  # and each row is the single-row plain version
+        one = ref.peel_edges_ref(*(torch.from_numpy(x[r]) for x in (src, dst, active, failed)),
+                                 v, True)
+        for x, w in zip(got, one):
+            assert torch.equal(x[r], w)
+    two = peel.peel_edges_rows(*(torch.from_numpy(x) for x in (src, dst, active, failed)),
+                               n_nodes=v)
+    assert len(two) == 2 and torch.equal(two[0], got[0]) and torch.equal(two[1], got[1])
+
+
+@pytest.mark.parametrize("g,L,v,kind", [(3, 300, 50, "bool"), (4, 37, 3, "int32"),
+                                        (1, 1, 1, "bool"), (2, 0, 4, "int32")])
+def test_segment_sum_rows_match_jax_vmap(g, L, v, kind):
+    """K1's rows entry against jax.vmap of the JAX package's K1 (Pallas,
+    interpret mode): ids past V (the sentinel tail) drop."""
+    import jax
+
+    rng = np.random.default_rng(g + L + v)
+    _, seg = _rows(rng, g, L, v)
+    vals = (rng.random((g, L)) < 0.5 if kind == "bool"
+            else rng.integers(-3, 4, (g, L)).astype(np.int32))
+    got = segsum.segment_sum_rows_sorted(torch.from_numpy(vals), torch.from_numpy(seg),
+                                         num_segments=v)
+    assert got.shape == (g, v) and got.dtype == torch.int32
+    if L:
+        want = jax.vmap(lambda x, s: jops.segment_sum(x.astype(jnp.float32), s,
+                                                      num_segments=v))(
+            jnp.asarray(vals), jnp.asarray(seg))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int32))
+    else:
+        assert not got.any()
+
+
+def test_rows_entries_reject_bad_input():
+    """Every row's dst must ascend on its own (a row may restart below the
+    last id of the row before); wrong shapes raise."""
+    src = torch.tensor([[0, 1, 2], [2, 0, 1]], dtype=torch.int32)
+    ok = torch.tensor([[0, 1, 3], [0, 2, 3]], dtype=torch.int32)
+    bad = torch.tensor([[0, 1, 3], [2, 0, 3]], dtype=torch.int32)
+    f = torch.zeros(2, 3, dtype=torch.bool)
+    peel.peel_edges_rows(src, ok, None, f, n_nodes=3)
+    with pytest.raises(ValueError, match="ascending"):
+        peel.peel_edges_rows(src, bad, None, f, n_nodes=3)
+    with pytest.raises(ValueError, match="ascending"):
+        segsum.segment_sum_rows_sorted(f[:, :3], bad, num_segments=3)
+    with pytest.raises(ValueError, match="bool"):
+        peel.peel_edges_rows(src, ok, None, torch.zeros(2, 4, dtype=torch.bool), n_nodes=3)
+    with pytest.raises(ValueError, match=r"\[G, L\]"):
+        peel.peel_edges_rows(src[0], ok[0], None, f, n_nodes=3)
+    with pytest.raises(TypeError):
+        segsum.segment_sum_rows_sorted(ok.float(), ok, num_segments=3)
