@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py           # every phase below
+    python3 chip_smoke.py --rows    # phase 1, then only the rows kernels' numbers
+                                    # of phase 12, on its lane bucket built directly
 
 Builds the hand-written kernels from ``src/repro_torch/csrc`` (one ``nvcc``
 per source, all at once) and drives the port's paths at full width:
@@ -102,8 +104,15 @@ takes a plain gather), and the kernel switched on. Phases:
      each flush, top_k, the refined flushes; the 32 lane-bucket tenants
      queried one by one through solo engines against one ``query_group``
      (queries a second), both profiled; K2's and K1's rows entries on their
-     own at the lane bucket's shape beside the single-row K2 over the same
-     lanes;
+     own at the lane bucket's shape and at its first 4 and 16 rows, and at
+     131,072 vertices a row and at the least V past the shared-memory budget
+     (``peel.ROWS_SHARED_STATE_BYTES``; ``[8, 524288]`` random lanes), each
+     checked against its plain version, with ``device_ms`` (CUDA-graph
+     replay), ``flushed_ms`` (the same after a 256 MB read evicts the L2),
+     the split by kernel and memset (torch.profiler), the one-row kernel
+     over the same lanes flattened (keys r*(V+1)+id) as a diagnostic twin
+     with its split, ptxas' registers and spills of every rows kernel, and
+     each wrapper's host time a call;
  13. a JSON line of every kernel, then the card's name and power limit, then
      the result line ``{"ok": true, "device": {...}}``.
 
@@ -114,6 +123,7 @@ the ``repro_torch`` package is not beside it.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -208,11 +218,9 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int = 20) -> float:
-    """Device time of one ``fn()``: the call captured once in a CUDA graph
-    and replayed ``iters`` times between two CUDA events, so the host's
-    launch overhead (Python, ctypes, allocation) is not in it. ``fn`` must
-    not synchronise."""
+def capture_graph(fn):
+    """``fn()`` captured once in a CUDA graph (after a warm call on a side
+    stream) and replayed once. ``fn`` must not synchronise."""
     import torch
 
     side = torch.cuda.Stream()
@@ -225,6 +233,17 @@ def graph_ms(fn, iters: int = 20) -> float:
         fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one ``fn()``: the call captured once in a CUDA graph
+    and replayed ``iters`` times between two CUDA events, so the host's
+    launch overhead (Python, ctypes, allocation) is not in it. ``fn`` must
+    not synchronise."""
+    import torch
+
+    graph = capture_graph(fn)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -1807,96 +1826,279 @@ def mixed_batch(rng, eng, n: int, events: int):
     return rng.integers(0, n, (events // 2, 2)), np.stack([u[take], v[take]], axis=1)
 
 
-def rows_kernel_timing(batch, device: str) -> tuple[dict, dict]:
-    """K2's and K1's rows entries on their own at a lane bucket's shape (every
-    row of ``batch``: G x 2*capacity lanes, V vertices a row) against their
-    plain versions, with times, their bounds and one PyTorch call each;
-    beside them the single-row K2 over the same G x L lanes flattened (row r's
-    vertex v as r*(V+1)+v, the sentinel columns inactive), which must give
-    the same delta."""
+def kernel_split(fn, calls: int = 20) -> dict:
+    """Device time of one ``fn()`` call by kernel name (memsets as
+    ``Memset``), in ms: the mean over ``calls`` calls traced by
+    torch.profiler. Empty when the profiler records no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA or ev.name.startswith("obs:"):
+            continue
+        name = ev.name.replace("(anonymous namespace)::", "").replace("void ", "")
+        name = re.split(r"[<(]", name)[0].split("::")[-1].strip()
+        out[name] = out.get(name, 0.0) + ev.time_range.elapsed_us() / calls / 1e3
+    return out
+
+
+def flushed_ms(fn, iters: int = 20) -> float:
+    """Median device time of one ``fn()`` with a cold L2: the call captured
+    in a CUDA graph, and before each replay (outside the timed interval) a
+    read of 256 MB, five times the H100's 50 MB L2."""
+    import torch
+
+    graph = capture_graph(fn)
+    flush = torch.ones(64 * 2**20, dtype=torch.float32, device="cuda")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(iters):
+        flush.sum()
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def ptxas_records(match=lambda fn: True) -> list[dict]:
+    """Registers, shared memory and spill bytes of every kernel that ptxas
+    reported in this process's builds (``build.build_logs``, nvcc run with
+    ``-Xptxas -v``), demangled where ``c++filt`` is there."""
+    from repro_torch.kernels import build
+
+    out = []
+    for source, text in build.build_logs.items():
+        fn, spills = None, (None, None)
+        for line in text.splitlines():
+            if "Function properties for" in line:
+                fn = line.split("Function properties for")[-1].strip()
+            elif "spill stores" in line:
+                nums = re.findall(r"(\d+) bytes spill", line)
+                spills = (int(nums[0]), int(nums[1])) if len(nums) == 2 else (None, None)
+            elif "Used" in line and "registers" in line and fn:
+                regs = re.search(r"Used (\d+) registers", line)
+                smem = re.search(r"(\d+) bytes smem", line)
+                out.append(dict(source=source, function=fn, registers=int(regs.group(1)),
+                                smem_bytes=int(smem.group(1)) if smem else 0,
+                                spill_store_bytes=spills[0], spill_load_bytes=spills[1]))
+                fn, spills = None, (None, None)
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r["function"] for r in out),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(out):
+            for r, name in zip(out, names):
+                r["function"] = name
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return [r for r in out if match(r["function"])]
+
+
+def bucket_lanes(device: str, coo: dict = FUSED_COO):
+    """Phase 12's lane bucket as its seed traffic leaves it, built directly:
+    [tenants, 2 * capacity] int32 src and dst, row i the symmetric lanes of
+    tenant i's seed pairs (``planted_dense(n, clique, ..., seed=i)`` for the
+    first ``planted``, else 3n uniform pairs) with a sentinel tail, each row
+    sorted by dst; and the degrees [tenants, n]."""
+    import torch
+
+    from repro_torch.graphs.generators import planted_dense
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(12)
+    n, lanes = coo["n"], 2 * coo["capacity"]
+    src = np.full((coo["tenants"], lanes), n, np.int32)
+    dst = np.full((coo["tenants"], lanes), n, np.int32)
+    for i in range(coo["tenants"]):
+        if i < coo["planted"]:
+            g, _, _ = planted_dense(n, coo["clique"], coo["p_background"], coo["p_planted"],
+                                    seed=i)
+            pairs = np.stack([g.src[:g.n_edges], g.dst[:g.n_edges]], axis=1)
+        else:
+            pairs = rng.integers(0, n, (3 * n, 2))
+        pairs = pairs[:coo["capacity"]].astype(np.int32)
+        k = pairs.shape[0]
+        src[i, :k], src[i, k:2 * k] = pairs[:, 0], pairs[:, 1]
+        dst[i, :k], dst[i, k:2 * k] = pairs[:, 1], pairs[:, 0]
+        order = np.argsort(dst[i], kind="stable")
+        src[i], dst[i] = src[i][order], dst[i][order]
+    s, d = (torch.from_numpy(x).to(device) for x in (src, dst))
+    return s, d, ref.segment_sum_rows_ref(d < n, d, n)
+
+
+def random_rows(device: str, g: int, lanes: int, v: int, seed: int):
+    """[g, lanes] int32 rows at V vertices: about 85 % of each row's lanes
+    uniform (dst sorted), the rest the sentinel V."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, v, (g, lanes)).astype(np.int32)
+    dst = rng.integers(0, v, (g, lanes)).astype(np.int32)
+    live = rng.random((g, lanes)) < 0.85
+    src[~live], dst[~live] = v, v
+    order = np.argsort(dst, axis=1, kind="stable")
+    src, dst = np.take_along_axis(src, order, 1), np.take_along_axis(dst, order, 1)
+    return tuple(torch.from_numpy(x).to(device) for x in (src, dst))
+
+
+def rows_point(src, dst, active, failed, v: int, device: str, full: bool = False) -> dict:
+    """K2's and K1's rows entries at one [G, L] shape with V vertices a row:
+    checked against their plain versions (K2 with and without the live mask
+    and the charges), then timed on the card (``device_ms``: CUDA-graph
+    replay; ``flushed_ms``: the same with a cold L2), split by kernel and
+    memset (torch.profiler), beside the diagnostic twin: the one-row kernel
+    over the same lanes flattened, keys r*(V+1)+id (row r's vertex v at
+    r*(V+1)+v, the sentinel columns inactive), which must give the same
+    sums. ``full`` adds the wrapper's ``ms``, ``plain_ms``, ``library_ms``
+    and ``host_us``."""
     import torch
 
     from repro_torch.kernels import peel, ref, segsum
 
-    lanes = sorted(batch.lane_of.values())
-    batch.resort(lanes)
-    src, dst, deg, _ = batch.rows(lanes)
     g, L = src.shape
-    v = batch.node_capacity
-    rng = np.random.default_rng(3)
-    active = deg > 0
-    failed = active & torch.from_numpy(rng.random((g, v)) < 0.3).to(device)
-    got = peel.peel_edges_rows(src, dst, active, failed, n_nodes=v, charge=True)
-    want = ref.peel_edges_rows_ref(src, dst, active, failed, v, True)
-    err = max(int((x.long() - w.long()).abs().max()) for x, w in zip(got, want))
-    check(err == 0, f"K2 rows differs from peel_edges_rows_ref by {err}")
-    k1 = segsum.segment_sum_rows_sorted(dst < v, dst, num_segments=v)
-    err1 = int((k1.long() - ref.segment_sum_rows_ref(dst < v, dst, v).long()).abs().max())
-    check(err1 == 0, f"K1 rows differs from segment_sum_rows_ref by {err1}")
-    check(torch.equal(k1, deg), "K1 rows over the bucket's lanes differs from the degrees")
-    # the same work as one row: keys r*(V+1)+id, sentinel columns never live
+    e = g * L
+    err = 0
+    for act in (active, None):
+        for charge in (False, True):
+            got = peel.peel_edges_rows(src, dst, act, failed, n_nodes=v, charge=charge)
+            want = ref.peel_edges_rows_ref(src, dst, act, failed, v, charge)
+            err = max([err] + [int((x.long() - w.long()).abs().max()) if x.numel() else 0
+                               for x, w in zip(got, want)])
+    check(err == 0, f"K2 rows [{g}, {L}] V={v} differs from peel_edges_rows_ref by {err}")
+    live = dst < v
+    k1 = segsum.segment_sum_rows_sorted(live, dst, num_segments=v)
+    err1 = int((k1.long() - ref.segment_sum_rows_ref(live, dst, v).long()).abs().max())
+    check(err1 == 0, f"K1 rows [{g}, {L}] V={v} differs from segment_sum_rows_ref by {err1}")
+    # the twins: keys r*(V+1)+id, one row of G*(V+1) vertices
     base = torch.arange(g, dtype=torch.int32, device=device)[:, None] * (v + 1)
     f_src, f_dst = (base + src).reshape(-1), (base + dst).reshape(-1)
     pad = torch.zeros((g, 1), dtype=torch.bool, device=device)
     f_act = torch.cat([active, pad], 1).reshape(-1)
     f_fail = torch.cat([failed, pad], 1).reshape(-1)
+    f_live = live.reshape(-1)
     nf = g * (v + 1)
-    single = peel.peel_edges_sorted(f_src, f_dst, f_act, f_fail, n_nodes=nf)
-    check(torch.equal(single[0].view(g, v + 1)[:, :v], got[0])
-          and int(single[1]) == int(got[1].sum()),
-          "the single-row K2 over the flattened rows differs from K2 rows")
+    rows2 = peel.peel_edges_rows(src, dst, active, failed, n_nodes=v)
+    twin2 = peel.peel_edges_sorted(f_src, f_dst, f_act, f_fail, n_nodes=nf)
+    check(torch.equal(twin2[0].view(g, v + 1)[:, :v], rows2[0])
+          and int(twin2[1]) == int(rows2[1].sum()),
+          "the one-row K2 over the flattened rows differs from K2 rows")
+    twin1 = segsum.segment_sum_sorted(f_live, f_dst, num_segments=nf, out_dtype=torch.int32)
+    check(torch.equal(twin1.view(g, v + 1)[:, :v], k1),
+          "the one-row K1 over the flattened rows differs from K1 rows")
 
     def k2_rows():
         return peel.peel_edges_rows(src, dst, active, failed, n_nodes=v)
 
     def k1_rows():
-        return segsum.segment_sum_rows_sorted(dst < v, dst, num_segments=v)
+        return segsum.segment_sum_rows_sorted(live, dst, num_segments=v)
 
-    def k2_single():
+    def k2_twin():
         return peel.peel_edges_sorted(f_src, f_dst, f_act, f_fail, n_nodes=nf)
 
-    keys = (base + dst.clamp(max=v)).reshape(-1)
-    acc = torch.zeros(nf, dtype=torch.int32, device=device)
-    src_flat = (base // (v + 1) * v + src.clamp(max=v - 1)).reshape(-1)
-    e = g * L
-    k2 = dict(ms=time_ms(k2_rows), device_ms=graph_ms(k2_rows),
-              plain_ms=time_ms(lambda: ref.peel_edges_rows_ref(src, dst, active, failed, v)),
-              library_ms=time_ms(lambda: acc.index_add_(
-                  0, keys, failed.reshape(-1)[src_flat].to(torch.int32))),
-              single_row_ms=time_ms(k2_single), single_row_device_ms=graph_ms(k2_single),
-              max_abs_err=float(err), shape=f"[{g}, {L}] lanes, V={v}")
-    k2["bound_ms"], k2["bound_by"] = bound_ms(e * 8 + g * v * 2 + g * v * 4 + g * 4, 8 * e)
-    # fewer rows of the same bucket: the rows entry against the one-row K2
-    # over the same lanes, on the card
-    k2["by_rows"] = {}
-    for gs in sorted({4, 16, g} & set(range(1, g + 1))):
-        n_s = gs * (v + 1)
-        sub = (f_src[:gs * L], f_dst[:gs * L], f_act[:n_s], f_fail[:n_s])
-        k2["by_rows"][gs] = dict(
-            rows_device_ms=graph_ms(lambda: peel.peel_edges_rows(
-                src[:gs], dst[:gs], active[:gs], failed[:gs], n_nodes=v)),
-            single_row_device_ms=graph_ms(lambda: peel.peel_edges_sorted(
-                *sub[:2], sub[2], sub[3], n_nodes=n_s)),
-            bound_ms=bound_ms(gs * L * 8 + gs * v * 6 + gs * 4, 8 * gs * L)[0])
-    k1d = dict(ms=time_ms(k1_rows), device_ms=graph_ms(k1_rows),
-               plain_ms=time_ms(lambda: ref.segment_sum_rows_ref(dst < v, dst, v)),
-               library_ms=time_ms(lambda: acc.index_add_(0, keys, (dst < v).reshape(-1).to(
-                   torch.int32))),
-               max_abs_err=float(err1), shape=f"[{g}, {L}] lanes, V={v}")
-    k1d["bound_ms"], k1d["bound_by"] = bound_ms(e * 5 + g * v * 4, e)
-    log(f"  K2 rows at {k2['shape']}: kernel_ms={k2['ms']:.6f} device_ms={k2['device_ms']:.6f}"
-        f" plain_ms={k2['plain_ms']:.6f}"
-        f" library_ms={k2['library_ms']:.6f} (gather + index_add_) bound_ms="
-        f"{k2['bound_ms']:.6f} ({k2['bound_by']}); the single-row K2 over the same "
-        f"{e} lanes {k2['single_row_ms']:.6f} ({k2['single_row_device_ms']:.6f} on the card)")
-    log("  K2 rows by row count (device_ms rows / one-row over the same lanes / bound): "
-        + "; ".join(f"G={gs}: {r['rows_device_ms']:.6f} / {r['single_row_device_ms']:.6f} / "
-                    f"{r['bound_ms']:.6f}" for gs, r in k2["by_rows"].items()))
-    log(f"  K1 rows at {k1d['shape']}: kernel_ms={k1d['ms']:.6f} device_ms="
-        f"{k1d['device_ms']:.6f} plain_ms={k1d['plain_ms']:.6f} library_ms="
-        f"{k1d['library_ms']:.6f} (index_add_) bound_ms={k1d['bound_ms']:.6f} "
-        f"({k1d['bound_by']})")
-    return k2, k1d
+    def k1_twin():
+        return segsum.segment_sum_sorted(f_live, f_dst, num_segments=nf, out_dtype=torch.int32)
+
+    out = {}
+    # K2: src and dst read once, active and failed once, delta and removed
+    # written once; K1: ids and bool values read once, the sums written once
+    for name, fn, twin, n_bytes, n_ops, e_err in (
+            ("k2", k2_rows, k2_twin, e * 8 + g * v * 6 + g * 4, 8 * e, err),
+            ("k1", k1_rows, k1_twin, e * 5 + g * v * 4, e, err1)):
+        b, by = bound_ms(n_bytes, n_ops)
+        r = dict(shape=f"[{g}, {L}] lanes, V={v}", device_ms=graph_ms(fn),
+                 flushed_ms=flushed_ms(fn), split_ms=kernel_split(fn),
+                 twin_device_ms=graph_ms(twin), twin_flushed_ms=flushed_ms(twin),
+                 twin_split_ms=kernel_split(twin), bound_ms=b, bound_by=by,
+                 max_abs_err=float(e_err))
+        r["bound_share_flushed"] = b / r["flushed_ms"]
+        out[name] = r
+    if full:
+        keys = (base + dst.clamp(max=v)).reshape(-1)
+        acc = torch.zeros(nf, dtype=torch.int32, device=device)
+        src_flat = (base // (v + 1) * v + src.clamp(max=v - 1)).reshape(-1)
+        out["k2"].update(
+            ms=time_ms(k2_rows), host_us=host_us(k2_rows),
+            plain_ms=time_ms(lambda: ref.peel_edges_rows_ref(src, dst, active, failed, v)),
+            library_ms=time_ms(lambda: acc.index_add_(
+                0, keys, failed.reshape(-1)[src_flat].to(torch.int32))))
+        out["k1"].update(
+            ms=time_ms(k1_rows), host_us=host_us(k1_rows),
+            plain_ms=time_ms(lambda: ref.segment_sum_rows_ref(live, dst, v)),
+            library_ms=time_ms(lambda: acc.index_add_(0, keys, f_live.to(torch.int32))))
+    return out
+
+
+def log_rows_point(label: str, p: dict) -> None:
+    for name, title in (("k2", "K2 rows"), ("k1", "K1 rows")):
+        r = p[name]
+        extra = (f" ms={r['ms']:.6f} host_us={r['host_us']:.3f} plain_ms={r['plain_ms']:.6f} "
+                 f"library_ms={r['library_ms']:.6f}" if "ms" in r else "")
+        log(f"  {title} {label} {r['shape']}: device_ms={r['device_ms']:.6f} flushed_ms="
+            f"{r['flushed_ms']:.6f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}; "
+            f"{r['bound_share_flushed']:.3f} of the flushed time){extra}; split "
+            f"{ {k: round(t, 6) for k, t in r['split_ms'].items()} }; one-row twin "
+            f"device_ms={r['twin_device_ms']:.6f} flushed_ms={r['twin_flushed_ms']:.6f} split "
+            f"{ {k: round(t, 6) for k, t in r['twin_split_ms'].items()} }")
+
+
+def rows_kernel_timing(src, dst, deg, v: int, device: str) -> tuple[dict, dict]:
+    """K2's and K1's rows entries at a lane bucket's shape (``src``/``dst``
+    [G, L], V vertices a row, live masks from the degrees ``deg``): every
+    number of ``rows_point`` at all G rows and at the first 4 and 16, a V
+    sweep (131,072 vertices a row, and the least V whose packed row state
+    passes the shared-memory budget, ``peel.ROWS_SHARED_STATE_BYTES``), and
+    the registers and spills ptxas gave every rows kernel. Returns the K2
+    and K1 numbers at all G rows, each with the rest under ``by_rows``,
+    ``by_v`` and ``ptxas``."""
+    import torch
+
+    from repro_torch.kernels import peel, segsum
+
+    g = src.shape[0]
+    rng = np.random.default_rng(3)
+    active = deg > 0
+    failed = active & torch.from_numpy(rng.random((g, v)) < 0.3).to(device)
+    check(torch.equal(segsum.segment_sum_rows_sorted(dst < v, dst, num_segments=v), deg),
+          "K1 rows over the bucket's lanes differs from the degrees")
+    points = {}
+    for gs in sorted({4, 16, g} & set(range(1, g + 1)), reverse=True):
+        points[gs] = rows_point(src[:gs].contiguous(), dst[:gs].contiguous(), active[:gs],
+                                failed[:gs], v, device, full=gs == g)
+        log_rows_point(f"G={gs}", points[gs])
+    budget = getattr(peel, "ROWS_SHARED_STATE_BYTES", 64 * 1024)
+    by_v = {}
+    for vs in (131072, 4 * budget + 16):
+        s2, d2 = random_rows(device, 8, 1 << 19, vs, seed=vs)
+        mask_rng = np.random.default_rng(vs)
+        a2 = torch.from_numpy(mask_rng.random((s2.shape[0], vs)) < 0.9).to(device)
+        f2 = a2 & torch.from_numpy(mask_rng.random((s2.shape[0], vs)) < 0.3).to(device)
+        by_v[vs] = rows_point(s2, d2, a2, f2, vs, device)
+        log_rows_point(f"V={vs}", by_v[vs])
+        del s2, d2
+    # the row-local rows kernels, or the grid-stride ones keyed by RowKeys
+    # that they replaced
+    regs = ptxas_records(lambda fn: "rows_kernel" in fn or "RowKeys" in fn)
+    for r in regs:
+        log(f"  ptxas {r['source']} {r['function'][:110]}: {r['registers']} registers, "
+            f"{r['smem_bytes']} bytes smem, spill {r['spill_store_bytes']} / "
+            f"{r['spill_load_bytes']} bytes")
+    out = []
+    for name in ("k2", "k1"):
+        top = dict(points[g][name])
+        top["by_rows"] = {gs: p[name] for gs, p in points.items() if gs != g}
+        top["by_v"] = {vs: p[name] for vs, p in by_v.items()}
+        top["ptxas"] = [r for r in regs if ("peel" in r["source"]) == (name == "k2")]
+        out.append(top)
+    return out[0], out[1]
 
 
 def phase_fused(device: str, coo: dict = FUSED_COO, dense: dict = FUSED_DENSE,
@@ -2158,7 +2360,10 @@ def phase_fused(device: str, coo: dict = FUSED_COO, dense: dict = FUSED_DENSE,
     prof = profile_call(requery_fused)
     prof_seq = profile_call(requery_solo)
     batch = next(iter(fused_coo.values())).batch
-    k2_rows, k1_rows = rows_kernel_timing(batch, device)
+    lanes = sorted(batch.lane_of.values())
+    batch.resort(lanes)
+    b_src, b_dst, b_deg, _ = batch.rows(lanes)
+    k2_rows, k1_rows = rows_kernel_timing(b_src, b_dst, b_deg, batch.node_capacity, device)
 
     med = {k: statistics.median(v) for k, v in times.items() if isinstance(v, list) and v}
     qps_seq = len(coo_names) / statistics.median(seq_s)
@@ -2199,7 +2404,11 @@ def phase_fused(device: str, coo: dict = FUSED_COO, dense: dict = FUSED_DENSE,
     return launches, times, k2_rows, k1_rows
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    if argv not in ([], ["--rows"]):
+        print(f"usage: python3 chip_smoke.py [--rows]; got {argv}", file=sys.stderr)
+        return 2
+    rows_only = argv == ["--rows"]
     try:
         import torch
     except ImportError:
@@ -2230,15 +2439,20 @@ def main() -> int:
         module.load_library()
     log(f"  K1, K2, K3, K4, K5 built and loaded in {time.perf_counter() - t0:.3f} s from "
         f"{', '.join(src.name for src in sources)}")
-    for source, text in build.build_logs.items():
-        fn, spills = "?", ""
-        for line in text.splitlines():
-            if "Function properties for" in line:
-                fn = line.split("Function properties for")[-1].strip()
-            elif "spill" in line:
-                spills = line.strip()
-            elif "registers" in line:
-                log(f"  ptxas {source} {fn[:72]}: {line.split(':', 1)[-1].strip()}; {spills}")
+    for r in ptxas_records():
+        log(f"  ptxas {r['source']} {r['function'][:96]}: {r['registers']} registers, "
+            f"{r['smem_bytes']} bytes smem, spill {r['spill_store_bytes']} / "
+            f"{r['spill_load_bytes']} bytes")
+    if rows_only:
+        t0 = time.perf_counter()
+        b_src, b_dst, b_deg = bucket_lanes(device)
+        log(f"  phase 12's lane bucket built in {time.perf_counter() - t0:.3f} s: "
+            f"{tuple(b_src.shape)} lanes, V={FUSED_COO['n']}")
+        k2_rows, k1_rows = rows_kernel_timing(b_src, b_dst, b_deg, FUSED_COO["n"], device)
+        log(json.dumps({"k2_rows": k2_rows, "k1_rows": k1_rows,
+                        "smoke_s": time.perf_counter() - t_start}, default=str))
+        log(card_line())
+        return 0
 
     t0 = time.perf_counter()
     g = rmat(SCALE, EDGE_FACTOR, seed=0)
@@ -2371,4 +2585,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

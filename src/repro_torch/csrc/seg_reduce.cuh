@@ -7,8 +7,13 @@
 //   * Ownership. A warp owns a tile of TILE = 32 x ITEMS consecutive lanes;
 //     each thread owns ITEMS = 16 consecutive lanes of it. Tiles are cut by
 //     lanes, not by rows, so a 40,000-lane RMAT hub row spans many tiles and
-//     every warp does the same work. Persistent blocks walk the tiles
-//     grid-stride (tile = warp, warp + n_warps, ...).
+//     every warp does the same work. Two walkers hand out the tiles:
+//     walk_tiles, persistent blocks grid-stride over one sequence of lanes
+//     (tile = warp, warp + n_warps, ...); walk_span, the row-local walker of
+//     the rows entries, where G rows of L lanes, each sorted on its own, are
+//     cut into spans of whole tiles of one row and a block walks one span
+//     (tile = first + warp, + warps a block, ...), so that it knows its row
+//     and keeps that row's state near (row_spans sizes the spans).
 //   * Loads. The lane origin is shifted by `pad` lanes (0-3) so that every
 //     thread's 16 ids start on a 16-byte boundary: four int4 loads. The
 //     caller loads its values the same way (16 bools in one uint4, 4 floats
@@ -16,10 +21,11 @@
 //     partial chunks at the two ends of the lanes are read lane by lane.
 //     Lanes before 0 read as row -1 and lanes at or past n_lanes as row
 //     n_rows: both are dropped, and both keep the ids sorted.
-//   * Keys. A lane's row is computed from its id in registers (Keys):
-//     the id itself (PlainKeys), or, for G rows of L lanes each sorted on
-//     its own, row * (V + 1) + id (RowKeys), so that one pass reduces a
-//     whole batch of rows, [G, L] lanes onto [G, V + 1] keys.
+//   * Keys. A lane's row is computed from its id in registers (Keys,
+//     PlainKeys: the id itself, clamped). The row-local walker runs on one
+//     row's lanes with the row's own pointers, so its keys are plain too:
+//     the caller offsets its output by row * (V + 1) and a row's sentinel
+//     tail never meets the next row's vertex 0.
 //   * Reduction. A thread sums its runs in registers and stores every run
 //     that starts and ends inside it. The run that crosses into the next
 //     thread is combined across the warp by a segmented scan on
@@ -40,6 +46,8 @@
 // slower on the H100 (its shared memory caps the warps an SM holds, and a
 // warp's 2.5-4 KB tile is a small copy), as did loading the next tile
 // before reducing the current one (twice the registers, half the warps).
+// For the row-local walker, staging a warp's next tile in shared memory by
+// cp.async, or asking L2 for it ahead, measured no faster either.
 //
 // Everything here is a device function; nothing allocates or synchronises.
 
@@ -56,11 +64,11 @@ constexpr unsigned FULL = 0xffffffffu;
 
 // Lanes of padding before lane 0 that put every thread's first id on a
 // 16-byte boundary (ids are 4-byte aligned, so 0 to 3).
-inline int pad_of(const void* seg) {
+__host__ __device__ inline int pad_of(const void* seg) {
   return static_cast<int>(reinterpret_cast<uintptr_t>(seg) / 4 % 4);
 }
 
-inline long long tiles_of(long long n_lanes, int pad) {
+__host__ __device__ inline long long tiles_of(long long n_lanes, int pad) {
   return (n_lanes + pad + TILE - 1) / TILE;
 }
 
@@ -82,38 +90,6 @@ struct PlainKeys {
   __device__ __forceinline__ void chunk(long long, int (&id)[ITEMS]) const {
 #pragma unroll
     for (int j = 0; j < ITEMS; ++j) id[j] = clamp_row(id[j], n_rows);
-  }
-};
-
-// RowKeys: the lanes are rows of `len` lanes, each sorted by its ids in
-// [0, v] (v the sentinel). Lane e, of row r = e / len, has key
-// r * (v + 1) + id with the id clamped to [-1, v], so the rows are segments
-// of one ascending sequence of n_rows = rows * (v + 1) keys: a row's
-// sentinel tail (key r * (v + 1) + v) cannot merge with the next row's
-// vertex 0, and an id below 0 lands on the row before's sentinel key (or
-// -1 in row 0). The caller drops the sentinel keys.
-struct RowKeys {
-  int n_rows, len, v;
-  __device__ __forceinline__ int key(int r, int id) const {
-    return r * (v + 1) + (id < 0 ? -1 : (id > v ? v : id));
-  }
-  __device__ __forceinline__ int operator()(long long e, int id) const {
-    return key(static_cast<int>(e) / len, id);
-  }
-  // Keys of a chunk's 16 lanes from l0 (>= 0): one division a chunk, then
-  // the row advanced lane by lane (len >= 1, so a step of one lane crosses
-  // at most one row edge).
-  __device__ __forceinline__ void chunk(long long l0, int (&id)[ITEMS]) const {
-    int row = static_cast<int>(l0) / len;
-    long long next = static_cast<long long>(row + 1) * len;
-#pragma unroll
-    for (int j = 0; j < ITEMS; ++j) {
-      if (l0 + j >= next) {
-        ++row;
-        next += len;
-      }
-      id[j] = key(row, id[j]);
-    }
   }
 };
 
@@ -187,6 +163,37 @@ __device__ __forceinline__ void walk_tiles(const int* __restrict__ seg, long lon
     load_chunk(seg, t, pad, n_lanes, keys, load_extra, c);
     reduce(t, c);
   }
+}
+
+// Walk the tiles [t_begin, t_end) of one row (its lanes seg[0, n_lanes),
+// pad its own), the block's warps in turn: tile = t_begin + warp, + warps a
+// block, ..., each loaded straight into registers after prologue() (the
+// block's set-up; every thread calls it, so it may hold __syncthreads).
+// Lanes at or past n_rows (the row's sentinel tail, sorted last) contribute
+// nothing, so a span that starts there returns before the prologue, and a
+// warp stops at its first tile that lies wholly past them. reduce(t, chunk)
+// does the work of tile t.
+template <typename Extra, typename Keys, typename Prologue, typename LoadExtra, typename Reduce>
+__device__ __forceinline__ void walk_span(const int* __restrict__ seg, long long n_lanes,
+                                          int pad, long long t_begin, long long t_end,
+                                          const Keys& keys, int warps_per_block,
+                                          Prologue&& prologue, LoadExtra&& load_extra,
+                                          Reduce&& reduce) {
+  if (row_at(seg, t_begin * TILE - pad, n_lanes, keys) >= keys.n_rows) return;
+  prologue();
+  for (long long t = t_begin + (threadIdx.x >> 5); t < t_end; t += warps_per_block) {
+    Chunk<Extra> c;
+    load_chunk(seg, t, pad, n_lanes, keys, load_extra, c);
+    if (c.prev >= keys.n_rows) break;
+    reduce(t, c);
+  }
+}
+
+// The tiles of span s of `spans` in a row of n_tiles tiles: [begin, end).
+__device__ __forceinline__ void span_of(int s, int spans, long long n_tiles, long long& begin,
+                                        long long& end) {
+  begin = n_tiles * s / spans;
+  end = n_tiles * (s + 1) / spans;
 }
 
 // The rows of a tile that cross its edges, the same in every lane of the
@@ -324,6 +331,48 @@ inline int persistent_blocks(K kernel, int threads, size_t smem, long long n_til
   long long blocks = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   if (want < blocks) blocks = want;
   return static_cast<int>(blocks > 0 ? blocks : 1);
+}
+
+// Spans a row is cut into by a row-local kernel (a grid of rows x spans
+// blocks of `threads` threads): enough for one wave of the card (as many
+// blocks as the SMs hold at once), but, once every SM has a block, no more
+// than `cap` a row (a caller whose blocks each read their row's state sets
+// it so that this read stays small beside the lanes), and none shorter than
+// a tile a warp. The SM count and the blocks an SM holds are host queries
+// that cost more than a small launch, so they are kept for the last few
+// (kernel, device, shared memory) asked.
+template <typename K>
+inline int row_spans(K kernel, int threads, size_t smem, long long rows, long long row_tiles,
+                     long long cap) {
+  struct Entry {
+    const void* kernel;
+    int dev;
+    size_t smem;
+    int sms, per_sm;
+  };
+  static Entry seen[4] = {};
+  static int next = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const void* key = reinterpret_cast<const void*>(kernel);
+  const Entry* e = nullptr;
+  for (const Entry& x : seen)
+    if (x.kernel == key && x.dev == dev && x.smem == smem) e = &x;
+  if (!e) {
+    Entry x{key, dev, smem, 0, 0};
+    cudaDeviceGetAttribute(&x.sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&x.per_sm, kernel, threads, smem);
+    seen[next] = x;
+    e = &seen[next];
+    next = (next + 1) % 4;
+  }
+  const long long wave = static_cast<long long>(e->sms) * (e->per_sm > 0 ? e->per_sm : 1);
+  long long spans = wave / rows;
+  const long long fill = (e->sms + rows - 1) / rows;  // one block an SM
+  const long long most = cap > fill ? cap : fill;
+  if (spans > most) spans = most;
+  if (spans > row_tiles / (threads / 32)) spans = row_tiles / (threads / 32);
+  return static_cast<int>(spans > 0 ? spans : 1);
 }
 
 }  // namespace seg_reduce

@@ -33,10 +33,14 @@
 // launch, int32 out [G, V + 1]. This replaces K1 under the JAX package's
 // vmap, which gives the Pallas grid a batch axis for the fused tenants'
 // bucket peels (src/repro/core/prune.py:533 _batched_bucket_peel_jit, its
-// degrees through segsum.py:118). The same core with RowKeys: lane e of row
-// r is keyed r * (V + 1) + id in registers, so the rows are segments of one
-// ascending sequence and a row's sentinel tail never merges with the next
-// row's vertex 0. Bound by the same bytes as one call over G * L lanes.
+// degrees through segsum.py:118). A memset of the output, then row-local
+// blocks (reduce_rows_kernel on seg_reduce.cuh's walk_span): a block owns a
+// span of whole tiles of one row and runs the one-row reduction on that
+// row's lanes and pointers (plain keys, the row's own alignment pad, the
+// output offset by r * (V + 1), so a row's sentinel tail never meets the
+// next row's vertex 0); a span that starts in the sentinel tail returns at
+// once. Bound by the same bytes as one call over G * L lanes; as for K2
+// rows, the shared core's per-tile arithmetic is what holds it above that.
 //
 // Launched on the caller's stream; it neither allocates nor synchronises:
 // the caller passes the scratch (float32 carries, or the D > 1 row offsets).
@@ -66,13 +70,13 @@ struct RawVals {
   unsigned w[ITEMS * sizeof(T) / 4];
 };
 
-// 16-byte loads when VEC (the chunk lies inside the lanes and the address is
+// 16-byte loads when vec (the chunk lies inside the lanes and the address is
 // aligned), else lane by lane; lanes outside [0, n_lanes) read 0.
-template <typename T, bool VEC>
+template <typename T>
 __device__ __forceinline__ void load_vals(const T* __restrict__ vals, long long l0,
-                                          long long n_lanes, RawVals<T>& r) {
+                                          long long n_lanes, bool vec, RawVals<T>& r) {
   constexpr int N = ITEMS * sizeof(T) / 4;
-  if (VEC && l0 >= 0 && l0 + ITEMS <= n_lanes) {
+  if (vec && l0 >= 0 && l0 + ITEMS <= n_lanes) {
     const uint4* p = reinterpret_cast<const uint4*>(vals + l0);
 #pragma unroll
     for (int k = 0; k < N / 4; ++k) {
@@ -102,46 +106,81 @@ __device__ __forceinline__ A lane_val(const RawVals<T>& r, int j) {
     return static_cast<A>(from_bits(r.w[j], T()));
 }
 
-// D = 1: warp tiles walked grid-stride. int32 sums add the crossing rows
-// with atomicAdd; float32 sums write them to the carry slots (2 a tile).
-// Keys: seg_reduce::PlainKeys (one row of lanes) or RowKeys (G rows, the
-// output in key space [G, V + 1], its sentinel column dropped by the caller).
-template <typename T, typename A, bool VEC, typename Keys>
+// The work of tile t: the core's reduction onto out[0, n_rows); int32 sums
+// add the crossing rows with atomicAdd, float32 sums write them to the carry
+// slots (2 a tile).
+template <typename T, typename A>
+__device__ __forceinline__ void sum_tile(long long t, const seg_reduce::Chunk<RawVals<T>>& c,
+                                         int n_rows, A* __restrict__ out,
+                                         int* __restrict__ carry_rows,
+                                         A* __restrict__ carry_vals) {
+  A v[ITEMS];
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) v[j] = lane_val<T, A>(c.extra, j);
+  const auto carry = seg_reduce::reduce_tile<A>(c.rows, v, c.prev, c.next, n_rows,
+                                                [&](int r, A total) { out[r] = total; });
+  if ((threadIdx.x & 31) != 0) return;
+  if constexpr (std::is_integral<A>::value) {  // int32: exact atomics
+    if (carry.head_row >= 0) atomicAdd(out + carry.head_row, carry.head_val);
+    if (carry.tail_row >= 0) atomicAdd(out + carry.tail_row, carry.tail_val);
+  } else {
+    carry_rows[2 * t] = carry.head_row;
+    carry_vals[2 * t] = carry.head_val;
+    carry_rows[2 * t + 1] = carry.tail_row;
+    carry_vals[2 * t + 1] = carry.tail_val;
+  }
+}
+
+// D = 1: warp tiles of one sequence of lanes walked grid-stride.
+template <typename T, typename A, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 reduce_d1_kernel(const T* __restrict__ vals, const int* __restrict__ seg,
-                 long long n_lanes, int pad, long long n_tiles, Keys keys,
+                 long long n_lanes, int pad, long long n_tiles, seg_reduce::PlainKeys keys,
                  A* __restrict__ out, int* __restrict__ carry_rows,
                  A* __restrict__ carry_vals) {
-  using Chunk = seg_reduce::Chunk<RawVals<T>>;
   seg_reduce::walk_tiles<RawVals<T>>(
       seg, n_lanes, pad, n_tiles, keys, WARPS,
-      [&](long long l0, RawVals<T>& r) { load_vals<T, VEC>(vals, l0, n_lanes, r); },
-      [&](long long t, const Chunk& c) {
-        A v[ITEMS];
-#pragma unroll
-        for (int j = 0; j < ITEMS; ++j) v[j] = lane_val<T, A>(c.extra, j);
-        const auto carry = seg_reduce::reduce_tile<A>(
-            c.rows, v, c.prev, c.next, keys.n_rows, [&](int r, A total) { out[r] = total; });
-        if ((threadIdx.x & 31) != 0) return;
-        if constexpr (std::is_integral<A>::value) {  // int32: exact atomics
-          if (carry.head_row >= 0) atomicAdd(out + carry.head_row, carry.head_val);
-          if (carry.tail_row >= 0) atomicAdd(out + carry.tail_row, carry.tail_val);
-        } else {
-          carry_rows[2 * t] = carry.head_row;
-          carry_vals[2 * t] = carry.head_val;
-          carry_rows[2 * t + 1] = carry.tail_row;
-          carry_vals[2 * t + 1] = carry.tail_val;
-        }
+      [&](long long l0, RawVals<T>& r) { load_vals<T>(vals, l0, n_lanes, VEC, r); },
+      [&](long long t, const seg_reduce::Chunk<RawVals<T>>& c) {
+        sum_tile<T, A>(t, c, keys.n_rows, out, carry_rows, carry_vals);
       });
 }
 
-template <typename T, typename A, bool VEC, typename Keys>
+template <typename T, typename A, bool VEC>
 void launch_d1(const T* vals, const int* seg, long long n_lanes, int pad, long long n_tiles,
-               Keys keys, A* out, int* carry_rows, A* carry_vals, cudaStream_t stream) {
-  auto kernel = reduce_d1_kernel<T, A, VEC, Keys>;
+               seg_reduce::PlainKeys keys, A* out, int* carry_rows, A* carry_vals,
+               cudaStream_t stream) {
+  auto kernel = reduce_d1_kernel<T, A, VEC>;
   const int blocks = seg_reduce::persistent_blocks(kernel, THREADS, 0, n_tiles);
   kernel<<<blocks, THREADS, 0, stream>>>(vals, seg, n_lanes, pad, n_tiles, keys, out,
                                          carry_rows, carry_vals);
+}
+
+// Rows: block b owns span b % spans of row b / spans (len lanes of ids in
+// [0, v], v the sentinel) and sums it onto the row's v + 1 output ints.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+reduce_rows_kernel(const T* __restrict__ vals, const int* __restrict__ seg, int len, int v,
+                   int spans, int* __restrict__ out) {
+  const int r = blockIdx.x / spans;
+  const long long lanes = static_cast<long long>(r) * len;
+  const int* seg_r = seg + lanes;
+  const T* vals_r = vals + lanes;
+  const int pad = seg_reduce::pad_of(seg_r);
+  long long t_begin, t_end;
+  seg_reduce::span_of(blockIdx.x - r * spans, spans, seg_reduce::tiles_of(len, pad), t_begin,
+                      t_end);
+  if (t_begin == t_end) return;
+  // values take 16-byte loads when their chunks start on the ids' 16-byte
+  // boundary in this row, lane-by-lane loads otherwise
+  const bool vec = (reinterpret_cast<uintptr_t>(vals_r) - sizeof(T) * pad) % 16 == 0;
+  int* out_r = out + static_cast<long long>(r) * (v + 1);
+  seg_reduce::walk_span<RawVals<T>>(
+      seg_r, len, pad, t_begin, t_end, seg_reduce::PlainKeys{v}, WARPS, []() {},
+      [&](long long l0, RawVals<T>& w) { load_vals<T>(vals_r, l0, len, vec, w); },
+      [&](long long t, const seg_reduce::Chunk<RawVals<T>>& c) {
+        sum_tile<T, int>(t, c, v, out_r, nullptr, nullptr);
+      });
 }
 
 // D > 1: one warp per row (grid-stride), lanes over the columns.
@@ -207,31 +246,25 @@ int launch(const void* vals_ptr, const void* seg_ptr, long long n_lanes, int n_r
 }
 
 // Rows: values and seg [rows, len] (each row sorted by its own ids in [0, v])
-// onto int32 out [rows, v + 1] in key space, the sentinel column v
-// included: a memset and the reduction with RowKeys, crossing rows added
-// with atomicAdd. No scratch.
+// onto int32 out [rows, v + 1], the sentinel column v included: a memset
+// and the row-local reduction, crossing rows added with atomicAdd. No
+// scratch.
 template <typename T>
 int launch_rows(const void* vals_ptr, const void* seg_ptr, int rows, int len, int v,
                 void* out_ptr, void* stream_ptr) {
   if (rows <= 0 || v < 0) return 0;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const T* vals = static_cast<const T*>(vals_ptr);
-  const int* seg = static_cast<const int*>(seg_ptr);
   int* out = static_cast<int*>(out_ptr);
-  const seg_reduce::RowKeys keys{rows * (v + 1), len, v};
-  const cudaError_t err = cudaMemsetAsync(out, 0, sizeof(int) * keys.n_rows, stream);
+  const cudaError_t err =
+      cudaMemsetAsync(out, 0, sizeof(int) * static_cast<long long>(rows) * (v + 1), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n_lanes = static_cast<long long>(rows) * len;
-  if (n_lanes == 0) return static_cast<int>(cudaGetLastError());
-  const int pad = seg_reduce::pad_of(seg);
-  const long long n_tiles = seg_reduce::tiles_of(n_lanes, pad);
-  const bool vec = (reinterpret_cast<uintptr_t>(vals) - sizeof(T) * pad) % 16 == 0;
-  if (vec)
-    launch_d1<T, int, true>(vals, seg, n_lanes, pad, n_tiles, keys, out, nullptr, nullptr,
-                            stream);
-  else
-    launch_d1<T, int, false>(vals, seg, n_lanes, pad, n_tiles, keys, out, nullptr, nullptr,
-                             stream);
+  if (len == 0) return static_cast<int>(cudaGetLastError());
+  auto kernel = reduce_rows_kernel<T>;
+  const int spans = seg_reduce::row_spans(kernel, THREADS, 0, rows,
+                                          seg_reduce::tiles_of(len, 0), len);
+  kernel<<<rows * spans, THREADS, 0, stream>>>(static_cast<const T*>(vals_ptr),
+                                               static_cast<const int*>(seg_ptr), len, v, spans,
+                                               out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,8 +31,14 @@ SOURCE = build.CSRC / "peel.cu"
 # The packed vertex state (2 bits a vertex) of the one-row entry is kept in
 # each block's shared memory up to this many bytes (819,200 vertices), and
 # read through L1/L2 above it; chip_smoke.py times both at the main path's
-# 524,288 vertices. The rows entry always reads it through L1/L2.
+# 524,288 vertices.
 SHARED_STATE_BYTES = 200 * 1024
+# The rows entry packs a row's state into the shared memory of each block
+# of that row up to this many bytes (262,144 vertices a row), and reads the
+# row's mask bytes through L1/L2 above it: every block reads its row's 2V
+# mask bytes to pack them, which stops paying once that read outgrows the
+# lanes a block owns. chip_smoke.py times both sides.
+ROWS_SHARED_STATE_BYTES = 64 * 1024
 
 launches = 0       # peel_edges_sorted launches, counted where the kernel is launched
 rows_launches = 0  # peel_edges_rows launches (one for a whole group of rows)
@@ -53,8 +59,8 @@ def load_library() -> ctypes.CDLL:
     lib.peel_edges.restype = ctypes.c_int
     lib.peel_edges_rows.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                                    ctypes.c_void_p]
+                                    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                                    ctypes.c_void_p, ctypes.c_void_p]
     lib.peel_edges_rows.restype = ctypes.c_int
     lib.peel_rows_buffer_ints.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.peel_rows_buffer_ints.restype = ctypes.c_longlong
@@ -156,11 +162,11 @@ def peel_edges_rows(
     [G, V])`` with ``charge``: row r's are ``peel_edges_sorted`` of row r. On
     a CPU tensor this is the plain version (``ref.peel_edges_rows_ref``),
     after a check that every row's dst ascends; on a CUDA tensor one call of
-    the kernel for the whole group (a pack launch and the pass), counted
-    once in ``rows_launches``; it reads the packed state through L1/L2
-    (``SHARED_STATE_BYTES`` is the one-row entry's). ``delta`` and ``inc``
-    are [G, V] views of a [G, V + 1] buffer (the kernel's key space, its
-    last column the sentinel's).
+    the kernel for the whole group (a memset of the outputs and one launch
+    of row-local blocks, each packing its row's state into shared memory up
+    to ``ROWS_SHARED_STATE_BYTES``), counted once in ``rows_launches``.
+    ``delta`` and ``inc`` are [G, V] views of a [G, V + 1] buffer (the
+    kernel's key space, its last column the sentinel's).
     """
     global rows_launches
     if (src.dtype != torch.int32 or dst.dtype != torch.int32 or src.dim() != 2
@@ -193,7 +199,8 @@ def peel_edges_rows(
         err = build.on_device(dst.device, lib.peel_edges_rows, src.data_ptr(), dst.data_ptr(),
                               g, n_lanes, n_nodes,
                               None if active is None else active.data_ptr(),
-                              failed.data_ptr(), int(charge), buf.data_ptr())
+                              failed.data_ptr(), int(charge), ROWS_SHARED_STATE_BYTES,
+                              buf.data_ptr())
         if err:
             raise build.launch_error(lib, "peel_error_string", err, "peel rows kernel")
         rows_launches += 1
@@ -207,4 +214,4 @@ def peel_edges_rows(
 
 
 __all__ = ["peel_edges_sorted", "peel_edges_rows", "load_library", "SOURCE",
-           "SHARED_STATE_BYTES"]
+           "SHARED_STATE_BYTES", "ROWS_SHARED_STATE_BYTES"]

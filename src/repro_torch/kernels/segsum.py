@@ -158,8 +158,9 @@ def segment_sum_rows_sorted(
 
     Returns int32 [G, V]: row r is ``segment_sum_sorted`` of row r. On a CPU
     tensor the plain version (``ref.segment_sum_rows_ref``), after a check
-    that every row ascends; on a CUDA tensor one launch of the kernel for
-    the whole group, counted once in ``rows_launches``. The result is a
+    that every row ascends; on a CUDA tensor one call of the kernel for the
+    whole group (a memset and one launch of row-local blocks), counted once
+    in ``rows_launches``. The result is a
     [G, V] view of a [G, V + 1] buffer (the kernel's key space, its last
     column the sentinel's).
     """

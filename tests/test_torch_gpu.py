@@ -824,13 +824,17 @@ def test_stream_lane_perm_consistent_after_resort(cuda):
 # ---------------------------------------------------------------------------
 # row-batched K1 and K2 (the fused tenants' passes) and the fused flush
 # ---------------------------------------------------------------------------
-def _row_lanes(rng, g, L, v):
+def _row_lanes(rng, g, L, v, hub=False):
     """[g, L] int32 lanes, each row dst-sorted with a ragged sentinel tail;
-    row 1 (when there is one) all sentinel."""
+    row 1 (when there is one) all sentinel. ``hub``: row 0 has no tail and
+    three quarters of its lanes share one dst (a run across many tiles)."""
     src = rng.integers(0, v, (g, L)).astype(np.int32)
     dst = rng.integers(0, v, (g, L)).astype(np.int32)
     for r in range(g):
         k = 0 if r == 1 else int(rng.integers(0, L + 1))
+        if hub and r == 0:
+            k = L
+            dst[r, :3 * L // 4] = v // 2
         src[r, k:], dst[r, k:] = v, v
         order = np.argsort(dst[r], kind="stable")
         src[r], dst[r] = src[r][order], dst[r][order]
@@ -879,6 +883,81 @@ def test_segment_sum_rows_matches_plain(cuda, g, L, v, kind):
     assert segsum.rows_launches == before + 1
     want = ref.segment_sum_rows_ref(torch.from_numpy(vals), torch.from_numpy(seg), v)
     assert torch.equal(got.cpu(), want)
+
+
+def _rows_case(cuda, g, L, v, hub, shift, seed):
+    """Lanes of _row_lanes as [g, L] views shifted ``shift`` ints off a
+    16-byte boundary, with live and failed masks, on the card."""
+    rng = np.random.default_rng(seed)
+    src, dst = _row_lanes(rng, g, L, v, hub)
+    flat = [torch.from_numpy(np.r_[np.zeros(shift, np.int32), x.ravel()]).to(cuda)
+            for x in (src, dst)]
+    s, d = (t[shift:].view(g, L) for t in flat)
+    a, f = (torch.from_numpy(rng.random((g, v)) < p).to(cuda) for p in (0.85, 0.35))
+    return s, d, a, f
+
+
+def _check_rows_kernels(s, d, a, f, v):
+    """K2's rows entry (live mask and none, charges and none) and K1's (bool
+    and int32 values) against their plain versions, one launch a call."""
+    g = s.shape[0]
+    for act in (a, None):
+        for charge in (False, True):
+            before = peel.rows_launches
+            got = peel.peel_edges_rows(s, d, act, f, n_nodes=v, charge=charge)
+            assert peel.rows_launches == before + (1 if g and v else 0)
+            want = ref.peel_edges_rows_ref(s.cpu(), d.cpu(), None if act is None
+                                           else act.cpu(), f.cpu(), v, charge)
+            for x, w in zip(got, want):
+                assert torch.equal(x.cpu(), w), (act is None, charge)
+    for vals in (d < v // 2, (s % 7 - 3).int()):
+        before = segsum.rows_launches
+        got = segsum.segment_sum_rows_sorted(vals, d, num_segments=v)
+        assert segsum.rows_launches == before + 1
+        assert torch.equal(got.cpu(), ref.segment_sum_rows_ref(vals.cpu(), d.cpu(), v))
+
+
+@pytest.mark.parametrize("g,L,v,hub", [(2, 2600, 30, True), (6, 20_000, 300, True),
+                                       (1, 3000, 50, False), (130, 777, 20, False),
+                                       (64, 4096, 512, False), (3, 90, 1, False),
+                                       (3, 1030, 1, True), (40, 40, 64, False),
+                                       (30, 13, 100, False)])
+def test_rows_kernels_row_local_edges(cuda, g, L, v, hub):
+    """The row-local rows kernels where their spans cut: a hub run across
+    many tiles and spans, one row (G = 1), more rows than SMs (G = 130),
+    rows of one vertex, L not a multiple of 4, an all-sentinel row, rows of
+    fewer lanes than a thread holds (a thread then sees lanes before the
+    row, small ids and the sentinel together); aligned and unaligned
+    (shift 1) views."""
+    for shift in (0, 1):
+        _check_rows_kernels(*_rows_case(cuda, g, L, v, hub, shift, g * 7 + L + v), v)
+
+
+@pytest.mark.parametrize("budget,v", [(1024, 4096), (1024, 4112), (None, 262_144),
+                                      (None, 262_160)])
+def test_peel_edges_rows_shared_state_budget(cuda, monkeypatch, budget, v):
+    """Both sides of ROWS_SHARED_STATE_BYTES (a row's packed state in shared
+    memory up to it, its bytes through L1/L2 past it): at a lowered budget
+    (4,096 vertices just fit 1 KB, 4,112 do not) and at the default 64 KB
+    (262,144 vertices fit, 262,160 do not)."""
+    if budget is not None:
+        monkeypatch.setattr(peel, "ROWS_SHARED_STATE_BYTES", budget)
+    fits = peel.load_library().peel_state_bytes(v) <= peel.ROWS_SHARED_STATE_BYTES
+    assert fits == (v in (4096, 262_144))
+    for shift in (0, 1):
+        _check_rows_kernels(*_rows_case(cuda, 3, 5000, v, True, shift, v + shift), v)
+
+
+def test_rows_kernels_bitwise_repeatable(cuda):
+    """Two launches of each rows kernel on the same inputs give the same bits
+    (the crossing runs are integer atomics, exact in any order)."""
+    s, d, a, f = _rows_case(cuda, 8, 40_000, 700, True, 0, 5)
+    one = peel.peel_edges_rows(s, d, a, f, n_nodes=700, charge=True)
+    one = [x.clone() for x in one]
+    two = peel.peel_edges_rows(s, d, a, f, n_nodes=700, charge=True)
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
+    k1 = segsum.segment_sum_rows_sorted(d < 700, d, num_segments=700).clone()
+    assert torch.equal(k1, segsum.segment_sum_rows_sorted(d < 700, d, num_segments=700))
 
 
 @pytest.mark.parametrize("n", [300, 2000])

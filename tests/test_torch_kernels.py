@@ -417,13 +417,18 @@ def test_peel_edges_sorted_rejects_bad_input():
 # ---------------------------------------------------------------------------
 def _rows(rng, g, L, v, sentinel_tail=True):
     """[g, L] lanes, each row dst-sorted with a sentinel tail; row 1 empty
-    (all sentinel) when g > 1."""
+    (all sentinel) when g > 1. From L = 1024 on, row 0 has no tail and three
+    quarters of its lanes share one dst: a hub run across several of the
+    kernels' 512-lane tiles."""
     src = rng.integers(0, v, (g, L)).astype(np.int32)
     dst = rng.integers(0, v, (g, L)).astype(np.int32)
     for r in range(g):
         k = int(rng.integers(0, L + 1)) if sentinel_tail else L
         if r == 1:
             k = 0
+        if r == 0 and L >= 1024:
+            k = L
+            dst[r, :3 * L // 4] = v // 2
         src[r, k:], dst[r, k:] = v, v
         order = np.argsort(dst[r], kind="stable")
         src[r], dst[r] = src[r][order], dst[r][order]
@@ -450,11 +455,16 @@ def _jax_rows_stage(src, dst, active, failed, n):
 
 
 @pytest.mark.parametrize("g,L,v", [(3, 200, 40), (1, 64, 1), (4, 1, 5), (5, 513, 17),
-                                   (2, 0, 8)])
+                                   (2, 0, 8),
+                                   # the row-local kernel's edges: a hub run over
+                                   # several tiles, L not a multiple of 4 with a hub,
+                                   # more rows than a row's spans, V = 1 over rows
+                                   (2, 2600, 30), (4, 1030, 9), (40, 37, 5), (3, 90, 1)])
 def test_peel_edges_rows_match_jax_vmap(g, L, v):
-    """Random rows with sentinel tails, an empty row, a row of one vertex,
-    zero lanes: delta, removed and inc per row equal the JAX package's
-    vmapped edge stage over its Pallas K1 (interpret mode)."""
+    """Random rows with sentinel tails, an empty row (every lane the
+    sentinel), a row of one vertex, zero lanes, hub runs: delta, removed and
+    inc per row equal the JAX package's vmapped edge stage over its Pallas
+    K1 (interpret mode)."""
     rng = np.random.default_rng(g * 100 + L + v)
     src, dst = _rows(rng, g, L, v)
     active = rng.random((g, v)) < 0.85
@@ -478,10 +488,16 @@ def test_peel_edges_rows_match_jax_vmap(g, L, v):
 
 
 @pytest.mark.parametrize("g,L,v,kind", [(3, 300, 50, "bool"), (4, 37, 3, "int32"),
-                                        (1, 1, 1, "bool"), (2, 0, 4, "int32")])
+                                        (1, 1, 1, "bool"), (2, 0, 4, "int32"),
+                                        # a hub run over several tiles, L not a
+                                        # multiple of 4, many short rows, V = 1
+                                        (2, 2600, 30, "bool"), (4, 1030, 9, "int32"),
+                                        (3, 777, 40, "bool"), (40, 37, 5, "int32"),
+                                        (3, 90, 1, "bool")])
 def test_segment_sum_rows_match_jax_vmap(g, L, v, kind):
     """K1's rows entry against jax.vmap of the JAX package's K1 (Pallas,
-    interpret mode): ids past V (the sentinel tail) drop."""
+    interpret mode): ids past V (the sentinel tail) drop; an empty row, hub
+    runs."""
     import jax
 
     rng = np.random.default_rng(g + L + v)
