@@ -113,7 +113,24 @@ takes a plain gather), and the kernel switched on. Phases:
      over the same lanes flattened (keys r*(V+1)+id) as a diagnostic twin
      with its split, ptxas' registers and spills of every rows kernel, and
      each wrapper's host time a call;
- 13. a JSON line of every kernel, then the card's name and power limit, then
+ 13. the sharded tier (``core/distributed.py``) on ``torch.distributed``. World
+     1, a real NCCL group of one rank (file rendezvous, no network):
+     ``pbahmani_distributed`` on the RMAT graph at eps 0.1 and 0 and
+     ``cbds_distributed``, equal to phases 4 and 5 (coreness too), one K2
+     launch and one collective a pass (and K1 and one collective for the
+     degrees); phase 11's engine with ``sharded=True`` and a warm twin
+     (``pruned=False``) through its seed and first 4 batches, a pruned, warm,
+     fixed-round refined and ``cbds`` query after each, equal to phase 11's
+     answers and to a single-device engine; phase 12's lane bucket cut to 8
+     tenants through ``StreamService(fused=True, sharded=True)`` for 2 rounds
+     and a refined flush, equal to ``StreamService(fused=True)``, one
+     ``[G, V + 1]`` collective a batched pass. World 2, a gloo group with
+     both ranks on the one card (NCCL refuses two ranks on one device),
+     spawned: ``pbahmani_distributed`` at eps 0.1 and the stream's seed and 2
+     batches, both ranks equal to world 1, under a time limit. Wall times
+     (median of 3) and a torch.profiler split of the sharded peel (K2, the
+     all-reduce, the host); two ranks on one card give no scaling number;
+ 14. a JSON line of every kernel, then the card's name and power limit, then
      the result line ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure, so the script exits non-zero and prints no
@@ -282,7 +299,7 @@ def wall_s(fn, runs: int) -> list[float]:
     return out
 
 
-def profile_call(fn) -> dict:
+def profile_call(fn, top: int | None = 6) -> dict:
     """Where one ``fn()`` call's time goes on the card, by torch.profiler:
     the device's busy time (the union of its kernel, memset and copy
     intervals), its idle share of the profiled window (host clock, so the
@@ -314,7 +331,7 @@ def profile_call(fn) -> dict:
         if b > end:
             busy += b - max(a, end)
             end = b
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return dict(window_ms=window_us / 1e3, busy_ms=busy / 1e3,
                 idle_share=1.0 - busy / window_us, device_launches=len(spans),
                 top_ms={k[:60]: t / 1e3 for k, t in top})
@@ -636,11 +653,13 @@ def phase_threshold(device: str, n: int = 4096) -> None:
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
-def phase_pbahmani(g, device: str, scale: int, timed_runs: int = 3) -> tuple[int, dict]:
+def phase_pbahmani(g, device: str, scale: int, timed_runs: int = 3
+                   ) -> tuple[int, dict, dict]:
+    """Returns (K2 launches, times, the kernel-on triple by eps)."""
     from repro_torch.core import pbahmani, pbahmani_np
     from repro_torch.kernels import peel, segsum
 
-    launches, times = 0, {}
+    launches, times, answers = 0, {}, {}
     for eps in (0.1, 0.0):
         t0 = time.perf_counter()
         rho_n, mask_n, passes_n = pbahmani_np(g, eps=eps)
@@ -662,6 +681,7 @@ def phase_pbahmani(g, device: str, scale: int, timed_runs: int = 3) -> tuple[int
         check(want is None or want == (passes_k, int(mask_k.sum())),
               f"eps={eps}: (passes, |S|) = {passes_k, int(mask_k.sum())}, expected {want}")
         launches += n_launch
+        answers[eps] = (rho_k, mask_k, passes_k)
         on = wall_s(lambda: pbahmani(g, eps=eps, kernel=True, device=device), timed_runs)
         off = wall_s(lambda: pbahmani(g, eps=eps, kernel=False, device=device), timed_runs)
         times[eps] = dict(kernel_s=statistics.median(on), scatter_s=statistics.median(off),
@@ -682,11 +702,12 @@ def phase_pbahmani(g, device: str, scale: int, timed_runs: int = 3) -> tuple[int
             f"passes={passes_k}; on == off == pbahmani_np (numpy {t_np:.2f} s); "
             f"K2 launches={n_launch}; wall median of {timed_runs}: kernel "
             f"{times[eps]['kernel_s']:.6f} s, scatter {times[eps]['scatter_s']:.6f} s")
-    return launches, times
+    return launches, times, answers
 
 
-def phase_cbds(g, g_small, device: str, scale: int) -> tuple[int, int, dict]:
-    """Returns (K2 launches, K1 launches, times) of CBDS-P on ``g``."""
+def phase_cbds(g, g_small, device: str, scale: int) -> tuple[int, int, dict, tuple]:
+    """Returns (K2 launches, K1 launches, times, (cbds_p's dict, coreness))
+    of CBDS-P on ``g``."""
     from repro_torch.core import cbds_np, cbds_p, kcore_decompose, kcore_np
     from repro_torch.kernels import peel, segsum
 
@@ -758,7 +779,7 @@ def phase_cbds(g, g_small, device: str, scale: int) -> tuple[int, int, dict]:
     log(f"  k-core: max coreness={int(core_k[0].max())} k*={core_k[2]} m_v={core_k[3]} "
         f"m_e={core_k[4]} density={core_k[1]!r}; on == off; K2 launches={n_core}; "
         f"wall kernel {t_core_k:.6f} s, scatter {t_core_s:.6f} s")
-    return n_cbds, n_k1, times
+    return n_cbds, n_k1, times, (cb_k, core_k[0])
 
 
 # ---------------------------------------------------------------------------
@@ -1628,8 +1649,9 @@ def same_answer(a, b) -> bool:
 
 def phase_stream(device: str, graph: dict = STREAM_GRAPH, engine: dict = STREAM_ENGINE,
                  n_batches: int = STREAM_BATCHES, events: int = STREAM_EVENTS
-                 ) -> tuple[dict, dict]:
-    """Returns (launches by kernel on the stream's main path, times)."""
+                 ) -> tuple[dict, dict, list]:
+    """Returns (launches by kernel on the stream's main path, times, the
+    kernel-on engine's answers: the seed query's, then each batch's)."""
     import torch
 
     from repro_torch.core import pbahmani
@@ -1713,6 +1735,7 @@ def phase_stream(device: str, graph: dict = STREAM_GRAPH, engine: dict = STREAM_
     zero_launch_counts()
     _, seed_ms = ingest(insert=seed_edges)
     q = query("seed")
+    answers = [q]
     steady0 = AUDITOR.audited_steady_recompiles
     for b in range(n_batches):
         u, v = on.buffer.host_view()
@@ -1722,6 +1745,7 @@ def phase_stream(device: str, graph: dict = STREAM_GRAPH, engine: dict = STREAM_
         _, ms = ingest(insert=inserts, delete=np.stack([u[take], v[take]], axis=1))
         times["ingest_ms"].append(ms)
         q = query(f"batch {b}")
+        answers.append(q)
         if q.refreshed and not held:
             held.append(("after the first refresh", on.buffer.to_graph(), q))
     held.append(("after the last batch", on.buffer.to_graph(), q))
@@ -1810,7 +1834,7 @@ def phase_stream(device: str, graph: dict = STREAM_GRAPH, engine: dict = STREAM_
                  cbds_ms=cbds_ms, resort_share=resort_share, medians=med, profile=prof,
                  host_ms=host_ms,
                  n_refreshes=on.metrics.n_refreshes)
-    return launches, times
+    return launches, times, answers
 
 
 # ---------------------------------------------------------------------------
@@ -2404,6 +2428,424 @@ def phase_fused(device: str, coo: dict = FUSED_COO, dense: dict = FUSED_DENSE,
     return launches, times, k2_rows, k1_rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the sharded tier (core/distributed.py) on torch.distributed
+# ---------------------------------------------------------------------------
+SHARD_STREAM_BATCHES = 4          # phase 11's first 4 batches
+SHARD_FUSED = dict(FUSED_COO, tenants=8, planted=4)   # phase 12's lane bucket, cut
+SHARD_FUSED_ROUNDS = 2
+SHARD_REFINE = dict(refine=True, target_gap=-1.0, max_refine_rounds=4)
+SPAWN_TIMEOUT_S = 480             # world 2, both ranks together; killed past it
+
+
+def stream_batches(rng, eng, n: int, events: int):
+    """Phase 11's churn batch drawn against ``eng``'s buffer: 80 % uniform
+    inserts, 20 % deletes of present edges."""
+    u, v = eng.buffer.host_view()
+    take = rng.choice(np.flatnonzero(u < eng.buffer.sentinel), events // 5, replace=False)
+    return rng.integers(0, n, (events - events // 5, 2)), np.stack([u[take], v[take]], axis=1)
+
+
+def same_triple(a, b) -> bool:
+    return (np.float32(a[0]).view(np.int32) == np.float32(b[0]).view(np.int32)
+            and a[2] == b[2] and np.array_equal(a[1], b[1]))
+
+
+def sharded_pass_split(prof: dict) -> dict:
+    """A profiled sharded call's device time by role: K2, the all-reduce (an
+    NCCL kernel, or gloo's copies through pinned host memory; the pass
+    loop's own reads of its counts go to pageable memory), the rest of the
+    device, and the host (the window's idle time). ``prof`` is
+    ``profile_call(fn, top=None)``'s."""
+    if not prof:
+        return {}
+    by_name = prof["top_ms"]
+    k2 = sum(t for k, t in by_name.items() if "peel_kernel" in k)
+    coll = sum(t for k, t in by_name.items() if "nccl" in k.lower() or "Pinned" in k)
+    return dict(k2_ms=k2, all_reduce_ms=coll, other_device_ms=prof["busy_ms"] - k2 - coll,
+                host_ms=prof["window_ms"] - prof["busy_ms"], busy_ms=prof["busy_ms"],
+                window_ms=prof["window_ms"], device_launches=prof["device_launches"],
+                by_name_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8]))
+
+
+def _world2_rank(rank: int, world: int, init: str, data: str, out: str,
+                 device: str = "cuda") -> None:
+    """One rank of phase 13's world 2: a gloo group, every rank on cuda:0
+    (NCCL refuses two ranks on one device); ``pbahmani_distributed`` at eps
+    0.1 on phase 4's graph and the sharded stream's seed and 2 batches.
+    Writes its answers and, on the card, its times to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed
+    from repro_torch.graphs.convert import graph_from_arrays
+    from repro_torch.kernels import peel, segsum
+    from repro_torch.stream import DeltaEngine
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        segsum.load_library()
+        peel.load_library()  # built by the parent's phase 1: a load, not a build
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
+    try:
+        arrays = np.load(data)
+        g = graph_from_arrays(int(arrays["n_nodes"]), int(arrays["n_edges"]), arrays["src"],
+                              arrays["dst"], int(arrays["n_directed"]))
+        mesh = distributed.make_mesh(device="cuda:0" if on_card else device)
+        res = {"via_host": np.array([mesh.via_host])}
+        k2, coll = peel.launches, distributed.collectives
+        d, mask, passes = distributed.pbahmani_distributed(g, mesh, eps=0.1, kernel=on_card)
+        res.update(pb=np.array([np.float32(d).view(np.int32), passes]), pb_mask=mask,
+                   pb_counts=np.array([peel.launches - k2 if on_card else passes,
+                                       distributed.collectives - coll]))
+        res["pb_wall_s"] = np.array(wall_s(
+            lambda: distributed.pbahmani_distributed(g, mesh, eps=0.1), 3) if on_card else [])
+        # every rank makes the same calls, or the group's collectives part
+        split = sharded_pass_split(profile_call(
+            lambda: distributed.pbahmani_distributed(g, mesh, eps=0.1), top=None)
+            if on_card else {})
+        res["pb_split"] = np.array(json.dumps(split, default=str))
+        n = int(arrays["stream_n"])
+        eng = DeltaEngine(n, sharded=True, mesh=mesh, **json.loads(str(arrays["engine"])))
+        rng = np.random.default_rng(1)
+        eng.apply_updates(insert=arrays["seed_edges"])
+        for i in range(3):
+            if i:
+                eng.apply_updates(*stream_batches(rng, eng, n, int(arrays["events"])))
+            q = eng.query()
+            res[f"stream{i}"] = np.array([np.float32(q.density).view(np.int32), q.passes,
+                                          q.refreshed, q.pruned])
+            res[f"stream{i}_mask"] = q.mask
+        np.savez(out, **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_world2(g, device: str, stream_seed, stream_n: int, engine: dict, events: int,
+                 world1: dict) -> dict:
+    """Spawns phase 13's world 2 (``_world2_rank``) and holds both ranks'
+    answers to world 1's. A rank that fails, or a spawn past
+    ``SPAWN_TIMEOUT_S``, fails the smoke."""
+    import multiprocessing
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_world2_"))
+    data = tmp / "graph.npz"
+    np.savez(data, src=g.src, dst=g.dst, n_nodes=g.n_nodes, n_edges=g.n_edges,
+             n_directed=g.n_directed, seed_edges=stream_seed, stream_n=stream_n,
+             engine=json.dumps(engine), events=events)
+    ctx = multiprocessing.get_context("spawn")  # CUDA is initialized here
+    init = f"file://{tmp / 'rendezvous'}"
+    outs = [tmp / f"rank{r}.npz" for r in range(2)]
+    procs = [ctx.Process(target=_world2_rank,
+                         args=(r, 2, init, str(data), str(outs[r]), device))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    check(not hung, f"world 2: {len(hung)} rank(s) still running after {SPAWN_TIMEOUT_S} s")
+    check(all(p.exitcode == 0 for p in procs),
+          f"world 2: rank exit codes {[p.exitcode for p in procs]}")
+    spawn_s = time.perf_counter() - t0
+    ranks = [dict(np.load(o)) for o in outs]
+    want = world1["pb"]
+    for r, res in enumerate(ranks):
+        check(int(res["pb"][0]) == int(np.float32(want[0]).view(np.int32))
+              and int(res["pb"][1]) == want[2] and np.array_equal(res["pb_mask"], want[1]),
+              f"world 2 rank {r}: pbahmani_distributed differs from world 1")
+        check(tuple(res["pb_counts"]) == (want[2], want[2] + 1),
+              f"world 2 rank {r}: K2 launches and collectives {tuple(res['pb_counts'])} "
+              f"for {want[2]} passes")
+        for i, q in enumerate(world1["stream"][:3]):
+            check(np.array_equal(res[f"stream{i}"], [np.float32(q.density).view(np.int32),
+                                                     q.passes, q.refreshed, q.pruned])
+                  and np.array_equal(res[f"stream{i}_mask"], q.mask),
+                  f"world 2 rank {r}: stream query {i} differs from world 1")
+    split = json.loads(str(ranks[0]["pb_split"]))
+    walls = [list(map(float, res["pb_wall_s"])) or [float("nan")] for res in ranks]
+    via = ("host copies (gloo refused the card's tensors)" if ranks[0]["via_host"][0]
+           else f"gloo on {device} tensors")
+    log(f"  world 2 (gloo, both ranks on {device}:0, spawned; {spawn_s:.3f} s with each rank's "
+        f"build of its engine): pbahmani_distributed eps=0.1 and the sharded stream's seed "
+        f"and 2 batches == world 1 on both ranks; all-reduce through {via}; wall median "
+        f"of 3 by rank {[statistics.median(w) for w in walls]} s ({walls}); "
+        f"profiled (rank 0): {split}. Two ranks share one card: not a scaling number")
+    return dict(spawn_s=spawn_s, via_host=bool(ranks[0]["via_host"][0]),
+                pbahmani_wall_s=walls, pbahmani_split=split)
+
+
+def phase_sharded(g, device: str, peel_answers: dict, cbds_answer: tuple,
+                  stream_answers: list, backend: str = "nccl", graph: dict = STREAM_GRAPH,
+                  engine: dict = STREAM_ENGINE, events: int = STREAM_EVENTS,
+                  coo: dict = SHARD_FUSED) -> tuple[dict, dict]:
+    """World 1 on a real NCCL group of one, then world 2. ``graph``,
+    ``engine`` and ``events`` are phase 11's, ``coo`` phase 12's lane bucket
+    cut. Returns (launches by kernel on the sharded main path, times)."""
+    import importlib
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed
+    from repro_torch.graphs.generators import planted_dense
+    from repro_torch.stream import DeltaEngine, StreamService
+
+    dispatch = importlib.import_module("repro_torch.core.dispatch")
+    sf = importlib.import_module("repro_torch.stream.fused")
+    main_launches = {k: 0 for k in launch_counts()}
+    main_collectives = [0]
+
+    def on_main(fn):
+        before, coll = launch_counts(), distributed.collectives
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for k, n in launch_counts().items():
+            main_launches[k] += n - before[k]
+        main_collectives[0] += distributed.collectives - coll
+        return out, ms
+
+    tmp = tempfile.mkdtemp(prefix="smoke_nccl_")
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous", world_size=1,
+                            rank=0)
+    times, world1 = {}, {}
+    try:
+        mesh = distributed.make_mesh(device=device)
+        check(mesh.device.type == torch.device(device).type and mesh.group is not None
+              and mesh.size == 1, f"the {backend} mesh of one: {mesh}")
+        log(f"  {backend} group of one: {mesh}")
+        zero_launch_counts()
+        # P-Bahmani: phase 4's answers, one K2 launch and one collective a pass
+        for eps in (0.1, 0.0):
+            before, coll = launch_counts(), distributed.collectives
+            got, ms = on_main(lambda: distributed.pbahmani_distributed(g, mesh, eps=eps,
+                                                                       kernel=True))
+            d = {k: n - before[k] for k, n in launch_counts().items()}
+            n_coll = distributed.collectives - coll
+            check(same_triple(got, peel_answers[eps]),
+                  f"eps={eps}: pbahmani_distributed {got[0]!r}/{got[2]} differs from phase 4's "
+                  f"{peel_answers[eps][0]!r}/{peel_answers[eps][2]}")
+            check(d["peel_edges"] == got[2] and d["segment_sum_sorted"] == 1
+                  and n_coll == got[2] + 1,
+                  f"eps={eps}: K2 {d['peel_edges']}, K1 {d['segment_sum_sorted']}, "
+                  f"collectives {n_coll} for {got[2]} passes")
+            wall = wall_s(lambda: distributed.pbahmani_distributed(g, mesh, eps=eps), 3)
+            split = sharded_pass_split(profile_call(
+                lambda: distributed.pbahmani_distributed(g, mesh, eps=eps), top=None))
+            times[f"pbahmani_{eps}"] = dict(first_ms=ms, wall_s=wall,
+                                            median_s=statistics.median(wall), passes=got[2],
+                                            collectives=n_coll, split=split)
+            if eps == 0.1:
+                world1["pb"] = got
+            log(f"  pbahmani_distributed eps={eps}: density={got[0]!r} passes={got[2]} == "
+                f"phase 4; K2 {d['peel_edges']} (one a pass), K1 1, collectives {n_coll} (the "
+                f"degrees' and one a pass); wall median of 3 "
+                f"{statistics.median(wall):.6f} s ({wall}); profiled: {split}")
+        # CBDS-P: phase 5's dict and coreness
+        cb_want, core_want = cbds_answer
+        before, coll = launch_counts(), distributed.collectives
+        cb, ms = on_main(lambda: distributed.cbds_distributed(g, mesh, kernel=True))
+        d = {k: n - before[k] for k, n in launch_counts().items()}
+        check(all(np.array_equal(cb[k], cb_want[k]) for k in cb_want)
+              and np.array_equal(cb["coreness"], core_want),
+              f"cbds_distributed {cb['density']!r}/{cb['k_star']} differs from phase 5's")
+        check(d["segment_sum_sorted"] == 2 and distributed.collectives - coll
+              == d["peel_edges"] + 3,
+              f"cbds_distributed: K1 {d['segment_sum_sorted']}, K2 {d['peel_edges']}, "
+              f"collectives {distributed.collectives - coll}")
+        wall = wall_s(lambda: distributed.cbds_distributed(g, mesh), 3)
+        times["cbds"] = dict(first_ms=ms, wall_s=wall, median_s=statistics.median(wall),
+                             k2_launches=d["peel_edges"])
+        log(f"  cbds_distributed: density={cb['density']!r} k*={cb['k_star']} == phase 5 "
+            f"(coreness too); K2 {d['peel_edges']} (one a fixpoint iteration), K1 2, "
+            f"collectives {d['peel_edges'] + 3}; wall median of 3 "
+            f"{statistics.median(wall):.6f} s ({wall})")
+
+        # the stream: phase 11's engine sharded, its first batches
+        t0 = time.perf_counter()
+        gs, _, _ = planted_dense(**graph)
+        seed_edges = np.stack([gs.src[:gs.n_edges], gs.dst[:gs.n_edges]], axis=1)
+        engines = {"sharded": DeltaEngine(gs.n_nodes, sharded=True, mesh=mesh, **engine),
+                   "warm": DeltaEngine(gs.n_nodes, sharded=True, mesh=mesh, pruned=False,
+                                       **engine),
+                   "single": DeltaEngine(gs.n_nodes, kernel=True, device=device, **engine)}
+        sh = engines["sharded"]
+        check(sh.n_shards == 1 and not sh.kernel and sh.device == mesh.device,
+              f"the sharded engine: {sh!r}")
+        rng = np.random.default_rng(1)
+        st = {"ingest_ms": [], "query_ms": [], "warm_ms": [], "refine_ms": [], "cbds_ms": [],
+              "single_query_ms": []}
+        world1["stream"] = []
+        for b in range(-1, SHARD_STREAM_BATCHES):
+            if b < 0:
+                ins, dels = seed_edges, None
+            else:
+                ins, dels = stream_batches(rng, sh, gs.n_nodes, events)
+            for name, eng in engines.items():
+                if name == "sharded":
+                    _, ms = on_main(lambda: eng.apply_updates(insert=ins, delete=dels))
+                    if b >= 0:
+                        st["ingest_ms"].append(ms)
+                else:
+                    eng.apply_updates(insert=ins, delete=dels)
+            label = "seed" if b < 0 else f"batch {b}"
+            q, ms = on_main(sh.query)
+            st["query_ms"].append(ms)
+            world1["stream"].append(q)
+            torch.cuda.synchronize()  # the single-device engine, timed beside it
+            t1 = time.perf_counter()
+            qs = engines["single"].query()
+            torch.cuda.synchronize()
+            st["single_query_ms"].append((time.perf_counter() - t1) * 1e3)
+            check(same_answer(q, stream_answers[b + 1]) and same_answer(q, qs),
+                  f"{label}: the sharded engine {q.density!r}/{q.passes} differs from phase "
+                  f"11's {stream_answers[b + 1].density!r} or the single-device engine's")
+            w, ms = on_main(engines["warm"].query)
+            st["warm_ms"].append(ms)
+            check(same_triple((w.density, w.mask, w.passes), (q.density, q.mask, q.passes))
+                  and not w.pruned, f"{label}: the sharded warm peel differs")
+            r, ms = on_main(lambda: sh.query(**SHARD_REFINE))
+            st["refine_ms"].append(ms)
+            check(same_answer(r, engines["single"].query(**SHARD_REFINE)),
+                  f"{label}: the sharded refined query differs from the single-device one")
+            c, ms = on_main(lambda: sh.cbds())
+            st["cbds_ms"].append(ms)
+            c1 = engines["single"].cbds()
+            check(all(np.array_equal(c[k], c1[k]) for k in c1),
+                  f"{label}: the sharded cbds differs from the single-device one")
+        st["phase_s"] = time.perf_counter() - t0
+        times["stream"] = st
+        log(f"  stream: planted_dense({graph}) in DeltaEngine({engine}, "
+            f"sharded=True) and a warm twin (pruned=False); the seed and "
+            f"{SHARD_STREAM_BATCHES} batches of phase 11, a pruned, warm, refined "
+            f"({SHARD_REFINE['max_refine_rounds']} rounds) and cbds query after each: == phase "
+            f"11's answers == the single-device engine (kernel on); "
+            f"{sh.metrics.n_refreshes} refreshes, {sh.metrics.n_pruned_queries} pruned")
+        log("  stream ms (sharded engine; the single-device engine's query beside it): " +
+            "; ".join(f"{k} {v}" for k, v in st.items()))
+
+        # the fused+sharded bucket: phase 12's lane bucket cut to 8 tenants
+        t0 = time.perf_counter()
+        eps, refresh_every = 0.1, 4
+        rng = np.random.default_rng(12)
+        names = [f"coo{i:02d}" for i in range(coo["tenants"])]
+        seeds = {}
+        for i, name in enumerate(names):
+            if i < coo["planted"]:
+                gp, _, _ = planted_dense(coo["n"], coo["clique"], coo["p_background"],
+                                         coo["p_planted"], seed=i)
+                seeds[name] = (np.stack([gp.src[:gp.n_edges], gp.dst[:gp.n_edges]], axis=1),
+                               None)
+            else:
+                seeds[name] = (rng.integers(0, coo["n"], (3 * coo["n"], 2)), None)
+        svcs = {k: StreamService(max_tenants=len(names), fused=True, sharded=k, eps=eps,
+                                 refresh_every=refresh_every, coalesce_window_ms=1e9,
+                                 device=device, mesh=mesh if k else None)
+                for k in (True, False)}
+        for k, svc in svcs.items():
+            for i, name in enumerate(names):
+                r = svc.create_tenant(name, n_nodes=coo["n"], capacity=coo["capacity"],
+                                      pruned=i < coo["planted"])
+                check(r.ok and r.value["placement"] == ("fused+sharded" if k else "fused"),
+                      f"create_tenant {name}: {r}")
+        flushes = []
+        real_flush, real_sum = sf._flush, distributed.all_reduce_sum
+        real_rows = dispatch._peel_edges_rows_local
+
+        def counted_flush(batch, members, **kw):
+            if not batch.sharded:
+                return real_flush(batch, members, **kw)
+            shapes, passes = [], []
+            distributed.all_reduce_sum = lambda t, m: shapes.append(tuple(t.shape)) or \
+                real_sum(t, m)
+            dispatch._peel_edges_rows_local = lambda *a: passes.append(
+                tuple(a[2].shape)) or real_rows(*a)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real_flush(batch, members, **kw)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                distributed.all_reduce_sum, dispatch._peel_edges_rows_local = \
+                    real_sum, real_rows
+            pass_reductions = [sh_ for sh_ in shapes if len(sh_) == 2 and sh_[1] % 2]
+            check(len(pass_reductions) == len(passes)
+                  and all(a[0] == b[0] for a, b in zip(pass_reductions, passes)),
+                  f"a sharded flush made {len(pass_reductions)} [G, V + 1] all-reduces for "
+                  f"{len(passes)} batched passes ({shapes})")
+            flushes.append(dict(members=len(members), ms=ms, batched_passes=len(passes),
+                                collectives=len(shapes), refine=bool(kw.get("refine")),
+                                group=sorted({p[0] for p in passes})))
+            return out
+
+        sf._flush = counted_flush
+        fused_ms = {"ingest_ms": [], "flush_ms": []}
+        try:
+            for svc in svcs.values():
+                check(svc.ingest_many(seeds).ok, "seeding the fused services failed")
+            for rnd in range(SHARD_FUSED_ROUNDS):
+                upd = {name: mixed_batch(rng, svcs[True].registry.get(name), coo["n"],
+                                         coo["events"]) for name in names}
+                r, ms = on_main(lambda: svcs[True].ingest_many(upd))
+                check(r.ok and svcs[False].ingest_many(upd).ok, f"round {rnd}: ingest failed")
+                fused_ms["ingest_ms"].append(ms)
+                tickets = [(svcs[True].submit_density(t), svcs[False].submit_density(t), t)
+                           for t in names]
+                n, ms = on_main(svcs[True].flush)
+                check(n == len(names) and svcs[False].flush() == len(names),
+                      f"round {rnd}: the flushes answered {n}")
+                fused_ms["flush_ms"].append(ms)
+                for a, b, t in tickets:
+                    ra, rb = svcs[True].poll(a), svcs[False].poll(b)
+                    check(ra.ok and rb.ok and ra.error is None and ra.value == rb.value,
+                          f"round {rnd} {t}: {ra} / {rb}")
+                    qa = svcs[True].registry.get(t)._cached_query
+                    qb = svcs[False].registry.get(t)._cached_query
+                    check(same_answer(qa, qb), f"round {rnd} {t}: fused+sharded "
+                          f"{qa.density!r}/{qa.passes} differs from fused {qb.density!r}")
+            from repro_torch.stream import query_group
+
+            ref_on, ms = on_main(lambda: query_group(
+                {t: svcs[True].registry.get(t) for t in names}, **SHARD_REFINE))
+            fused_ms["refine_ms"] = ms
+            ref_off = query_group({t: svcs[False].registry.get(t) for t in names},
+                                  **SHARD_REFINE)
+            for t in names:
+                check(same_answer(ref_on[t], ref_off[t]), f"refine {t}: sharded differs")
+        finally:
+            sf._flush = real_flush
+        check(any(f["batched_passes"] for f in flushes), "no sharded flush ran a batched pass")
+        fused_ms["phase_s"] = time.perf_counter() - t0
+        times["fused"] = dict(fused_ms, flushes=flushes)
+        log(f"  fused+sharded: {len(names)} tenants of phase 12's lane bucket "
+            f"({coo['planted']} pruned), StreamService(fused=True, sharded=True) == "
+            f"StreamService(fused=True) (kernel on) at every answer of "
+            f"{SHARD_FUSED_ROUNDS} rounds and a refined flush; one [G, V + 1] all-reduce a "
+            f"batched pass: " + "; ".join(
+                f"{f['members']} members {f['ms']:.3f} ms, {f['batched_passes']} passes "
+                f"(G={f['group']}), {f['collectives']} collectives"
+                f"{' (refine)' if f['refine'] else ''}" for f in flushes))
+        log(f"  fused ms: {fused_ms}")
+        launches = dict(main_launches)
+        times["collectives"] = main_collectives[0]
+    finally:
+        dist.destroy_process_group()
+    times["world2"] = phase_world2(g, device, seed_edges, gs.n_nodes, engine, events, world1)
+    return launches, times
+
+
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--rows"]):
         print(f"usage: python3 chip_smoke.py [--rows]; got {argv}", file=sys.stderr)
@@ -2476,10 +2918,11 @@ def main(argv: list[str]) -> int:
     phase_threshold(device)
 
     log("phase 4: P-Bahmani at full width")
-    peel_launches, peel_times = phase_pbahmani(g, device, SCALE)
+    peel_launches, peel_times, peel_answers = phase_pbahmani(g, device, SCALE)
 
     log("phase 5: CBDS-P at full width")
-    cbds_launches, cbds_k1_launches, cbds_times = phase_cbds(g, g_small, device, SCALE)
+    cbds_launches, cbds_k1_launches, cbds_times, cbds_answer = phase_cbds(
+        g, g_small, device, SCALE)
 
     log("phase 6: pruned P-Bahmani on the planted block at full width")
     pruned_launches, pruned_times, k4_inputs = phase_pruned(g_planted, device)
@@ -2501,7 +2944,7 @@ def main(argv: list[str]) -> int:
 
     log("phase 11: the streaming DeltaEngine on a planted block, churn batches")
     t0 = time.perf_counter()
-    stream_launches, stream_times = phase_stream(device)
+    stream_launches, stream_times, stream_answers = phase_stream(device)
     stream_times["phase_s"] = time.perf_counter() - t0
     log(f"  phase 11 took {stream_times['phase_s']:.3f} s; launches {stream_launches}")
 
@@ -2512,12 +2955,21 @@ def main(argv: list[str]) -> int:
     fused_times["phase_s"] = time.perf_counter() - t0
     log(f"  phase 12 took {fused_times['phase_s']:.3f} s; launches {fused_launches}")
 
+    log("phase 13: the sharded tier (world 1 on NCCL, world 2 on gloo)")
+    t0 = time.perf_counter()
+    shard_launches, shard_times = phase_sharded(g, device, peel_answers, cbds_answer,
+                                                stream_answers)
+    shard_times["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 13 took {shard_times['phase_s']:.3f} s; launches {shard_launches}, "
+        f"collectives {shard_times['collectives']}")
+
     k2_launches = (peel_launches + cbds_launches + pruned_launches["peel_edges"]
                    + fallback_launches + refine_launches + stream_launches["peel_edges"]
-                   + fused_launches["peel_edges"])
+                   + fused_launches["peel_edges"] + shard_launches["peel_edges"])
     k1_launches = (cbds_k1_launches + pruned_launches["segment_sum_sorted"] + fallback_k1
                    + stream_launches["segment_sum_sorted"]
-                   + fused_launches["segment_sum_sorted"])
+                   + fused_launches["segment_sum_sorted"]
+                   + shard_launches["segment_sum_sorted"])
     log(f"main path: K2 launches P-Bahmani (eps 0.1 and 0) {peel_launches}, CBDS-P "
         f"{cbds_launches}, pruned {pruned_launches['peel_edges']}, pruned fallback "
         f"{fallback_launches}, refinement {refine_launches}; K1 {k1_launches} (CBDS-P's "
@@ -2532,7 +2984,8 @@ def main(argv: list[str]) -> int:
         f"service (phase 12): K2 rows {fused_launches['peel_edges_rows']}, K1 rows "
         f"{fused_launches['segment_sum_rows']}, K1 {fused_launches['segment_sum_sorted']}, "
         f"K2 {fused_launches['peel_edges']}, K3 {fused_launches['prefix_sum']}, K4 "
-        f"{fused_launches['stream_compact']}")
+        f"{fused_launches['stream_compact']}; the sharded tier (phase 13): K2 "
+        f"{shard_launches['peel_edges']}, K1 {shard_launches['segment_sum_sorted']}")
     rows = {
         "segment_sum_sorted": (k1_launches, k1["max_abs_err"], k1),
         "peel_edges": (k2_launches, k2["max_abs_err"], k2),
@@ -2573,6 +3026,7 @@ def main(argv: list[str]) -> int:
                     "dcn_v2": dcn_times,
                     "stream": stream_times,
                     "fused": fused_times,
+                    "sharded": shard_times,
                     "k2_rows": k2_rows,
                     "k1_rows": k1_rows,
                     "smoke_s": time.perf_counter() - t_start}, default=str))

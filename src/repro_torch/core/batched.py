@@ -66,13 +66,16 @@ def _fold_rows(state: PeelState, n_e_new, n_v_new, active_new, deg_new) -> PeelS
 
 def pbahmani_pass_rows(
     state: PeelState, src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
-    eps: float, kernel: bool = False,
+    eps: float, kernel: bool = False, mesh=None,
 ) -> PeelState:
     """One peeling pass of every row: lanes ``[G, L]`` (each row dst-sorted
-    with ``kernel``), state tensors ``[G, V]`` and ``[G]``."""
+    with ``kernel``), state tensors ``[G, V]`` and ``[G]``. With ``mesh`` the
+    lanes are this rank's blocks and the group's pass makes one ``[G, V +
+    1]`` all-reduce."""
     thr = peel_threshold(state.n_e, state.n_v, eps)
     failed = state.active & (state.deg.to(torch.float32) <= thr[:, None])
-    delta, removed = peel_edges_rows(src, dst, state.active, failed, n_nodes, kernel)
+    delta, removed = peel_edges_rows(src, dst, state.active, failed, n_nodes, kernel,
+                                     mesh=mesh)
     active_new = state.active & ~failed
     return _fold_rows(
         state, state.n_e - removed // 2, state.n_v - failed.sum(dim=1, dtype=torch.int32),
@@ -110,11 +113,12 @@ def run_rows(state, step, live=lambda s: s.n_v > 0):
 
 def peel_rows_to_end(
     state: PeelState, src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
-    eps: float, kernel: bool = False,
+    eps: float, kernel: bool = False, mesh=None,
 ) -> PeelState:
     """Every row peeled to an empty live set: ``prune._peel_to_end`` of each
     row, one batched pass for the group."""
-    return run_rows(state, lambda s: pbahmani_pass_rows(s, src, dst, n_nodes, eps, kernel))
+    return run_rows(state, lambda s: pbahmani_pass_rows(s, src, dst, n_nodes, eps, kernel,
+                                                        mesh))
 
 
 def init_rows(deg: torch.Tensor, n_edges: torch.Tensor) -> PeelState:

@@ -32,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.dispatch import peel_delta, resolve_device, resolve_kernel
+from repro_torch.core.dispatch import all_reduce, peel_delta, resolve_device, resolve_kernel
 from repro_torch.core.kcore import _kcore, kcore_np
 from repro_torch.graphs.convert import to_device
 from repro_torch.graphs.graph import Graph
@@ -46,9 +46,12 @@ def _augment_once(
     dst: torch.Tensor,
     n_nodes: int,
     kernel: bool = False,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One phase-2 round. Returns (member', m_v', m_e', n_added). ``kernel``
-    sums ``e_into`` with K1 over dst-sorted lanes (the same integers).
+    sums ``e_into`` with K1 over dst-sorted lanes (the same integers). With
+    ``mesh`` the lanes are this rank's: ``e_into`` and the legit pairs are
+    summed over the mesh, two all-reduces.
 
     The legitimacy test ``e_into > rho`` is evaluated in exact integer
     arithmetic: for integer e_into, ``e_into > m_e / m_v`` iff
@@ -64,7 +67,7 @@ def _augment_once(
     # lane (u -> v) tests its mirror (v -> u): u a member, v not
     into_mirror = (valid & member.index_select(0, src_c)
                    & ~member.index_select(0, dst_c))
-    e_into = peel_delta(into_mirror, dst, n_nodes, kernel)
+    e_into = peel_delta(into_mirror, dst, n_nodes, kernel, mesh)
 
     legit = ~member & (e_into > m_e // m_v.clamp(min=1))
     n_added = legit.sum(dtype=torch.int32)
@@ -73,7 +76,7 @@ def _augment_once(
     inter_into = torch.where(legit, e_into, 0).sum(dtype=torch.int32)
     legit_pair = (valid & legit.index_select(0, src_c)
                   & legit.index_select(0, dst_c))
-    inter_cross = legit_pair.sum(dtype=torch.int32) // 2
+    inter_cross = all_reduce(legit_pair.sum(dtype=torch.int32), mesh) // 2
 
     member_new = member | legit
     m_e_new = m_e + inter_into + inter_cross
@@ -81,26 +84,33 @@ def _augment_once(
     return member_new, m_v_new, m_e_new, n_added
 
 
-def cbds_resident(
-    src: torch.Tensor, dst: torch.Tensor, n_nodes: int, n_edges: int,
-    rounds: int = 1, kernel: bool = False,
-) -> dict:
-    """CBDS-P over COO lanes already on the device (dst-sorted with
-    ``kernel``): the body of :func:`cbds_p`, and what a resident caller such
-    as ``stream.DeltaEngine.cbds`` runs on its own lanes."""
-    core = _kcore(src, dst, n_nodes, n_edges, kernel)
+def _cbds(src, dst, n_nodes: int, n_edges: int, rounds: int, kernel: bool, mesh=None):
+    """Phases 1 and 2: (core state, member mask, density, n_legit)."""
+    core = _kcore(src, dst, n_nodes, n_edges, kernel, mesh)
     member = core.coreness >= core.best_k
     m_v, m_e = core.best_n_v, core.best_n_e
 
     n_legit = torch.tensor(0, dtype=torch.int32, device=src.device)
     for _ in range(int(rounds)):
         member, m_v, m_e, n_added = _augment_once(member, m_v, m_e, src, dst, n_nodes,
-                                                  kernel)
+                                                  kernel, mesh)
         n_legit = n_legit + n_added
 
     density = m_e.to(torch.float32) / m_v.clamp(min=1).to(torch.float32)
+    return core, member, torch.maximum(density, core.best_density), n_legit
+
+
+def cbds_resident(
+    src: torch.Tensor, dst: torch.Tensor, n_nodes: int, n_edges: int,
+    rounds: int = 1, kernel: bool = False, mesh=None,
+) -> dict:
+    """CBDS-P over COO lanes already on the device (dst-sorted with
+    ``kernel``): the body of :func:`cbds_p`, and what a resident caller such
+    as ``stream.DeltaEngine.cbds`` runs on its own lanes (with ``mesh``,
+    this rank's block of a sharded engine's)."""
+    core, member, density, n_legit = _cbds(src, dst, n_nodes, n_edges, rounds, kernel, mesh)
     return {
-        "density": float(torch.maximum(density, core.best_density)),
+        "density": float(density),
         "core_density": float(core.best_density),
         "k_star": int(core.best_k),
         "member_mask": member.cpu().numpy(),

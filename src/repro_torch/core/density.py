@@ -30,13 +30,32 @@ def masked_degrees(src: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor,
     return deg[:n_nodes]
 
 
-def induced_edge_count(src: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor,
-                       n_nodes: int) -> torch.Tensor:
-    """|E(S)| for S = mask (undirected count), int32 scalar."""
+def live_lane_count(src: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor,
+                    n_nodes: int) -> torch.Tensor:
+    """int32 count of the lanes with both ends in ``mask``: twice |E(S)| on
+    the whole lanes (a sharded caller sums its ranks' counts, then halves)."""
     valid = (src < n_nodes) & (dst < n_nodes)
     live = (valid & mask.index_select(0, src.clamp(max=n_nodes - 1))
             & mask.index_select(0, dst.clamp(max=n_nodes - 1)))
-    return live.sum(dtype=torch.int32) // 2
+    return live.sum(dtype=torch.int32)
+
+
+def live_lane_count_rows(src: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor,
+                         n_nodes: int) -> torch.Tensor:
+    """``live_lane_count`` of each of G rows (lanes [G, L], masks [G, V]):
+    int32 ``[G]``."""
+    base = torch.arange(src.shape[0], dtype=src.dtype, device=src.device)[:, None] * n_nodes
+    m = mask.reshape(-1)
+    live = ((src < n_nodes) & (dst < n_nodes)
+            & m.index_select(0, (base + src.clamp(max=n_nodes - 1)).reshape(-1)).view_as(src)
+            & m.index_select(0, (base + dst.clamp(max=n_nodes - 1)).reshape(-1)).view_as(src))
+    return live.sum(dim=1, dtype=torch.int32)
+
+
+def induced_edge_count(src: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor,
+                       n_nodes: int) -> torch.Tensor:
+    """|E(S)| for S = mask (undirected count), int32 scalar."""
+    return live_lane_count(src, dst, mask, n_nodes) // 2
 
 
 def subgraph_density(src: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor,
@@ -72,6 +91,8 @@ def peel_threshold(n_e: torch.Tensor, n_v: torch.Tensor, eps: float) -> torch.Te
 __all__ = [
     "degrees_from_coo",
     "masked_degrees",
+    "live_lane_count",
+    "live_lane_count_rows",
     "induced_edge_count",
     "subgraph_density",
     "density_np",

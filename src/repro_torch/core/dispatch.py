@@ -25,6 +25,12 @@ so (density, mask, passes) triples match bit for bit with the knob on or
 off. The kernels' int32 sums are exact at any size; the 2^24 envelope of
 the JAX kernel's float32 sums is still asserted at the same API points, so
 both packages accept and refuse the same graphs.
+
+Every reduction here takes ``mesh`` (``core.distributed.Mesh``): the lanes
+are then this rank's block of a sharded graph, and the per-rank sums are
+summed over the mesh by :func:`all_reduce`, one collective a call. A pass's
+``delta``, ``removed`` and ``inc`` go together, int32 ``[V + 1]`` (``[2V +
+1]`` with the charges; ``[G, ...]`` for the rows entries).
 """
 from __future__ import annotations
 
@@ -65,8 +71,18 @@ def assert_exact_envelope(*counts: int) -> None:
                 f"kernel=False")
 
 
+def all_reduce(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` summed over ``mesh``'s ranks (``distributed.all_reduce_sum``,
+    one collective); ``t`` itself without a mesh."""
+    if mesh is None:
+        return t
+    from repro_torch.core.distributed import all_reduce_sum  # it imports this module
+
+    return all_reduce_sum(t, mesh)
+
+
 def peel_delta(
-    fail: torch.Tensor, dst: torch.Tensor, n_nodes: int, kernel: bool
+    fail: torch.Tensor, dst: torch.Tensor, n_nodes: int, kernel: bool, mesh=None,
 ) -> torch.Tensor:
     """Sum a per-edge-lane boolean onto its dst vertex: int32 ``[n_nodes]``.
 
@@ -75,15 +91,15 @@ def peel_delta(
     ``kernel`` the lanes must be dst-sorted.
     """
     if kernel:
-        return ops.segment_sum(fail, dst, num_segments=n_nodes,
-                               out_dtype=torch.int32)
+        return all_reduce(ops.segment_sum(fail, dst, num_segments=n_nodes,
+                                          out_dtype=torch.int32), mesh)
     out = torch.zeros(n_nodes + 1, dtype=torch.int32, device=dst.device)
     out.index_add_(0, dst.clamp(max=n_nodes), fail.to(torch.int32))
-    return out[:n_nodes]
+    return all_reduce(out[:n_nodes], mesh)
 
 
 def lane_degrees(
-    src: torch.Tensor, dst: torch.Tensor, n_nodes: int, kernel: bool
+    src: torch.Tensor, dst: torch.Tensor, n_nodes: int, kernel: bool, mesh=None,
 ) -> torch.Tensor:
     """int32 ``[n_nodes]`` degrees of symmetric lanes. With ``kernel`` one K1
     launch over dst-sorted lanes: a vertex's lanes in are the mirrors of its
@@ -91,13 +107,14 @@ def lane_degrees(
     lanes drop in the kernel instead of piling atomics onto one row. Without,
     the histogram of src (``density.degrees_from_coo``)."""
     if kernel:
-        return peel_delta(dst < n_nodes, dst, n_nodes, True)
-    return degrees_from_coo(src, n_nodes)
+        return peel_delta(dst < n_nodes, dst, n_nodes, True, mesh)
+    return all_reduce(degrees_from_coo(src, n_nodes), mesh)
 
 
 def peel_edges(
     src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor,
     failed: torch.Tensor, n_nodes: int, kernel: bool, charge: bool = False,
+    mesh=None,
 ) -> tuple[torch.Tensor, ...]:
     """The edge stage of one peel pass: int32 ``(delta, removed)``, with
     ``charge`` also ``inc`` (``ref.peel_edges_ref`` defines them).
@@ -105,8 +122,18 @@ def peel_edges(
     ``delta[v]`` counts v's live neighbours that failed, ``removed`` the
     directed lanes that die, ``inc[v]`` the dying edges charged to v. With
     ``kernel`` this is one K2 call over dst-sorted lanes; without, the
-    elementwise ops and two or three ``index_add_`` scatters.
+    elementwise ops and two or three ``index_add_`` scatters. With ``mesh``
+    the lanes are this rank's, and the stage's outputs are summed over the
+    mesh by one all-reduce.
     """
+    out = _peel_edges_local(src, dst, active, failed, n_nodes, kernel, charge)
+    if mesh is None:
+        return out
+    buf = all_reduce(torch.cat([out[0], out[1].reshape(1)] + list(out[2:])), mesh)
+    return (buf[:n_nodes], buf[n_nodes]) + ((buf[n_nodes + 1:],) if charge else ())
+
+
+def _peel_edges_local(src, dst, active, failed, n_nodes, kernel, charge):
     if kernel:
         return peel.peel_edges_sorted(src, dst, active, failed, n_nodes=n_nodes,
                                       charge=charge)
@@ -148,27 +175,41 @@ def _rows_sum(values: torch.Tensor, ids: torch.Tensor, n_nodes: int) -> torch.Te
 
 
 def lane_degrees_rows(
-    src: torch.Tensor, dst: torch.Tensor, n_nodes: int, kernel: bool
+    src: torch.Tensor, dst: torch.Tensor, n_nodes: int, kernel: bool, mesh=None,
 ) -> torch.Tensor:
     """``lane_degrees`` of G rows of symmetric lanes ([G, L], ids in
     [0, n_nodes]): int32 ``[G, n_nodes]``. With ``kernel`` one launch of K1's
     rows entry over dst-sorted rows; without, one histogram of src over the
     flattened ``[G * (n_nodes + 1)]`` space."""
     if kernel:
-        return segsum.segment_sum_rows_sorted(dst < n_nodes, dst, num_segments=n_nodes)
-    return _rows_sum(torch.ones_like(src), src, n_nodes)
+        out = segsum.segment_sum_rows_sorted(dst < n_nodes, dst, num_segments=n_nodes)
+    else:
+        out = _rows_sum(torch.ones_like(src), src, n_nodes)
+    return all_reduce(out, mesh)
 
 
 def peel_edges_rows(
     src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor,
     failed: torch.Tensor, n_nodes: int, kernel: bool, charge: bool = False,
+    mesh=None,
 ) -> tuple[torch.Tensor, ...]:
     """The edge stage of G independent passes, ``peel_edges`` of each row:
     lanes [G, L], masks [G, n_nodes]. Returns int32 ``(delta [G, V],
     removed [G])``, with ``charge`` also ``inc [G, V]``. With ``kernel`` one
     launch of K2's rows entry for the whole group (rows dst-sorted); without,
     the elementwise ops over all rows at once and one ``index_add_`` a
-    reduction over the flattened ``[G * (n_nodes + 1)]`` space."""
+    reduction over the flattened ``[G * (n_nodes + 1)]`` space. With ``mesh``
+    the lanes are this rank's and the group's outputs are summed over the
+    mesh by one ``[G, V + 1]`` (``[G, 2V + 1]``) all-reduce."""
+    out = _peel_edges_rows_local(src, dst, active, failed, n_nodes, kernel, charge)
+    if mesh is None:
+        return out
+    buf = all_reduce(torch.cat([out[0], out[1][:, None]] + list(out[2:]), dim=1), mesh)
+    return ((buf[:, :n_nodes], buf[:, n_nodes])
+            + ((buf[:, n_nodes + 1:],) if charge else ()))
+
+
+def _peel_edges_rows_local(src, dst, active, failed, n_nodes, kernel, charge):
     if kernel:
         return peel.peel_edges_rows(src, dst, active, failed, n_nodes=n_nodes,
                                     charge=charge)
@@ -189,5 +230,5 @@ def peel_edges_rows(
 
 
 __all__ = ["EXACT_ENVELOPE", "resolve_device", "resolve_kernel",
-           "assert_exact_envelope", "lane_degrees", "lane_degrees_rows", "peel_delta",
-           "peel_edges", "peel_edges_rows"]
+           "assert_exact_envelope", "all_reduce", "lane_degrees", "lane_degrees_rows",
+           "peel_delta", "peel_edges", "peel_edges_rows"]

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.core.density import degrees_from_coo
 from repro_torch.core.dispatch import (
-    assert_exact_envelope, peel_edges, resolve_device, resolve_kernel,
+    assert_exact_envelope, lane_degrees, peel_edges, resolve_device, resolve_kernel,
 )
 from repro_torch.graphs.convert import to_device
 from repro_torch.graphs.graph import Graph
@@ -46,18 +46,20 @@ class CoreState(NamedTuple):
 
 def _level_fixpoint(
     state: CoreState, src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
-    kernel: bool = False,
+    kernel: bool = False, mesh=None,
 ) -> CoreState:
     """Remove all vertices of degree <= k until none remain (inner loop).
     ``kernel`` routes the edge stage through the fused kernel K2
-    (core/dispatch.py) — bit-identical coreness either way."""
+    (core/dispatch.py) — bit-identical coreness either way. With ``mesh``
+    the lanes are this rank's and each iteration makes one all-reduce; the
+    loop's test reads replicated state, so every rank iterates alike."""
     s = state
     while True:
         failed = s.active & (s.deg <= s.k)
         if not failed.any().item():  # the one host sync of each iteration
             return s
         delta_to_dst, removed_directed = peel_edges(src, dst, s.active, failed,
-                                                    n_nodes, kernel)
+                                                    n_nodes, kernel, mesh=mesh)
         active_new = s.active & ~failed
         s = s._replace(
             deg=torch.where(active_new, s.deg - delta_to_dst, 0),
@@ -70,13 +72,18 @@ def _level_fixpoint(
 
 def _kcore(
     src: torch.Tensor, dst: torch.Tensor, n_nodes: int, n_edges: int,
-    kernel: bool = False,
+    kernel: bool = False, mesh=None,
 ) -> CoreState:
+    """k-core decomposition with per-level density tracking. With ``mesh``
+    the lanes are this rank's block: the degrees are ``lane_degrees`` summed
+    over the mesh (K1 with ``kernel``), each fixpoint iteration one
+    all-reduce."""
     dev = src.device
     zero = torch.tensor(0, dtype=torch.int32, device=dev)
     s = CoreState(
         k=0,
-        deg=degrees_from_coo(src, n_nodes),
+        deg=(degrees_from_coo(src, n_nodes) if mesh is None
+             else lane_degrees(src, dst, n_nodes, kernel, mesh)),
         active=torch.ones(n_nodes, dtype=torch.bool, device=dev),
         coreness=torch.zeros(n_nodes, dtype=torch.int32, device=dev),
         n_v=torch.tensor(n_nodes, dtype=torch.int32, device=dev),
@@ -97,7 +104,7 @@ def _kcore(
             best_n_v=torch.where(better, s.n_v, s.best_n_v),
             best_n_e=torch.where(better, s.n_e, s.best_n_e),
         )
-        s = _level_fixpoint(s, src, dst, n_nodes, kernel)
+        s = _level_fixpoint(s, src, dst, n_nodes, kernel, mesh)
         s = s._replace(k=s.k + 1)
     return s
 

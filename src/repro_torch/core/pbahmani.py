@@ -46,13 +46,12 @@ class PeelState(NamedTuple):
     passes: torch.Tensor
 
 
-def init_state(src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
-               n_edges: int) -> PeelState:
-    del dst
-    deg = degrees_from_coo(src, n_nodes)
-    active = deg > 0  # isolated vertices never contribute to density
+def state_from_degrees(deg: torch.Tensor, n_edges: int) -> PeelState:
+    """The peel's initial state from int32 degrees ``[V]``: isolated
+    vertices never contribute to density."""
+    active = deg > 0
     n_v = active.sum(dtype=torch.int32)
-    n_e = torch.tensor(n_edges, dtype=torch.int32, device=src.device)
+    n_e = torch.tensor(n_edges, dtype=torch.int32, device=deg.device)
     rho0 = n_e.to(torch.float32) / n_v.clamp(min=1).to(torch.float32)
     return PeelState(
         deg=deg,
@@ -61,19 +60,26 @@ def init_state(src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
         n_e=n_e,
         best_density=rho0,
         best_mask=active,
-        passes=torch.tensor(0, dtype=torch.int32, device=src.device),
+        passes=torch.tensor(0, dtype=torch.int32, device=deg.device),
     )
+
+
+def init_state(src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
+               n_edges: int) -> PeelState:
+    del dst
+    return state_from_degrees(degrees_from_coo(src, n_nodes), n_edges)
 
 
 def pbahmani_pass(
     state: PeelState, src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
-    eps: float, kernel: bool = False,
+    eps: float, kernel: bool = False, mesh=None,
 ) -> PeelState:
     """One peeling pass: fail every live vertex with deg <= 2(1+eps)·rho.
 
     Edge-centric (load-balanced by construction — every edge does O(1)
     work). ``kernel`` selects the fused edge-stage kernel K2 for part 2
-    (core/dispatch.py); results are bit-identical either way.
+    (core/dispatch.py); results are bit-identical either way. With ``mesh``
+    the lanes are this rank's block and the pass makes one all-reduce.
     """
     thr = peel_threshold(state.n_e, state.n_v, eps)
     failed = state.active & (state.deg.to(torch.float32) <= thr)
@@ -81,7 +87,7 @@ def pbahmani_pass(
     # paper part 2: atomicSub on neighbor degrees -> one deterministic
     # reduction onto dst, and the count of dying directed lanes
     delta_to_dst, removed_directed = peel_edges(src, dst, state.active, failed,
-                                                n_nodes, kernel)
+                                                n_nodes, kernel, mesh=mesh)
     n_e_new = state.n_e - removed_directed // 2
 
     active_new = state.active & ~failed
@@ -193,4 +199,5 @@ def pbahmani_np(graph: Graph, eps: float = 0.0) -> tuple[float, np.ndarray, int]
     return float(best), best_mask, passes
 
 
-__all__ = ["PeelState", "init_state", "pbahmani_pass", "pbahmani", "pbahmani_np"]
+__all__ = ["PeelState", "init_state", "state_from_degrees", "pbahmani_pass", "pbahmani",
+           "pbahmani_np"]

@@ -1,4 +1,4 @@
-"""Candidate pruning: the exactness-preserving compacted peel, one device.
+"""Candidate pruning: the exactness-preserving compacted peel.
 
 Every ``pbahmani`` pass sweeps the full padded edge lanes, but the live set
 shrinks geometrically, so most lanes of most passes are dead weight. This
@@ -45,12 +45,14 @@ sorted. A graph's lanes are its undirected slots then their mirrors, so the
 stable dst sort orders a pair of lanes as ``_emit_buckets`` orders them and
 the two preps give the same bucket arrays.
 
-This is the JAX package's ``core/prune.py`` for one device: its
-``lax.while_loop``s are host loops that read the live counts once a pass,
-and its vmapped bucket peel is ``_batched_bucket_peel``, a batch axis
-written out (``core/batched.py``) for the fused tenants, with a row-batched
-resident prep beside it (``prepare_pruned_peel_rows``). The sharded variants
-wait for ROADMAP queue 1 item 4.
+This is the JAX package's ``core/prune.py``: its ``lax.while_loop``s are
+host loops that read the live counts once a pass, and its vmapped bucket
+peel is ``_batched_bucket_peel``, a batch axis written out
+(``core/batched.py``) for the fused tenants, with a row-batched resident
+prep beside it (``prepare_pruned_peel_rows``). Its sharded variants are the
+same functions with ``mesh=`` (``make_sharded_plan``,
+``pruned_peel_host(mesh=)``, the bucket peels over this rank's block of the
+bucket lanes, the ladder compacting per rank).
 """
 from __future__ import annotations
 
@@ -59,11 +61,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.density import subgraph_density
 from repro_torch.core.batched import init_rows, peel_rows_to_end, pbahmani_pass_rows, run_rows
+from repro_torch.core.density import live_lane_count
 from repro_torch.core.dispatch import (
-    assert_exact_envelope, lane_degrees, lane_degrees_rows, resolve_device, resolve_kernel,
+    all_reduce, assert_exact_envelope, lane_degrees, lane_degrees_rows, resolve_device,
+    resolve_kernel,
 )
+from repro_torch.core.distributed import lane_block, mesh_device
 from repro_torch.core.kcore import CoreState, _level_fixpoint
 from repro_torch.core.pbahmani import PeelState, pbahmani, pbahmani_pass
 from repro_torch.graphs.convert import to_device
@@ -124,6 +128,7 @@ def _plan(
     n_edges: int,
     n_nodes: int,
     kernel: bool = False,
+    mesh=None,
 ) -> tuple[torch.Tensor, int, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Bootstrap rho~ and shrink to the ceil(rho~)-core.
 
@@ -132,17 +137,22 @@ def _plan(
     graph, re-validated previous mask, iterated cores), so rho_lb <= rho*.
     The loop over core levels runs on the host, one sync a level.
     ``kernel`` takes the degrees from K1 and each fixpoint iteration from
-    K2 (the lanes must then be dst-sorted).
+    K2 (the lanes must then be dst-sorted). With ``mesh`` the lanes are this
+    rank's block (:func:`make_sharded_plan`): the degrees, the previous
+    mask's edges and every fixpoint iteration are summed over the mesh.
     """
     dev = src.device
-    deg = lane_degrees(src, dst, n_nodes, kernel)
+    deg = lane_degrees(src, dst, n_nodes, kernel, mesh)
     active = deg > 0
     n_v = active.sum(dtype=torch.int32)
     n_e = torch.tensor(n_edges, dtype=torch.int32, device=dev)
     rho0 = n_e.to(torch.float32) / n_v.clamp(min=1).to(torch.float32)
     # a previous best mask, re-evaluated on the current edges: a sound warm
     # start for rho~ (it is a subgraph of this graph)
-    warm_rho = subgraph_density(src, dst, prev_mask, n_nodes)
+    warm_e = all_reduce(live_lane_count(src, dst, prev_mask, n_nodes), mesh) // 2
+    warm_v = prev_mask.sum(dtype=torch.int32)
+    warm_rho = torch.where(
+        warm_v > 0, warm_e.to(torch.float32) / warm_v.clamp(min=1).to(torch.float32), 0.0)
     rho_lb = torch.maximum(rho0, warm_rho)
     c = CoreState(
         k=-1,  # level already completed (none)
@@ -162,7 +172,7 @@ def _plan(
             [c.n_v, _ceil_level(c.best_density) - 1]).tolist())
         if not (n_v_h > 0 and c.k < level):
             break
-        c = _level_fixpoint(c._replace(k=level), src, dst, n_nodes, kernel)
+        c = _level_fixpoint(c._replace(k=level), src, dst, n_nodes, kernel, mesh)
         rho_c = torch.where(
             c.n_v > 0,
             c.n_e.to(torch.float32) / c.n_v.clamp(min=1).to(torch.float32),
@@ -170,6 +180,18 @@ def _plan(
         )
         c = c._replace(best_density=torch.maximum(c.best_density, rho_c))
     return c.best_density, c.k + 1, c.active, c.n_v, c.n_e
+
+
+def make_sharded_plan(mesh, n_nodes: int):
+    """The JAX package's sharded plan analysis as a callable ``(src_l, dst_l,
+    prev_mask, n_edges) -> (rho_lb, k, candidate_mask, n_candidates,
+    n_candidate_edges)`` over this rank's block of the lanes (scatter tier,
+    as the sharded engine runs): ``_plan`` with ``mesh``. The integers are
+    the single-device plan's on any rank count."""
+    def run(src_l, dst_l, prev_mask, n_edges):
+        return _plan(src_l, dst_l, prev_mask, int(n_edges), n_nodes, False, mesh)
+
+    return run
 
 
 def build_plan(
@@ -294,10 +316,10 @@ def _compact_edges(
 
 def _peel_to_end(
     state: PeelState, src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
-    eps: float, kernel: bool = False,
+    eps: float, kernel: bool = False, mesh=None,
 ) -> PeelState:
     while state.n_v.item() > 0:  # the one host sync of each pass
-        state = pbahmani_pass(state, src, dst, n_nodes, eps, kernel)
+        state = pbahmani_pass(state, src, dst, n_nodes, eps, kernel, mesh)
     return state
 
 
@@ -310,18 +332,25 @@ def _staged_peel(
     bucket_v: int,
     bucket_e: int,
     kernel: bool = False,
+    mesh=None,
 ) -> PeelState:
     """Peel at the current width until the live set fits (bucket_v,
     bucket_e), compact, and finish inside the smaller bucket. The returned
     state is in the *current* (n_nodes-wide) space and bit-identical to
     ``_peel_to_end`` on the same input. The compaction runs whether or not
-    anything is left, as the JAX package's traced program does."""
+    anything is left, as the JAX package's traced program does.
+
+    With ``mesh`` the lanes are this rank's block, and the ladder compacts
+    *per rank*, as the JAX package's sharded bucket peel does: each rank packs
+    its own live lanes into a local ``bucket_e``-lane bucket (no rank can
+    overflow it: the mesh's live lanes fit it at the switch). The lane order
+    differs from the single-device ladder's, the int32 sums do not."""
     s1 = state
-    while True:  # one host sync a pass
+    while True:  # one host sync a pass, on replicated counts
         n_v, n_e = torch.stack([s1.n_v, s1.n_e]).tolist()
         if not (n_v > 0 and (n_v > bucket_v or 2 * n_e > bucket_e)):
             break
-        s1 = pbahmani_pass(s1, src, dst, n_nodes, eps, kernel)
+        s1 = pbahmani_pass(s1, src, dst, n_nodes, eps, kernel, mesh)
     perm, b_src, b_dst = _compact_edges(
         src, dst, s1.active, n_nodes, bucket_v, bucket_e, kernel)
     if kernel:
@@ -344,7 +373,7 @@ def _staged_peel(
             best_mask=torch.zeros(bucket_v, dtype=torch.bool, device=src.device),
             passes=s1.passes,
         ),
-        b_src, b_dst, bucket_v, eps, kernel,
+        b_src, b_dst, bucket_v, eps, kernel, mesh,
     )
     improved = s2.best_density > s1.best_density
     mask_back = s1.active & s2.best_mask.index_select(0, perm.clamp(0, bucket_v - 1))
@@ -373,6 +402,7 @@ def _bucket_peel_body(
     bucket_v2: int,
     bucket_e2: int,
     kernel: bool = False,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Peel the compacted subproblem to completion (with the ladder).
 
@@ -386,7 +416,7 @@ def _bucket_peel_body(
     dev = b_src.device
     final = _staged_peel(
         PeelState(
-            deg=lane_degrees(b_src, b_dst, bucket_v, kernel),
+            deg=lane_degrees(b_src, b_dst, bucket_v, kernel, mesh),
             active=torch.arange(bucket_v, dtype=torch.int32, device=dev) < n_v,
             n_v=n_v,
             n_e=n_e,
@@ -394,7 +424,7 @@ def _bucket_peel_body(
             best_mask=torch.zeros(bucket_v, dtype=torch.bool, device=dev),
             passes=passes,
         ),
-        b_src, b_dst, bucket_v, eps, bucket_v2, bucket_e2, kernel,
+        b_src, b_dst, bucket_v, eps, bucket_v2, bucket_e2, kernel, mesh,
     )
     return final.best_density, final.best_mask, final.passes
 
@@ -402,12 +432,14 @@ def _bucket_peel_body(
 def _bucket_peel(
     b_src: torch.Tensor, b_dst: torch.Tensor, n_v: int, n_e: int,
     best_density: float, passes: int, eps: float, bucket_v: int, bucket_e: int,
-    bucket_v2: int, bucket_e2: int, kernel: bool = False,
+    bucket_v2: int, bucket_e2: int, kernel: bool = False, mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The device bucket peel from host scalars; the lanes are already on
-    the device (the resident prep's, or ``upload_buckets``). Returns
-    (density, mask, passes) as device tensors."""
-    if b_src.shape != (bucket_e,):
+    the device (the resident prep's, or ``upload_buckets``; with ``mesh``
+    this rank's block of them, ``bucket_e / n`` lanes). Returns (density,
+    mask, passes) as device tensors."""
+    width = bucket_e if mesh is None else bucket_e // mesh.size
+    if b_src.shape != (width,):
         raise ValueError(f"bucket lanes {tuple(b_src.shape)} do not match "
                          f"bucket_e={bucket_e}")
 
@@ -417,7 +449,7 @@ def _bucket_peel(
     return _bucket_peel_body(
         b_src, b_dst, scalar(n_v, torch.int32), scalar(n_e, torch.int32),
         scalar(best_density, torch.float32), scalar(passes, torch.int32),
-        float(eps), bucket_v, bucket_v2, bucket_e2, kernel)
+        float(eps), bucket_v, bucket_v2, bucket_e2, kernel, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -581,11 +613,13 @@ def prepare_pruned_peel(
     )
 
 
-def upload_buckets(pd: PrunedDispatch, device: torch.device | str
+def upload_buckets(pd: PrunedDispatch, device: torch.device | str, mesh=None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The dispatch's bucket lanes on ``device`` (two int32 uploads)."""
-    return (torch.from_numpy(pd.b_src).to(device),
-            torch.from_numpy(pd.b_dst).to(device))
+    """The dispatch's bucket lanes on ``device`` (two int32 uploads); with
+    ``mesh`` this rank's contiguous block of them (dst-sorted, as the whole
+    bucket is)."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(
+        a if mesh is None else lane_block(a, mesh))).to(device) for a in (pd.b_src, pd.b_dst))
 
 
 def merge_pruned_peel(
@@ -623,21 +657,24 @@ def pruned_peel_host(
     have grown or shrunk to the observed survivor set. Returns ``None``
     when the survivor set fits no legal bucket; the caller runs its
     unpruned path. ``kernel`` selects K2 and K4 inside the bucket peel.
-    ``mesh`` (the sharded bucket peel) is not ported yet and raises.
+
+    With ``mesh`` (every rank calling with the same arrays) the bucket peel
+    runs sharded on the mesh's device: each rank peels its block of the
+    bucket lanes, one all-reduce a pass, and its ladder compacts per rank.
+    The same triple; ``None`` when the rank count does not divide the bucket
+    lanes (pruning cannot pay off on that mesh; the full-width path can).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "pruned_peel_host(mesh=...) needs the sharded bucket peel, ROADMAP "
-            "queue 1 slice 11: not ported yet")
-    device = resolve_device(device)
+    device = mesh_device(mesh, device)
     prep = prepare_pruned_peel(u, v, deg, n_edges, eps, plan)
     if prep is None or isinstance(prep, tuple):
         return prep
     pd = prep
-    b_src, b_dst = upload_buckets(pd, device)
+    if mesh is not None and pd.plan.bucket_e % mesh.size:
+        return None
+    b_src, b_dst = upload_buckets(pd, device, mesh)
     d_b, mask_b, passes_b = _bucket_peel(
         b_src, b_dst, pd.n_v1, pd.n_e1, float(pd.best_d1), 1, float(eps),
-        *pd.plan.buckets, kernel)
+        *pd.plan.buckets, kernel, mesh)
     return merge_pruned_peel(pd, d_b.item(), mask_b.cpu().numpy(), passes_b.item())
 
 
@@ -741,6 +778,7 @@ def _staged_peel_rows(
     bucket_v: int,
     bucket_e: int,
     kernel: bool = False,
+    mesh=None,
 ) -> PeelState:
     """``_staged_peel`` of each row of a row-batched state (lanes [G, L]),
     as the JAX package's vmap runs it: the batched pass runs while any row
@@ -755,7 +793,7 @@ def _staged_peel_rows(
     def unfits(s: PeelState) -> torch.Tensor:
         return (s.n_v > 0) & ((s.n_v > bucket_v) | (2 * s.n_e > bucket_e))
 
-    s1 = run_rows(state, lambda s: pbahmani_pass_rows(s, src, dst, n_nodes, eps, kernel),
+    s1 = run_rows(state, lambda s: pbahmani_pass_rows(s, src, dst, n_nodes, eps, kernel, mesh),
                   live=unfits)
     perms, b_src, b_dst, b_deg = [], [], [], []
     for r in range(src.shape[0]):
@@ -776,7 +814,7 @@ def _staged_peel_rows(
         PeelState(deg=torch.stack(b_deg), active=b_active, n_v=s1.n_v, n_e=s1.n_e,
                   best_density=s1.best_density,
                   best_mask=torch.zeros_like(b_active), passes=s1.passes),
-        torch.stack(b_src), torch.stack(b_dst), bucket_v, eps, kernel)
+        torch.stack(b_src), torch.stack(b_dst), bucket_v, eps, kernel, mesh)
     improved = s2.best_density > s1.best_density
     mask_back = s1.active & torch.gather(s2.best_mask, 1, perm.clamp(0, bucket_v - 1).long())
     return s1._replace(
@@ -793,7 +831,7 @@ def _staged_peel_rows(
 def _batched_bucket_peel(
     b_src: torch.Tensor, b_dst: torch.Tensor, n_v: torch.Tensor, n_e: torch.Tensor,
     best_density: torch.Tensor, passes: torch.Tensor, eps: float, bucket_v: int,
-    bucket_e: int, bucket_v2: int, bucket_e2: int, kernel: bool = False,
+    bucket_e: int, bucket_v2: int, bucket_e2: int, kernel: bool = False, mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``_bucket_peel`` of G same-bucket subproblems at once (the JAX
     package's vmapped ``_batched_bucket_peel_jit``): lanes ``[G, bucket_e]``,
@@ -801,18 +839,21 @@ def _batched_bucket_peel(
     one launch of K1's rows entry with ``kernel`` (``lane_degrees_rows``), the
     passes K2's rows entry, the ladder ``_staged_peel_rows``. Returns
     (density [G], mask [G, bucket_v], passes [G]); row r's equals
-    ``_bucket_peel`` of row r."""
-    if b_src.shape[1:] != (bucket_e,):
+    ``_bucket_peel`` of row r. With ``mesh`` the lanes are this rank's blocks
+    (``[G, bucket_e / n]``; the JAX package's
+    ``_make_sharded_batched_bucket_peel``): one all-reduce a batched pass."""
+    width = bucket_e if mesh is None else bucket_e // mesh.size
+    if b_src.shape[1:] != (width,):
         raise ValueError(f"bucket lanes {tuple(b_src.shape)} do not match "
                          f"bucket_e={bucket_e}")
     dev = b_src.device
     active = torch.arange(bucket_v, dtype=torch.int32, device=dev)[None, :] < n_v[:, None]
     final = _staged_peel_rows(
-        PeelState(deg=lane_degrees_rows(b_src, b_dst, bucket_v, kernel), active=active,
+        PeelState(deg=lane_degrees_rows(b_src, b_dst, bucket_v, kernel, mesh), active=active,
                   n_v=n_v.to(torch.int32), n_e=n_e.to(torch.int32),
                   best_density=best_density.to(torch.float32),
                   best_mask=torch.zeros_like(active), passes=passes.to(torch.int32)),
-        b_src, b_dst, bucket_v, eps, bucket_v2, bucket_e2, kernel)
+        b_src, b_dst, bucket_v, eps, bucket_v2, bucket_e2, kernel, mesh)
     return final.best_density, final.best_mask, final.passes
 
 
@@ -934,6 +975,7 @@ __all__ = [
     "build_plan",
     "maybe_shrink_plan",
     "plan_for_graph",
+    "make_sharded_plan",
     "compact_candidates",
     "pruned_peel_host",
     "pbahmani_pruned",

@@ -6,9 +6,9 @@ exact-rational duality gap (certify.py) closes below ``target_gap`` or
 ``max_rounds`` is spent. Every round yields a full certificate, so the
 caller can stop anywhere with a sound sandwich rho_best <= rho* <= dual.
 
-``refine_resident`` runs the same loop off arrays already on the device.
-This is the JAX package's ``refine/engine.py`` for one device; the sharded
-round (``mesh=``) waits for ROADMAP slice 11.
+``refine_resident`` runs the same loop off arrays already on the device,
+or with ``mesh=`` off this rank's block of a sharded engine's lanes. This is
+the JAX package's ``refine/engine.py``.
 """
 from __future__ import annotations
 
@@ -78,7 +78,7 @@ def refine_resident(
     target_gap: float, max_rounds: int, kernel: bool = False,
     mesh=None,
 ) -> tuple[GapCertificate, np.ndarray, int, int, list]:
-    """Run refinement rounds off COO lanes and a degree array on one device.
+    """Run refinement rounds off COO lanes and a degree array on the device.
 
     ``seed_mask`` is full-width (n_nodes); ``seed_ne/seed_nv`` its exact
     induced counts. Returns (certificate, best_mask_full, passes, rounds,
@@ -87,12 +87,10 @@ def refine_resident(
     floored at 1: a certificate needs a load round for its dual side.
     ``kernel`` routes each round's edge stage through K2 (the caller
     supplies dst-sorted lanes); certificates are bit-identical either way.
-    ``mesh`` (rounds over sharded lanes) is not ported yet and raises.
+    With ``mesh`` (every rank calling together) ``src``/``dst`` are this
+    rank's block of the lanes and each pass makes one all-reduce; the round
+    integers are the single-device ones on any rank count.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "refine_resident(mesh=...) needs the sharded refinement round, "
-            "ROADMAP queue 1 slice 11: not ported yet")
     max_rounds = max(int(max_rounds), 1)
     dev = src.device
 
@@ -117,7 +115,7 @@ def refine_resident(
         (loads, best_density, best_ne, best_nv, best_mask,
          passes) = _refine_round(
             src, dst, deg, n_edges, loads, best_density, best_ne, best_nv,
-            best_mask, passes, n_nodes, eps, kernel)
+            best_mask, passes, n_nodes, eps, kernel, mesh)
         rounds = t
         # host guard: the device best-tracking compares f32 densities; fold
         # the seed back in exactly so refined >= seed always holds

@@ -22,12 +22,14 @@ arithmetic. Threshold: ``(1+eps) * (sum_live loads + 2|E_live|) / |V_live|``,
 Bahmani's ``2(1+eps)rho`` at zero loads; the ``key <= min_key`` guard makes
 termination robust to float32 rounding of large load sums.
 
-This is the JAX package's ``refine/loads.py`` for one device: the pass, the
-round and its host loop, and the fused buckets' rounds: the row-batched COO
+This is the JAX package's ``refine/loads.py``: the pass, the round and its
+host loop, and the fused buckets' rounds: the row-batched COO
 round (``_batched_refine_round``, one launch of K2's rows entry a pass for
 the group) and the dense round over ``[G, V, V]`` float32 adjacency
-(``_batched_dense_refine_round``, batched products a pass). The sharded
-rounds wait for ROADMAP queue 1 item 4.
+(``_batched_dense_refine_round``, batched products a pass). Every COO pass
+and round takes ``mesh``: the lanes are then this rank's block, and a pass's
+``delta``, ``removed`` and ``inc`` are summed over the mesh by one all-reduce
+(the JAX package's ``_sharded_refine_pass`` makes three psums).
 """
 from __future__ import annotations
 
@@ -94,7 +96,7 @@ def _fold_best(state: RefinePeelState, n_e_new, n_v_new, active_new):
 
 def refine_pass(
     state: RefinePeelState, src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
-    eps: float, kernel: bool = False,
+    eps: float, kernel: bool = False, mesh=None,
 ) -> RefinePeelState:
     """One weighted peeling pass over the symmetric COO lanes: fail every
     live vertex with load+deg <= threshold (or at the live minimum), charge
@@ -111,7 +113,7 @@ def refine_pass(
     # survivor degree decrement as in pbahmani_pass, and each dying edge
     # charged to one failing endpoint (core/dispatch.py:peel_edges)
     delta_to_dst, removed_directed, inc = peel_edges(
-        src, dst, state.active, failed, n_nodes, kernel, charge=True)
+        src, dst, state.active, failed, n_nodes, kernel, charge=True, mesh=mesh)
     n_e_new = state.n_e - removed_directed // 2
     active_new = state.active & ~failed
     deg_new = torch.where(active_new, state.deg - delta_to_dst, 0)
@@ -132,7 +134,7 @@ def refine_pass(
 
 def refine_round_body(
     src, dst, deg, n_edges, loads, best_density, best_ne, best_nv,
-    best_mask, passes, n_nodes: int, eps: float, kernel: bool = False,
+    best_mask, passes, n_nodes: int, eps: float, kernel: bool = False, mesh=None,
 ):
     """One full refinement round from the degree array. Returns (loads,
     best_density, best_ne, best_nv, best_mask, passes); the host turns
@@ -153,21 +155,22 @@ def refine_round_body(
         passes=passes,
     )
     while state.n_v.item() > 0:  # the one host sync of each pass
-        state = refine_pass(state, src, dst, n_nodes, eps, kernel)
+        state = refine_pass(state, src, dst, n_nodes, eps, kernel, mesh)
     return (state.loads, state.best_density, state.best_ne, state.best_nv,
             state.best_mask, state.passes)
 
 
 def _refine_round(src, dst, deg, n_edges, loads, best_density, best_ne,
                   best_nv, best_mask, passes, n_nodes: int, eps: float,
-                  kernel: bool = False):
+                  kernel: bool = False, mesh=None):
     """One round on int32/float32/bool tensors of one device; the JAX
-    package's ``_refine_round_jit``."""
+    package's ``_refine_round_jit`` (with ``mesh``, its
+    ``_make_sharded_refine_round``)."""
     i32 = torch.int32
     return refine_round_body(
         src, dst, deg.to(i32), n_edges.to(i32), loads.to(i32),
         best_density.to(torch.float32), best_ne.to(i32), best_nv.to(i32),
-        best_mask, passes.to(i32), n_nodes, eps, kernel)
+        best_mask, passes.to(i32), n_nodes, eps, kernel, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +213,7 @@ def _advance_rows(state, failed, delta, removed, inc) -> RefinePeelState:
 
 def refine_pass_rows(
     state: RefinePeelState, src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
-    eps: float, kernel: bool = False,
+    eps: float, kernel: bool = False, mesh=None,
 ) -> RefinePeelState:
     """``refine_pass`` of every row of a row-batched state (lanes [G, L],
     vertex tensors [G, V], scalars [G]): each row's threshold, min key and
@@ -219,7 +222,7 @@ def refine_pass_rows(
     ``kernel``)."""
     failed = _failing_rows(state, eps)
     delta, removed, inc = peel_edges_rows(src, dst, state.active, failed, n_nodes, kernel,
-                                          charge=True)
+                                          charge=True, mesh=mesh)
     return _advance_rows(state, failed, delta, removed, inc)
 
 
@@ -241,15 +244,17 @@ def _out(final: RefinePeelState):
 
 def _batched_refine_round(src, dst, deg, n_edges, loads, best_density, best_ne,
                           best_nv, best_mask, passes, n_nodes: int, eps: float,
-                          kernel: bool = False):
+                          kernel: bool = False, mesh=None):
     """One refinement round of G tenants at once (the JAX package's vmapped
-    ``_batched_refine_round_jit``): every argument carries a leading row
-    axis. The batched pass runs while any row is live, a converged row kept
-    as it was, so each row's outputs equal ``_refine_round`` on that row."""
+    ``_batched_refine_round_jit``; with ``mesh`` its
+    ``_make_sharded_batched_refine_round``, one ``[G, 2V + 1]`` all-reduce a
+    batched pass): every argument carries a leading row axis. The batched
+    pass runs while any row is live, a converged row kept as it was, so each
+    row's outputs equal ``_refine_round`` on that row."""
     state = _init_rows(deg, n_edges, loads, best_density, best_ne, best_nv, best_mask,
                        passes)
     return _out(run_rows(state, lambda s: refine_pass_rows(s, src, dst, n_nodes, eps,
-                                                           kernel)))
+                                                           kernel, mesh)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Dynamic graphs: incremental densest-subgraph maintenance and multi-tenant
-serving on one device.
+serving.
 
   buffer.py   — fixed-capacity sentinel-padded edge buffer (pow-2 growth)
   delta.py    — incremental maintenance engine (degree deltas + warm peel)
@@ -8,8 +8,9 @@ serving on one device.
   registry.py — multi-tenant named-graph registry (capacity bucketing, LRU)
   service.py  — batch query front-end with latency/build metrics
 
-The sharded engine (``sharded=True``, ``mesh=``) waits for ROADMAP queue 1
-item 4.
+Every engine, registry and service also runs sharded (``sharded=True``,
+``mesh=``): one tenant's lanes split over the ranks of a
+``core.distributed.Mesh``, one all-reduce a pass.
 """
 from repro_torch.stream.buffer import EdgeBuffer
 from repro_torch.stream.delta import (

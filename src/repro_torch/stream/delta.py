@@ -1,4 +1,4 @@
-"""Incremental densest-subgraph maintenance over an EdgeBuffer, one device.
+"""Incremental densest-subgraph maintenance over an EdgeBuffer.
 
 The static path pays O(|E|) twice per query: once on the host (re-padding
 the edge arrays) and once on the device (the degree histogram of
@@ -43,9 +43,19 @@ stays O(batch); the query that follows pays the sort. The triple does not
 depend on the order within a row (every sum is int32), so the result is the
 same as the JAX package's, whose kernel works on drifted lanes.
 
-This is the JAX package's ``stream/delta.py`` for one device. The sharded
-engine (``sharded=True``, ``mesh=``) waits for ROADMAP queue 1 item 4, the
-fused multi-tenant one for item 3.
+**Sharding.** With ``sharded=True`` (or ``mesh=``, a
+``core.distributed.Mesh``) one tenant's graph spans the mesh's ranks, one
+process a rank, every rank feeding the engine the same batches: the host
+``EdgeBuffer`` is replicated, each rank holds lanes ``[r·L/n, (r+1)·L/n)`` of
+the buffer's slot layout on its device, and the |V| state is replicated. A
+batch writes the rank's lanes and histograms its slice ``B/n`` of the batch,
+one all-reduce; every query path (warm, pruned, refined, ``cbds``, the
+refresh's cold peel) runs its passes over the rank's lanes with one
+all-reduce a pass (``core/distributed.py``). Sharded engines keep the
+scatter tier, as the JAX package's do: their lanes are in slot order, not
+dst-sorted. The triple equals the single-device engine's bit for bit.
+
+This is the JAX package's ``stream/delta.py``.
 """
 from __future__ import annotations
 
@@ -57,13 +67,16 @@ import torch
 
 from repro_torch.core.batched import init_rows, peel_rows_to_end
 from repro_torch.core.cbds import cbds_resident
-from repro_torch.core.density import induced_edge_count
+from repro_torch.core.density import live_lane_count, live_lane_count_rows
 from repro_torch.core.dispatch import (
-    assert_exact_envelope, resolve_device, resolve_kernel,
+    all_reduce, assert_exact_envelope, resolve_device, resolve_kernel,
 )
-from repro_torch.core.pbahmani import PeelState, init_state
+from repro_torch.core.distributed import (
+    lane_block, make_mesh, mesh_device, mesh_device_count, validate_stream_mesh,
+)
+from repro_torch.core.pbahmani import PeelState, init_state, state_from_degrees
 from repro_torch.core.prune import (
-    PrunePlan, _peel_to_end, _plan, build_plan, pruned_peel_resident,
+    PrunePlan, _peel_to_end, _plan, build_plan, pruned_peel_host, pruned_peel_resident,
 )
 from repro_torch.obs.audit import AUDITOR
 from repro_torch.obs.trace import span
@@ -114,6 +127,7 @@ def _apply_batch(
     deg: torch.Tensor,
     slots, su, sv, du, dv, w,
     lane_perm: torch.Tensor | None = None,
+    mesh=None,
 ) -> bool:
     """Apply one padded batch row (host int32 arrays) to the resident lanes
     and degrees **in place**: O(batch) host work, one upload, at most two
@@ -126,27 +140,42 @@ def _apply_batch(
     insert reuses already carries that marker, so no index repeats. The
     degree histogram keeps every lane of nonzero weight, real vertices all
     (the sentinel row of the JAX package's ``segment_sum`` is never
-    written). Returns whether any lane was written."""
-    cap = src.shape[0] // 2
+    written).
+
+    With ``mesh`` the lanes are this rank's block (the JAX package's
+    ``_make_sharded_apply``): the rank writes the lanes of the batch that
+    fall in its block, histograms its slice ``B/n`` of the batch, and the
+    histograms are summed over the mesh by one all-reduce. Returns whether
+    any lane was written."""
+    width = src.shape[0]
+    n, r = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    cap = width * n // 2
     real = slots < cap
+    pos = np.concatenate([slots[real], slots[real] + cap]) - r * width
+    mine = (pos >= 0) & (pos < width)
+    part = slice(r * (w.shape[0] // n), (r + 1) * (w.shape[0] // n))
+    du, dv, w = du[part], dv[part], w[part]
     signed = w != 0
-    k = int(real.sum())
-    host = np.concatenate([slots[real], su[real], sv[real],
+    k = int(mine.sum())
+    host = np.concatenate([pos[mine], np.concatenate([su[real], sv[real]])[mine],
+                           np.concatenate([sv[real], su[real]])[mine],
                            du[signed], dv[signed], w[signed]])
-    if host.size == 0:
+    if host.size == 0 and mesh is None:
         return False
-    batch = torch.from_numpy(host).to(src.device)
-    s, a, b = batch[:3 * k].view(3, k)
+    batch = torch.from_numpy(host.astype(np.int32)).to(src.device)
+    lanes, a, b = batch[:3 * k].view(3, k)
     d_u, d_v, d_w = batch[3 * k:].view(3, -1)
     if k:
-        lanes = torch.cat([s, s + cap])
         if lane_perm is not None:
             lanes = lane_perm.index_select(0, lanes)
         lanes = lanes.long()
-        src.index_put_((lanes,), torch.cat([a, b]))
-        dst.index_put_((lanes,), torch.cat([b, a]))
-    deg.index_add_(0, d_u, d_w)
-    deg.index_add_(0, d_v, d_w)
+        src.index_put_((lanes,), a)
+        dst.index_put_((lanes,), b)
+    hist = deg if mesh is None else torch.zeros_like(deg)
+    hist.index_add_(0, d_u, d_w)
+    hist.index_add_(0, d_v, d_w)
+    if mesh is not None:
+        deg += all_reduce(hist, mesh)
     return k > 0
 
 
@@ -159,24 +188,19 @@ def _warm_peel(
     n_nodes: int,
     eps: float,
     kernel: bool = False,
+    mesh=None,
 ) -> tuple[PeelState, torch.Tensor]:
     """Peel from the maintained degree array (skips the O(|E|) histogram of
     ``init_state``; bit-identical state, hence identical result) and
     re-evaluate the previous best mask on the current graph. The pass loop
     is the host loop of ``prune._peel_to_end``, one ``.item()`` a pass;
-    ``kernel`` runs each pass's edge stage on K2 (dst-sorted lanes). Returns
-    (final state, float32 density of ``prev_mask``)."""
-    dev = deg.device
-    active = deg > 0
-    n_v = active.sum(dtype=torch.int32)
-    n_e = torch.tensor(n_edges, dtype=torch.int32, device=dev)
-    rho0 = n_e.to(torch.float32) / n_v.clamp(min=1).to(torch.float32)
-    final = _peel_to_end(
-        PeelState(deg=deg, active=active, n_v=n_v, n_e=n_e, best_density=rho0,
-                  best_mask=active,
-                  passes=torch.zeros((), dtype=torch.int32, device=dev)),
-        src, dst, n_nodes, eps, kernel)
-    warm_e = induced_edge_count(src, dst, prev_mask, n_nodes)
+    ``kernel`` runs each pass's edge stage on K2 (dst-sorted lanes). With
+    ``mesh`` (the JAX package's ``make_sharded_warm_peel``) the lanes are
+    this rank's block: one all-reduce a pass, one for the previous mask's
+    edges. Returns (final state, float32 density of ``prev_mask``)."""
+    final = _peel_to_end(state_from_degrees(deg, n_edges), src, dst, n_nodes, eps, kernel,
+                         mesh)
+    warm_e = all_reduce(live_lane_count(src, dst, prev_mask, n_nodes), mesh) // 2
     warm_v = prev_mask.sum(dtype=torch.int32)
     warm_rho = torch.where(
         warm_v > 0,
@@ -191,6 +215,7 @@ def _batched_apply(
     rows: dict[int, tuple],
     lane_perm: torch.Tensor | None = None,
     adj: torch.Tensor | None = None,
+    mesh=None,
 ) -> list[int]:
     """``_apply_batch`` of many tenants at once, **in place** on lane stacks
     ``src``/``dst`` ``[T, 2*capacity]`` and ``deg`` ``[T, V]`` (the JAX
@@ -201,20 +226,28 @@ def _batched_apply(
     tenant's batch costs. ``lane_perm`` (``[T, 2*capacity]``, kernel mode)
     maps each row's unsorted lanes to their positions; ``adj`` (``[T, V,
     V]`` float32, the dense buckets) takes the signed weights at (u, v) and
-    (v, u) too, as exact float32 integers. Returns the stack rows whose
-    lanes were written."""
+    (v, u) too, as exact float32 integers. With ``mesh`` the stacks hold
+    this rank's blocks (``[T, 2*capacity / n]``; the JAX package's
+    ``_make_sharded_batched_apply``): each row's lanes in the block are
+    written, each row's slice ``B/n`` histogrammed, and the ``[T, V]``
+    histograms summed over the mesh by one all-reduce. Returns the stack
+    rows whose lanes were written."""
     width = src.shape[1]
-    cap, n_nodes = width // 2, deg.shape[1]
+    n, r = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    cap, n_nodes = width * n // 2, deg.shape[1]
     parts, written = [], []
     for lane, (slots, su, sv, du, dv, w) in rows.items():
         real = slots < cap
+        pos = np.concatenate([slots[real], slots[real] + cap]).astype(np.int64) - r * width
+        mine = (pos >= 0) & (pos < width)
+        part = slice(r * (w.shape[0] // n), (r + 1) * (w.shape[0] // n))
+        du, dv, w = du[part], dv[part], w[part]
         signed = w != 0
-        if real.any():
+        if mine.any():
             written.append(lane)
-        s = slots[real].astype(np.int64)
-        parts.append((np.concatenate([lane * width + s, lane * width + s + cap]),
-                      np.concatenate([su[real], sv[real]]),
-                      np.concatenate([sv[real], su[real]]),
+        parts.append((lane * width + pos[mine],
+                      np.concatenate([su[real], sv[real]])[mine],
+                      np.concatenate([sv[real], su[real]])[mine],
                       lane, du[signed], dv[signed], w[signed]))
     if not parts:
         return written
@@ -241,8 +274,11 @@ def _batched_apply(
         src.view(-1).index_put_((flat,), vals[:k])
         dst.view(-1).index_put_((flat,), vals[k:2 * k])
     d_w = vals[2 * k:]
-    deg.view(-1).index_add_(0, idx[k:k + m], d_w)
-    deg.view(-1).index_add_(0, idx[k + m:k + 2 * m], d_w)
+    hist = deg if mesh is None else torch.zeros_like(deg)
+    hist.view(-1).index_add_(0, idx[k:k + m], d_w)
+    hist.view(-1).index_add_(0, idx[k + m:k + 2 * m], d_w)
+    if mesh is not None:
+        deg += all_reduce(hist, mesh)
     if adj is not None:
         fw = d_w.to(torch.float32)
         adj.view(-1).index_put_((idx[k + 2 * m:k + 3 * m],), fw, accumulate=True)
@@ -259,22 +295,19 @@ def _batched_warm_peel(
     n_nodes: int,
     eps: float,
     kernel: bool = False,
+    mesh=None,
 ) -> tuple[PeelState, torch.Tensor]:
     """``_warm_peel`` of G tenants at once (the JAX package's vmapped
     ``_batched_warm_peel_jit``): lanes ``[G, L]``, degrees and previous masks
     ``[G, V]``, ``n_edges`` int32 ``[G]``. One batched pass a step for the
     whole group (``core.batched``; K2's rows entry with ``kernel``), a row
     frozen once it has converged, so each row's final state equals the
-    single warm peel's. Returns (final state, float32 ``[G]`` density of each
-    row's ``prev_mask``)."""
-    final = peel_rows_to_end(init_rows(deg, n_edges), src, dst, n_nodes, eps, kernel)
-    g = src.shape[0]
-    base = torch.arange(g, dtype=src.dtype, device=src.device)[:, None] * n_nodes
-    pm = prev_mask.reshape(-1)
-    live = ((src < n_nodes) & (dst < n_nodes)
-            & pm.index_select(0, (base + src.clamp(max=n_nodes - 1)).reshape(-1)).view_as(src)
-            & pm.index_select(0, (base + dst.clamp(max=n_nodes - 1)).reshape(-1)).view_as(src))
-    warm_e = live.sum(dim=1, dtype=torch.int32) // 2
+    single warm peel's. With ``mesh`` (``make_sharded_batched_warm_peel``)
+    the lanes are this rank's blocks and a batched pass makes one ``[G, V +
+    1]`` all-reduce for the group. Returns (final state, float32 ``[G]``
+    density of each row's ``prev_mask``)."""
+    final = peel_rows_to_end(init_rows(deg, n_edges), src, dst, n_nodes, eps, kernel, mesh)
+    warm_e = all_reduce(live_lane_count_rows(src, dst, prev_mask, n_nodes), mesh) // 2
     warm_v = prev_mask.sum(dim=1, dtype=torch.int32)
     warm_rho = torch.where(
         warm_v > 0,
@@ -380,13 +413,17 @@ class DeltaEngine:
         kernel: bool | None = None,
         device: torch.device | str | None = None,
     ):
-        if sharded or mesh is not None:
-            raise NotImplementedError(
-                "DeltaEngine(sharded=True / mesh=...) needs the sharded engine, "
-                "ROADMAP queue 1 item 4 (slice 11): not ported yet")
         if n_nodes <= 0:
             raise ValueError("DeltaEngine needs n_nodes >= 1")
-        self.device = resolve_device(device)
+        self.sharded = bool(sharded) or mesh is not None
+        # sharded=True spans the tenant's lanes over the mesh's ranks (its
+        # device is the mesh's); without a mesh, the default group's
+        self.mesh = None
+        n_dev = 1
+        if self.sharded:
+            self.mesh = mesh if mesh is not None else make_mesh(device=device)
+            n_dev = validate_stream_mesh(self.mesh, max(next_pow2(capacity), MIN_CAPACITY))
+        self.device = mesh_device(self.mesh, device)
         self.n_nodes = int(n_nodes)
         # the vertex space is padded to a power of two, as the JAX package
         # pads it for shared executables: both engines hold the same arrays
@@ -394,16 +431,19 @@ class DeltaEngine:
         self.eps = float(eps)
         self.refresh_every = int(refresh_every)
         self.pruned = bool(pruned)
-        self.kernel = resolve_kernel(kernel, self.device)
-        self.sharded = False      # one device (the sharded engine: item 4)
+        # sharded engines stay on the scatter tier, as the JAX package's do:
+        # their lanes are in slot order, split by rank, not dst-sorted
+        self.kernel = resolve_kernel(kernel, self.device) and not self.sharded
         # observability identity: a registry overwrites ``tenant`` with the
         # registered name; spans and audit records are labeled with it
         self.tenant = "-"
-        self.kind = "delta"
+        self.kind = "sharded" if self.sharded else "delta"
+        # floor capacity (incl. epoch shrinks) at one lane block per rank
         self.buffer = EdgeBuffer(self.node_capacity, capacity=capacity,
-                                 min_capacity=MIN_CAPACITY)
+                                 min_capacity=max(MIN_CAPACITY, n_dev // 2))
         self.metrics = EngineMetrics()
-        self._src = None          # device int32 [2*capacity], sentinel-padded
+        self._src = None          # device int32 [2*capacity] (sharded: this rank's
+                                  # [2*capacity / n]), sentinel-padded
         self._dst = None
         self._deg = None          # device int32 [node_capacity]
         self._lane_perm = None    # kernel mode: device int32, lane -> position
@@ -432,7 +472,7 @@ class DeltaEngine:
     @property
     def n_shards(self) -> int:
         """Devices this tenant's edge slots are partitioned across."""
-        return 1
+        return mesh_device_count(self.mesh) if self.mesh is not None else 1
 
     def _audit_shape(self) -> tuple:
         """Shape determinants of every dispatch this engine can make (audit
@@ -462,7 +502,7 @@ class DeltaEngine:
         """Full O(|E|) upload — on first use, regrow, or epoch compaction.
         Kernel mode uploads the buffer's dst-sorted snapshot instead, with
         its lane permutation, so later batches patch the sorted layout in
-        O(batch)."""
+        O(batch). A sharded engine uploads its rank's block of the lanes."""
         if self.kernel:
             assert_exact_envelope(2 * self.buffer.capacity,
                                   self.node_capacity)
@@ -472,6 +512,8 @@ class DeltaEngine:
             self._sorted = True
         else:
             src, dst, deg = self.buffer.resident_state(self.node_capacity)
+            if self.mesh is not None:
+                src, dst = lane_block(src, self.mesh), lane_block(dst, self.mesh)
         self._src, self._dst, self._deg = (self._upload(src), self._upload(dst),
                                            self._upload(deg))
         self._generation = self.buffer.generation
@@ -528,9 +570,11 @@ class DeltaEngine:
                 self._resync_device()
                 self._plan = None
             else:
+                # sharded engines need the batch divisible into per-rank
+                # histogram slices (pow-2 ranks)
                 row = _build_batch_row(
                     ins, ins_slots, dele, del_slots, self.buffer.capacity,
-                    self.sentinel)
+                    self.sentinel, b_floor=max(MIN_BATCH, self.n_shards))
                 b = row[0].shape[0]
                 self._dispatch_batch(*row)
                 self.metrics.shape_buckets.add((2 * self.buffer.capacity, b))
@@ -578,7 +622,7 @@ class DeltaEngine:
         marks the lanes unsorted: the patched lanes hold their new dst at
         their old positions until the next pass re-sorts (``_lanes``)."""
         wrote = _apply_batch(self._src, self._dst, self._deg, slots, su, sv, du,
-                             dv, w, self._lane_perm)
+                             dv, w, self._lane_perm, self.mesh)
         if self.kernel and wrote:
             self._sorted = False
 
@@ -592,7 +636,7 @@ class DeltaEngine:
         src, dst = self._lanes()
         rho_lb, k, _, n_cand, ne_cand = _plan(
             src, dst, self._prev_mask, self.buffer.n_edges, self.node_capacity,
-            self.kernel)
+            self.kernel, self.mesh)
         new = build_plan(
             rho_lb.item(), int(k), n_cand.item(), ne_cand.item(),
             node_width=self.node_capacity,
@@ -614,11 +658,19 @@ class DeltaEngine:
         merge on the device). Returns (density, mask[:n_nodes], passes) —
         bit-identical to the unpruned cold peel — or ``None`` when the
         survivor set fits no legal bucket (caller runs the full-width path;
-        counted as a prune fallback)."""
-        src, dst = self._lanes()
-        res = pruned_peel_resident(
-            src, dst, self.node_capacity, self.buffer.n_edges, self.eps,
-            self._plan, self.kernel)
+        counted as a prune fallback). A sharded engine runs the JAX package's
+        host path (``prune.pruned_peel_host`` on the replicated buffer, the
+        bucket peel sharded over the mesh)."""
+        if self.mesh is not None:
+            u, v = self.buffer.host_view()
+            res = pruned_peel_host(
+                u, v, self._deg.cpu().numpy(), self.buffer.n_edges, self.eps, self._plan,
+                mesh=self.mesh, kernel=self.kernel)
+        else:
+            src, dst = self._lanes()
+            res = pruned_peel_resident(
+                src, dst, self.node_capacity, self.buffer.n_edges, self.eps,
+                self._plan, self.kernel)
         if res is None:
             # survivor set fits no legal bucket this epoch: stop trying
             # until the refresh rebuilds the plan
@@ -651,8 +703,13 @@ class DeltaEngine:
         return self._staleness >= self.refresh_every
 
     def _cold_full_peel(self) -> PeelState:
-        """Full-width peel re-anchor from the cold degree histogram."""
+        """Full-width peel re-anchor from the cold degree histogram (sharded:
+        from the exactly resynced degrees, the same ints, as the JAX
+        package's sharded engine does)."""
         src, dst = self._lanes()
+        if self.mesh is not None:
+            return _warm_peel(src, dst, self._deg, self.buffer.n_edges, self._prev_mask,
+                              self.node_capacity, self.eps, self.kernel, self.mesh)[0]
         return _peel_to_end(
             init_state(src, dst, self.node_capacity, self.buffer.n_edges),
             src, dst, self.node_capacity, self.eps, self.kernel)
@@ -750,7 +807,7 @@ class DeltaEngine:
                 src, dst = self._lanes()
                 final, warm_rho = _warm_peel(
                     src, dst, self._deg, self.buffer.n_edges, self._prev_mask,
-                    self.node_capacity, self.eps, self.kernel)
+                    self.node_capacity, self.eps, self.kernel, self.mesh)
                 density = float(final.best_density)
                 warm_rho = float(warm_rho)
                 mask = final.best_mask.cpu().numpy()[: self.n_nodes]
@@ -848,7 +905,7 @@ class DeltaEngine:
             cert, mask_full, passes, rounds, _ = refine_resident(
                 src, dst, self._deg, self.buffer.n_edges, self.node_capacity,
                 self.eps, seed_ne, seed_nv, seed_mask, q.passes, tg,
-                max_rounds, self.kernel)
+                max_rounds, self.kernel, mesh=self.mesh)
             self._refine_cert = cert
             self._cert_mask = mask_full.copy()
             self._cert_insert_slack = 0
@@ -882,12 +939,13 @@ class DeltaEngine:
 
     def cbds(self, rounds: int = 1) -> dict:
         """CBDS-P on the current graph, on the resident lanes
-        (``core.cbds.cbds_resident``, K2 and K1 in kernel mode)."""
+        (``core.cbds.cbds_resident``, K2 and K1 in kernel mode; sharded, over
+        the mesh)."""
         if self._generation < 0:
             self._resync_device()
         src, dst = self._lanes()
         res = cbds_resident(src, dst, self.node_capacity, self.buffer.n_edges,
-                            int(rounds), self.kernel)
+                            int(rounds), self.kernel, self.mesh)
         res["member_mask"] = res["member_mask"][: self.n_nodes]
         return res
 
@@ -909,6 +967,7 @@ class DeltaEngine:
             f"DeltaEngine(|V|={self.n_nodes}/{self.node_capacity}, "
             f"|E|={self.buffer.n_edges}, eps={self.eps}, "
             f"pruned={self.pruned}, device={self.device}, kernel={self.kernel}, "
+            f"shards={self.n_shards}, "
             f"stale_in={self.refresh_every - self._staleness:.1f})"
         )
 

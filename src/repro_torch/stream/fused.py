@@ -38,12 +38,23 @@ be peeled restores them (``TenantBatch.resort``). The JAX package's stacks
 keep the unsorted slot layout (its kernel recomputes bands from the data);
 the triple does not depend on the order within a row.
 
+Sharded buckets (``mesh=``; tenants registered ``sharded=True``): each rank
+holds its block of every tenant's lanes, ``[T, 2*capacity / n]``, and the
+replicated ``[T, V]`` state, and every batched program above runs over the
+rank's blocks with one ``[G, V + 1]`` all-reduce a batched pass for the whole
+group (one ``[T, V]`` one an ingest): the collective's cost spread over the
+bucket's tenants, the reason the tier exists. As in the JAX package they
+keep the scatter tier, no dense stack, and their pruned members are
+prepared on the host from their buffers (``prune.prepare_pruned_peel``),
+the bucket peel sharded. The mesh is part of the pool's key.
+
 Differences from the JAX package's module, none in a result: the group is
 not padded to a power of two (the padding only reuses XLA executables; the
 audit key keeps the JAX formula, so spans and ``compiled`` match), the
-pruned members are prepared on the device from their rows instead of on the
-host from their buffers, and the sharded stacks (``mesh=``,
-``sharded=True``) wait for ROADMAP queue 1 item 4 and raise.
+unsharded pruned members are prepared on the device from their rows instead
+of on the host from their buffers, and a sharded stack is written in place
+by its rank (the JAX package's laundering jits only keep XLA's output
+shardings consistent).
 """
 from __future__ import annotations
 
@@ -54,9 +65,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.batched import dense_pass_rows, init_rows, require_exact_matmul, run_rows
-from repro_torch.core.dispatch import assert_exact_envelope, resolve_device
+from repro_torch.core.dispatch import assert_exact_envelope
+from repro_torch.core.distributed import lane_block, mesh_device, mesh_device_count
 from repro_torch.core.pbahmani import PeelState
-from repro_torch.core.prune import _batched_bucket_peel, prepare_pruned_peel_rows
+from repro_torch.core.prune import (
+    _batched_bucket_peel, merge_pruned_peel, prepare_pruned_peel, prepare_pruned_peel_rows,
+)
 from repro_torch.obs.audit import AUDITOR
 from repro_torch.obs.trace import get_tracer, span
 from repro_torch.refine.certify import (
@@ -98,22 +112,25 @@ def _dense_warm_peel_body(adj, deg, n_edges, prev_mask, eps: float):
 # the per-bucket lane stack
 # ---------------------------------------------------------------------------
 class TenantBatch:
-    """Stacked device state for every tenant in one capacity bucket."""
+    """Stacked device state for every tenant in one capacity bucket.
+
+    ``mesh`` makes the stack *sharded*: each rank holds its block of every
+    row's lanes, and every batched program makes one collective a pass for
+    the whole bucket. The dense tier is unsharded only, as in the JAX
+    package."""
 
     def __init__(self, node_capacity: int, edge_capacity: int, eps: float,
                  lanes: int = MIN_LANES, kernel: bool = False,
                  device: torch.device | str | None = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "TenantBatch(mesh=...) needs the sharded tier, ROADMAP queue 1 item 4: "
-                "not ported yet")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.sharded = mesh is not None
+        self.device = mesh_device(mesh, device)
         self.node_capacity = int(node_capacity)
         self.edge_capacity = int(edge_capacity)
         self.eps = float(eps)
         self.kernel = bool(kernel)
         self.lanes = max(next_pow2(lanes), MIN_LANES)
-        self.dense = self.node_capacity <= DENSE_NODE_CAP
+        self.dense = self.node_capacity <= DENSE_NODE_CAP and not self.sharded
         self.lane_of: dict[str, int] = {}
         self._free = list(range(self.lanes - 1, -1, -1))
         self.lane_generation: dict[int, int] = {}
@@ -124,10 +141,11 @@ class TenantBatch:
 
     @property
     def n_shards(self) -> int:
-        return 1
+        return mesh_device_count(self.mesh) if self.sharded else 1
 
     def _alloc(self, lanes: int) -> None:
-        v, width, dev = self.node_capacity, 2 * self.edge_capacity, self.device
+        v, dev = self.node_capacity, self.device
+        width = 2 * self.edge_capacity // self.n_shards  # this rank's block of a row
         self._src = torch.full((lanes, width), v, dtype=torch.int32, device=dev)
         self._dst = torch.full((lanes, width), v, dtype=torch.int32, device=dev)
         self._deg = torch.zeros((lanes, v), dtype=torch.int32, device=dev)
@@ -182,7 +200,11 @@ class TenantBatch:
     def write_lane(self, lane: int, src, dst, deg, mask, generation: int,
                    lane_perm=None) -> None:
         """One tenant's whole state into row ``lane`` (host arrays or
-        tensors): a resync, a join or an evict."""
+        tensors): a resync, a join or an evict. A sharded stack takes the
+        rank's block of the full-width lanes."""
+        if self.sharded:
+            src, dst = lane_block(src, self.mesh), lane_block(dst, self.mesh)
+
         def put(stack, value):
             t = value if isinstance(value, torch.Tensor) else torch.from_numpy(
                 np.ascontiguousarray(value))
@@ -216,7 +238,7 @@ class TenantBatch:
         row dispatched."""
         b = max(max(r[0].shape[0] for r in rows.values()), MIN_BATCH)
         written = _batched_apply(self._src, self._dst, self._deg, rows, self._lane_perm,
-                                 self._adj)
+                                 self._adj, self.mesh)
         if self.kernel:
             self._unsorted[written] = True
         self.n_ingests += 1
@@ -261,7 +283,7 @@ class TenantBatch:
             return _dense_warm_peel_body(self._adj.index_select(0, idx), deg, ne, mask,
                                          self.eps)
         return _batched_warm_peel(src, dst, deg, ne, mask, self.node_capacity, self.eps,
-                                  self.kernel)
+                                  self.kernel, self.mesh)
 
     def __repr__(self) -> str:  # pragma: no cover
         return (f"TenantBatch(|V|={self.node_capacity}, "
@@ -270,29 +292,31 @@ class TenantBatch:
 
 
 class FusedPool:
-    """(node_capacity, edge_capacity, eps, kernel, device) -> TenantBatch.
-    One pool per registry: tenants that bucket together share a lane stack
-    and therefore every batched program."""
+    """(node_capacity, edge_capacity, eps, kernel, device, mesh) ->
+    TenantBatch. One pool per registry: tenants that bucket together share a
+    lane stack and therefore every batched program; sharded and unsharded
+    tenants, or tenants on different meshes, never do."""
 
     def __init__(self):
         self.batches: dict[tuple, TenantBatch] = {}
 
     def batch_for(self, node_capacity: int, edge_capacity: int, eps: float,
-                  kernel: bool = False,
-                  device: torch.device | str | None = None) -> TenantBatch:
-        device = resolve_device(device)
-        key = (int(node_capacity), int(edge_capacity), float(eps), bool(kernel), str(device))
+                  kernel: bool = False, device: torch.device | str | None = None,
+                  mesh=None) -> TenantBatch:
+        device = mesh_device(mesh, device)
+        key = (int(node_capacity), int(edge_capacity), float(eps), bool(kernel), str(device),
+               mesh)
         batch = self.batches.get(key)
         if batch is None:
             batch = self.batches[key] = TenantBatch(
-                key[0], key[1], key[2], kernel=key[3], device=device)
+                key[0], key[1], key[2], kernel=key[3], device=device, mesh=mesh)
         return batch
 
     def place(self, eng: "FusedEngine") -> None:
         """Give ``eng`` a lane in the batch of its *current* buffer capacity;
         a capacity change migrates it (evict + join)."""
         batch = self.batch_for(eng.node_capacity, eng.buffer.capacity, eng.eps, eng.kernel,
-                               device=eng.device)
+                               device=eng.device, mesh=eng.mesh)
         if eng.batch is batch:
             return
         if eng.batch is not None:
@@ -356,7 +380,7 @@ class FusedEngine(DeltaEngine):
         self.pool = pool
         self.fused = True
         self.tenant = str(name)
-        self.kind = "fused"
+        self.kind = "fused+sharded" if self.sharded else "fused"
 
     @property
     def _sorted(self) -> bool:
@@ -520,12 +544,25 @@ def _flush_body(batch: TenantBatch, members, refine: bool,
     pruned = [(name, eng) for name, eng in live if eng.pruned and eng._plan.enabled]
     warm = [(name, eng) for name, eng in live if not (eng.pruned and eng._plan.enabled)]
     if pruned:
-        src, dst, _, _ = batch.rows([eng._lane for _, eng in pruned])
-        preps = prepare_pruned_peel_rows(
-            src, dst, batch.node_capacity, [eng.buffer.n_edges for _, eng in pruned],
-            batch.eps, [eng._plan for _, eng in pruned], batch.kernel)
+        lanes = [eng._lane for _, eng in pruned]
+        if batch.sharded:
+            # the JAX package's host prep from each member's buffer and
+            # degrees (one download for the group), the bucket peel sharded
+            deg = batch._deg.index_select(0, torch.tensor(
+                lanes, dtype=torch.int64, device=batch.device)).cpu().numpy()
+            preps = [prepare_pruned_peel(*eng.buffer.host_view(), deg[i], eng.buffer.n_edges,
+                                         batch.eps, eng._plan)
+                     for i, (_, eng) in enumerate(pruned)]
+        else:
+            src, dst, _, _ = batch.rows(lanes)
+            preps = prepare_pruned_peel_rows(
+                src, dst, batch.node_capacity, [eng.buffer.n_edges for _, eng in pruned],
+                batch.eps, [eng._plan for _, eng in pruned], batch.kernel)
         for (name, eng), prep in zip(pruned, preps):
-            if prep is None:
+            if prep is None or (batch.sharded and not isinstance(prep, tuple)
+                                and prep.plan.bucket_e % batch.n_shards):
+                # no bucket fits (or, sharded, the bucket's lanes do not
+                # split over the ranks, as pruned_peel_host refuses them)
                 eng.metrics.n_prune_fallbacks += 1
                 eng._plan = dc_replace(eng._plan, enabled=False)
                 warm.append((name, eng))
@@ -540,15 +577,27 @@ def _flush_body(batch: TenantBatch, members, refine: bool,
         by_buckets[pd.plan.buckets].append((name, eng, pd))
     for buckets, items in by_buckets.items():
         dev = batch.device
+        if batch.sharded:
+            b_src, b_dst = (torch.from_numpy(np.ascontiguousarray(lane_block(
+                np.stack([getattr(pd, f) for _, _, pd in items]), batch.mesh))).to(dev)
+                for f in ("b_src", "b_dst"))
+        else:
+            b_src = torch.stack([pd.b_src for _, _, pd in items])
+            b_dst = torch.stack([pd.b_dst for _, _, pd in items])
         d_b, mask_b, passes_b = _batched_bucket_peel(
-            torch.stack([pd.b_src for _, _, pd in items]),
-            torch.stack([pd.b_dst for _, _, pd in items]),
+            b_src, b_dst,
             torch.tensor([pd.n_v1 for _, _, pd in items], dtype=torch.int32, device=dev),
             torch.tensor([pd.n_e1 for _, _, pd in items], dtype=torch.int32, device=dev),
             torch.tensor(np.asarray([pd.best_d1 for _, _, pd in items], np.float32),
                          device=dev),
             torch.ones(len(items), dtype=torch.int32, device=dev),  # pass 0 ran in the prep
-            batch.eps, *buckets, batch.kernel)
+            batch.eps, *buckets, batch.kernel, batch.mesh)
+        if batch.sharded:  # the host preps merge on the host
+            d_b, mask_b, passes_b = (t.cpu().numpy() for t in (d_b, mask_b, passes_b))
+            for i, (name, eng, pd) in enumerate(items):
+                merged = merge_pruned_peel(pd, d_b[i], mask_b[i], passes_b[i])
+                out[name] = _pruned_result(*eng._absorb_pruned_result(*merged))
+            continue
         # each member's strict-> merge on the device, then one download
         masks = torch.stack([torch.where(
             d_b[i] > float(pd.best_d1),
@@ -663,7 +712,7 @@ def _refine_flush(batch: TenantBatch, members, peel_out,
         else:
             loads, bd, be, bv, bm, ps = _batched_refine_round(
                 src_g, dst_g, deg_g, ne_t, loads, bd, be, bv, bm, ps, nc, batch.eps,
-                batch.kernel)
+                batch.kernel, batch.mesh)
         rounds = t
         loads_np = loads.cpu().numpy()
         be_np, bv_np = be.cpu().numpy(), bv.cpu().numpy()

@@ -15,10 +15,14 @@ Eviction is plain LRU on engine *access* (updates and queries both touch):
 the registry is a cache of warm device state, not the system of record —
 an evicted tenant can be re-registered and replayed from its stream.
 
-This is the JAX package's ``stream/registry.py`` on one device: a registry
-takes ``device=`` (None means the GPU and raises where there is none), and
-its sharded tenants (``sharded=True``, ``mesh=``) wait for ROADMAP queue 1
-item 4 and raise.
+Sharded tenants (``sharded=True``) span the registry's mesh (``mesh=``, a
+``core.distributed.Mesh``; by default one made at the first sharded
+registration over the default process group, or a world of one), every rank
+of which runs the same registry and feeds it the same traffic.
+
+This is the JAX package's ``stream/registry.py``; a registry takes
+``device=`` (None means the GPU and raises where there is none; with a mesh,
+the mesh's device).
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.core.dispatch import resolve_device, resolve_kernel
+from repro_torch.core.dispatch import resolve_kernel
+from repro_torch.core.distributed import make_mesh, mesh_device
 from repro_torch.stream.buffer import MIN_CAPACITY, next_pow2
 from repro_torch.stream.delta import DeltaEngine
 from repro_torch.stream.fused import FusedEngine, FusedPool
@@ -90,7 +95,7 @@ class TenantStats:
     kernel: bool = False
     # where this tenant's device state lives and how its programs launch:
     # "solo", "sharded", "fused", or "fused+sharded" (one of the four cells
-    # of the placement matrix; the sharded two are not ported yet)
+    # of the placement matrix)
     placement: str = "solo"
     # which worker process hosts this tenant (the telemetry plane): the
     # cross-process collector re-keys tenants by
@@ -117,14 +122,14 @@ class GraphRegistry:
                  sharded: bool = False, mesh=None, fused: bool = False,
                  kernel: bool | None = None, worker: str = "",
                  device: torch.device | str | None = None):
-        if sharded or mesh is not None:
-            raise NotImplementedError(
-                "GraphRegistry(sharded=True / mesh=...) needs the sharded engine, "
-                "ROADMAP queue 1 item 4: not ported yet")
         if max_tenants <= 0:
             raise ValueError("max_tenants must be >= 1")
-        # every tenant's device state lives here (None: the GPU)
-        self.device = resolve_device(device)
+        # every tenant's device state lives here (None: the GPU; with a
+        # mesh, the mesh's device)
+        self.device = mesh_device(mesh, device)
+        # one mesh for the whole registry: sharded tenants of one capacity
+        # bucket then share a fused stack (the pool keys on the mesh)
+        self.mesh = mesh
         self.max_tenants = int(max_tenants)
         # worker identity for cross-process telemetry (surfaced per tenant
         # in TenantStats.worker; the service defaults it to the pid)
@@ -163,8 +168,10 @@ class GraphRegistry:
         ``fused=True`` opts the tenant into the fused multi-tenant layer
         (stream/fused.py): its device state becomes a row of the bucket's
         stacked tensors and same-bucket queries batch into one program a
-        flush, at bit-identical per-tenant results. ``sharded=True`` waits
-        for the sharded engine (ROADMAP queue 1 item 4) and raises.
+        flush, at bit-identical per-tenant results. ``sharded=True`` spans
+        the tenant's lanes over the registry's mesh (at identical query
+        results); with ``fused=True`` too, its bucket's batched programs make
+        one collective a pass for the whole bucket.
 
         Re-registering with the same logical config is an idempotent no-op;
         a conflicting config raises rather than silently handing back an
@@ -174,9 +181,10 @@ class GraphRegistry:
                         else bool(sharded))
         want_fused = self.default_fused if fused is None else bool(fused)
         # resolve exactly like DeltaEngine.__init__ will, so the re-register
-        # conflict check below compares like with like
+        # conflict check below compares like with like (sharded engines stay
+        # on the scatter tier)
         want_kernel = resolve_kernel(
-            self.default_kernel if kernel is None else kernel, self.device)
+            self.default_kernel if kernel is None else kernel, self.device) and not want_sharded
         if name in self._engines:
             eng = self.get(name)
             is_fused = isinstance(eng, FusedEngine)
@@ -206,10 +214,13 @@ class GraphRegistry:
             kernel=want_kernel,
             device=self.device,
         )
+        if want_sharded and self.mesh is None:
+            self.mesh = make_mesh(device=self.device)
+        mesh = self.mesh if want_sharded else None
         if want_fused:
-            eng = FusedEngine(name, self.fused_pool, sharded=want_sharded, **kwargs)
+            eng = FusedEngine(name, self.fused_pool, sharded=want_sharded, mesh=mesh, **kwargs)
         else:
-            eng = DeltaEngine(sharded=want_sharded, **kwargs)
+            eng = DeltaEngine(sharded=want_sharded, mesh=mesh, **kwargs)
         eng.tenant = name  # label spans/audit records with the tenant name
         self._engines[name] = eng
         self._engines.move_to_end(name)

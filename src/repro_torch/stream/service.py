@@ -138,8 +138,10 @@ class StreamService:
         one program (the response's ``placement`` names the cell).
         ``kernel`` routes the tenant's passes through the CUDA kernels
         (bit-identical results; None defers to the service default, itself
-        on for a CUDA device). ``sharded=True`` waits for the sharded engine
-        (ROADMAP queue 1 item 4) and raises."""
+        on for a CUDA device). ``sharded=True`` spans the tenant's graph over
+        the service's mesh at identical results (``n_shards`` in the
+        response); with ``fused`` too, its bucket's batched programs make one
+        collective a pass for the whole bucket."""
         with span("service", op="create_tenant", tenant=tenant) as sp:
             try:
                 eng = self.registry.register(tenant, n_nodes, eps=eps,

@@ -166,23 +166,41 @@ def test_envelope_error_matches_jax():
 @pytest.mark.parametrize("kw", [{"pruned": True}, {"refine_rounds": 2}])
 def test_unported_options_raise(er_graph, kw):
     """Both options run on one device (tests/test_torch_prune.py and
-    tests/test_torch_refine.py hold them against JAX); their sharded forms
-    are not ported and raise, naming the ROADMAP slice."""
+    tests/test_torch_refine.py hold them against JAX), and since the
+    sharded tier was ported their sharded forms run too: over a mesh of one
+    they equal the single-device call bit for bit (tests/test_torch_shard.py
+    holds them against JAX's sharded forms). What still raises is a device
+    that is not the mesh's."""
     from repro_torch.core import prune
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.graphs.convert import to_device
     from repro_torch.refine import engine
 
     tg = port(er_graph)
     assert tcore.pbahmani(tg, eps=0.1, device="cpu", **kw)[0] > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 slice 11"):
-        if "pruned" in kw:
-            u, v = prune.slot_arrays(tg)
-            prune.pruned_peel_host(u, v, tg.degrees(), tg.n_edges, 0.1,
-                                   prune.plan_for_graph(tg, device="cpu"),
-                                   mesh=object(), device="cpu")
-        else:
-            engine.refine_resident(None, None, None, tg.n_edges, tg.n_nodes, 0.1,
-                                   0, 0, np.zeros(tg.n_nodes, bool), 0, -1.0, 2,
-                                   mesh=object())
+    mesh = make_mesh(device="cpu")
+    if "pruned" in kw:
+        u, v = prune.slot_arrays(tg)
+        plan = prune.plan_for_graph(tg, device="cpu")
+
+        def run(**m):
+            return prune.pruned_peel_host(u, v, tg.degrees(), tg.n_edges, 0.1, plan, **m)
+    else:
+        src, dst = to_device(tg, "cpu")
+        deg = torch.from_numpy(tg.degrees().astype(np.int32))
+
+        def run(**m):
+            mask = np.zeros(tg.n_nodes, bool)
+            cert, mask, passes, rounds, _ = engine.refine_resident(
+                src, dst, deg, tg.n_edges, tg.n_nodes, 0.1, 0, 0, mask, 0, -1.0, 2, **m)
+            return cert.best_ne, cert.best_nv, cert.dual_num, cert.dual_den, mask, passes
+    one, sharded = run(device="cpu") if "pruned" in kw else run(), run(mesh=mesh)
+    assert _bits(one[0]) == _bits(sharded[0])
+    for a, b in zip(one[1:], sharded[1:]):
+        assert np.array_equal(a, b)
+    if "pruned" in kw:
+        with pytest.raises(ValueError, match="not the mesh's device"):
+            run(mesh=mesh, device="meta")
 
 
 def test_empty_graph():

@@ -994,3 +994,93 @@ def test_fused_flush_on_card_matches_off_and_cpu(cuda, n):
             if not batch._unsorted[lane]:
                 assert bool(torch.all(batch._dst[lane][1:] >= batch._dst[lane][:-1]))
     assert peel.rows_launches > before
+
+
+# ---------------------------------------------------------------------------
+# the sharded tier on the card (core/distributed.py)
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A real NCCL group of one rank on the card (file rendezvous, no
+    network), torn down after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rdzv'}",
+                            world_size=1, rank=0)
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_nccl_mesh_of_one_on_card(nccl_mesh):
+    from repro_torch.core import distributed
+
+    assert nccl_mesh.device.type == "cuda" and nccl_mesh.group is not None
+    assert (nccl_mesh.rank, nccl_mesh.size, nccl_mesh.via_host) == (0, 1, False)
+    t = torch.arange(5, dtype=torch.int32, device=nccl_mesh.device)
+    before = distributed.collectives
+    assert torch.equal(distributed.all_reduce_sum(t.clone(), nccl_mesh), t)
+    assert distributed.collectives == before + 1
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+def test_pbahmani_distributed_on_card(nccl_mesh, eps):
+    """Kernel on == kernel off == the single-device peel == numpy; one K2
+    launch and one collective a pass (and one each for the degrees: K1 and
+    its all-reduce)."""
+    from repro_torch.core import distributed
+
+    g = rmat(12, 16, seed=1)
+    want = pbahmani(g, eps=eps, device=nccl_mesh.device)
+    k2, k1, coll = peel.launches, segsum.launches, distributed.collectives
+    got = distributed.pbahmani_distributed(g, nccl_mesh, eps=eps, kernel=True)
+    assert (peel.launches - k2, segsum.launches - k1, distributed.collectives - coll) == (
+        got[2], 1, got[2] + 1)
+    off = distributed.pbahmani_distributed(g, nccl_mesh, eps=eps, kernel=False)
+    oracle = pbahmani_np(g, eps=eps)
+    for other in (want, off, oracle):
+        assert np.float32(got[0]).view(np.int32) == np.float32(other[0]).view(np.int32)
+        assert got[2] == other[2]
+        np.testing.assert_array_equal(got[1], other[1])
+    c = distributed.cbds_distributed(g, nccl_mesh)
+    ref_c = cbds_p(g, device=nccl_mesh.device)
+    assert c["density"] == ref_c["density"] and c["k_star"] == ref_c["k_star"]
+    np.testing.assert_array_equal(c["member_mask"], ref_c["member_mask"])
+
+
+def test_sharded_stream_engine_on_card(nccl_mesh):
+    """A sharded DeltaEngine on the card (NCCL mesh of one) == the
+    single-device engine on the card, after every churn batch, refined
+    queries and cbds included; a fused+sharded bucket too."""
+    from repro_torch.stream import DeltaEngine, GraphRegistry, ingest_group, query_group
+
+    cfg = dict(n_nodes=600, eps=0.1, capacity=2048, refresh_every=6)
+    sh = DeltaEngine(**cfg, sharded=True, mesh=nccl_mesh)
+    single = DeltaEngine(**cfg, device=nccl_mesh.device)
+    assert sh.device == nccl_mesh.device and not sh.kernel
+    rng = np.random.default_rng(3)
+    for i, (ins, dels) in enumerate(_stream_events(rng, 600, 40, 40)):
+        for eng in (sh, single):
+            eng.apply_updates(insert=ins, delete=dels)
+        kw = dict(refine=i % 10 == 9, target_gap=-1.0, max_refine_rounds=3)
+        _same_answer(sh.query(**kw), single.query(**kw))
+    assert sh.metrics.n_pruned_queries > 0 and sh.metrics.n_refreshes > 2
+    a, b = sh.cbds(), single.cbds()
+    assert a["density"] == b["density"] and a["k_star"] == b["k_star"]
+    regs = [GraphRegistry(fused=True, sharded=True, mesh=nccl_mesh, eps=0.1),
+            GraphRegistry(fused=True, eps=0.1, device=nccl_mesh.device)]
+    for reg in regs:
+        for i in range(4):
+            reg.register(f"t{i}", n_nodes=2000, pruned=i % 2 == 0)
+    streams = {f"t{i}": _stream_events(rng, 2000, 5, 400) for i in range(4)}
+    for _ in range(5):
+        upd = {k: next(s) for k, s in streams.items()}
+        answers = []
+        for reg in regs:
+            ingest_group(upd, reg.engines())
+            answers.append(query_group(reg.engines()))
+        for k in upd:
+            _same_answer(answers[0][k], answers[1][k])

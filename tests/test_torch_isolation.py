@@ -46,7 +46,8 @@ def test_port_files_found():
             "src/repro_torch/graphs/io.py", "src/repro_torch/stream/__init__.py",
             "src/repro_torch/stream/buffer.py", "src/repro_torch/stream/delta.py",
             "src/repro_torch/stream/fused.py", "src/repro_torch/stream/registry.py",
-            "src/repro_torch/stream/service.py", "src/repro_torch/core/batched.py"} <= names
+            "src/repro_torch/stream/service.py", "src/repro_torch/core/batched.py",
+            "src/repro_torch/core/distributed.py", "src/repro_torch/graphs/partition.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -67,7 +68,8 @@ def test_scan_catches_forbidden_imports(tmp_path):
 @pytest.mark.parametrize("entry", ["pbahmani", "kcore_decompose", "cbds_p",
                                    "pbahmani_pruned", "plan_for_graph", "refine",
                                    "dcn_init", "build_step", "DCNv2", "DeltaEngine",
-                                   "FusedEngine", "GraphRegistry", "StreamService"])
+                                   "FusedEngine", "GraphRegistry", "StreamService",
+                                   "make_mesh", "pbahmani_distributed", "cbds_distributed"])
 def test_default_device_needs_cuda(monkeypatch, entry):
     """device=None means the GPU: with no CUDA it raises and names the way
     out, instead of running on the CPU."""
@@ -88,7 +90,8 @@ def test_default_device_needs_cuda(monkeypatch, entry):
              "DeltaEngine": lambda: DeltaEngine(8),
              "FusedEngine": lambda: FusedEngine("t", FusedPool(), 8),
              "GraphRegistry": lambda: GraphRegistry(fused=True),
-             "StreamService": lambda: StreamService(fused=True)}
+             "StreamService": lambda: StreamService(fused=True),
+             "make_mesh": lambda: tcore.make_mesh()}
     fn = calls.get(entry) or (lambda: (getattr(tcore, entry, None)
                                        or getattr(trefine, entry))(small_named("petersen")))
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -381,14 +381,23 @@ def test_buffer_matches_jax_every_step(seed):
 
 
 def test_engine_entry_contract(monkeypatch):
-    """``device=None`` means CUDA and raises without it; the sharded engine
-    is not ported and says where it is queued."""
+    """``device=None`` means CUDA and raises without it, sharded or not; a
+    sharded engine (``sharded=True`` or ``mesh=``) takes its mesh's device,
+    refuses another, and stays on the scatter tier as the JAX package's
+    does."""
+    from repro_torch.core.distributed import make_mesh
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        DeltaEngine(8)
-    for kw in ({"sharded": True}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            DeltaEngine(8, device="cpu", **kw)
+    for kw in ({}, {"sharded": True}):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            DeltaEngine(8, **kw)
+    mesh = make_mesh(device="cpu")
+    for kw in ({"sharded": True, "device": "cpu"}, {"mesh": mesh}):
+        eng = DeltaEngine(8, kernel=True, **kw)
+        assert (eng.sharded, eng.n_shards, eng.kind, eng.kernel) == (True, 1, "sharded", False)
+        assert eng.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="not the mesh's device"):
+        DeltaEngine(8, mesh=mesh, device="meta")
     assert DeltaEngine(8, device="cpu").kernel is False
     assert DeltaEngine(8, device="cpu", kernel=True).kernel is True
 

@@ -11,8 +11,8 @@ integers, and the bucket rows' degrees and warm-seed masks must equal the
 JAX stacks'. These are the JAX package's tests of ``tests/test_tenants.py``,
 its registry and service tests of ``tests/test_stream.py`` and
 ``tests/test_refine.py:test_fused_refine_parity_dense_and_sparse``, each held
-to the JAX package as well as to its own claim; the JAX package's
-fused+sharded test becomes the check that the sharded stacks are refused.
+to the JAX package as well as to its own claim; the fused+sharded stacks are
+held to it in tests/test_torch_shard.py and tests/test_torch_distributed.py.
 Every input comes from a numpy seed.
 """
 import dataclasses
@@ -187,17 +187,28 @@ def test_fused_sparse_bucket_parity(kernel):
 
 
 def test_fused_sharded_is_not_ported():
-    """The JAX package's fused+sharded stacks wait for the sharded tier
-    (ROADMAP queue 1 item 4): every way in raises and says so."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        FusedEngine("a", FusedPool(), 50, sharded=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        GraphRegistry(fused=True, sharded=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tfused.TenantBatch(64, 256, 0.0, device="cpu", mesh=object())
+    """The JAX package's fused+sharded stacks, refused until the sharded
+    tier was ported, now build through every way in: a sharded bucket has no
+    dense stack, holds its rank's block of the lanes (all of them on a mesh
+    of one), and is a bucket of its own beside the unsharded one. Their
+    results are held to JAX in tests/test_torch_shard.py and, over 2 and 4
+    ranks, tests/test_torch_distributed.py."""
+    from repro_torch.core.distributed import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    eng = FusedEngine("a", FusedPool(), 50, sharded=True, device="cpu")
+    assert (eng.kind, eng.sharded, eng.kernel, eng.n_shards) == ("fused+sharded", True, False, 1)
+    reg = GraphRegistry(fused=True, sharded=True, device="cpu")
+    assert reg.register("a", n_nodes=50).kind == "fused+sharded"
+    batch = tfused.TenantBatch(64, 256, 0.0, device="cpu", mesh=mesh)
+    assert batch.sharded and not batch.dense and tuple(batch._src.shape) == (MIN_LANES, 512)
     reg = GraphRegistry(fused=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        reg.register("b", n_nodes=50, sharded=True)
+    b, c = reg.register("b", n_nodes=50, sharded=True), reg.register("c", n_nodes=50)
+    assert b.kind == "fused+sharded" and c.kind == "fused"
+    for eng in (b, c):
+        eng.apply_updates(insert=np.array([[0, 1], [1, 2], [0, 2]]))
+    assert b.mesh == reg.mesh and b.batch.sharded and not c.batch.sharded
+    assert b.query().density == c.query().density == 1.0
 
 
 @KERNEL
