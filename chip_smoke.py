@@ -2477,7 +2477,7 @@ def _world2_rank(rank: int, world: int, init: str, data: str, out: str,
     import torch
     import torch.distributed as dist
 
-    from repro_torch.core import distributed
+    from repro_torch.core import collective, distributed
     from repro_torch.graphs.convert import graph_from_arrays
     from repro_torch.kernels import peel, segsum
     from repro_torch.stream import DeltaEngine
@@ -2493,12 +2493,12 @@ def _world2_rank(rank: int, world: int, init: str, data: str, out: str,
         g = graph_from_arrays(int(arrays["n_nodes"]), int(arrays["n_edges"]), arrays["src"],
                               arrays["dst"], int(arrays["n_directed"]))
         mesh = distributed.make_mesh(device="cuda:0" if on_card else device)
-        res = {"via_host": np.array([mesh.via_host])}
-        k2, coll = peel.launches, distributed.collectives
+        res = {}
+        k2, coll = peel.launches, collective.collectives
         d, mask, passes = distributed.pbahmani_distributed(g, mesh, eps=0.1, kernel=on_card)
         res.update(pb=np.array([np.float32(d).view(np.int32), passes]), pb_mask=mask,
                    pb_counts=np.array([peel.launches - k2 if on_card else passes,
-                                       distributed.collectives - coll]))
+                                       collective.collectives - coll]))
         res["pb_wall_s"] = np.array(wall_s(
             lambda: distributed.pbahmani_distributed(g, mesh, eps=0.1), 3) if on_card else [])
         # every rank makes the same calls, or the group's collectives part
@@ -2571,15 +2571,12 @@ def phase_world2(g, device: str, stream_seed, stream_n: int, engine: dict, event
                   f"world 2 rank {r}: stream query {i} differs from world 1")
     split = json.loads(str(ranks[0]["pb_split"]))
     walls = [list(map(float, res["pb_wall_s"])) or [float("nan")] for res in ranks]
-    via = ("host copies (gloo refused the card's tensors)" if ranks[0]["via_host"][0]
-           else f"gloo on {device} tensors")
     log(f"  world 2 (gloo, both ranks on {device}:0, spawned; {spawn_s:.3f} s with each rank's "
         f"build of its engine): pbahmani_distributed eps=0.1 and the sharded stream's seed "
-        f"and 2 batches == world 1 on both ranks; all-reduce through {via}; wall median "
-        f"of 3 by rank {[statistics.median(w) for w in walls]} s ({walls}); "
+        f"and 2 batches == world 1 on both ranks; gloo all-reduces the {device} tensors; wall "
+        f"median of 3 by rank {[statistics.median(w) for w in walls]} s ({walls}); "
         f"profiled (rank 0): {split}. Two ranks share one card: not a scaling number")
-    return dict(spawn_s=spawn_s, via_host=bool(ranks[0]["via_host"][0]),
-                pbahmani_wall_s=walls, pbahmani_split=split)
+    return dict(spawn_s=spawn_s, pbahmani_wall_s=walls, pbahmani_split=split)
 
 
 def phase_sharded(g, device: str, peel_answers: dict, cbds_answer: tuple,
@@ -2595,7 +2592,7 @@ def phase_sharded(g, device: str, peel_answers: dict, cbds_answer: tuple,
     import torch
     import torch.distributed as dist
 
-    from repro_torch.core import distributed
+    from repro_torch.core import collective, distributed
     from repro_torch.graphs.generators import planted_dense
     from repro_torch.stream import DeltaEngine, StreamService
 
@@ -2605,7 +2602,7 @@ def phase_sharded(g, device: str, peel_answers: dict, cbds_answer: tuple,
     main_collectives = [0]
 
     def on_main(fn):
-        before, coll = launch_counts(), distributed.collectives
+        before, coll = launch_counts(), collective.collectives
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -2613,7 +2610,7 @@ def phase_sharded(g, device: str, peel_answers: dict, cbds_answer: tuple,
         ms = (time.perf_counter() - t0) * 1e3
         for k, n in launch_counts().items():
             main_launches[k] += n - before[k]
-        main_collectives[0] += distributed.collectives - coll
+        main_collectives[0] += collective.collectives - coll
         return out, ms
 
     tmp = tempfile.mkdtemp(prefix="smoke_nccl_")
@@ -2628,11 +2625,11 @@ def phase_sharded(g, device: str, peel_answers: dict, cbds_answer: tuple,
         zero_launch_counts()
         # P-Bahmani: phase 4's answers, one K2 launch and one collective a pass
         for eps in (0.1, 0.0):
-            before, coll = launch_counts(), distributed.collectives
+            before, coll = launch_counts(), collective.collectives
             got, ms = on_main(lambda: distributed.pbahmani_distributed(g, mesh, eps=eps,
                                                                        kernel=True))
             d = {k: n - before[k] for k, n in launch_counts().items()}
-            n_coll = distributed.collectives - coll
+            n_coll = collective.collectives - coll
             check(same_triple(got, peel_answers[eps]),
                   f"eps={eps}: pbahmani_distributed {got[0]!r}/{got[2]} differs from phase 4's "
                   f"{peel_answers[eps][0]!r}/{peel_answers[eps][2]}")
@@ -2654,16 +2651,16 @@ def phase_sharded(g, device: str, peel_answers: dict, cbds_answer: tuple,
                 f"{statistics.median(wall):.6f} s ({wall}); profiled: {split}")
         # CBDS-P: phase 5's dict and coreness
         cb_want, core_want = cbds_answer
-        before, coll = launch_counts(), distributed.collectives
+        before, coll = launch_counts(), collective.collectives
         cb, ms = on_main(lambda: distributed.cbds_distributed(g, mesh, kernel=True))
         d = {k: n - before[k] for k, n in launch_counts().items()}
         check(all(np.array_equal(cb[k], cb_want[k]) for k in cb_want)
               and np.array_equal(cb["coreness"], core_want),
               f"cbds_distributed {cb['density']!r}/{cb['k_star']} differs from phase 5's")
-        check(d["segment_sum_sorted"] == 2 and distributed.collectives - coll
+        check(d["segment_sum_sorted"] == 2 and collective.collectives - coll
               == d["peel_edges"] + 3,
               f"cbds_distributed: K1 {d['segment_sum_sorted']}, K2 {d['peel_edges']}, "
-              f"collectives {distributed.collectives - coll}")
+              f"collectives {collective.collectives - coll}")
         wall = wall_s(lambda: distributed.cbds_distributed(g, mesh), 3)
         times["cbds"] = dict(first_ms=ms, wall_s=wall, median_s=statistics.median(wall),
                              k2_launches=d["peel_edges"])
@@ -2760,15 +2757,20 @@ def phase_sharded(g, device: str, peel_answers: dict, cbds_answer: tuple,
                 check(r.ok and r.value["placement"] == ("fused+sharded" if k else "fused"),
                       f"create_tenant {name}: {r}")
         flushes = []
-        real_flush, real_sum = sf._flush, distributed.all_reduce_sum
+        real_flush, real_sum = sf._flush, collective.all_reduce_sum
         real_rows = dispatch._peel_edges_rows_local
 
         def counted_flush(batch, members, **kw):
             if not batch.sharded:
                 return real_flush(batch, members, **kw)
             shapes, passes = [], []
-            distributed.all_reduce_sum = lambda t, m: shapes.append(tuple(t.shape)) or \
-                real_sum(t, m)
+
+            def counted_sum(t, m):
+                if m is not None:
+                    shapes.append(tuple(t.shape))
+                return real_sum(t, m)
+
+            collective.all_reduce_sum = counted_sum
             dispatch._peel_edges_rows_local = lambda *a: passes.append(
                 tuple(a[2].shape)) or real_rows(*a)
             try:
@@ -2778,7 +2780,7 @@ def phase_sharded(g, device: str, peel_answers: dict, cbds_answer: tuple,
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
             finally:
-                distributed.all_reduce_sum, dispatch._peel_edges_rows_local = \
+                collective.all_reduce_sum, dispatch._peel_edges_rows_local = \
                     real_sum, real_rows
             pass_reductions = [sh_ for sh_ in shapes if len(sh_) == 2 and sh_[1] % 2]
             check(len(pass_reductions) == len(passes)

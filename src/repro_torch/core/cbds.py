@@ -32,7 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.dispatch import all_reduce, peel_delta, resolve_device, resolve_kernel
+from repro_torch.core import collective
+from repro_torch.core.dispatch import peel_delta, resolve_device, resolve_kernel
 from repro_torch.core.kcore import _kcore, kcore_np
 from repro_torch.graphs.convert import to_device
 from repro_torch.graphs.graph import Graph
@@ -76,7 +77,7 @@ def _augment_once(
     inter_into = torch.where(legit, e_into, 0).sum(dtype=torch.int32)
     legit_pair = (valid & legit.index_select(0, src_c)
                   & legit.index_select(0, dst_c))
-    inter_cross = all_reduce(legit_pair.sum(dtype=torch.int32), mesh) // 2
+    inter_cross = collective.all_reduce_sum(legit_pair.sum(dtype=torch.int32), mesh) // 2
 
     member_new = member | legit
     m_e_new = m_e + inter_into + inter_cross

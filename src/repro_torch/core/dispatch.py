@@ -26,16 +26,17 @@ off. The kernels' int32 sums are exact at any size; the 2^24 envelope of
 the JAX kernel's float32 sums is still asserted at the same API points, so
 both packages accept and refuse the same graphs.
 
-Every reduction here takes ``mesh`` (``core.distributed.Mesh``): the lanes
+Every reduction here takes ``mesh`` (``core.collective.Mesh``): the lanes
 are then this rank's block of a sharded graph, and the per-rank sums are
-summed over the mesh by :func:`all_reduce`, one collective a call. A pass's
-``delta``, ``removed`` and ``inc`` go together, int32 ``[V + 1]`` (``[2V +
-1]`` with the charges; ``[G, ...]`` for the rows entries).
+summed over the mesh by ``collective.all_reduce_sum``, one collective a
+call. A pass's ``delta``, ``removed`` and ``inc`` go together, int32 ``[V +
+1]`` (``[2V + 1]`` with the charges; ``[G, ...]`` for the rows entries).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import collective
 from repro_torch.core.density import degrees_from_coo
 from repro_torch.kernels import ops, peel, segsum
 
@@ -71,16 +72,6 @@ def assert_exact_envelope(*counts: int) -> None:
                 f"kernel=False")
 
 
-def all_reduce(t: torch.Tensor, mesh) -> torch.Tensor:
-    """``t`` summed over ``mesh``'s ranks (``distributed.all_reduce_sum``,
-    one collective); ``t`` itself without a mesh."""
-    if mesh is None:
-        return t
-    from repro_torch.core.distributed import all_reduce_sum  # it imports this module
-
-    return all_reduce_sum(t, mesh)
-
-
 def peel_delta(
     fail: torch.Tensor, dst: torch.Tensor, n_nodes: int, kernel: bool, mesh=None,
 ) -> torch.Tensor:
@@ -91,11 +82,11 @@ def peel_delta(
     ``kernel`` the lanes must be dst-sorted.
     """
     if kernel:
-        return all_reduce(ops.segment_sum(fail, dst, num_segments=n_nodes,
-                                          out_dtype=torch.int32), mesh)
+        return collective.all_reduce_sum(
+            ops.segment_sum(fail, dst, num_segments=n_nodes, out_dtype=torch.int32), mesh)
     out = torch.zeros(n_nodes + 1, dtype=torch.int32, device=dst.device)
     out.index_add_(0, dst.clamp(max=n_nodes), fail.to(torch.int32))
-    return all_reduce(out[:n_nodes], mesh)
+    return collective.all_reduce_sum(out[:n_nodes], mesh)
 
 
 def lane_degrees(
@@ -108,7 +99,7 @@ def lane_degrees(
     the histogram of src (``density.degrees_from_coo``)."""
     if kernel:
         return peel_delta(dst < n_nodes, dst, n_nodes, True, mesh)
-    return all_reduce(degrees_from_coo(src, n_nodes), mesh)
+    return collective.all_reduce_sum(degrees_from_coo(src, n_nodes), mesh)
 
 
 def peel_edges(
@@ -129,7 +120,7 @@ def peel_edges(
     out = _peel_edges_local(src, dst, active, failed, n_nodes, kernel, charge)
     if mesh is None:
         return out
-    buf = all_reduce(torch.cat([out[0], out[1].reshape(1)] + list(out[2:])), mesh)
+    buf = collective.all_reduce_sum(torch.cat([out[0], out[1].reshape(1)] + list(out[2:])), mesh)
     return (buf[:n_nodes], buf[n_nodes]) + ((buf[n_nodes + 1:],) if charge else ())
 
 
@@ -185,7 +176,7 @@ def lane_degrees_rows(
         out = segsum.segment_sum_rows_sorted(dst < n_nodes, dst, num_segments=n_nodes)
     else:
         out = _rows_sum(torch.ones_like(src), src, n_nodes)
-    return all_reduce(out, mesh)
+    return collective.all_reduce_sum(out, mesh)
 
 
 def peel_edges_rows(
@@ -204,7 +195,8 @@ def peel_edges_rows(
     out = _peel_edges_rows_local(src, dst, active, failed, n_nodes, kernel, charge)
     if mesh is None:
         return out
-    buf = all_reduce(torch.cat([out[0], out[1][:, None]] + list(out[2:]), dim=1), mesh)
+    buf = collective.all_reduce_sum(
+        torch.cat([out[0], out[1][:, None]] + list(out[2:]), dim=1), mesh)
     return ((buf[:, :n_nodes], buf[:, n_nodes])
             + ((buf[:, n_nodes + 1:],) if charge else ()))
 
@@ -230,5 +222,5 @@ def _peel_edges_rows_local(src, dst, active, failed, n_nodes, kernel, charge):
 
 
 __all__ = ["EXACT_ENVELOPE", "resolve_device", "resolve_kernel",
-           "assert_exact_envelope", "all_reduce", "lane_degrees", "lane_degrees_rows",
+           "assert_exact_envelope", "lane_degrees", "lane_degrees_rows",
            "peel_delta", "peel_edges", "peel_edges_rows"]

@@ -14,7 +14,7 @@ PKC level fixpoint of CBDS-P, the pruned bucket peel and the Greedy++
 refinement rounds: every pass of them takes a ``mesh`` and routes its edge
 stage through ``core/dispatch.py`` (``peel_edges(..., mesh=)``), which runs
 this rank's stage (K2 with the kernel on) and makes the pass's one
-collective, :func:`all_reduce_sum` of ``delta`` and ``removed`` packed as
+collective, ``collective.all_reduce_sum`` of ``delta`` and ``removed`` packed as
 int32 ``[V + 1]`` (``[G, V + 1]`` for a bucket of G tenants). Every sum is
 int32, so the results equal the single-device peel's bit for bit on any
 rank count.
@@ -26,7 +26,7 @@ rank's own lanes would deadlock the group.
 
 This is the JAX package's ``core/distributed.py`` with the roles of its
 ``shard_map``/``psum`` and ``utils/compat.py:make_mesh_auto`` taken by
-:class:`Mesh`, :func:`make_mesh` and :func:`all_reduce_sum`. The JAX package
+:class:`Mesh`, :func:`make_mesh` and ``collective.all_reduce_sum``. The JAX package
 runs one program that places shards on devices; here every rank is a
 process that runs the same code on its own block of lanes. Its per-shard
 pass bodies (``_local_delta``/``_peel_pass_body``, ``make_kcore_level``,
@@ -35,62 +35,24 @@ bucket-peel rounds) are the single-device bodies here, called with
 ``mesh=``: ``pbahmani_pass``, ``kcore._level_fixpoint``,
 ``delta._warm_peel``/``_batched_warm_peel``, ``loads.refine_pass`` and
 ``prune._bucket_peel``. The JAX package's psums that only move a count
-(the warm-mask and legit-pair edge counts) are :func:`dispatch.all_reduce`
-calls too.
+(the warm-mask and legit-pair edge counts) are ``all_reduce_sum`` calls
+too.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.core.cbds import _cbds
+from repro_torch.core.collective import Mesh
 from repro_torch.core.dispatch import (
     assert_exact_envelope, lane_degrees, resolve_device, resolve_kernel,
 )
 from repro_torch.core.pbahmani import pbahmani_pass, state_from_degrees
 from repro_torch.graphs.graph import Graph
-
-collectives = 0  # all_reduce_sum calls: the collectives the sharded paths make
-
-
-@dataclass(frozen=True)
-class Mesh:
-    """The ranks a tenant's edge lanes are split across.
-
-    ``group`` is the ``torch.distributed`` process group, or None for a world
-    of one with no group (JAX's 1-device mesh: its all-reduce returns its
-    input). ``shape`` and ``axis_names`` name the ranks' layout, flattened
-    row-major: a rank's flat index is its rank in the group. ``device`` is
-    where this rank's lanes and the replicated state live. ``via_host``: the
-    group's backend refused tensors on ``device`` (gloo on a build without
-    its CUDA transport), so :func:`all_reduce_sum` copies to the host and
-    back, explicitly. Two meshes over the same group, layout and device are
-    equal, so their tenants share a fused bucket."""
-
-    group: object
-    shape: tuple[int, ...]
-    axis_names: tuple[str, ...]
-    rank: int
-    size: int
-    device: torch.device
-    via_host: bool = False
-
-
-def _backend_takes(group, device: torch.device) -> bool:
-    """Whether ``group``'s backend all-reduces a tensor on ``device``: one
-    probe collective, made by every rank at mesh construction (not counted
-    in ``collectives``, which counts the paths' own)."""
-    probe = torch.ones(1, dtype=torch.int32, device=device)
-    try:
-        dist.all_reduce(probe, group=group)
-    except RuntimeError:
-        return False
-    return True
-
 
 def make_mesh(shape: tuple[int, ...] | None = None, axis_names: tuple[str, ...] = ("shard",),
               group=None, device: torch.device | str | None = None) -> Mesh:
@@ -101,7 +63,7 @@ def make_mesh(shape: tuple[int, ...] | None = None, axis_names: tuple[str, ...] 
     out to the group's size. ``device=None`` means ``cuda:{rank %
     device_count}`` and raises where there is no CUDA, as every entry point
     does; pass ``device="cpu"`` for the plain PyTorch path (gloo). Every
-    rank of the group calls this together: it may probe the backend."""
+    rank of the group calls this together."""
     if group is None and dist.is_available() and dist.is_initialized():
         group = dist.group.WORLD
     rank = dist.get_rank(group) if group is not None else 0
@@ -115,10 +77,8 @@ def make_mesh(shape: tuple[int, ...] | None = None, axis_names: tuple[str, ...] 
     if len(shape) != len(axis_names) or math.prod(shape) != size:
         raise ValueError(f"mesh shape {shape} over axes {axis_names} does not lay out "
                          f"{size} ranks")
-    via_host = (group is not None and device.type != "cpu"
-                and dist.get_backend(group) == "gloo" and not _backend_takes(group, device))
     return Mesh(group=group, shape=shape, axis_names=axis_names, rank=rank, size=size,
-                device=device, via_host=via_host)
+                device=device)
 
 
 def _indexed(device) -> torch.device:
@@ -155,25 +115,6 @@ def validate_stream_mesh(mesh, capacity: int) -> int:
             f"mesh has {n_dev} devices but the buffer exposes only "
             f"{2 * capacity} edge lanes; raise the edge capacity")
     return n_dev
-
-
-def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Sum ``t`` over the mesh's ranks and return it: the one site of the
-    sharded paths that makes a collective, counted in ``collectives``. A
-    world of one
-    with no group returns ``t``; ``mesh.via_host`` reduces a host copy and
-    writes it back."""
-    global collectives
-    collectives += 1
-    if mesh.group is None:
-        return t
-    t = t.contiguous()
-    if mesh.via_host:
-        host = t.cpu()
-        dist.all_reduce(host, group=mesh.group)
-        return t.copy_(host)
-    dist.all_reduce(t, group=mesh.group)
-    return t
 
 
 def lane_block(a, mesh: Mesh):
@@ -255,5 +196,5 @@ def cbds_distributed(graph: Graph, mesh: Mesh | None = None, rounds: int = 1,
 
 
 __all__ = ["Mesh", "make_mesh", "mesh_device", "mesh_device_count",
-           "validate_stream_mesh", "all_reduce_sum", "lane_block", "shard_edges",
+           "validate_stream_mesh", "lane_block", "shard_edges",
            "pbahmani_distributed", "cbds_distributed"]

@@ -63,9 +63,9 @@ import torch
 
 from repro_torch.core.batched import init_rows, peel_rows_to_end, pbahmani_pass_rows, run_rows
 from repro_torch.core.density import live_lane_count
+from repro_torch.core import collective
 from repro_torch.core.dispatch import (
-    all_reduce, assert_exact_envelope, lane_degrees, lane_degrees_rows, resolve_device,
-    resolve_kernel,
+    assert_exact_envelope, lane_degrees, lane_degrees_rows, resolve_device, resolve_kernel,
 )
 from repro_torch.core.distributed import lane_block, mesh_device
 from repro_torch.core.kcore import CoreState, _level_fixpoint
@@ -149,7 +149,7 @@ def _plan(
     rho0 = n_e.to(torch.float32) / n_v.clamp(min=1).to(torch.float32)
     # a previous best mask, re-evaluated on the current edges: a sound warm
     # start for rho~ (it is a subgraph of this graph)
-    warm_e = all_reduce(live_lane_count(src, dst, prev_mask, n_nodes), mesh) // 2
+    warm_e = collective.all_reduce_sum(live_lane_count(src, dst, prev_mask, n_nodes), mesh) // 2
     warm_v = prev_mask.sum(dtype=torch.int32)
     warm_rho = torch.where(
         warm_v > 0, warm_e.to(torch.float32) / warm_v.clamp(min=1).to(torch.float32), 0.0)

@@ -68,9 +68,8 @@ import torch
 from repro_torch.core.batched import init_rows, peel_rows_to_end
 from repro_torch.core.cbds import cbds_resident
 from repro_torch.core.density import live_lane_count, live_lane_count_rows
-from repro_torch.core.dispatch import (
-    all_reduce, assert_exact_envelope, resolve_device, resolve_kernel,
-)
+from repro_torch.core import collective
+from repro_torch.core.dispatch import assert_exact_envelope, resolve_kernel
 from repro_torch.core.distributed import (
     lane_block, make_mesh, mesh_device, mesh_device_count, validate_stream_mesh,
 )
@@ -175,7 +174,7 @@ def _apply_batch(
     hist.index_add_(0, d_u, d_w)
     hist.index_add_(0, d_v, d_w)
     if mesh is not None:
-        deg += all_reduce(hist, mesh)
+        deg += collective.all_reduce_sum(hist, mesh)
     return k > 0
 
 
@@ -200,7 +199,7 @@ def _warm_peel(
     edges. Returns (final state, float32 density of ``prev_mask``)."""
     final = _peel_to_end(state_from_degrees(deg, n_edges), src, dst, n_nodes, eps, kernel,
                          mesh)
-    warm_e = all_reduce(live_lane_count(src, dst, prev_mask, n_nodes), mesh) // 2
+    warm_e = collective.all_reduce_sum(live_lane_count(src, dst, prev_mask, n_nodes), mesh) // 2
     warm_v = prev_mask.sum(dtype=torch.int32)
     warm_rho = torch.where(
         warm_v > 0,
@@ -278,7 +277,7 @@ def _batched_apply(
     hist.view(-1).index_add_(0, idx[k:k + m], d_w)
     hist.view(-1).index_add_(0, idx[k + m:k + 2 * m], d_w)
     if mesh is not None:
-        deg += all_reduce(hist, mesh)
+        deg += collective.all_reduce_sum(hist, mesh)
     if adj is not None:
         fw = d_w.to(torch.float32)
         adj.view(-1).index_put_((idx[k + 2 * m:k + 3 * m],), fw, accumulate=True)
@@ -307,7 +306,8 @@ def _batched_warm_peel(
     1]`` all-reduce for the group. Returns (final state, float32 ``[G]``
     density of each row's ``prev_mask``)."""
     final = peel_rows_to_end(init_rows(deg, n_edges), src, dst, n_nodes, eps, kernel, mesh)
-    warm_e = all_reduce(live_lane_count_rows(src, dst, prev_mask, n_nodes), mesh) // 2
+    warm_e = collective.all_reduce_sum(
+        live_lane_count_rows(src, dst, prev_mask, n_nodes), mesh) // 2
     warm_v = prev_mask.sum(dim=1, dtype=torch.int32)
     warm_rho = torch.where(
         warm_v > 0,

@@ -98,19 +98,19 @@ def scripted(mesh) -> dict:
     after each batch, and a fused+sharded bucket of four tenants. ``coll/``
     keys hold the collectives counted around the static calls,
     ``collectives`` those of the whole sequence."""
-    from repro_torch.core import distributed
+    from repro_torch.core import collective, distributed
     from repro_torch.graphs import generators
     from repro_torch.graphs.graph import Graph
     from repro_torch.stream import DeltaEngine, GraphRegistry, ingest_group, query_group
 
-    out, start = {}, distributed.collectives
+    out, start = {}, collective.collectives
     for name, g in graphs(Graph, generators).items():
         for eps in (0.0, 0.1):
-            before = distributed.collectives
+            before = collective.collectives
             d, mask, passes = distributed.pbahmani_distributed(g, mesh, eps=eps)
             out[f"pb/{name}/{eps}"] = np.array([bits(d), passes], np.int64)
             out[f"pb/{name}/{eps}/mask"] = mask
-            out[f"coll/pb/{name}/{eps}"] = np.array([distributed.collectives - before, passes])
+            out[f"coll/pb/{name}/{eps}"] = np.array([collective.collectives - before, passes])
         c = distributed.cbds_distributed(g, mesh, rounds=2)
         record_cbds(out, f"cbds/{name}", c)
         out[f"cbds/{name}/coreness"] = c["coreness"]
@@ -136,7 +136,7 @@ def scripted(mesh) -> dict:
     for t in FUSED_TENANTS:
         record_refined(out, f"fused/{t}/refine", res[t])
         record_cbds(out, f"fused/{t}/cbds", reg.get(t).cbds())
-    out["collectives"] = np.array([distributed.collectives - start])
+    out["collectives"] = np.array([collective.collectives - start])
     return out
 
 

@@ -16,6 +16,7 @@ killed and fails its tests, so a deadlocked collective cannot hang the suite.
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -72,15 +73,23 @@ def jax_reference() -> dict:
 
 def _spawn(world: int, tmp: Path) -> list[dict]:
     """Run the sequence in ``world`` processes over a gloo group (file
-    rendezvous in ``tmp``); kill them all past ``SPAWN_TIMEOUT_S``."""
+    rendezvous in ``tmp``); kill them all once ``SPAWN_TIMEOUT_S`` has passed
+    since the spawn. Each rank's output goes to a file, so no rank blocks on
+    a full pipe while another is waited for."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     init = f"file://{tmp / 'rendezvous'}"
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "tests" / "_torch_ranks.py"), str(r), str(world), init,
-         str(tmp / f"rank{r}.npz")], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = [tmp / f"rank{r}.log" for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "tests" / "_torch_ranks.py"), str(r), str(world),
+                 init, str(tmp / f"rank{r}.npz")], env=env, stdout=out,
+                stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
     try:
-        logs = [p.communicate(timeout=SPAWN_TIMEOUT_S)[0] for p in procs]
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.0))
     except subprocess.TimeoutExpired:
         for p in procs:
             p.kill()
@@ -88,8 +97,8 @@ def _spawn(world: int, tmp: Path) -> list[dict]:
             p.wait()
         pytest.fail(f"{world} ranks did not finish in {SPAWN_TIMEOUT_S} s (a deadlocked "
                     "collective?)")
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} of {world} failed:\n{log}"
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} of {world} failed:\n{logs[r].read_text()}"
     return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
 
 

@@ -1016,14 +1016,14 @@ def nccl_mesh(cuda, tmp_path):
 
 
 def test_nccl_mesh_of_one_on_card(nccl_mesh):
-    from repro_torch.core import distributed
+    from repro_torch.core import collective
 
     assert nccl_mesh.device.type == "cuda" and nccl_mesh.group is not None
-    assert (nccl_mesh.rank, nccl_mesh.size, nccl_mesh.via_host) == (0, 1, False)
+    assert (nccl_mesh.rank, nccl_mesh.size) == (0, 1)
     t = torch.arange(5, dtype=torch.int32, device=nccl_mesh.device)
-    before = distributed.collectives
-    assert torch.equal(distributed.all_reduce_sum(t.clone(), nccl_mesh), t)
-    assert distributed.collectives == before + 1
+    before = collective.collectives
+    assert torch.equal(collective.all_reduce_sum(t.clone(), nccl_mesh), t)
+    assert collective.collectives == before + 1
 
 
 @pytest.mark.parametrize("eps", [0.0, 0.1])
@@ -1031,13 +1031,13 @@ def test_pbahmani_distributed_on_card(nccl_mesh, eps):
     """Kernel on == kernel off == the single-device peel == numpy; one K2
     launch and one collective a pass (and one each for the degrees: K1 and
     its all-reduce)."""
-    from repro_torch.core import distributed
+    from repro_torch.core import collective, distributed
 
     g = rmat(12, 16, seed=1)
     want = pbahmani(g, eps=eps, device=nccl_mesh.device)
-    k2, k1, coll = peel.launches, segsum.launches, distributed.collectives
+    k2, k1, coll = peel.launches, segsum.launches, collective.collectives
     got = distributed.pbahmani_distributed(g, nccl_mesh, eps=eps, kernel=True)
-    assert (peel.launches - k2, segsum.launches - k1, distributed.collectives - coll) == (
+    assert (peel.launches - k2, segsum.launches - k1, collective.collectives - coll) == (
         got[2], 1, got[2] + 1)
     off = distributed.pbahmani_distributed(g, nccl_mesh, eps=eps, kernel=False)
     oracle = pbahmani_np(g, eps=eps)

@@ -26,7 +26,7 @@ from repro.graphs.graph import Graph as JGraph  # noqa: E402
 from repro.refine.engine import refine_resident as j_refine_resident  # noqa: E402
 from repro.stream import DeltaEngine as JEngine  # noqa: E402
 from repro.utils.compat import make_mesh_auto  # noqa: E402
-from repro_torch.core import distributed, prune  # noqa: E402
+from repro_torch.core import collective, distributed, prune  # noqa: E402
 from repro_torch.core.distributed import Mesh, make_mesh  # noqa: E402
 from repro_torch.core.pbahmani import pbahmani, pbahmani_np  # noqa: E402
 from repro_torch.graphs import partition  # noqa: E402
@@ -239,9 +239,9 @@ def test_pbahmani_distributed_matches_jax(name, kernel, mesh, jmesh):
     jg = GRAPHS[name]()
     g = port(jg)
     for eps, cap in ((0.0, None), (0.1, None), (0.1, 2)):
-        before = distributed.collectives
+        before = collective.collectives
         got = distributed.pbahmani_distributed(g, mesh, eps=eps, max_passes=cap, kernel=kernel)
-        assert distributed.collectives - before == got[2] + 1  # degrees + one a pass
+        assert collective.collectives - before == got[2] + 1  # degrees + one a pass
         want = jdist.pbahmani_distributed(jg, jmesh, eps=eps, max_passes=cap)
         assert _bits(got[0]) == _bits(want[0]) and got[2] == want[2]
         assert np.array_equal(got[1], np.asarray(want[1]))
@@ -280,9 +280,14 @@ def test_one_collective_a_pass(mesh, monkeypatch):
     from repro_torch.core import dispatch
 
     shapes, stages = [], []
-    real_sum, real_rows = distributed.all_reduce_sum, dispatch._peel_edges_rows_local
-    monkeypatch.setattr(distributed, "all_reduce_sum",
-                        lambda t, m: shapes.append(tuple(t.shape)) or real_sum(t, m))
+    real_sum, real_rows = collective.all_reduce_sum, dispatch._peel_edges_rows_local
+
+    def counted_sum(t, m):
+        if m is not None:
+            shapes.append(tuple(t.shape))
+        return real_sum(t, m)
+
+    monkeypatch.setattr(collective, "all_reduce_sum", counted_sum)
     monkeypatch.setattr(dispatch, "_peel_edges_rows_local",
                         lambda *a: stages.append(1) or real_rows(*a))
     g = port(GRAPHS["er"]())
@@ -299,6 +304,15 @@ def test_one_collective_a_pass(mesh, monkeypatch):
     assert len(shapes) == len(stages) + 1  # and the warm seeds' edge count
 
 
+def test_all_reduce_sum_without_a_group(mesh):
+    """No mesh: ``t`` back and nothing counted. A mesh of one with no group:
+    ``t`` back, one collective counted."""
+    t = torch.arange(4, dtype=torch.int32)
+    before = collective.collectives
+    assert collective.all_reduce_sum(t, None) is t and collective.collectives == before
+    assert collective.all_reduce_sum(t, mesh) is t and collective.collectives == before + 1
+
+
 def test_one_rank_gloo_group(tmp_path):
     """A real gloo group of one rank: ``make_mesh`` takes the default group,
     its collectives run through ``torch.distributed`` and the static peels
@@ -309,7 +323,7 @@ def test_one_rank_gloo_group(tmp_path):
                             world_size=1, rank=0)
     try:
         mesh = make_mesh(device="cpu")
-        assert mesh.group is not None and (mesh.rank, mesh.size, mesh.via_host) == (0, 1, False)
+        assert mesh.group is not None and (mesh.rank, mesh.size) == (0, 1)
         g = port(GRAPHS["planted"]())
         got = distributed.pbahmani_distributed(g, mesh, eps=0.1)
         want = pbahmani(g, eps=0.1, device="cpu")

@@ -187,8 +187,9 @@ def test_fused_sparse_bucket_parity(kernel):
 
 
 def test_fused_sharded_is_not_ported():
-    """The JAX package's fused+sharded stacks, refused until the sharded
-    tier was ported, now build through every way in: a sharded bucket has no
+    """The name is kept from when the port refused fused+sharded stacks; it
+    now checks the opposite. The JAX package's fused+sharded stacks build
+    through every way in: a sharded bucket has no
     dense stack, holds its rank's block of the lanes (all of them on a mesh
     of one), and is a bucket of its own beside the unsharded one. Their
     results are held to JAX in tests/test_torch_shard.py and, over 2 and 4
