@@ -9,7 +9,7 @@ COV_TESTS := tests/test_core_algorithms.py tests/test_core_density.py \
 	tests/test_tenants.py tests/test_refine.py tests/test_obs.py \
 	tests/test_telemetry.py tests/test_kernels.py tests/test_analysis.py
 
-.PHONY: test coverage lint lint-invariants bench-smoke bench-prune-smoke \
+.PHONY: test coverage lint lint-invariants lint-invariants-torch bench-smoke bench-prune-smoke \
 	bench-shard-smoke \
 	bench-tenants-smoke bench-refine-smoke bench-density-smoke \
 	bench-epsilon-smoke bench-kernels-smoke bench-obs-smoke scrape-smoke \
@@ -38,6 +38,11 @@ lint:
 # Exit 1 on any unsuppressed finding — the same gate CI runs.
 lint-invariants:
 	$(PY) -m repro.analysis --show-suppressed src/repro
+
+# the same linter's torch rules over the PyTorch/CUDA port (repro_torch.analysis):
+# host syncs in pass loops, kernel-library loads, proof scopes, collectives
+lint-invariants-torch:
+	$(PY) -m repro_torch.analysis --show-suppressed src/repro_torch
 
 # fast end-to-end sanity: the streaming benchmark at toy scale
 # (writes BENCH_stream.json — the benchmark-trajectory artifact)

@@ -130,7 +130,17 @@ takes a plain gather), and the kernel switched on. Phases:
      batches, both ranks equal to world 1, under a time limit. Wall times
      (median of 3) and a torch.profiler split of the sharded peel (K2, the
      all-reduce, the host); two ranks on one card give no scaling number;
- 14. a JSON line of every kernel, then the card's name and power limit, then
+ 14. the invariant linter (``repro_torch.analysis``) on the card, in this process
+     only: ``src/repro_torch`` under the full catalog with the auditor's live
+     providers and this script under RPR401-402, 0 findings each, the
+     suppressed count by rule printed; the kernels provider and the libraries
+     the run loaded equal to the ``build.load`` sites found statically
+     (RPR201); the host syncs of a warm P-Bahmani on the RMAT graph counted
+     with ``torch.cuda.set_sync_debug_mode("warn")`` at eps 0.1 (5 passes)
+     and 0 (7 passes), the difference in syncs equal to the difference in
+     passes (one sync a pass), beside the syncs and passes of CBDS-P,
+     three refinement rounds and one more fused flush of phase 12's service;
+ 15. a JSON line of every kernel, then the card's name and power limit, then
      the result line ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure, so the script exits non-zero and prints no
@@ -2126,9 +2136,10 @@ def rows_kernel_timing(src, dst, deg, v: int, device: str) -> tuple[dict, dict]:
 
 
 def phase_fused(device: str, coo: dict = FUSED_COO, dense: dict = FUSED_DENSE,
-                rounds: int = FUSED_ROUNDS) -> tuple[dict, dict, dict, dict]:
+                rounds: int = FUSED_ROUNDS) -> tuple[dict, dict, dict, dict, object]:
     """Returns (launches by kernel on the fused service's main path, times,
-    K2 rows numbers, K1 rows numbers)."""
+    K2 rows numbers, K1 rows numbers, ``flush_round``: one more round of
+    traffic on the kernel-on service)."""
     import importlib
 
     import torch
@@ -2425,7 +2436,21 @@ def phase_fused(device: str, coo: dict = FUSED_COO, dense: dict = FUSED_DENSE,
                  sequential_s=seq_s, fused_s=fused_s, qps_sequential=qps_seq,
                  qps_fused=qps_fused, profile_fused=prof, profile_sequential=prof_seq,
                  lane_bucket_flush_ms=[f["ms"] for f in kf], data_s=t_data)
-    return launches, times, k2_rows, k1_rows
+
+    def flush_round(measure):
+        """One more round of this phase's traffic on the kernel-on service
+        (phase 14 counts the host syncs of its flush): ``ingest_many``, every
+        tenant's ``submit_density``, then ``measure(on.flush)``."""
+        upd = {name: mixed_batch(rng, on.registry.get(name),
+                                 (coo if name.startswith("coo") else dense)["n"],
+                                 (coo if name.startswith("coo") else dense)["events"])
+               for name in coo_names + dense_names}
+        check(on.ingest_many(upd).ok, "phase 14: the extra round's ingest_many failed")
+        for name in coo_names + dense_names:
+            on.submit_density(name)
+        return measure(on.flush)
+
+    return launches, times, k2_rows, k1_rows, flush_round
 
 
 # ---------------------------------------------------------------------------
@@ -2848,6 +2873,116 @@ def phase_sharded(g, device: str, peel_answers: dict, cbds_answer: tuple,
     return launches, times
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the invariant linter, the audited libraries, host syncs a pass
+# ---------------------------------------------------------------------------
+SYNC_WARNING = "synchronizing CUDA operation"  # torch's sync-debug warning text
+
+
+def count_syncs(fn) -> tuple[int, object]:
+    """(synchronizing calls torch reported, ``fn()``): ``fn`` under
+    ``torch.cuda.set_sync_debug_mode("warn")`` with every warning recorded
+    (the default filter shows a warning's location once, which would count
+    a loop's sync once)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum(SYNC_WARNING in str(w.message) for w in caught), out
+
+
+def phase_lint(g, device: str, scale: int, flush_round) -> dict:
+    """Lints the port (full catalog, the auditor's live providers) and this
+    script (RPR401-402): 0 findings each. Holds the libraries the run loaded
+    against the loads found statically (RPR201 on the card), and counts the
+    host syncs of warm P-Bahmani at eps 0.1 and 0: they differ by the
+    difference in passes, one sync a pass. Prints the syncs of CBDS-P,
+    refinement and one fused flush beside their passes."""
+    import collections
+    import importlib
+
+    from repro_torch.analysis import run_analysis
+    from repro_torch.analysis.framework import LOAD_ENTRY, find_library_loads, load_module
+    from repro_torch.analysis.rules import rules_by_id
+    from repro_torch.core import cbds_p, pbahmani
+    from repro_torch.kernels import build
+    from repro_torch.obs.audit import AUDITOR
+
+    here = Path(__file__).resolve()
+    port = here.parent / "src" / "repro_torch"
+    out: dict = {}
+
+    t0 = time.perf_counter()
+    result = run_analysis([port], root=here.parent)
+    check(not result.findings, "the port has lint findings:\n" + "\n".join(
+        f"{f.path}:{f.line}: {f.rule} {f.message}" for f in result.findings))
+    smoke = run_analysis([here], rules=rules_by_id(["RPR401", "RPR402"]))
+    check(not smoke.findings, "chip_smoke.py has collective findings:\n" + "\n".join(
+        f"{f.path}:{f.line}: {f.rule} {f.message}" for f in smoke.findings))
+    suppressed = dict(sorted(collections.Counter(f.rule for f, _ in result.suppressed).items()))
+    out["lint"] = dict(files=result.files, findings=0, suppressed=suppressed,
+                       smoke_findings=0, lint_s=time.perf_counter() - t0)
+    log(f"  lint: 0 findings across {result.files} files of src/repro_torch (full catalog, "
+        f"dynamic RPR201) and 0 in chip_smoke.py (RPR401-402); suppressed by rule "
+        f"{suppressed}; {out['lint']['lint_s']:.3f} s")
+
+    sites = [site for path in sorted(port.rglob("*.py"))
+             for site in find_library_loads(load_module(path))]
+    static_entries = {site.entry for site in sites if site.kind != "library"}
+    static_sources = {site.source for site in sites if site.kind == "load"}
+    audited = set(AUDITOR.providers_snapshot()["kernels"])
+    loaded = {source.name for source in build._libs}
+    check(audited == static_entries == {LOAD_ENTRY},
+          f"the kernels provider yields {sorted(audited)}, the static loads {static_entries}")
+    check(loaded == static_sources,
+          f"the run loaded {sorted(loaded)}, the static loads name {sorted(static_sources)}")
+    out["audit"] = dict(provider=sorted(audited), loaded=sorted(loaded))
+    log(f"  RPR201 on the card: the kernels provider yields {sorted(audited)}; the run loaded "
+        f"{sorted(loaded)} == the build.load sites found statically")
+
+    syncs = {}
+    for eps in (0.1, 0.0):
+        pbahmani(g, eps=eps, kernel=True, device=device)  # warm
+        n, (_, _, passes) = count_syncs(lambda: pbahmani(g, eps=eps, kernel=True,
+                                                         device=device))
+        syncs[f"pbahmani eps={eps}"] = dict(syncs=n, passes=passes)
+    a, b = syncs["pbahmani eps=0.1"], syncs["pbahmani eps=0.0"]
+    want = EXPECTED_PEEL.get(scale, {})
+    check(not want or (a["passes"], b["passes"]) == (want[0.1][0], want[0.0][0]),
+          f"P-Bahmani took {a['passes']} and {b['passes']} passes")
+    check(b["syncs"] - a["syncs"] == b["passes"] - a["passes"],
+          f"P-Bahmani's host syncs grew by {b['syncs'] - a['syncs']} for "
+          f"{b['passes'] - a['passes']} more passes ({syncs}): not one sync a pass")
+
+    kcore = importlib.import_module("repro_torch.core.kcore")
+    batched = importlib.import_module("repro_torch.core.batched")
+    with CallCount(kcore, "peel_edges") as stages:
+        n, _ = count_syncs(lambda: cbds_p(g, rounds=1, kernel=True, device=device))
+    syncs["cbds_p"] = dict(syncs=n, passes=stages.n)  # k-core fixpoint iterations
+    n, (_, _, passes) = count_syncs(lambda: pbahmani(g, eps=0.1, refine_rounds=3, kernel=True,
+                                                     device=device))
+    syncs["refine (3 rounds)"] = dict(syncs=n, passes=passes)
+    with CallCount(batched, "select_rows") as rows, CallCount(kcore, "peel_edges") as plans:
+        n, _ = flush_round(count_syncs)
+    syncs["fused flush"] = dict(syncs=n, passes=rows.n, plan_iterations=plans.n)
+    out["syncs"] = syncs
+    log("  host syncs (torch.cuda.set_sync_debug_mode('warn')): " + "; ".join(
+        f"{k}: {v['syncs']} syncs, {v['passes']} passes"
+        + (f", {v['plan_iterations']} plan iterations" if "plan_iterations" in v else "")
+        for k, v in syncs.items()))
+    log(f"  P-Bahmani: eps 0 makes {b['syncs'] - a['syncs']} more syncs than eps 0.1 in "
+        f"{b['passes'] - a['passes']} more passes: one host sync a pass")
+    return out
+
+
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--rows"]):
         print(f"usage: python3 chip_smoke.py [--rows]; got {argv}", file=sys.stderr)
@@ -2953,7 +3088,7 @@ def main(argv: list[str]) -> int:
     log("phase 12: the fused multi-tenant service (a lane bucket of 32 tenants, a dense "
         "bucket of 64)")
     t0 = time.perf_counter()
-    fused_launches, fused_times, k2_rows, k1_rows = phase_fused(device)
+    fused_launches, fused_times, k2_rows, k1_rows, flush_round = phase_fused(device)
     fused_times["phase_s"] = time.perf_counter() - t0
     log(f"  phase 12 took {fused_times['phase_s']:.3f} s; launches {fused_launches}")
 
@@ -2964,6 +3099,12 @@ def main(argv: list[str]) -> int:
     shard_times["phase_s"] = time.perf_counter() - t0
     log(f"  phase 13 took {shard_times['phase_s']:.3f} s; launches {shard_launches}, "
         f"collectives {shard_times['collectives']}")
+
+    log("phase 14: the invariant linter, the audited libraries, host syncs a pass")
+    t0 = time.perf_counter()
+    lint = phase_lint(g, device, SCALE, flush_round)
+    lint["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 14 took {lint['phase_s']:.3f} s")
 
     k2_launches = (peel_launches + cbds_launches + pruned_launches["peel_edges"]
                    + fallback_launches + refine_launches + stream_launches["peel_edges"]
@@ -3029,6 +3170,7 @@ def main(argv: list[str]) -> int:
                     "stream": stream_times,
                     "fused": fused_times,
                     "sharded": shard_times,
+                    "lint": lint,
                     "k2_rows": k2_rows,
                     "k1_rows": k1_rows,
                     "smoke_s": time.perf_counter() - t_start}, default=str))

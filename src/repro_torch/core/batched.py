@@ -74,6 +74,7 @@ def pbahmani_pass_rows(
     1]`` all-reduce."""
     thr = peel_threshold(state.n_e, state.n_v, eps)
     failed = state.active & (state.deg.to(torch.float32) <= thr[:, None])
+    # repro: allow RPR304 -- batched pass body; its callers assert the envelope
     delta, removed = peel_edges_rows(src, dst, state.active, failed, n_nodes, kernel,
                                      mesh=mesh)
     active_new = state.active & ~failed
@@ -106,7 +107,7 @@ def run_rows(state, step, live=lambda s: s.n_v > 0):
     keeping rows that were not live before a step as they were."""
     while True:
         alive = live(state)
-        if not bool(alive.any()):  # the one host sync of each pass
+        if not bool(alive.any()):  # repro: allow RPR101 -- the one host sync of each pass
             return state
         state = select_rows(alive, step(state), state)
 

@@ -68,6 +68,7 @@ def _augment_once(
     # lane (u -> v) tests its mirror (v -> u): u a member, v not
     into_mirror = (valid & member.index_select(0, src_c)
                    & ~member.index_select(0, dst_c))
+    # repro: allow RPR304 -- e_into is an int sum in both packages: no f32 envelope
     e_into = peel_delta(into_mirror, dst, n_nodes, kernel, mesh)
 
     legit = ~member & (e_into > m_e // m_v.clamp(min=1))

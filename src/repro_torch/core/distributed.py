@@ -164,7 +164,8 @@ def pbahmani_distributed(graph: Graph, mesh: Mesh | None = None, eps: float = 0.
     n = graph.n_nodes
     state = state_from_degrees(lane_degrees(src, dst, n, kernel, mesh), graph.n_edges)
     cap = float("inf") if max_passes is None else int(max_passes)
-    while True:  # the one host sync of each pass, on replicated counts
+    while True:
+        # repro: allow RPR101 -- the one host sync of each pass, on replicated counts
         n_v, passes = torch.stack([state.n_v, state.passes]).tolist()
         if not (n_v > 0 and passes < cap):
             break

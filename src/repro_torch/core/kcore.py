@@ -56,7 +56,7 @@ def _level_fixpoint(
     s = state
     while True:
         failed = s.active & (s.deg <= s.k)
-        if not failed.any().item():  # the one host sync of each iteration
+        if not failed.any().item():  # repro: allow RPR101 -- the one host sync of each iteration
             return s
         delta_to_dst, removed_directed = peel_edges(src, dst, s.active, failed,
                                                     n_nodes, kernel, mesh=mesh)
@@ -93,7 +93,7 @@ def _kcore(
         best_n_v=zero,
         best_n_e=zero,
     )
-    while s.n_v.item() > 0:  # the one host sync of each level
+    while s.n_v.item() > 0:  # repro: allow RPR101 -- the one host sync of each level
         # graph remaining on *entry* to level k is the k-core; record its
         # density (paper Alg. 2, the `single` block after each level).
         density = s.n_e.to(torch.float32) / s.n_v.clamp(min=1).to(torch.float32)

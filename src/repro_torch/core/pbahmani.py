@@ -147,7 +147,7 @@ def pbahmani(
     else:
         src, dst = to_device(graph, device, sorted=kernel)
         state = init_state(src, dst, graph.n_nodes, graph.n_edges)
-        while state.n_v.item() > 0:  # the one host sync of each pass
+        while state.n_v.item() > 0:  # repro: allow RPR101 -- the one host sync of each pass
             state = pbahmani_pass(state, src, dst, graph.n_nodes, float(eps), kernel)
         out = (
             float(state.best_density),

@@ -168,8 +168,10 @@ def _plan(
     )
     while True:
         # keep shrinking while the bound justifies a deeper core
+        # repro: allow RPR101 -- the one host sync of each plan iteration
         n_v_h, level = (int(x) for x in torch.stack(
             [c.n_v, _ceil_level(c.best_density) - 1]).tolist())
+        # repro: allow RPR102 -- c.k is CoreState's level, a Python int, not a tensor
         if not (n_v_h > 0 and c.k < level):
             break
         c = _level_fixpoint(c._replace(k=level), src, dst, n_nodes, kernel, mesh)
@@ -318,7 +320,7 @@ def _peel_to_end(
     state: PeelState, src: torch.Tensor, dst: torch.Tensor, n_nodes: int,
     eps: float, kernel: bool = False, mesh=None,
 ) -> PeelState:
-    while state.n_v.item() > 0:  # the one host sync of each pass
+    while state.n_v.item() > 0:  # repro: allow RPR101 -- the one host sync of each pass
         state = pbahmani_pass(state, src, dst, n_nodes, eps, kernel, mesh)
     return state
 
@@ -346,7 +348,8 @@ def _staged_peel(
     overflow it: the mesh's live lanes fit it at the switch). The lane order
     differs from the single-device ladder's, the int32 sums do not."""
     s1 = state
-    while True:  # one host sync a pass, on replicated counts
+    while True:
+        # repro: allow RPR101 -- the one host sync of each pass, on replicated counts
         n_v, n_e = torch.stack([s1.n_v, s1.n_e]).tolist()
         if not (n_v > 0 and (n_v > bucket_v or 2 * n_e > bucket_e)):
             break

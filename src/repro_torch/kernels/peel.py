@@ -180,6 +180,7 @@ def peel_edges_rows(
     if any(t.device != dst.device for t in [src] + masks):
         raise ValueError("src, dst, active and failed must be on one device")
     if dst.device.type == "cpu":
+        # repro: allow RPR101 -- CPU path only: a CPU tensor has no card to wait for
         if bool((dst[:, 1:] < dst[:, :-1]).any()):
             raise ValueError("peel_edges_rows needs every row's dst in ascending order "
                              "(the kernel's precondition)")

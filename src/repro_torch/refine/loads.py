@@ -112,6 +112,7 @@ def refine_pass(
 
     # survivor degree decrement as in pbahmani_pass, and each dying edge
     # charged to one failing endpoint (core/dispatch.py:peel_edges)
+    # repro: allow RPR304 -- pass body; its host callers assert the envelope
     delta_to_dst, removed_directed, inc = peel_edges(
         src, dst, state.active, failed, n_nodes, kernel, charge=True, mesh=mesh)
     n_e_new = state.n_e - removed_directed // 2
@@ -154,7 +155,7 @@ def refine_round_body(
         best_mask=best_mask,
         passes=passes,
     )
-    while state.n_v.item() > 0:  # the one host sync of each pass
+    while state.n_v.item() > 0:  # repro: allow RPR101 -- the one host sync of each pass
         state = refine_pass(state, src, dst, n_nodes, eps, kernel, mesh)
     return (state.loads, state.best_density, state.best_ne, state.best_nv,
             state.best_mask, state.passes)
@@ -221,6 +222,7 @@ def refine_pass_rows(
     ``dispatch.peel_edges_rows`` (one launch of K2's rows entry with
     ``kernel``)."""
     failed = _failing_rows(state, eps)
+    # repro: allow RPR304 -- batched pass body; its callers assert the envelope
     delta, removed, inc = peel_edges_rows(src, dst, state.active, failed, n_nodes, kernel,
                                           charge=True, mesh=mesh)
     return _advance_rows(state, failed, delta, removed, inc)

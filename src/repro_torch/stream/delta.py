@@ -174,6 +174,7 @@ def _apply_batch(
     hist.index_add_(0, d_u, d_w)
     hist.index_add_(0, d_v, d_w)
     if mesh is not None:
+        # repro: allow RPR402 -- the early return needs mesh None: with one, every rank gets here
         deg += collective.all_reduce_sum(hist, mesh)
     return k > 0
 

@@ -48,7 +48,8 @@ def test_port_files_found():
             "src/repro_torch/stream/fused.py", "src/repro_torch/stream/registry.py",
             "src/repro_torch/stream/service.py", "src/repro_torch/core/batched.py",
             "src/repro_torch/core/distributed.py", "src/repro_torch/graphs/partition.py",
-            "src/repro_torch/core/collective.py"} <= names
+            "src/repro_torch/core/collective.py", "src/repro_torch/analysis/framework.py",
+            "src/repro_torch/analysis/cli.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
