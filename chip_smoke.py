@@ -140,7 +140,26 @@ takes a plain gather), and the kernel switched on. Phases:
      and 0 (7 passes), the difference in syncs equal to the difference in
      passes (one sync a pass), beside the syncs and passes of CBDS-P,
      three refinement rounds and one more fused flush of phase 12's service;
- 15. a JSON line of every kernel, then the card's name and power limit, then
+ 15. the training runtime (``optim/``, ``checkpoint/``, ``launch/train.py``). (a)
+     DCN-v2 training at ``FULL``'s published widths (``multi_hot=1``, so the
+     bag is a gather and K5 is not run) through ``build_step("dcn-v2",
+     "train_batch")`` (B = 65,536) and AdamW from random seeded weights: step
+     1 held against float64 on the CPU (the loss, each leaf's moments
+     normwise, the update recomputed from the card's moments), two
+     uninterrupted ``run_training`` loops of 6 steps, bitwise equal, and one
+     with async checkpoints every 3 steps (keep 1; a disk too small for two
+     checkpoints fails the phase) and failures injected at step 1 (re-init)
+     and step 4 (a restore racing the step-3 save): 2 restarts, every final
+     parameter, moment and loss bitwise equal; the step time, the update
+     against its byte bound, a save's snapshot and write, the restore, and
+     the one-hot bag's table gradient by ``F.embedding`` (kept, and held
+     against a float64 ``index_add_`` on the CPU), ``index_select`` and
+     ``index_select`` in deterministic mode. (b)
+     ``peel_with_restarts`` on the RMAT graph at eps 0.1 over an NCCL group
+     of one with a failure at pass 2: phase 4's triple bit for bit, K1 once,
+     K2 once a pass, one collective for the degrees and one a pass, one
+     restore; its wall beside phase 13's ``pbahmani_distributed``;
+ 16. a JSON line of every kernel, then the card's name and power limit, then
      the result line ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure, so the script exits non-zero and prints no
@@ -2983,6 +3002,407 @@ def phase_lint(g, device: str, scale: int, flush_round) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the training runtime (optim/, checkpoint/, launch/train.py)
+# ---------------------------------------------------------------------------
+TRAIN_STEPS = 6
+TRAIN_CKPT_EVERY = 3
+TRAIN_FAILS = (1, 4)   # before any checkpoint (re-init), and racing the step-3 save
+PEEL_FAIL_AT = 2
+TRAIN_RTOL, TRAIN_ATOL = 1e-5, 1e-6   # tests/test_torch_train.py's STEP_TOL
+TRAIN_GRAD_RTOL = 1e-2                # float32 gradient vs float64, normwise (step_against_float64)
+# make_optimizer("adamw") at step 1: adamw(3e-4) with optim.adamw's defaults
+GATHER_GRAD_ATOL = 1e-5               # g_out ~ N(0, 1): a row of a few terms
+ADAMW_STEP1 = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, grad_clip=1.0)
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.utils.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def same_tensors(a, b) -> bool:
+    from repro_torch.utils.tree import leaves_with_paths
+
+    la, lb = leaves_with_paths(a), leaves_with_paths(b)
+    return [k for k, _ in la] == [k for k, _ in lb] and all(
+        x.dtype == y.dtype and bool((x == y).all()) for (_, x), (_, y) in zip(la, lb))
+
+
+def step_against_float64(step, cpu_step, cfg, state, batch) -> dict:
+    """Step 1 of the train kind on the card against float64 on the CPU, from
+    the same weights and batch (``cpu_step``: the same step on the CPU, the
+    path tests/test_torch_train.py holds against JAX). Held:
+      * the loss against the CPU's float64 loss, within rtol TRAIN_RTOL;
+      * each leaf's mu, (1 - b1) clip g, and nu, (1 - b2) (clip g)^2, against
+        the float64 gradient and clip, normwise within TRAIN_GRAD_RTOL (twice
+        that for nu). Elementwise float32 is far off at this size: sums of
+        65,536 rows through three cross layers cancel, so single entries of
+        the card's and the CPU's float32 gradients both miss float64 by up to
+        their own size; the CPU float32 step's normwise errors are reported
+        beside the card's;
+      * every parameter against AdamW's update recomputed in float64 from the
+        card's own mu and nu, within rtol TRAIN_RTOL, atol TRAIN_ATOL.
+    """
+    import torch
+
+    from repro_torch.models import dcn_loss
+    from repro_torch.models.recsys import DCNv2
+
+    a = ADAMW_STEP1
+    params = state["params"]
+    p, o, loss = step.fn(params, state["opt"], batch)
+    torch.cuda.synchronize()
+    host = {k: v.cpu() for k, v in params.items()}
+    t0 = time.perf_counter()
+    leaves = {k: v.double().requires_grad_() for k, v in host.items()}
+    feed = {k: torch.as_tensor(batch[k]) for k in ("dense", "sparse_ids", "labels")}
+    feed["dense"] = feed["dense"].double()
+    skeleton = DCNv2(cfg, device="meta")
+    with torch.enable_grad():
+        loss64 = dcn_loss(skeleton, feed, leaves)
+        g64 = dict(zip(leaves, torch.autograd.grad(loss64, list(leaves.values()))))
+    out = dict(float64_s=time.perf_counter() - t0, loss=float(loss), loss64=float(loss64.detach()))
+    del leaves
+    t0 = time.perf_counter()
+    cpu_opt = {k: {n: v.cpu() for n, v in t.items()} if isinstance(t, dict) else t.cpu()
+               for k, t in state["opt"].items()}
+    _, co, _ = cpu_step.fn(host, cpu_opt, batch)
+    out["cpu_step_s"] = time.perf_counter() - t0
+    norm = float(torch.sqrt(sum(g.square().sum() for g in g64.values())))
+    clip = min(1.0, a["grad_clip"] / norm)
+    out.update(grad_norm64=norm, by_leaf={})
+    for k, g in g64.items():
+        ref = {"mu": (1 - a["b1"]) * clip * g, "nu": (1 - a["b2"]) * (clip * g).square()}
+        row = {}
+        for name, want in ref.items():
+            scale = float(want.norm())
+            for who, got in (("card", o[name][k]), ("cpu32", co[name][k])):
+                row[f"{name}_{who}"] = float((got.cpu().double() - want).norm()) / scale
+        mhat = o["mu"][k].cpu().double() / (1 - a["b1"])
+        nhat = o["nu"][k].cpu().double() / (1 - a["b2"])
+        want = host[k].double() * (1 - a["lr"] * a["weight_decay"]) \
+            - a["lr"] * mhat / (nhat.sqrt() + a["eps"])
+        err = (p[k].cpu().double() - want).abs()
+        row["param_err"] = float(err.max())
+        row["param_over"] = int((err > TRAIN_ATOL + TRAIN_RTOL * want.abs()).sum())
+        out["by_leaf"][k] = row
+        del ref, mhat, nhat, want, err
+    del g64, co, cpu_opt, host, p, o
+    check(abs(out["loss"] - out["loss64"]) <= TRAIN_RTOL * abs(out["loss64"]),
+          f"the card's step-1 loss {out['loss']} is not the float64 loss {out['loss64']}")
+    for k, row in out["by_leaf"].items():
+        check(row["mu_card"] <= TRAIN_GRAD_RTOL and row["nu_card"] <= 2 * TRAIN_GRAD_RTOL,
+              f"{k}: the card's mu/nu are off float64's by {row} (normwise, > "
+              f"{TRAIN_GRAD_RTOL} / {2 * TRAIN_GRAD_RTOL}); all leaves: {out['by_leaf']}")
+        check(row["param_over"] == 0, f"{k}: the card's AdamW update is off its float64 "
+              f"recomputation at {row['param_over']} entries (max {row['param_err']})")
+    return out
+
+
+def gather_grad_ms(tables, ids, iters: int = 5) -> dict:
+    """The one-hot bag's gather and its table gradient at the train shape, by
+    three routes: ``F.embedding`` on the flattened tables (the port's: a
+    sorted, fixed-order backward), ``index_select`` (an atomic
+    ``index_add_`` backward) and ``index_select`` under
+    ``torch.use_deterministic_algorithms(True)``. For each: the time of a
+    forward and backward (CUDA events) and whether two gradients are
+    bitwise equal. The port's gradient is held against a float64
+    ``index_add_`` on the CPU within GATHER_GRAD_ATOL (a row's few float32
+    terms summed in another order)."""
+    import torch
+    import torch.nn.functional as F
+
+    t, r, d = tables.shape
+    flat = (ids[..., 0].long() + torch.arange(t, device=ids.device) * r).reshape(-1)
+    leaf = tables.detach().requires_grad_()
+    g_out = torch.randn(flat.numel(), d, device=tables.device,
+                        generator=torch.Generator(device=tables.device).manual_seed(1))
+
+    def embedding():
+        return torch.autograd.grad(F.embedding(flat, leaf.view(t * r, d)), leaf, g_out)[0]
+
+    def index_select():
+        return torch.autograd.grad(leaf.view(t * r, d).index_select(0, flat), leaf, g_out)[0]
+
+    want = torch.zeros(t * r, d, dtype=torch.float64).index_add_(
+        0, flat.cpu(), g_out.cpu().double())
+    err = float((embedding().view(t * r, d).cpu().double() - want).abs().max())
+    check(err <= GATHER_GRAD_ATOL, f"F.embedding's table gradient on the card is off a "
+          f"float64 index_add_ by {err} (> {GATHER_GRAD_ATOL})")
+    out = {"embedding_max_abs_err": err}
+    del want
+    for name, fn, det in (("embedding", embedding, False), ("index_select", index_select, False),
+                          ("index_select_deterministic", index_select, True)):
+        before = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(det)
+        try:
+            a, b = fn(), fn()
+            out[name] = dict(ms=time_ms(fn, iters), repeatable=bool(torch.equal(a, b)))
+        finally:
+            torch.use_deterministic_algorithms(before)
+        del a, b
+    return out
+
+
+def phase_train(device: str) -> dict:
+    """(a): DCN-v2 training at FULL's widths through the train kind and AdamW:
+    step 1 on the card held against float64 on the CPU
+    (``step_against_float64``), two uninterrupted runs of TRAIN_STEPS steps,
+    bitwise equal, whose first loss is that step's, and a run with
+    async checkpoints every TRAIN_CKPT_EVERY steps and failures at TRAIN_FAILS,
+    bitwise equal to them. Returns the times."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.data import recsys_batches
+    from repro_torch.kernels import embed
+    from repro_torch.launch import (
+        LoopConfig, build_step, make_optimizer, run_training, train_state,
+    )
+    from repro_torch.models import dcn_init
+
+    torch.set_float32_matmul_precision("highest")
+    arch = get_arch("dcn-v2")
+    cfg = arch.full
+    step = build_step("dcn-v2", "train_batch", device=device)
+    b = step.meta["rows"]
+    opt = make_optimizer(arch.optimizer)
+    out: dict = dict(config=dict(name=cfg.name, tables=(cfg.n_sparse, cfg.table_rows,
+                                                        cfg.embed_dim),
+                                 multi_hot=cfg.multi_hot, batch=b, optimizer=arch.optimizer))
+
+    def init_state():
+        return train_state(dcn_init(cfg, device=device), opt)
+
+    step_ms: list[float] = []
+
+    def step_fn(state, batch, timed=False):
+        t0 = time.perf_counter()
+        p, o, loss = step.fn(state["params"], state["opt"], batch)
+        if timed:
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        return {"params": p, "opt": o}, loss
+
+    def data(start):
+        return recsys_batches(cfg, b, seed=0, start_step=start)
+
+    first = init_state()
+    out["against_float64"] = step_against_float64(
+        step, build_step("dcn-v2", "train_batch", device="cpu"), cfg, first, next(data(0)))
+    del first
+    torch.cuda.empty_cache()
+    log(f"  step 1 on the card against float64 on the CPU (loss rtol {TRAIN_RTOL}; mu, nu "
+        f"normwise {TRAIN_GRAD_RTOL}, {2 * TRAIN_GRAD_RTOL}; the update rtol {TRAIN_RTOL}, atol "
+        f"{TRAIN_ATOL}): {out['against_float64']}")
+
+    loop = LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY)
+    k5 = embed.launches
+    t0 = time.perf_counter()
+    ref = run_training(lambda s, bt: step_fn(s, bt, timed=True), init_state, data, None, loop)
+    out["run1_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = run_training(step_fn, init_state, data, None, loop)
+    out["run2_s"] = time.perf_counter() - t0
+    check(again.losses == ref.losses and same_tensors(again.final_state, ref.final_state),
+          f"two uninterrupted DCN-v2 runs differ: losses {ref.losses} / {again.losses}")
+    del again
+    check(embed.launches == k5, "the one-hot train step launched K5")
+    check(ref.losses[0] == out["against_float64"]["loss"],
+          f"the loop's first loss {ref.losses[0]} is not the step held against float64 "
+          f"({out['against_float64']['loss']})")
+    out["losses"] = ref.losses
+    out["step_ms"] = step_ms
+    out["step_median_ms"] = statistics.median(step_ms)
+    log(f"  {cfg.name} FULL: {cfg.n_sparse} x {cfg.table_rows} x {cfg.embed_dim} float32 tables, "
+        f"multi_hot {cfg.multi_hot}, B={b}, {arch.optimizer}; two uninterrupted runs of "
+        f"{TRAIN_STEPS} steps bitwise equal (losses {ref.losses}); step median "
+        f"{out['step_median_ms']:.3f} ms ({step_ms}); runs {out['run1_s']:.3f} / "
+        f"{out['run2_s']:.3f} s; no K5 launch")
+
+    # the checkpointed run with two failures
+    n_bytes = tree_bytes(ref.final_state)
+    tmp_root = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp_root).free
+    out["checkpoint_bytes"], out["free_bytes"] = n_bytes, free
+    log(f"  one checkpoint holds {n_bytes} bytes (parameters, mu, nu); {free} bytes free under "
+        f"{tmp_root}")
+    check(free >= 2 * n_bytes,
+          f"the disk under {tmp_root} has {free} bytes free: too small for two checkpoints "
+          f"of {n_bytes} bytes (keep=1 holds one beside the one being written)")
+
+    class TimedCheckpoints(CheckpointManager):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.times = dict(snapshot_s=[], write_s=[], restore_s=[])
+
+        def save(self, step_, state, blocking=False):
+            self.wait()  # the snapshot below is timed alone
+            t0_ = time.perf_counter()
+            host = super().save(step_, state, blocking)
+            self.times["snapshot_s"].append(time.perf_counter() - t0_)
+            return host
+
+        def _write(self, step_, host_state):
+            t0_ = time.perf_counter()
+            super()._write(step_, host_state)
+            self.times["write_s"].append(time.perf_counter() - t0_)
+
+        def restore(self, target, step=None):
+            t0_ = time.perf_counter()
+            res_ = super().restore(target, step)
+            self.times["restore_s"].append(time.perf_counter() - t0_)
+            return res_
+
+    fails = set(TRAIN_FAILS)
+
+    def inject(s):
+        if s in fails:
+            fails.discard(s)
+            raise RuntimeError(f"simulated worker loss at step {s}")
+
+    ckpt_dir = tempfile.mkdtemp(prefix="smoke_train_ckpt_")
+    try:
+        ckpt = TimedCheckpoints(ckpt_dir, keep=1, async_save=True)
+        t0 = time.perf_counter()
+        res = run_training(step_fn, init_state, data, ckpt, loop, failure_injector=inject)
+        out["failure_run_s"] = time.perf_counter() - t0
+        out["checkpoint_steps"] = ckpt.all_steps()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    want = ref.losses[:1] + ref.losses[:4] + ref.losses[3:]
+    check(res.restarts == 2, f"the failure run restarted {res.restarts} times, not 2")
+    check(res.losses == want, f"the failure run's losses {res.losses} are not {want}")
+    check(same_tensors(res.final_state, ref.final_state),
+          "the run with two failures ends with other tensors than the uninterrupted run")
+    del res
+    out.update({k: v for k, v in ckpt.times.items()})
+    # writes: steps 3 and 6 on the thread, and the loop's final blocking save
+    check(len(ckpt.times["restore_s"]) == 1 and len(ckpt.times["write_s"]) == 3,
+          f"checkpoint calls {ckpt.times}")
+    log(f"  failures at steps {TRAIN_FAILS} (re-init, then a restore racing the step-3 save): "
+        f"restarts 2, losses and every final parameter, mu, nu and step bitwise equal to the "
+        f"uninterrupted run; run {out['failure_run_s']:.3f} s; save host snapshots "
+        f"{ckpt.times['snapshot_s']} s, writes {ckpt.times['write_s']} s, restore "
+        f"{ckpt.times['restore_s']} s (keep=1, steps left {out['checkpoint_steps']})")
+
+    # the optimizer update against its bound, and the gather's backward by route
+    params, state = ref.final_state["params"], ref.final_state["opt"]
+    grads = {k: v * 1e-3 for k, v in params.items()}
+    n_params = sum(v.numel() for v in params.values())
+    out["update_ms"] = time_ms(lambda: opt.update(grads, state, params), iters=5)
+    out["update_bound_ms"] = 7 * 4 * n_params / HBM_BYTES_PER_S * 1e3
+    log(f"  {arch.optimizer} update of {n_params} float32 parameters: "
+        f"{out['update_ms']:.3f} ms against a {out['update_bound_ms']:.3f} ms bound (7 reads "
+        f"and writes of float32 a parameter at {HBM_BYTES_PER_S / 1e12} TB/s)")
+    ids = torch.as_tensor(next(data(0))["sparse_ids"], device=device)
+    out["gather_grad"] = gather_grad_ms(params["tables"], ids)
+    check(out["gather_grad"]["embedding"]["repeatable"],
+          "F.embedding's table gradient differs between two runs")
+    log(f"  the one-hot bag's gather + table gradient at B={b}: {out['gather_grad']} "
+        f"(the port keeps F.embedding)")
+    del grads, params, state, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_peel_restarts(g, device: str, peel_answer: tuple, sharded_median_s: float,
+                        backend: str = "nccl", timed_runs: int = 3) -> tuple[dict, dict]:
+    """(b): ``peel_with_restarts`` on the RMAT graph at eps 0.1 over a group
+    of one (phase 13's world), a failure at pass PEEL_FAIL_AT: phase 4's
+    triple bit for bit, K1 once, K2 once a pass, one collective for the
+    degrees and one a pass, one restore. Returns (launches on its main path,
+    times)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import collective, distributed
+    from repro_torch.launch import peel_with_restarts
+
+    class CountedRestores(CheckpointManager):
+        """Counts restores; times the loop's save calls (the snapshot and the
+        wait for the last write) and the writes on the thread."""
+        restores = 0
+        save_s: list = []
+        write_s: list = []
+
+        def restore(self, target, step=None):
+            CountedRestores.restores += 1
+            return super().restore(target, step)
+
+        def save(self, step_, state, blocking=False):
+            t0_ = time.perf_counter()
+            host = super().save(step_, state, blocking)
+            CountedRestores.save_s.append(time.perf_counter() - t0_)
+            return host
+
+        def _write(self, step_, host_state):
+            t0_ = time.perf_counter()
+            super()._write(step_, host_state)
+            CountedRestores.write_s.append(time.perf_counter() - t0_)
+
+    tmp = tempfile.mkdtemp(prefix="smoke_restarts_")
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous", world_size=1,
+                            rank=0)
+    out: dict = {}
+    try:
+        mesh = distributed.make_mesh(device=device)
+        zero_launch_counts()
+        coll = collective.collectives
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = peel_with_restarts(g, mesh, 0.1, CountedRestores(f"{tmp}/main", keep=2),
+                                 fail_at_pass=PEEL_FAIL_AT)
+        torch.cuda.synchronize()
+        out["main_s"] = time.perf_counter() - t0
+        launches = launch_counts()
+        n_coll = collective.collectives - coll
+        triple = (got["density"], got["mask"], got["passes"])
+        check(same_triple(triple, peel_answer),
+              f"peel_with_restarts {got['density']!r}/{got['passes']} differs from phase 4's "
+              f"{peel_answer[0]!r}/{peel_answer[2]}")
+        check(launches["peel_edges"] == got["passes"] and launches["segment_sum_sorted"] == 1
+              and n_coll == got["passes"] + 1 and CountedRestores.restores == 1,
+              f"K2 {launches['peel_edges']}, K1 {launches['segment_sum_sorted']}, collectives "
+              f"{n_coll}, restores {CountedRestores.restores} for {got['passes']} passes")
+        walls = []
+        for i in range(timed_runs):
+            CountedRestores.save_s, CountedRestores.write_s = [], []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            peel_with_restarts(g, mesh, 0.1, CountedRestores(f"{tmp}/timed{i}", keep=2))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        state_bytes = 4 * g.n_nodes + 2 * g.n_nodes + 4 * 4
+        out.update(wall_s=walls, median_s=statistics.median(walls), passes=got["passes"],
+                   collectives=n_coll, restores=CountedRestores.restores,
+                   checkpoint_bytes=state_bytes, sharded_median_s=sharded_median_s,
+                   last_run_save_calls_s=CountedRestores.save_s,
+                   last_run_writes_s=CountedRestores.write_s)
+        log(f"  peel_with_restarts eps=0.1, fail at pass {PEEL_FAIL_AT}: density="
+            f"{got['density']!r} passes={got['passes']} == phase 4 (and so phase 13) bit for "
+            f"bit; K2 {launches['peel_edges']} (one a pass), K1 1, collectives {n_coll}, one "
+            f"restore; {out['main_s']:.6f} s with the failure; wall median of {timed_runs} "
+            f"without {out['median_s']:.6f} s ({walls}) against phase 13's "
+            f"pbahmani_distributed {sharded_median_s:.6f} s: a checkpoint of {state_bytes} "
+            f"bytes a pass; the last run's save calls (snapshot, wait for the last write) "
+            f"{CountedRestores.save_s} s, writes on the thread {CountedRestores.write_s} s")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, out
+
+
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--rows"]):
         print(f"usage: python3 chip_smoke.py [--rows]; got {argv}", file=sys.stderr)
@@ -3106,13 +3526,25 @@ def main(argv: list[str]) -> int:
     lint["phase_s"] = time.perf_counter() - t0
     log(f"  phase 14 took {lint['phase_s']:.3f} s")
 
+    log("phase 15: the training runtime: DCN-v2 training at full width, P-Bahmani under "
+        "worker loss")
+    t0 = time.perf_counter()
+    train_times = phase_train(device)
+    restart_launches, restart_times = phase_peel_restarts(
+        g, device, peel_answers[0.1], shard_times["pbahmani_0.1"]["median_s"])
+    train_times["peel_with_restarts"] = restart_times
+    train_times["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 15 took {train_times['phase_s']:.3f} s; launches {restart_launches}")
+
     k2_launches = (peel_launches + cbds_launches + pruned_launches["peel_edges"]
                    + fallback_launches + refine_launches + stream_launches["peel_edges"]
-                   + fused_launches["peel_edges"] + shard_launches["peel_edges"])
+                   + fused_launches["peel_edges"] + shard_launches["peel_edges"]
+                   + restart_launches["peel_edges"])
     k1_launches = (cbds_k1_launches + pruned_launches["segment_sum_sorted"] + fallback_k1
                    + stream_launches["segment_sum_sorted"]
                    + fused_launches["segment_sum_sorted"]
-                   + shard_launches["segment_sum_sorted"])
+                   + shard_launches["segment_sum_sorted"]
+                   + restart_launches["segment_sum_sorted"])
     log(f"main path: K2 launches P-Bahmani (eps 0.1 and 0) {peel_launches}, CBDS-P "
         f"{cbds_launches}, pruned {pruned_launches['peel_edges']}, pruned fallback "
         f"{fallback_launches}, refinement {refine_launches}; K1 {k1_launches} (CBDS-P's "
@@ -3128,7 +3560,9 @@ def main(argv: list[str]) -> int:
         f"{fused_launches['segment_sum_rows']}, K1 {fused_launches['segment_sum_sorted']}, "
         f"K2 {fused_launches['peel_edges']}, K3 {fused_launches['prefix_sum']}, K4 "
         f"{fused_launches['stream_compact']}; the sharded tier (phase 13): K2 "
-        f"{shard_launches['peel_edges']}, K1 {shard_launches['segment_sum_sorted']}")
+        f"{shard_launches['peel_edges']}, K1 {shard_launches['segment_sum_sorted']}; "
+        f"peel_with_restarts (phase 15): K2 {restart_launches['peel_edges']}, K1 "
+        f"{restart_launches['segment_sum_sorted']}")
     rows = {
         "segment_sum_sorted": (k1_launches, k1["max_abs_err"], k1),
         "peel_edges": (k2_launches, k2["max_abs_err"], k2),
@@ -3171,6 +3605,7 @@ def main(argv: list[str]) -> int:
                     "fused": fused_times,
                     "sharded": shard_times,
                     "lint": lint,
+                    "train": train_times,
                     "k2_rows": k2_rows,
                     "k1_rows": k1_rows,
                     "smoke_s": time.perf_counter() - t_start}, default=str))

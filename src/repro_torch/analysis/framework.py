@@ -13,8 +13,9 @@ because its hot loops run on the host and launch kernels:
     ``core/batched.py`` and the edge stages of ``core/dispatch.py``,
     resolved to a fixpoint within the module (a function that calls one
     outside any loop of its own is one pass too, and so is a callable
-    handed to a module function by a caller that passes one). Each loop
-    runs once a pass, so what it syncs it syncs every pass.
+    handed to a module function by a caller that passes one), and every
+    loop that saves a checkpoint (a train loop's steps). Each loop runs
+    once a pass, so what it syncs it syncs every pass.
   * :func:`tensor_taint` — a flow-insensitive closure of the local names
     that hold tensors (tensor-annotated parameters, results of ``torch.*``
     calls and of per-pass functions), minus whatever an explicit host
@@ -24,8 +25,9 @@ because its hot loops run on the host and launch kernels:
     ``torch.compile``: what the port builds at run time, and so what the
     recompile auditor must count.
   * :func:`collective_reachers` — project-wide, to a fixpoint, the
-    functions that reach ``core/collective.py:all_reduce_sum`` or a
-    ``torch.distributed`` collective: every rank must call them alike.
+    functions that reach ``core/collective.py``'s ``all_reduce_sum`` or
+    ``all_reduce_max``, or a ``torch.distributed`` collective: every rank
+    must call them alike.
 
 Rules yield :class:`Finding`s; the :class:`Analyzer` filters them
 through the pragma suppressions (recording which suppression fired, so
@@ -342,6 +344,70 @@ def per_pass_functions(mod: ModuleInfo
     return per_pass, {k: v for k, v in pass_params.items() if v}
 
 
+# the checkpoint module: a ``CheckpointManager``'s ``save`` copies its state
+# to the host (a sync) and answers with that copy, ``restore`` answers with
+# host values read from disk, and ``snapshot`` is the host copy alone
+CHECKPOINT_MODULES = ("repro_torch.checkpoint", "repro_torch.checkpoint.manager")
+
+
+@dataclass
+class CheckpointCalls:
+    """The module's calls into the checkpoint module, by ``id`` of the call:
+    ``save`` on a ``CheckpointManager`` (a parameter annotated as one, or a
+    name bound to ``CheckpointManager(...)``), ``restore`` on one, and
+    ``snapshot``. Keyed on the imports, not on method names: another
+    object's ``save`` or ``restore`` is none of these."""
+
+    saves: set[int] = field(default_factory=set)   # host syncs that answer on the host
+    syncs: set[int] = field(default_factory=set)   # saves and snapshots
+    host: frozenset[int] = frozenset()             # calls whose result is host values
+    states: list[ast.AST] = field(default_factory=list)  # the trees the saves copy
+
+
+def checkpoint_calls(mod: ModuleInfo) -> CheckpointCalls:
+    if "checkpoint_calls" not in mod.memo:
+        mod.memo["checkpoint_calls"] = _checkpoint_calls(mod)
+    return mod.memo["checkpoint_calls"]
+
+
+def _checkpoint_calls(mod: ModuleInfo) -> CheckpointCalls:
+    imports = module_imports(mod)
+
+    def names(name: str) -> set[str]:
+        return {f"{m}.{name}" for m in CHECKPOINT_MODULES}
+
+    def is_manager(node: ast.AST | None) -> bool:
+        return node is not None and any(qualify(n, imports) in names("CheckpointManager")
+                                        for n in names_in(node))
+
+    out = CheckpointCalls()
+    host: set[int] = set()
+    for fn, _ in iter_function_defs(mod.tree):
+        a = fn.args
+        managers = {p.arg for p in a.posonlyargs + a.args + a.kwonlyargs
+                    if is_manager(p.annotation)}
+        managers |= {t.id for n in ast.walk(fn) if isinstance(n, ast.Assign)
+                     and isinstance(n.value, ast.Call) and is_manager(n.value.func)
+                     for t in n.targets if isinstance(t, ast.Name)}
+        for n in ast.walk(fn):
+            if not isinstance(n, ast.Call):
+                continue
+            if qualify(dotted(n.func), imports) in names("snapshot"):
+                out.syncs.add(id(n))
+                host.add(id(n))
+            elif isinstance(n.func, ast.Attribute) and dotted(n.func.value) in managers:
+                if n.func.attr == "save":
+                    out.saves.add(id(n))
+                    out.syncs.add(id(n))
+                    host.add(id(n))
+                    out.states += n.args[1:2] + [k.value for k in n.keywords
+                                                 if k.arg == "state"]
+                elif n.func.attr == "restore":
+                    host.add(id(n))
+    out.host = frozenset(host)
+    return out
+
+
 @dataclass
 class PassLoop:
     """One loop that runs once a pass: where, in which function, and which
@@ -351,6 +417,7 @@ class PassLoop:
     function: ast.AST | None            # enclosing def (None: module level)
     name: str                           # enclosing def's name, or <module>
     inner: list[ast.AST] = field(default_factory=list)  # nested pass loops
+    per_pass: bool = True               # calls a per-pass function (else: saves a checkpoint)
 
     @property
     def lineno(self) -> int:
@@ -367,9 +434,12 @@ class PassLoop:
 
 
 def find_pass_loops(mod: ModuleInfo, passes: tuple | None = None) -> list[PassLoop]:
-    """Every loop of the module that calls a per-pass function; ``passes``
-    is :func:`per_pass_functions` of the module, when already at hand."""
+    """Every loop of the module that calls a per-pass function, or saves a
+    checkpoint (a train loop's steps: each saves its state every so many
+    steps); ``passes`` is :func:`per_pass_functions` of the module, when
+    already at hand."""
     per_pass, pass_params = passes or per_pass_functions(mod)
+    saves = checkpoint_calls(mod).saves
     loops: list[PassLoop] = []
 
     def visit(node: ast.AST, fn: ast.AST | None, outer: PassLoop | None):
@@ -381,8 +451,11 @@ def find_pass_loops(mod: ModuleInfo, passes: tuple | None = None) -> list[PassLo
             if isinstance(child, _LOOP_NODES):
                 roots = ([child.test] if isinstance(child, ast.While) else [])
                 params = pass_params.get(getattr(fn, "name", ""), set())
-                if _calls_pass(roots + child.body + child.orelse, per_pass, params):
-                    here = PassLoop(child, fn, getattr(fn, "name", "<module>"))
+                body = roots + child.body + child.orelse
+                calls = _calls_pass(body, per_pass, params)
+                if calls or any(id(n) in saves for n in walk_local(body)):
+                    here = PassLoop(child, fn, getattr(fn, "name", "<module>"),
+                                    per_pass=calls)
                     loops.append(here)
                     if outer is not None:
                         outer.inner.append(child)
@@ -400,17 +473,18 @@ TORCH_HOST_CALLS = ("torch.device", "torch.Size", "torch.cuda.", "torch.get_",
                     "torch.is_", "torch.finfo", "torch.iinfo", "torch.distributed.")
 
 
-def tensor_names(node: ast.AST) -> set[str]:
+def tensor_names(node: ast.AST, host: frozenset[int] = frozenset()) -> set[str]:
     """:func:`dynamic_names` that also skips what an explicit host
     conversion (``int(x)``, ``x.item()``, ``x.tolist()``) returns: a Python
-    value, whose use syncs nothing more."""
+    value, whose use syncs nothing more. ``host`` holds the ``id`` of other
+    calls that answer on the host (:func:`checkpoint_calls`)."""
     out: set[str] = set()
 
     def walk(n: ast.AST):
         if isinstance(n, ast.Attribute) and n.attr in STATIC_ATTRS:
             return
         if isinstance(n, ast.Call) and (
-                dotted(n.func) in HOST_CONVERSIONS
+                id(n) in host or dotted(n.func) in HOST_CONVERSIONS
                 or (isinstance(n.func, ast.Attribute)
                     and n.func.attr in HOST_METHODS)):
             return
@@ -421,7 +495,7 @@ def tensor_names(node: ast.AST) -> set[str]:
             # the iterable flows in only through what the element reads of
             # its targets: `any(t.device != d for t in ts)` reads no values
             targets = set().union(*(names_in(g.target) for g in n.generators))
-            inner = set().union(*(tensor_names(part) for part in (
+            inner = set().union(*(tensor_names(part, host) for part in (
                 [n.key, n.value] if isinstance(n, ast.DictComp) else [n.elt])
                 + [c for g in n.generators for c in g.ifs]))
             out.update(inner - targets)
@@ -438,14 +512,15 @@ def tensor_names(node: ast.AST) -> set[str]:
     return out
 
 
-def _tensor_source(value: ast.AST, per_pass: set[str], params: set[str]) -> bool:
+def _tensor_source(value: ast.AST, per_pass: set[str], params: set[str],
+                   host: frozenset[int]) -> bool:
     """Does ``value`` make a tensor: a ``torch.*`` call or a pass's result,
     outside any explicit host conversion?"""
     def walk(n: ast.AST) -> bool:
         if isinstance(n, ast.Call):
             fn = dotted(n.func)
-            if fn in HOST_CONVERSIONS or (isinstance(n.func, ast.Attribute)
-                                          and n.func.attr in HOST_METHODS):
+            if id(n) in host or fn in HOST_CONVERSIONS or (
+                    isinstance(n.func, ast.Attribute) and n.func.attr in HOST_METHODS):
                 return False
             if (fn.startswith("torch.") and not fn.startswith(TORCH_HOST_CALLS)) \
                     or callee(n) in per_pass \
@@ -457,12 +532,18 @@ def _tensor_source(value: ast.AST, per_pass: set[str], params: set[str]) -> bool
 
 
 def tensor_taint(fn: ast.AST, per_pass: set[str],
-                 pass_params: set[str] = frozenset()) -> set[str]:
+                 pass_params: set[str] = frozenset(),
+                 ckpt: CheckpointCalls | None = None) -> set[str]:
     """Local names of ``fn`` (a def, or the module) that hold tensors:
     parameters annotated as a tensor or a ``*State`` of tensors, names
-    assigned from a ``torch.*`` call or a pass, and what flows from those,
-    to a fixpoint. Flow-insensitive, like :func:`tainted_names`."""
-    seeds: set[str] = set()
+    assigned from a ``torch.*`` call or a pass, the state a checkpoint
+    saves (``ckpt``: the module's :func:`checkpoint_calls`, whose host
+    answers hold no tensor), and what flows from those, to a fixpoint.
+    Flow-insensitive, like :func:`tainted_names`."""
+    ckpt = ckpt or CheckpointCalls()
+    fn_nodes = {id(n) for n in ast.walk(fn)}
+    seeds: set[str] = set().union(*(tensor_names(s, ckpt.host) for s in ckpt.states
+                                    if id(s) in fn_nodes))
     if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
         a = fn.args
         for p in a.posonlyargs + a.args + a.kwonlyargs:
@@ -472,10 +553,10 @@ def tensor_taint(fn: ast.AST, per_pass: set[str],
     for node in ast.walk(fn):
         if isinstance(node, (ast.Assign, ast.AugAssign, ast.AnnAssign)) \
                 and node.value is not None \
-                and _tensor_source(node.value, per_pass, pass_params):
+                and _tensor_source(node.value, per_pass, pass_params, ckpt.host):
             targets = node.targets if isinstance(node, ast.Assign) else [node.target]
             seeds |= set().union(*(names_in(t) for t in targets))
-    return tainted_names(fn, seeds, names=tensor_names)
+    return tainted_names(fn, seeds, names=functools.partial(tensor_names, host=ckpt.host))
 
 
 # ---------------------------------------------------------------------------
@@ -575,7 +656,8 @@ def find_library_loads(mod: ModuleInfo) -> list[LibraryLoad]:
 # ---------------------------------------------------------------------------
 # collectives (RPR4xx)
 # ---------------------------------------------------------------------------
-COLLECTIVE_SITE = "repro_torch.core.collective.all_reduce_sum"
+COLLECTIVE_SITES = ("repro_torch.core.collective.all_reduce_sum",
+                    "repro_torch.core.collective.all_reduce_max")
 DIST_COLLECTIVES = {
     "all_reduce", "all_gather", "all_gather_into_tensor", "all_gather_object",
     "all_gather_coalesced", "broadcast", "broadcast_object_list", "reduce",
@@ -623,8 +705,8 @@ def reaches_collective(call: ast.Call, imports: dict[str, str],
 
 def collective_reachers(mods: Iterable[ModuleInfo]) -> set[str]:
     """Bare names of the functions, methods and classes (by ``__init__``)
-    that reach ``collective.all_reduce_sum`` or a ``torch.distributed``
-    collective, over the given modules and the port's own, to a fixpoint.
+    that reach ``collective.all_reduce_sum``/``all_reduce_max`` or a
+    ``torch.distributed`` collective, over the given modules and the port's own, to a fixpoint.
     By name, not by object: a method of another class with a reacher's name
     counts as one (the rules keyed on this err towards a finding)."""
     seen: dict[Path, ModuleInfo] = {}
@@ -643,7 +725,7 @@ def collective_reachers(mods: Iterable[ModuleInfo]) -> set[str]:
                         and stmt.name in ("__init__", "__post_init__")
                         for n in ast.walk(stmt) if isinstance(n, ast.Call)]
                 bodies.append((node.name, init, imports))
-    reachers = {COLLECTIVE_SITE.rsplit(".", 1)[-1]}
+    reachers = {site.rsplit(".", 1)[-1] for site in COLLECTIVE_SITES}
     changed = True
     while changed:
         changed = False
@@ -766,5 +848,6 @@ __all__ = [
     "load_module", "module_imports", "names_in", "param_names",
     "per_pass_functions", "qualify", "reaches_collective", "run_analysis",
     "tainted_names", "tensor_names", "tensor_taint", "walk_local",
+    "CHECKPOINT_MODULES", "CheckpointCalls", "checkpoint_calls",
     "PASS_SEEDS", "STATIC_ATTRS", "LOAD_ENTRY",
 ]

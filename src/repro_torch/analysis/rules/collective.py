@@ -3,10 +3,10 @@
 The port's sharded paths run one process a rank, and every rank makes the
 same calls on the same inputs: the JAX package's shard_map bodies become
 ordinary host code around ``torch.distributed``. Two things keep that
-sound. RPR401: every collective goes through the one site,
-``core/collective.py:all_reduce_sum``, which counts it in
-``collective.collectives`` (the counter the card checks hold at one a
-pass); a ``dist.*`` collective anywhere else is a finding. RPR402: a call
+sound. RPR401: every collective goes through one of the two sites,
+``core/collective.py``'s ``all_reduce_sum`` and ``all_reduce_max``, which
+count it in ``collective.collectives`` (the counter the card checks hold at
+one a pass); a ``dist.*`` collective anywhere else is a finding. RPR402: a call
 that reaches a collective must not sit under a branch that only some
 ranks take (``if rank == 0:``, a test of ``mesh.rank`` or
 ``dist.get_rank()``, or a name derived from one, or after a rank-tested
@@ -20,7 +20,7 @@ import ast
 from typing import Iterator
 
 from repro_torch.analysis.framework import (
-    COLLECTIVE_SITE, Finding, ModuleInfo, Rule, collective_reachers, dotted,
+    COLLECTIVE_SITES, Finding, ModuleInfo, Rule, collective_reachers, dotted,
     is_dist_collective, module_imports, names_in, param_names, qualify,
     reaches_collective,
 )
@@ -135,13 +135,14 @@ def _enclosing_defs(tree: ast.Module) -> dict[int, str]:
 
 class CollectiveSiteRule(Rule):
     rule_id = "RPR401"
-    title = "torch.distributed collective outside core/collective.py:all_reduce_sum"
+    title = ("torch.distributed collective outside core/collective.py's "
+             "all_reduce_sum and all_reduce_max")
 
     def check_module(self, mod: ModuleInfo) -> Iterator[Finding]:
         rel = mod.rel()
         imports = module_imports(mod)
         owner = _enclosing_defs(mod.tree)
-        site_mod, site_fn = COLLECTIVE_SITE.rsplit(".", 1)
+        sites = {tuple(site.rsplit(".", 1)) for site in COLLECTIVE_SITES}
         for node in ast.walk(mod.tree):
             if not isinstance(node, ast.Call):
                 continue
@@ -149,13 +150,14 @@ class CollectiveSiteRule(Rule):
             if not is_dist_collective(name):
                 continue
             context = owner.get(id(node), "<module>")
-            if mod.module == site_mod and context == site_fn:
-                continue  # the one counted site
+            if (mod.module, context) in sites:
+                continue  # a counted site
             yield Finding(
                 rule=self.rule_id, path=rel, line=node.lineno, context=context,
-                message=f"{name}(...) outside {COLLECTIVE_SITE} is a collective "
-                        "that collective.collectives never counts; sum through "
-                        "collective.all_reduce_sum(t, mesh)")
+                message=f"{name}(...) outside {' and '.join(COLLECTIVE_SITES)} is a "
+                        "collective that collective.collectives never counts; "
+                        "reduce through collective.all_reduce_sum(t, mesh) or "
+                        "collective.all_reduce_max(t, mesh)")
 
 
 class RankDivergenceRule(Rule):

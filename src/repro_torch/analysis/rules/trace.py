@@ -6,22 +6,25 @@ That read is the one host sync a pass, and each loop documents it with
 ``# repro: allow RPR101 -- the one host sync of each pass``. Every other
 device-to-host read in a pass loop stalls the launch queue once more a
 pass, and the card sits idle while the host waits. These rules pin each
-loop to its one documented sync (RPR101-103) and reject a kernel library,
+loop to its one documented sync (RPR101-103; a train loop, found by the
+checkpoint it saves, documents each of its syncs) and reject a kernel library,
 CUDA graph or ``torch.compile`` made anew on every call (RPR104), the
 counterparts of the JAX package's tracer rules.
 """
 from __future__ import annotations
 
 import ast
+import functools
 from typing import Iterator
 
 from repro_torch.analysis.framework import (
-    BUILD_MODULE, FRAMEWORK_RULE, PASS_SEEDS, Finding, ModuleInfo, Rule, dotted,
-    find_library_loads, find_pass_loops, per_pass_functions, tensor_names,
-    tensor_taint, walk_local,
+    BUILD_MODULE, FRAMEWORK_RULE, PASS_SEEDS, Finding, ModuleInfo, Rule,
+    checkpoint_calls, dotted, find_library_loads, find_pass_loops,
+    per_pass_functions, tensor_names, tensor_taint, walk_local,
 )
 
 # calls that read the device back on the host whatever they are given
+# (and a checkpoint's save and snapshot: framework.checkpoint_calls)
 HOST_SYNC_METHODS = {"item", "tolist", "cpu", "numpy", "nonzero", "unique",
                      "masked_select"}
 HOST_SYNC_FUNCS = {"torch.nonzero", "torch.unique", "torch.masked_select",
@@ -36,13 +39,19 @@ CACHING_DECORATORS = {
 
 class _Scope:
     """What runs once a pass: a pass loop, or the body of a seed pass
-    function outside its own pass loops."""
+    function outside its own pass loops. ``capped``: a loop of passes, held
+    to one documented sync (a train loop's step, found by its checkpoint,
+    documents each of its syncs instead)."""
 
     def __init__(self, name: str, lineno: int, nodes: list[ast.AST],
-                 taint: set[str], head: ast.AST | None = None):
+                 taint: set[str], ckpt, head: ast.AST | None = None,
+                 capped: bool = True):
         self.name, self.lineno, self.nodes = name, lineno, nodes
         self.taint = taint
+        self.syncs = ckpt.syncs  # a checkpoint's save and snapshot, by id
+        self.names = functools.partial(tensor_names, host=ckpt.host)
         self.head = head  # the loop itself (None: a pass function's body)
+        self.capped = capped
 
 
 def pass_scopes(mod: ModuleInfo) -> list[_Scope]:
@@ -56,6 +65,7 @@ def pass_scopes(mod: ModuleInfo) -> list[_Scope]:
 def _pass_scopes(mod: ModuleInfo) -> list[_Scope]:
     per_pass, pass_params = passes = per_pass_functions(mod)
     loops = find_pass_loops(mod, passes)
+    ckpt = checkpoint_calls(mod)
     taints: dict[int, set[str]] = {}
 
     def taint_of(fn):
@@ -63,30 +73,33 @@ def _pass_scopes(mod: ModuleInfo) -> list[_Scope]:
         if key not in taints:
             params = pass_params.get(getattr(fn, "name", ""), set())
             taints[key] = tensor_taint(fn if fn is not None else mod.tree,
-                                       per_pass, params)
+                                       per_pass, params, ckpt)
         return taints[key]
 
     scopes = [_Scope(f"pass loop in '{lp.name}'", lp.lineno, list(lp.nodes()),
-                     taint_of(lp.function), lp.node) for lp in loops]
+                     taint_of(lp.function), ckpt, lp.node, lp.per_pass) for lp in loops]
     loop_ids = {id(lp.node) for lp in loops}
     for fn in ast.walk(mod.tree):
         if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)) \
                 and fn.name in PASS_SEEDS:
             nodes = list(walk_local(fn.body, skip=lambda n: id(n) in loop_ids))
             scopes.append(_Scope(f"pass '{fn.name}'", fn.lineno, nodes,
-                                 taint_of(fn)))
+                                 taint_of(fn), ckpt))
     return scopes
 
 
 def sync_calls(scope: _Scope) -> Iterator[tuple[ast.Call, str]]:
     """(call, what) for every host sync in the scope: a sync method or
-    function, or a conversion of a tensor. A chain such as
-    ``x.cpu().numpy()`` is one sync, reported at its innermost call."""
+    function, a checkpoint's save or snapshot, or a conversion of a tensor.
+    A chain such as ``x.cpu().numpy()`` is one sync, reported at its
+    innermost call."""
     for node in scope.nodes:
         if not isinstance(node, ast.Call):
             continue
         fn = dotted(node.func)
-        if isinstance(node.func, ast.Attribute) \
+        if id(node) in scope.syncs:
+            yield node, f"{fn}() (a checkpoint's host copy)"
+        elif isinstance(node.func, ast.Attribute) \
                 and node.func.attr in HOST_SYNC_METHODS:
             inner = any(isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
                         and n.func.attr in HOST_SYNC_METHODS
@@ -96,7 +109,7 @@ def sync_calls(scope: _Scope) -> Iterator[tuple[ast.Call, str]]:
         elif fn in HOST_SYNC_FUNCS:
             yield node, f"{fn}()"
         elif fn in HOST_SYNC_CALLS and node.args \
-                and tensor_names(node.args[0]) & scope.taint:
+                and scope.names(node.args[0]) & scope.taint:
             yield node, f"{fn}() of a tensor"
 
 
@@ -119,7 +132,7 @@ class HostSyncRule(Rule):
                             "make this the loop's one documented sync "
                             "('# repro: allow RPR101 -- the one host sync of "
                             "each pass')")
-            if scope.head is not None and len(set(allowed)) > 1:
+            if scope.head is not None and scope.capped and len(set(allowed)) > 1:
                 yield Finding(
                     rule=FRAMEWORK_RULE, path=rel, line=scope.lineno,
                     context=scope.name,
@@ -138,7 +151,7 @@ class TensorControlFlowRule(Rule):
             for node in [scope.head] + scope.nodes:  # a while loop's own test too
                 if not isinstance(node, (ast.If, ast.While, ast.Assert, ast.IfExp)):
                     continue
-                hot = tensor_names(node.test) & scope.taint
+                hot = scope.names(node.test) & scope.taint
                 if not hot:
                     continue
                 if isinstance(node.test, ast.Compare) and all(
@@ -165,7 +178,7 @@ class TensorKeyRule(Rule):
             for node in scope.nodes:
                 if isinstance(node, ast.JoinedStr):
                     if any(isinstance(v, ast.FormattedValue)
-                           and tensor_names(v.value) & scope.taint
+                           and scope.names(v.value) & scope.taint
                            for v in node.values):
                         yield Finding(
                             rule=self.rule_id, path=rel, line=node.lineno,
@@ -176,7 +189,7 @@ class TensorKeyRule(Rule):
                 elif isinstance(node, (ast.Dict, ast.Set)):
                     keys = node.keys if isinstance(node, ast.Dict) else node.elts
                     for k in keys:
-                        if k is not None and tensor_names(k) & scope.taint:
+                        if k is not None and scope.names(k) & scope.taint:
                             yield Finding(
                                 rule=self.rule_id, path=rel, line=k.lineno,
                                 context=scope.name,
@@ -185,7 +198,7 @@ class TensorKeyRule(Rule):
                                         "identity, so equal values never meet")
                 elif isinstance(node, ast.Call) and dotted(node.func) in (
                         "str", "repr", "format") and node.args \
-                        and tensor_names(node.args[0]) & scope.taint:
+                        and scope.names(node.args[0]) & scope.taint:
                     yield Finding(
                         rule=self.rule_id, path=rel, line=node.lineno,
                         context=scope.name,

@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import recsys_batches
+from repro_torch.data.pipeline import lm_token_batches, recsys_batches
 
-__all__ = ["recsys_batches"]
+__all__ = ["lm_token_batches", "recsys_batches"]

@@ -1,15 +1,34 @@
 """Deterministic synthetic data pipelines, produced on the host in numpy.
 
-``recsys_batches`` is a copy of the JAX package's ``data/pipeline.py``
-generator: the same arrays for the same config, batch and seed. The LM
-token stream and the GNN batches come with their slices (ROADMAP.md section
-1, item 13).
+``lm_token_batches`` and ``recsys_batches`` are copies of the JAX package's
+``data/pipeline.py`` generators: the same arrays for the same arguments and
+seed. Each is an infinite iterator whose step k's batch depends on k alone,
+so a checkpoint restart resumes the stream exactly (``launch/train.py``).
+The GNN batches come with their slice (ROADMAP.md section 1, item 6c).
 """
 from __future__ import annotations
 
 from typing import Iterator
 
 import numpy as np
+
+
+def lm_token_batches(vocab: int, batch: int, seq: int, seed: int = 0,
+                     start_step: int = 0) -> Iterator[dict]:
+    """Infinite stream of {tokens, labels} int32 [batch, seq].
+
+    Synthetic Zipf-ish unigram stream with a deterministic per-step seed so
+    step k's batch is reproducible regardless of restart point.
+    """
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    step = start_step
+    while True:
+        rng = np.random.default_rng(seed * 1_000_003 + step)
+        toks = rng.choice(vocab, size=(batch, seq + 1), p=probs).astype(np.int32)
+        yield {"step": step, "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        step += 1
 
 
 def recsys_batches(cfg, batch: int, seed: int = 0,
@@ -29,4 +48,4 @@ def recsys_batches(cfg, batch: int, seed: int = 0,
         step += 1
 
 
-__all__ = ["recsys_batches"]
+__all__ = ["lm_token_batches", "recsys_batches"]

@@ -1,19 +1,29 @@
 """Step factory: (arch, shape) -> a step that runs on the device.
 
 The port of the recsys part of the JAX package's ``launch/steps.py``
-(``_recsys_step`` and ``build_step``) for one device: no mesh, so n_dev = 1
-and the model axis is 1 in JAX's formulas. Kinds:
+(``make_optimizer``, ``_recsys_step`` and ``build_step``) for one device: no
+mesh, so n_dev = 1 and the model axis is 1 in JAX's formulas. Kinds:
 
+  train     fn(params, opt_state, batch) -> (params', opt_state', loss)
   serve     fn(model, batch) -> CTR logits [B]
   retrieval fn(model, batch) -> scores [Q, C]
 
-``fn`` takes the model (``models.recsys.DCNv2``, which carries its config:
-``multi_hot`` and ``kernel`` are the model's) and a batch of numpy arrays or
-tensors, moves the batch to the step's device and runs under
-``torch.inference_mode()``. ``meta`` carries the analytic ``model_flops``,
-``model_bytes_dev`` and ``rows`` of the arch's full config (for retrieval,
-``rows`` is the number of candidates). The ``train`` kind (it needs K5's backward) and the LM and GNN
-families are not ported yet: they raise ``NotImplementedError``.
+The serve kinds take the model (``models.recsys.DCNv2``, which carries its
+config: ``multi_hot`` and ``kernel`` are the model's) and a batch of numpy
+arrays or tensors, move the batch to the step's device and run under
+``torch.inference_mode()``. The train kind is pure: it takes a
+``named_parameters`` dict (``train_state`` builds the first ``{"params",
+"opt"}`` from a model), runs ``dcn_loss`` on a skeleton of the config
+through ``torch.func.functional_call``, differentiates it and returns new
+tensors from the arch's optimizer; nothing it is given changes, so the
+train loop may run it twice from one state. It differentiates the plain bag,
+as the JAX package's step does with ``impl="xla"``: K5 has no backward, so a
+multi-hot config with the kernel on raises ``NotImplementedError`` rather
+than change path. Every kind runs its float32 products in full float32.
+``meta`` carries the analytic ``model_flops``, ``model_bytes_dev`` and
+``rows`` of the config (for retrieval, ``rows`` is the number of
+candidates). The LM and GNN families are not ported yet: they raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,8 +34,9 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.configs.common import Arch, Shape
-from repro_torch.core.dispatch import resolve_device
+from repro_torch.core.dispatch import resolve_device, resolve_kernel
 from repro_torch.models import recsys as rec_mod
+from repro_torch.optim import Optimizer, adafactor, adamw, sgdm
 
 
 @dataclass
@@ -50,12 +61,60 @@ def _param_bytes(cfg: rec_mod.DCNConfig) -> int:
                 + cfg.n_cross_layers * (w + d_in) + mlp)
 
 
+def make_optimizer(name: str) -> Optimizer:
+    if name == "adamw":
+        return adamw(3e-4)
+    if name == "adafactor":
+        return adafactor(1e-3)
+    return sgdm(1e-2)
+
+
+def train_state(model: rec_mod.DCNv2, opt: Optimizer) -> dict:
+    """The train kind's first state, ``{"params", "opt"}``: the model's
+    parameters by name (detached; the step never writes them) and
+    ``opt.init`` of them."""
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    return {"params": params, "opt": opt.init(params)}
+
+
 def _check_precision() -> None:
     if torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError(
             "DCN-v2's steps run their float32 products in full float32, as the JAX "
             "reference does; torch.get_float32_matmul_precision() is "
             f"{torch.get_float32_matmul_precision()!r} (TF32): set it to 'highest'")
+
+
+def _train_step(arch: Arch, cfg: rec_mod.DCNConfig, b: int, per_row: float,
+                device: torch.device, name: str) -> StepBundle:
+    if cfg.multi_hot > 1 and resolve_kernel(cfg.kernel, device):
+        raise NotImplementedError(
+            f"{name}: a multi-hot bag with the kernel on runs K5 "
+            f"(kernels/ops.py:segment_embed), which has no backward, as the JAX "
+            f"package's Pallas kernel has none; train with kernel=False")
+    opt = make_optimizer(arch.optimizer)
+    skeleton = rec_mod.DCNv2(cfg, device="meta")  # the structure; params come in
+
+    def train(params, opt_state, batch):
+        _check_precision()
+        on = params["tables"].device
+        if on.type != device.type or device.index not in (None, on.index):
+            raise ValueError(f"{name} runs on {device}; the parameters are on {on}")
+        feed = {k: torch.as_tensor(batch[k], device=device)
+                for k in ("dense", "sparse_ids", "labels")}
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        with torch.enable_grad():
+            loss = rec_mod.dcn_loss(skeleton, feed, leaves)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        new_p, new_o = opt.update(dict(zip(leaves, grads)), opt_state, params)
+        return new_p, new_o, loss.detach()
+
+    return StepBundle(
+        name=name, kind="train", fn=train,
+        meta={"model_flops": 3.0 * b * per_row,
+              "model_bytes_dev": (8.0 * _param_bytes(cfg)        # opt RMW on tables
+                                  + 3.0 * b * (cfg.n_sparse * cfg.embed_dim + cfg.d_in) * 4),
+              "rows": b})
 
 
 def _recsys_step(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
@@ -69,9 +128,7 @@ def _recsys_step(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
     name = f"{arch.name}:{shape.name}"
 
     if shape.kind == "train":
-        raise NotImplementedError(
-            f"{name}: training is not ported yet; it needs K5's backward, the "
-            f"optimizers and the train loop (ROADMAP.md section 1, item 13)")
+        return _train_step(arch, cfg, b, per_row, device, name)
 
     def run(model, batch, keys, forward):
         _check_precision()
@@ -112,4 +169,4 @@ def build_step(arch_name: str, shape_name: str, device=None) -> StepBundle:
     return _recsys_step(arch, arch.shape(shape_name), device)
 
 
-__all__ = ["StepBundle", "build_step"]
+__all__ = ["StepBundle", "build_step", "make_optimizer", "train_state"]

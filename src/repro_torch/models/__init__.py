@@ -4,8 +4,8 @@
 # section 1, item 13.
 from repro_torch.models.convert import dcn_params_from_jax
 from repro_torch.models.recsys import (
-    DCNConfig, DCNv2, dcn_forward, dcn_init, embedding_bag, retrieval_score,
+    DCNConfig, DCNv2, dcn_forward, dcn_init, dcn_loss, embedding_bag, retrieval_score,
 )
 
-__all__ = ["DCNConfig", "DCNv2", "dcn_forward", "dcn_init", "dcn_params_from_jax",
-           "embedding_bag", "retrieval_score"]
+__all__ = ["DCNConfig", "DCNv2", "dcn_forward", "dcn_init", "dcn_loss",
+           "dcn_params_from_jax", "embedding_bag", "retrieval_score"]

@@ -16,14 +16,21 @@ for a CUDA device (``core.dispatch.resolve_kernel``). ``multi_hot == 1``
 takes a plain gather, as in JAX, and never reaches K5. The dense products
 (cross, MLP, retrieval) are float32 matrix products; run them with TF32 off
 (``torch.get_float32_matmul_precision() == "highest"``, PyTorch's default)
-to match the JAX package's float32. There is no backward through K5 yet:
-serve under ``torch.inference_mode()`` (``launch.steps`` does).
+to match the JAX package's float32. K5 has no backward (nor has the JAX
+package's Pallas kernel: its train step differentiates ``impl="xla"``):
+serve under ``torch.inference_mode()`` (``launch.steps`` does), and train
+with the kernel off, as ``launch.steps``'s train kind requires. The one-hot
+gather is ``F.embedding`` on the flattened tables, whose CUDA backward sorts
+the ids and sums each row's gradients in a fixed order: the table gradient,
+and so a training run, is bitwise repeatable (``index_select``'s backward is
+an atomic ``index_add_``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.dispatch import resolve_device, resolve_kernel
@@ -135,7 +142,7 @@ def embedding_bag(tables: torch.Tensor, ids: torch.Tensor, cfg: DCNConfig) -> to
         i = torch.where(i < 0, i + r, i)
         ok = (i >= 0) & (i < r)
         flat = i.clamp(0, r - 1) + torch.arange(t, device=ids.device) * r     # [B, T]
-        rows = tables.reshape(t * r, d).index_select(0, flat.reshape(-1)).view(b, t, d)
+        rows = F.embedding(flat, tables.reshape(t * r, d))                     # [B, T, D]
         return torch.where(ok[..., None], rows, float("nan")).reshape(b, -1)
     # multi-hot: bag e of row b sums `multi_hot` rows of each table. The ids
     # go as a [T, B, M] view (no copy; K5 reads them through the strides),
@@ -156,6 +163,20 @@ def dcn_forward(model: DCNv2, batch: dict) -> torch.Tensor:
     return model(batch["dense"], batch["sparse_ids"])
 
 
+def dcn_loss(model: DCNv2, batch: dict, params: dict | None = None) -> torch.Tensor:
+    """The JAX package's ``dcn_loss``, the mean logistic loss of the CTR
+    logits in its stable form: batch adds labels [B] int32 to
+    ``dcn_forward``'s. ``params`` (a ``named_parameters`` dict) stands in
+    for the model's own parameters, through ``torch.func.functional_call``,
+    so a train step can differentiate a state it does not own."""
+    args = (batch["dense"], batch["sparse_ids"])
+    logits = (model(*args) if params is None
+              else torch.func.functional_call(model, params, args)).to(torch.float32)
+    y = batch["labels"].to(torch.float32)
+    return torch.mean(torch.maximum(logits, torch.zeros_like(logits)) - logits * y
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
 def retrieval_score(model: DCNv2, batch: dict) -> torch.Tensor:
     """Score queries against a candidate embedding matrix.
 
@@ -169,5 +190,5 @@ def retrieval_score(model: DCNv2, batch: dict) -> torch.Tensor:
     return q @ batch["candidates"].T                               # [Q, C]
 
 
-__all__ = ["DCNConfig", "DCNv2", "dcn_init", "dcn_forward", "embedding_bag",
+__all__ = ["DCNConfig", "DCNv2", "dcn_init", "dcn_forward", "dcn_loss", "embedding_bag",
            "retrieval_score"]

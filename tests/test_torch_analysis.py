@@ -600,10 +600,111 @@ def test_documented_syncs_are_pass_loops():
     sites = {"core/pbahmani.py": ["pbahmani"], "core/kcore.py": ["_level_fixpoint", "_kcore"],
              "refine/loads.py": ["refine_round_body"], "core/batched.py": ["run_rows"],
              "core/prune.py": ["_plan", "_peel_to_end", "_staged_peel"],
-             "core/distributed.py": ["pbahmani_distributed"]}
+             "core/distributed.py": ["pbahmani_distributed"],
+             "launch/train.py": ["peel_with_restarts", "run_training"]}
     for rel, names in sites.items():
         mod = load_module(SRC / rel)
         assert sorted(lp.name for lp in find_pass_loops(mod)) == sorted(names), rel
+
+
+RPR401_MAX = ("""
+    import torch.distributed as dist
+
+    def shared_scale(t, mesh):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+        return t
+    """, """
+    from repro_torch.core import collective
+
+    def shared_scale(t, mesh):
+        return collective.all_reduce_max(t, mesh)
+    """)
+
+
+@pytest.mark.parametrize("side", ["bad", "good"])
+def test_rpr401_admits_all_reduce_max(tmp_path, side):
+    """The max of optim/compress.py goes through the second counted site:
+    RPR401 fires on a raw MAX all-reduce and not on collective.all_reduce_max."""
+    result = lint_snippet(tmp_path, RPR401_MAX[side == "good"], ids={"RPR401"})
+    assert rule_ids(result) == (["RPR401"] if side == "bad" else [])
+
+
+def test_collective_sites_are_the_two_reducers():
+    """The port's only torch.distributed collective calls are the bodies of
+    core/collective.py's all_reduce_sum and all_reduce_max."""
+    import ast
+
+    from repro_torch.analysis.framework import (
+        COLLECTIVE_SITES, dotted, is_dist_collective, module_imports, qualify,
+    )
+
+    found = set()
+    for path in sorted(SRC.rglob("*.py")):
+        mod = load_module(path)
+        imports = module_imports(mod)
+        for fn in ast.walk(mod.tree):
+            if isinstance(fn, ast.FunctionDef) and any(
+                    isinstance(n, ast.Call) and is_dist_collective(
+                        qualify(dotted(n.func), imports)) for n in ast.walk(fn)):
+                found.add(f"{mod.module}.{fn.name}")
+    assert found == set(COLLECTIVE_SITES)
+
+
+CHECKPOINT_FIXTURES = {
+    # a loop that saves through a CheckpointManager is a train loop: each of
+    # its syncs is documented (no cap of one), the save among them
+    "train-loop": ("RPR101", """
+        from repro_torch.checkpoint import CheckpointManager
+
+        def train(step_fn, state, batches, ckpt: CheckpointManager):
+            for i, batch in enumerate(batches):
+                state, loss = step_fn(state, batch)
+                print(float(loss))
+                ckpt.save(i, state)
+        """, """
+        from repro_torch.checkpoint import CheckpointManager
+
+        def train(step_fn, state, batches, ckpt: CheckpointManager, model):
+            for i, batch in enumerate(batches):
+                state, loss = step_fn(state, batch)
+                print(float(loss))  # repro: allow RPR101 -- the loss, once a step
+                ckpt.save(i, state)  # repro: allow RPR101 -- the checkpoint's host copy
+                model.save(i)  # not a CheckpointManager: no sync
+        """),
+    # only a CheckpointManager's restore answers on the host; another
+    # object's restore of a tensor is a tensor
+    "restore": ("RPR102", """
+        from repro_torch.core.pbahmani import pbahmani_pass
+
+        def peel(state, src, dst, n, cache):
+            while state.n_v.item() > 0:  # repro: allow RPR101 -- the one host sync of each pass
+                state = pbahmani_pass(state, src, dst, n, 0.1, True)
+                back = cache.restore(state)
+                if back.n_v > 0:
+                    state = back
+        """, """
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.core.pbahmani import pbahmani_pass
+
+        def peel(state, src, dst, n, ckpt: CheckpointManager):
+            while state.n_v.item() > 0:  # repro: allow RPR101 -- the one host sync of each pass
+                state = pbahmani_pass(state, src, dst, n, 0.1, True)
+                _, back = ckpt.restore(state)
+                if back.n_v > 0:
+                    return back
+        """),
+}
+
+
+@pytest.mark.parametrize("side", ["bad", "good"])
+@pytest.mark.parametrize("case", sorted(CHECKPOINT_FIXTURES))
+def test_checkpoint_calls_keyed_on_the_module(tmp_path, case, side):
+    """A checkpoint's save and restore are known by the CheckpointManager
+    imported from repro_torch.checkpoint, not by the method's name."""
+    rule, bad, good = CHECKPOINT_FIXTURES[case]
+    result = lint_snippet(tmp_path, good if side == "good" else bad)
+    assert rule_ids(result) == ([rule] if side == "bad" else []), [
+        f"{f.line}: {f.rule} {f.message}" for f in result.findings]
 
 
 def test_chip_smoke_lints_clean_under_collective_rules():

@@ -8,6 +8,7 @@ differs); exact for 0/1 and integer lanes, and for float32 quarter-integers,
 whose sums are exact in any order (the long-row float cases use them).
 """
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -1084,3 +1085,158 @@ def test_sharded_stream_engine_on_card(nccl_mesh):
             answers.append(query_group(reg.engines()))
         for k in upd:
             _same_answer(answers[0][k], answers[1][k])
+
+
+# ---------------------------------------------------------------------------
+# the training runtime on the card (optim/, checkpoint/, launch/train.py)
+# ---------------------------------------------------------------------------
+def _train_bundle(cfg, device):
+    """``build_step("dcn-v2", "train_batch")`` with ``cfg`` as the arch's
+    full config (``get_arch`` patched for the call)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+
+    arch = dataclasses.replace(get_arch("dcn-v2"), full=cfg)
+    with mock.patch.object(steps, "get_arch", lambda name: arch):
+        return build_step("dcn-v2", "train_batch", device=device)
+
+
+def _to(device, tree):
+    if isinstance(tree, dict):
+        return {k: _to(device, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(device, v) for v in tree)
+    return tree.to(device)
+
+
+def _train_loop(cfg, device):
+    from repro_torch.launch import make_optimizer, train_state
+
+    step = _train_bundle(cfg, device)
+    opt = make_optimizer("adamw")
+
+    def step_fn(state, batch):
+        p, o, loss = step.fn(state["params"], state["opt"], batch)
+        return {"params": p, "opt": o}, loss
+
+    def init_state():
+        return train_state(dcn_init(cfg, device=device), opt)
+
+    return step_fn, init_state, lambda s: recsys_batches(cfg, 512, seed=3, start_step=s)
+
+
+def test_train_step_deterministic_on_card(cuda, tmp_path):
+    """DCN-v2 training on the card is bitwise repeatable (the one-hot bag's
+    table gradient is F.embedding's sorted backward), and a run with two
+    injected failures and async checkpoints equals the uninterrupted one;
+    a multi-hot config with K5 on refuses to train."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import LoopConfig, run_training
+
+    cfg = dataclasses.replace(get_arch("dcn-v2").smoke, table_rows=50_000)
+    step_fn, init_state, data = _train_loop(cfg, cuda)
+    loop = LoopConfig(total_steps=6, ckpt_every=3)
+    runs = [run_training(step_fn, init_state, data, None, loop) for _ in range(2)]
+    fail_at = {1, 4}
+
+    def inject(s):
+        if s in fail_at:
+            fail_at.discard(s)
+            raise RuntimeError("simulated worker loss")
+
+    runs.append(run_training(step_fn, init_state, data, CheckpointManager(str(tmp_path), keep=1),
+                             loop, failure_injector=inject))
+    ref = runs[0]
+    assert runs[1].losses == ref.losses and runs[2].restarts == 2
+    assert runs[2].losses == ref.losses[:1] + ref.losses[:4] + ref.losses[3:]
+    for other in runs[1:]:
+        for k, v in ref.final_state["params"].items():
+            assert torch.equal(other.final_state["params"][k], v), k
+            assert torch.equal(other.final_state["opt"]["mu"][k], ref.final_state["opt"]["mu"][k])
+    with pytest.raises(NotImplementedError, match="K5"):
+        _train_bundle(dataclasses.replace(cfg, multi_hot=4), cuda)
+
+
+@pytest.mark.parametrize("multi_hot", [1, 4])
+def test_train_steps_on_card_match_cpu(cuda, multi_hot):
+    """Three AdamW steps of the train kind on the card == the same steps on
+    the CPU (which tests/test_torch_train.py holds against JAX), from the
+    same weights and batches: the loss, every parameter, mu and nu within
+    rtol 1e-5, atol 1e-6, and the step equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import make_optimizer, train_state
+
+    torch.set_float32_matmul_precision("highest")
+    cfg = dataclasses.replace(get_arch("dcn-v2").smoke, multi_hot=multi_hot, kernel=False)
+    steps = {d: _train_bundle(cfg, d) for d in ("cpu", cuda)}
+    state = train_state(dcn_init(cfg, device="cpu"), make_optimizer("adamw"))
+    states = {"cpu": (state["params"], state["opt"]),
+              cuda: _to(cuda, (state["params"], state["opt"]))}
+    data = recsys_batches(cfg, 64, seed=11)
+    for _ in range(3):
+        batch, losses = next(data), {}
+        for d, step in steps.items():
+            p, o, losses[d] = step.fn(*states[d], batch)
+            states[d] = (p, o)
+        np.testing.assert_allclose(float(losses[cuda]), float(losses["cpu"]), rtol=1e-5)
+    (p_cpu, o_cpu), (p_card, o_card) = states["cpu"], states[cuda]
+    assert int(o_card["step"]) == int(o_cpu["step"]) == 3
+    for got, want in ((p_card, p_cpu), (o_card["mu"], o_cpu["mu"]), (o_card["nu"], o_cpu["nu"])):
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k].cpu().numpy(), v.numpy(), rtol=1e-5, atol=1e-6,
+                                       err_msg=k)
+
+
+def test_peel_with_restarts_on_card(nccl_mesh, tmp_path, monkeypatch):
+    """peel_with_restarts with kernel=None runs K1 once and K2 once a pass on
+    the card, one collective for the degrees and one a pass, one restore at
+    the failure point, and equals pbahmani on the card and numpy."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import collective
+    from repro_torch.launch import peel_with_restarts
+
+    g = rmat(12, 16, seed=1)
+    want = pbahmani(g, eps=0.1, device=nccl_mesh.device)
+    restores = []
+    real = CheckpointManager.restore
+    monkeypatch.setattr(CheckpointManager, "restore",
+                        lambda self, *a, **k: restores.append(1) or real(self, *a, **k))
+    k2, k1, coll = peel.launches, segsum.launches, collective.collectives
+    got = peel_with_restarts(g, nccl_mesh, 0.1, CheckpointManager(str(tmp_path)), fail_at_pass=2)
+    assert (peel.launches - k2, segsum.launches - k1, collective.collectives - coll,
+            len(restores)) == (got["passes"], 1, got["passes"] + 1, 1)
+    oracle = pbahmani_np(g, eps=0.1)
+    for other in (want, oracle):
+        assert np.float32(got["density"]).view(np.int32) == np.float32(other[0]).view(np.int32)
+        assert got["passes"] == other[2]
+        np.testing.assert_array_equal(got["mask"], other[1])
+
+
+def test_compressed_psum_on_card(nccl_mesh):
+    from repro_torch.core import collective
+    from repro_torch.optim import compressed_psum, quantize_int8
+
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(64, 32)).astype(np.float32))
+    before = collective.collectives
+    got = compressed_psum(x.to(nccl_mesh.device), nccl_mesh).cpu()
+    assert collective.collectives - before == 2
+    q, s = quantize_int8(x)
+    assert torch.equal(got, q.to(torch.int32).to(torch.float32) * s)
+
+
+def test_optim_quotients_on_card_equal_cpu(cuda):
+    """The warmup's and int8 quantization's quotients give the CPU's float32
+    bits on the card (a tensor divisor: CUDA divides by a Python scalar
+    through its reciprocal)."""
+    from repro_torch.optim import linear_warmup_cosine, quantize_int8
+
+    sched = linear_warmup_cosine(1e-3, 7, 100)
+    for s in range(7):  # the warmup: a product and a quotient
+        a = sched(torch.tensor(s, dtype=torch.int32))
+        b = sched(torch.tensor(s, dtype=torch.int32, device=cuda)).cpu()
+        assert torch.equal(a, b), s
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(300, 77)).astype(np.float32) * 9)
+    q, s = quantize_int8(x)
+    qc, sc = quantize_int8(x.to(cuda))
+    assert torch.equal(sc.cpu(), s) and torch.equal(qc.cpu(), q)
