@@ -159,7 +159,36 @@ takes a plain gather), and the kernel switched on. Phases:
      of one with a failure at pass 2: phase 4's triple bit for bit, K1 once,
      K2 once a pass, one collective for the degrees and one a pass, one
      restore; its wall beside phase 13's ``pbahmani_distributed``;
- 16. a JSON line of every kernel, then the card's name and power limit, then
+ 16. the GNN zoo (``models/gnn.py``) at the published ``FULL`` widths of the
+     GCN, SchNet, EGNN and MACE configs, random seeded weights, seeded
+     synthetic graphs (no dataset is read), every forward with K1 on against
+     the plain path (index_add_) on the same module, K1 launches counted a
+     forward (one a ``_seg`` call, after one stable sort of the edge lanes
+     by dst a forward and one of the readout's graph ids), every train
+     step on the plain path (no K1). (a) gcn-cora on full_graph_sm's size
+     (``Graph.from_edges`` of 10,556 seeded pairs over 2,708 vertices, 1,433
+     features): the logits against float64 on the CPU, 30 AdamW steps of
+     ``build_step("gcn-cora", "full_graph_sm")``, the loss falling; (b) the
+     four configs on the molecule shape (``GraphBatcher(30, 64, 128)``: 3,840
+     atoms, 16,384 lanes): one step each, its loss and moments against float64
+     on the CPU (normwise), SchNet, EGNN and MACE energies invariant under a
+     rotation and EGNN's positions equivariant; (c) gcn-cora at ogb_products'
+     size (``Graph.from_edges`` of 61,859,140 seeded uniform pairs over
+     2,449,029 vertices, 123.7 M lanes, 100 features): the host's pair, graph
+     and batch build times, forward on / off and the train step (median of
+     3, peak device memory, profiled); (d) minibatch_lg: a block of 1,024
+     seeds, fanout (15, 10), sampled from (c)'s graph (cut: Reddit's 232,965
+     vertices and 114.6 M lanes are not built; the block's shape, 169,984
+     nodes and 168,960 lanes, depends only on the seeds and the fanout), the
+     labels and MACE's readout at the seeds: gcn-cora (602 features) and MACE
+     (K1 at D = 1,152), forward on / off and a step each, timed; (e) K1 apart
+     from the main path at float32 [E, D], D = 1 and 16 over (c)'s lanes, 1,
+     16, 64 and 1,152 over (d)'s: against its plain version, bitwise
+     repeatable, with ``ms``, ``device_ms``, ``bound_ms``, ``plain_ms``,
+     ``library_ms`` (``index_add_``) and the forward's one sort of its edge
+     lanes (ids and the int32 ``src`` carried along); D = 64 and wider over
+     (c)'s lanes would hold 32 GB and more a copy and are not run;
+ 17. a JSON line of every kernel, then the card's name and power limit, then
      the result line ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure, so the script exits non-zero and prints no
@@ -196,14 +225,18 @@ REPLACES = {"segment_sum_sorted": "src/repro/kernels/segsum.py:118",
                                "pl.pallas_call through K1 at kernels/segsum.py:118)",
             "segment_sum_rows": "src/repro/core/prune.py:533 _batched_bucket_peel_jit (the "
                                 "vmapped bucket degrees, pl.pallas_call at "
-                                "kernels/segsum.py:118)"}
+                                "kernels/segsum.py:118)",
+            "segment_sum_sorted_ed": "src/repro/kernels/segsum.py:118 (K1's float32 [E, D] "
+                                     "sums, reached from models/gnn.py:39 _seg through "
+                                     "kernels/ops.py:162 and :157)"}
 SOURCES = {"segment_sum_sorted": "src/repro_torch/csrc/segsum.cu",
            "peel_edges": "src/repro_torch/csrc/peel.cu",
            "prefix_sum": "src/repro_torch/csrc/compact.cu",
            "stream_compact": "src/repro_torch/csrc/compact.cu",
            "segment_embed": "src/repro_torch/csrc/embed.cu",
            "peel_edges_rows": "src/repro_torch/csrc/peel.cu",
-           "segment_sum_rows": "src/repro_torch/csrc/segsum.cu"}
+           "segment_sum_rows": "src/repro_torch/csrc/segsum.cu",
+           "segment_sum_sorted_ed": "src/repro_torch/csrc/segsum.cu"}
 EMBED_TOL = (1e-5, 1e-6)     # K5 bags: float32 sums in another order (rtol, atol)
 LOGIT_TOL = (1e-4, 1e-5)     # logits and scores: float32 products in another order
 PLANTED = dict(n=2**19, clique_size=2048, p_background=16 / 2**19, p_planted=0.9, seed=0)
@@ -3403,6 +3436,466 @@ def phase_peel_restarts(g, device: str, peel_answer: tuple, sharded_median_s: fl
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the GNN zoo (models/gnn.py) over K1's [E, D] float32 path
+# ---------------------------------------------------------------------------
+GNN_ARCHS = ("gcn-cora", "schnet", "egnn", "mace")
+GNN_CORA = dict(n=2708, pairs=10_556, seed=0)            # full_graph_sm's size
+GNN_MOLECULE = (30, 64, 128)                              # GraphBatcher: the molecule shape
+GNN_PRODUCTS = dict(n=2_449_029, pairs=61_859_140, seed=0)   # ogb_products' size
+GNN_SEEDS, GNN_FANOUT = 1024, (15, 10)                    # minibatch_lg's block
+GNN_TRAIN_STEPS = 30
+GNN_TOL = (1e-4, 1e-5)       # kernel on vs off: float32 sums in another order (rtol, atol)
+GNN_F64_RTOL = 1e-4          # float32 outputs and losses vs float64, normwise
+GNN_GRAD_RTOL = 1e-3         # float32 gradients (mu, nu) vs float64, normwise, each leaf
+GNN_SYM_TOL = (2e-3, 2e-4)   # tests/test_models_gnn.py's symmetry tolerance
+# K1 at the GNN's widths: (lanes of which path, D); [E, 64] and wider at the
+# ogb_products lanes would take 32 GB and more a copy
+GNN_K1_POINTS = (("ogb_products", 1), ("ogb_products", 16), ("minibatch_lg", 1),
+                 ("minibatch_lg", 16), ("minibatch_lg", 64), ("minibatch_lg", 1152))
+
+
+def gnn_feed(batch: dict, device, dtype=None) -> dict:
+    """A numpy batch as tensors on ``device`` (floats as ``dtype`` when given)."""
+    import torch
+
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray):
+            v = torch.as_tensor(v, device=device)
+            if dtype is not None and v.is_floating_point():
+                v = v.to(dtype)
+        out[k] = v
+    return out
+
+
+def gnn_model(arch: str, cfg, device, seed: int = 0):
+    import torch
+
+    from repro_torch.models import gnn
+
+    init = {"gcn-cora": gnn.gcn_init, "schnet": gnn.schnet_init, "egnn": gnn.egnn_init,
+            "mace": gnn.mace_init}[arch]
+    return init(cfg, device=device, generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def close(a, b, tol) -> float:
+    """``compare`` over a tensor or a tuple of them (EGNN's energies and
+    positions), each finite."""
+    import torch
+
+    err = 0.0
+    for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
+        check(bool(torch.isfinite(x).all()), f"non-finite values in {tuple(x.shape)}")
+        err = max(err, compare(x, y, tol))
+    return err
+
+
+def normwise(got, want) -> float:
+    """||got - want|| / ||want|| in float64 (0 when both are 0)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    scale = float(want.norm())
+    diff = float((got - want).norm())
+    return diff / scale if scale else (0.0 if diff == 0 else float("inf"))
+
+
+def gnn_on_off(model, feed) -> dict:
+    """The forward with K1 on (twice: bitwise equal) and off on one module,
+    under no_grad; the on forward's K1 launches and sorts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import ops, segsum
+
+    cfg = model.cfg
+    try:
+        model.cfg = dataclasses.replace(cfg, kernel=True)
+        k1, sorts = segsum.launches, ops.unsorted_fallback_count
+        with torch.no_grad():
+            on = model(feed)
+            torch.cuda.synchronize()
+            launches, n_sorts = segsum.launches - k1, ops.unsorted_fallback_count - sorts
+            again = model(feed)
+            model.cfg = dataclasses.replace(cfg, kernel=False)
+            off = model(feed)
+        torch.cuda.synchronize()
+    finally:
+        model.cfg = cfg
+    on_t, again_t = (on if isinstance(on, tuple) else (on,)), (
+        again if isinstance(again, tuple) else (again,))
+    check(all(torch.equal(a, b) for a, b in zip(on_t, again_t)),
+          f"{cfg.name}: two forwards with K1 differ")
+    # one sort of the edge lanes a forward, and one of the readout's graph ids
+    want_sorts = 1 if cfg.name.startswith("gcn") else 2
+    check(n_sorts == want_sorts and launches > n_sorts,
+          f"{cfg.name}: {launches} K1 launches after {n_sorts} sorts, not {want_sorts}")
+    return dict(on=on, off=off, k1_launches=launches, sorts=n_sorts,
+                err=close(off, on, GNN_TOL))
+
+
+def gnn_float64(arch: str, model, batch: dict, step_out, loss_fn) -> dict:
+    """The card's step-1 loss and moments against float64 on the CPU from the
+    same weights and batch: the loss within GNN_F64_RTOL, each leaf's mu
+    ((1 - b1) clip g) and nu ((1 - b2) (clip g)^2) normwise within
+    GNN_GRAD_RTOL (a leaf the loss does not reach is 0 on both)."""
+    import copy
+
+    import torch
+
+    a = ADAMW_STEP1
+    host = copy.deepcopy(model).to("cpu", torch.float64)
+    feed = gnn_feed(batch, "cpu", torch.float64)
+    params = list(host.parameters())
+    with torch.enable_grad():
+        loss64 = loss_fn(host, feed)
+        grads = torch.autograd.grad(loss64, params, allow_unused=True)
+    g64 = {k: torch.zeros_like(p) if g is None else g
+           for (k, p), g in zip(host.named_parameters(), grads)}
+    norm = float(torch.sqrt(sum(g.square().sum() for g in g64.values())))
+    clip = min(1.0, a["grad_clip"] / norm)
+    _, opt, loss = step_out
+    out = dict(loss=float(loss), loss64=float(loss64.detach()), grad_norm64=norm,
+               mu=max(normwise(opt["mu"][k], (1 - a["b1"]) * clip * g) for k, g in g64.items()),
+               nu=max(normwise(opt["nu"][k], (1 - a["b2"]) * (clip * g).square())
+                      for k, g in g64.items()))
+    check(abs(out["loss"] - out["loss64"]) <= GNN_F64_RTOL * abs(out["loss64"]),
+          f"{arch}: the card's step-1 loss {out['loss']} is not float64's {out['loss64']}")
+    check(out["mu"] <= GNN_GRAD_RTOL and out["nu"] <= 2 * GNN_GRAD_RTOL,
+          f"{arch}: the card's moments are off float64's normwise by {out}")
+    return out
+
+
+def gnn_symmetries(arch: str, model, feed) -> dict:
+    """Energies invariant under a rotation (SchNet, EGNN, MACE) and EGNN's
+    positions equivariant, kernel on, at tests/test_models_gnn.py's
+    tolerance."""
+    import dataclasses
+
+    import torch
+
+    rng = np.random.default_rng(1)
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    rot = q * np.sign(np.diag(r))
+    if np.linalg.det(rot) < 0:
+        rot[:, 0] = -rot[:, 0]
+    rot = torch.as_tensor(rot, dtype=torch.float32, device=feed["pos"].device)
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, kernel=True)
+    try:
+        with torch.no_grad():
+            a = model(feed)
+            b = model(dict(feed, pos=feed["pos"] @ rot.T))
+    finally:
+        model.cfg = cfg
+    out = {}
+    if arch == "egnn":
+        out["positions"] = close(b[1], a[1] @ rot.T, GNN_SYM_TOL)
+        a, b = a[0], b[0]
+    out["energy"] = close(b, a, GNN_SYM_TOL)
+    return out
+
+
+def molecule_batch(seed: int = 0) -> dict:
+    """GraphBatcher's molecule batch (128 graphs of 30 atoms, 64 edges each
+    way), with GCN's 32 features and labels beside the geometry."""
+    from repro_torch.data import GraphBatcher
+
+    b = GraphBatcher(*GNN_MOLECULE).random_batch(seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    n = b["graph_id"].shape[0]
+    b["node_feat"] = rng.normal(size=(n, 32)).astype(np.float32)
+    b["labels"] = rng.integers(0, 7, n).astype(np.int32)
+    b["label_mask"] = rng.random(n) < 0.5
+    return b
+
+
+def block_batch(block: dict, d_feat: int, seed: int = 0) -> dict:
+    """A model-ready batch of a sampled block, one graph (the shape's
+    n_graphs): GCN's features and MACE's geometry drawn from ``seed`` for
+    every node, the labels and the readout (MACE's energy) at the seeds, as a
+    sampled block's loss is taken; the other nodes carry the messages."""
+    rng = np.random.default_rng(seed)
+    n = block["n_nodes"]
+    at_seeds = np.zeros(n, bool)
+    at_seeds[:block["n_seeds"]] = True
+    return {"src": block["src"], "dst": block["dst"], "graph_id": np.zeros(n, np.int32),
+            "node_mask": at_seeds, "n_graphs": 1,
+            "node_feat": rng.normal(size=(n, d_feat)).astype(np.float32),
+            "labels": rng.integers(0, 7, n).astype(np.int32), "label_mask": at_seeds,
+            "atom_type": rng.integers(0, 10, n).astype(np.int32),
+            "pos": rng.normal(size=(n, 3)).astype(np.float32),
+            "energy": rng.normal(size=1).astype(np.float32)}
+
+
+def gnn_step_case(arch: str, shape: str, batch: dict, device, seed: int, float64: bool = False,
+                  symmetries: bool = False, timed_runs: int = 0) -> dict:
+    """One arch at FULL's widths on one shape's batch: the forward with K1
+    on against off, one train step (against float64 on the CPU when asked),
+    the symmetries, and wall times (median of ``timed_runs``) of the
+    forward on / off and of the step, with the peak device memory."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import build_step, make_optimizer, train_state
+    from repro_torch.launch.steps import _GNN_FNS
+
+    step = build_step(arch, shape, device=device)
+    cfg = get_arch(arch).full
+    if arch == "gcn-cora":
+        cfg = dataclasses.replace(cfg, d_feat=batch["node_feat"].shape[1])
+    model = gnn_model(arch, cfg, device, seed)
+    feed = gnn_feed(batch, device)
+    feed["n_graphs"] = get_arch(arch).shape(shape).dims.get("batch", 1)
+    out = gnn_on_off(model, feed)
+    res = dict(k1_launches=out["k1_launches"], on_off_max_abs_err=out["err"])
+    del out
+    state = train_state(model, make_optimizer("adamw"))
+    k1 = launch_counts()
+    step_out = step.fn(state["params"], state["opt"], feed)
+    torch.cuda.synchronize()
+    check(launch_counts() == k1, f"{arch}:{shape}: the train step launched a kernel")
+    res["loss"] = float(step_out[2])
+    check(np.isfinite(res["loss"]), f"{arch}:{shape}: the step's loss is {res['loss']}")
+    if float64:
+        res["float64"] = gnn_float64(arch, model, dict(batch, n_graphs=feed["n_graphs"]),
+                                     step_out, _GNN_FNS[type(cfg)][1])
+    del step_out
+    if symmetries and arch != "gcn-cora":
+        res["symmetries"] = gnn_symmetries(arch, model, feed)
+    if timed_runs:
+        on_cfg, off_cfg = (dataclasses.replace(cfg, kernel=k) for k in (True, False))
+
+        def forward(c):
+            model.cfg = c
+            with torch.no_grad():
+                model(feed)
+
+        for label, fn in (("forward_on", lambda: forward(on_cfg)),
+                          ("forward_off", lambda: forward(off_cfg)),
+                          ("step", lambda: step.fn(state["params"], state["opt"], feed))):
+            torch.cuda.reset_peak_memory_stats()
+            walls = wall_s(fn, timed_runs)
+            res[label] = dict(median_s=statistics.median(walls), wall_s=walls,
+                              peak_bytes=torch.cuda.max_memory_allocated())
+        res["step_profile"] = profile_call(lambda: step.fn(state["params"], state["opt"], feed),
+                                           top=8)
+        res["forward_on_profile"] = profile_call(lambda: forward(on_cfg), top=8)
+        model.cfg = cfg
+    del state, model, feed
+    torch.cuda.empty_cache()
+    return res
+
+
+def k1_gnn_point(seg_sorted, seg_unsorted, v: int, d: int, device) -> dict:
+    """K1 at one GNN shape: random float32 [E, D] values over the path's own
+    ids (sorted, sentinels last); against its plain version, bitwise
+    repeatable; ``ms`` (CUDA events over wrapper calls), ``device_ms``
+    (CUDA-graph replay), ``plain_ms``, ``library_ms`` (one ``index_add_``
+    into V + 1 rows), ``bound_ms`` (each value, id and output once at 3.35
+    TB/s, or E * D adds at 67 TFLOP/s), and ``sort_ms``, the forward's one
+    stable sort of its edge lanes (``models/gnn.py:_by_dst``: the ids, and
+    an int32 lane array carried along)."""
+    import torch
+
+    from repro_torch.kernels import ref, segsum
+
+    e = seg_sorted.shape[0]
+    gen = torch.Generator(device=device).manual_seed(d)
+    vals = torch.randn((e, d) if d > 1 else (e,), generator=gen, device=device)
+    a = segsum.segment_sum_sorted(vals, seg_sorted, num_segments=v)
+    b = segsum.segment_sum_sorted(vals, seg_sorted, num_segments=v)
+    torch.cuda.synchronize()
+    check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+          f"K1 [E={e}, D={d}] float32 sums differ between two runs")
+    del b
+    exp = ref.segment_sum_ref(vals, seg_sorted, v)
+    err = compare(a, exp, (1e-5, 1e-5))
+    del a, exp
+    iters = 3 if e * d > 10**8 else 10
+    fn = (lambda: segsum.segment_sum_sorted(vals, seg_sorted, num_segments=v))
+    out = dict(lanes=e, d=d, rows=v, max_abs_err=err, ms=time_ms(fn, iters),
+               device_ms=graph_ms(fn, iters),
+               plain_ms=time_ms(lambda: ref.segment_sum_ref(vals, seg_sorted, v), iters))
+    acc = torch.zeros((v + 1,) + tuple(vals.shape[1:]), device=device)
+    ids = seg_sorted.clamp(max=v)
+    out["library_ms"] = time_ms(lambda: acc.index_add_(0, ids, vals), iters)
+    del acc, ids
+    out["sort_ms"] = time_ms(lambda: seg_unsorted.index_select(
+        0, torch.sort(seg_unsorted, stable=True)[1]), iters)
+    del vals
+    torch.cuda.empty_cache()
+    out["bound_ms"], out["bound_by"] = bound_ms(e * d * 4 + e * 4 + v * d * 4, e * d)
+    return out
+
+
+def phase_gnn(device: str, products: dict = GNN_PRODUCTS, seeds: int = GNN_SEEDS,
+              train_steps: int = GNN_TRAIN_STEPS, timed_runs: int = 3) -> tuple[int, dict, dict]:
+    """Phase 16: (a) gcn-cora FULL on full_graph_sm's size, (b) the four FULL
+    configs on the molecule shape, (c) gcn-cora at ogb_products' size, (d)
+    gcn-cora and MACE on minibatch_lg's sampled block, then (e) K1 at the
+    GNN's shapes. (a)-(d) are the main path, their K1 launches counted; (e)
+    times K1 apart. Returns (K1 launches, K1's [E, D] row, details)."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import gnn_batch
+    from repro_torch.graphs import Graph
+    from repro_torch.graphs.sampler import NeighborSampler
+    from repro_torch.launch import build_step, make_optimizer, train_state
+    from repro_torch.models import gcn_forward
+
+    torch.set_float32_matmul_precision("highest")
+    t_phase = time.perf_counter()
+    out: dict = {}
+    zero_launch_counts()
+
+    # (a) gcn-cora FULL on full_graph_sm's size
+    rng = np.random.default_rng(GNN_CORA["seed"])
+    cora = Graph.from_edges(rng.integers(0, GNN_CORA["n"], (GNN_CORA["pairs"], 2)),
+                            GNN_CORA["n"])
+    cfg = get_arch("gcn-cora").full
+    batch = gnn_batch(cora, d_feat=cfg.d_feat, n_classes=cfg.n_classes, seed=0)
+    model = gnn_model("gcn-cora", cfg, device)
+    feed = gnn_feed(batch, device)
+    pair = gnn_on_off(model, feed)
+    host = copy.deepcopy(model).to("cpu", torch.float64)
+    with torch.no_grad():
+        want = gcn_forward(host, gnn_feed(batch, "cpu", torch.float64))
+    f64 = normwise(pair["on"], want)
+    check(f64 <= GNN_F64_RTOL, f"gcn-cora FULL logits off float64 by {f64} normwise")
+    step = build_step("gcn-cora", "full_graph_sm", device=device)
+    state = train_state(model, make_optimizer("adamw"))
+    p, o, losses = state["params"], state["opt"], []
+    k1 = launch_counts()
+    for _ in range(train_steps):
+        p, o, loss = step.fn(p, o, feed)
+        losses.append(float(loss))
+    check(launch_counts() == k1, "gcn-cora's train steps launched a kernel")
+    check(losses[-1] < losses[0], f"gcn-cora's loss did not fall in {train_steps} steps: "
+          f"{losses[0]} -> {losses[-1]}")
+    out["a_cora"] = dict(nodes=cora.n_nodes, edges=cora.n_edges, k1_launches=pair["k1_launches"],
+                         on_off_max_abs_err=pair["err"], float64_normwise=f64,
+                         losses=losses)
+    log(f"  (a) gcn-cora FULL on |V|={cora.n_nodes} |E|={cora.n_edges} d_feat={cfg.d_feat}: "
+        f"K1 on == off (max abs {pair['err']:g}), {pair['k1_launches']} K1 launches a forward, "
+        f"logits off float64 by {f64:g} normwise; {train_steps} AdamW steps on the plain path "
+        f"(no K1): loss {losses[0]:.6f} -> {losses[-1]:.6f}")
+    del model, feed, pair, host, state, p, o, step
+
+    # (b) the four FULL configs on the molecule shape
+    mol = molecule_batch(seed=0)
+    out["b_molecule"] = {}
+    for i, arch in enumerate(GNN_ARCHS):
+        res = gnn_step_case(arch, "molecule", mol, device, seed=i, float64=True,
+                            symmetries=True)
+        out["b_molecule"][arch] = res
+        log(f"  (b) {arch} FULL on molecule ({mol['graph_id'].shape[0]} atoms, "
+            f"{mol['src'].shape[0]} lanes, 128 graphs): K1 on == off (max abs "
+            f"{res['on_off_max_abs_err']:g}), {res['k1_launches']} K1 launches a forward; step "
+            f"loss {res['loss']:.6f} vs float64 {res['float64']['loss64']:.6f}, mu / nu normwise "
+            f"{res['float64']['mu']:.3g} / {res['float64']['nu']:.3g}"
+            + (f"; symmetries {res['symmetries']}" if "symmetries" in res else ""))
+
+    # (c) gcn-cora at ogb_products' size
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(products["seed"])
+    pairs = rng.integers(0, products["n"], (products["pairs"], 2))
+    t_pairs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big = Graph.from_edges(pairs, products["n"])
+    t_build = time.perf_counter() - t0
+    del pairs
+    d_feat = get_arch("gcn-cora").shape("ogb_products").dims["d_feat"]
+    t0 = time.perf_counter()
+    batch = gnn_batch(big, d_feat=d_feat, seed=0)
+    t_batch = time.perf_counter() - t0
+    res = gnn_step_case("gcn-cora", "ogb_products", batch, device, seed=5, timed_runs=timed_runs)
+    res.update(nodes=big.n_nodes, edges=big.n_edges, lanes=int(big.src.shape[0]),
+               host_pairs_s=t_pairs, host_graph_build_s=t_build, host_gnn_batch_s=t_batch)
+    out["c_products"] = res
+    del batch
+    log(f"  (c) gcn-cora FULL at ogb_products' size: |V|={big.n_nodes} |E|={big.n_edges} "
+        f"lanes={big.src.shape[0]} d_feat={d_feat}; host: pairs {t_pairs:.3f} s, "
+        f"Graph.from_edges {t_build:.3f} s, gnn_batch {t_batch:.3f} s; K1 on == off (max abs "
+        f"{res['on_off_max_abs_err']:g}), {res['k1_launches']} K1 launches a forward; forward "
+        f"on {res['forward_on']['median_s']:.6f} s, off {res['forward_off']['median_s']:.6f} s, "
+        f"train step {res['step']['median_s']:.6f} s (median of {timed_runs}); peak "
+        f"{res['forward_on']['peak_bytes']} / {res['forward_off']['peak_bytes']} / "
+        f"{res['step']['peak_bytes']} bytes; step profile {res['step_profile']}; forward-on "
+        f"profile {res['forward_on_profile']}")
+
+    # (d) minibatch_lg: a block of 1,024 seeds sampled from (c)'s graph
+    t0 = time.perf_counter()
+    sampler = NeighborSampler(big, GNN_FANOUT, seed=0)
+    t_csr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    block = sampler.sample(np.random.default_rng(1).choice(big.n_nodes, seeds, replace=False))
+    t_sample = time.perf_counter() - t0
+    want_shape = sampler.block_shape(seeds)
+    check((block["n_nodes"], block["src"].shape[0]) == want_shape,
+          f"the block is {block['n_nodes']} nodes, {block['src'].shape[0]} lanes, not {want_shape}")
+    feat = 602  # launch/steps.py:_gnn_dims' Reddit-style features for minibatch_lg
+    batch = block_batch(block, feat, seed=2)
+    out["d_minibatch"] = dict(nodes=block["n_nodes"], lanes=int(block["src"].shape[0]),
+                              padded=int((block["node_ids"] < 0).sum()),
+                              host_csr_s=t_csr, host_sample_s=t_sample)
+    for i, arch in enumerate(("gcn-cora", "mace")):
+        res = gnn_step_case(arch, "minibatch_lg", batch, device, seed=10 + i,
+                            timed_runs=timed_runs)
+        out["d_minibatch"][arch] = res
+        log(f"  (d) {arch} FULL on minibatch_lg's block ({block['n_nodes']} nodes, "
+            f"{block['src'].shape[0]} lanes, sampled from (c)'s graph: the cut stands in for "
+            f"Reddit's 232,965 / 114.6 M, the block's shape is the same): K1 on == off (max abs "
+            f"{res['on_off_max_abs_err']:g}), {res['k1_launches']} K1 launches a forward; forward "
+            f"on {res['forward_on']['median_s']:.6f} s, off {res['forward_off']['median_s']:.6f} "
+            f"s, train step {res['step']['median_s']:.6f} s; peak step "
+            f"{res['step']['peak_bytes']} bytes")
+    log(f"  (d) host: NeighborSampler's CSR {t_csr:.3f} s, sample {t_sample:.3f} s")
+    launches = launch_counts()
+    k1 = launches.pop("segment_sum_sorted")
+    check(k1 > 0 and not any(launches.values()),
+          f"phase 16's main path launched K1 {k1} times and {launches}")
+    want_k1 = (out["a_cora"]["k1_launches"] + sum(r["k1_launches"] for r in
+                                                   out["b_molecule"].values())
+               + out["c_products"]["k1_launches"]
+               + sum(out["d_minibatch"][a]["k1_launches"] for a in ("gcn-cora", "mace")))
+    # each gnn_on_off runs two forwards with K1, gnn_symmetries two more
+    n_sym = sum(2 * r["k1_launches"] for a, r in out["b_molecule"].items() if a != "gcn-cora")
+    n_timed = (timed_runs + 2) * (out["c_products"]["k1_launches"] + sum(
+        out["d_minibatch"][a]["k1_launches"] for a in ("gcn-cora", "mace"))) if timed_runs else 0
+    check(k1 == 2 * want_k1 + n_sym + n_timed,
+          f"K1 launched {k1} times; the forwards account for {2 * want_k1 + n_sym + n_timed}")
+    out["main_path_s"] = time.perf_counter() - t_phase
+
+    # (e) K1 at the GNN's shapes, apart from the main path
+    dst_c = torch.as_tensor(big.dst, device=device)
+    lanes = {"ogb_products": (torch.sort(dst_c, stable=True)[0], dst_c, big.n_nodes)}
+    blk = torch.as_tensor(block["dst"], device=device)
+    lanes["minibatch_lg"] = (torch.sort(blk, stable=True)[0], blk, block["n_nodes"])
+    points = []
+    for path, d in GNN_K1_POINTS:
+        seg_s, seg_u, v = lanes[path]
+        p = dict(k1_gnn_point(seg_s, seg_u, v, d, device), path=path)
+        points.append(p)
+        log(f"  (e) K1 [E={p['lanes']}, D={d}] onto {v} rows ({path}): max abs err "
+            f"{p['max_abs_err']:g}, bitwise repeatable; ms={p['ms']:.6f} "
+            f"device_ms={p['device_ms']:.6f} bound_ms={p['bound_ms']:.6f} ({p['bound_by']}) "
+            f"plain_ms={p['plain_ms']:.6f} library_ms={p['library_ms']:.6f} (index_add_); the "
+            f"forward's one sort of its lanes {p['sort_ms']:.6f} ms")
+    del lanes, dst_c, blk
+    torch.cuda.empty_cache()
+    out["k1_points"] = points
+    out["phase_s"] = time.perf_counter() - t_phase
+    row = next(p for p in points if (p["path"], p["d"]) == ("ogb_products", 16))
+    row = dict(row, max_abs_err=max(p["max_abs_err"] for p in points))
+    return k1, row, out
+
+
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--rows"]):
         print(f"usage: python3 chip_smoke.py [--rows]; got {argv}", file=sys.stderr)
@@ -3429,7 +3922,7 @@ def main(argv: list[str]) -> int:
     log("phase 1: card and build")
     card = card_line()
     log(f"  {card}")
-    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, numpy {np.__version__}, "
         f"{torch.cuda.get_device_name(0)}, capability {torch.cuda.get_device_capability(0)}")
     t0 = time.perf_counter()
     sources = [segsum.SOURCE, peel.SOURCE, compact.SOURCE, embed.SOURCE]
@@ -3536,6 +4029,12 @@ def main(argv: list[str]) -> int:
     train_times["phase_s"] = time.perf_counter() - t0
     log(f"  phase 15 took {train_times['phase_s']:.3f} s; launches {restart_launches}")
 
+    log("phase 16: the GNN zoo (GCN, SchNet, EGNN, MACE at FULL's widths) over K1's [E, D] "
+        "float32 path")
+    k1_gnn_launches, k1_gnn, gnn_times = phase_gnn(device)
+    log(f"  phase 16 took {gnn_times['phase_s']:.3f} s (its main path "
+        f"{gnn_times['main_path_s']:.3f} s); K1 launches {k1_gnn_launches}")
+
     k2_launches = (peel_launches + cbds_launches + pruned_launches["peel_edges"]
                    + fallback_launches + refine_launches + stream_launches["peel_edges"]
                    + fused_launches["peel_edges"] + shard_launches["peel_edges"]
@@ -3562,7 +4061,8 @@ def main(argv: list[str]) -> int:
         f"{fused_launches['stream_compact']}; the sharded tier (phase 13): K2 "
         f"{shard_launches['peel_edges']}, K1 {shard_launches['segment_sum_sorted']}; "
         f"peel_with_restarts (phase 15): K2 {restart_launches['peel_edges']}, K1 "
-        f"{restart_launches['segment_sum_sorted']}")
+        f"{restart_launches['segment_sum_sorted']}; the GNNs (phase 16): K1 at [E, D] float32 "
+        f"{k1_gnn_launches}")
     rows = {
         "segment_sum_sorted": (k1_launches, k1["max_abs_err"], k1),
         "peel_edges": (k2_launches, k2["max_abs_err"], k2),
@@ -3576,6 +4076,7 @@ def main(argv: list[str]) -> int:
         "peel_edges_rows": (fused_launches["peel_edges_rows"], k2_rows["max_abs_err"], k2_rows),
         "segment_sum_rows": (fused_launches["segment_sum_rows"], k1_rows["max_abs_err"],
                              k1_rows),
+        "segment_sum_sorted_ed": (k1_gnn_launches, k1_gnn["max_abs_err"], k1_gnn),
     }
     kernels = [{
         "name": name,
@@ -3606,6 +4107,7 @@ def main(argv: list[str]) -> int:
                     "sharded": shard_times,
                     "lint": lint,
                     "train": train_times,
+                    "gnn": gnn_times,
                     "k2_rows": k2_rows,
                     "k1_rows": k1_rows,
                     "smoke_s": time.perf_counter() - t_start}, default=str))

@@ -6,8 +6,9 @@
 //
 // Replaces: src/repro/kernels/segsum.py:segment_sum_sorted (Pallas body
 // _segsum_kernel), the JAX package's one-hot MXU segment-sum. It carries
-// core/dispatch.py:peel_delta, ops.segment_sum and the GNN caller to come;
-// the peel's own edge stage runs on the same core in peel.cu (K2).
+// core/dispatch.py:peel_delta, ops.segment_sum and the GNNs' message passing
+// (models/gnn.py:_seg); the peel's own edge stage runs on the same core in
+// peel.cu (K2).
 //
 // What bounds it: memory. Each lane is read once (a 4-byte id plus a 1- or
 // 4-byte value) and each row written once, against one add per lane, so the
@@ -26,8 +27,12 @@
 // values that start off a 16-byte boundary relative to the ids (a view such
 // as values[3:]) are read lane by lane.
 //
-// D > 1 (not on the main path): the row-offset pass of row_offsets.cuh, then
-// one warp per row with lanes over the columns.
+// D > 1 (the GNNs' messages: D = 3, 7, 16, 64 and MACE's 1,152, float32):
+// the row-offset pass of row_offsets.cuh, then one warp per row with lanes
+// over the columns, each lane summing its column over the row's lanes in
+// lane order (so float32 sums are bitwise repeatable). Bound by the same
+// bytes (E * D values read once); a warp keeps one load in flight a column
+// chunk, which is what holds it above that bound.
 //
 // Rows (segsum_rows_*): the sums of G independent rows of L lanes in one
 // launch, int32 out [G, V + 1]. This replaces K1 under the JAX package's

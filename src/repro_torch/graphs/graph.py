@@ -57,17 +57,28 @@ class Graph:
     ) -> "Graph":
         """Build from an [m, 2] array of undirected edges (any orientation).
 
-        Deduplicates, drops self-loops, symmetrizes, pads.
+        Deduplicates, drops self-loops, symmetrizes, pads. The pairs are
+        deduplicated as the int64 keys ``(u - lo) * span + (v - lo)``, whose
+        order is the rows' lexicographic order: the same array as the JAX
+        package's row-wise ``np.unique``, by one ``np.sort`` and a mask
+        (``np.unique`` of the same keys is over 100x slower under numpy 2.3).
         """
         edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+        uv = np.zeros((0, 2), np.int64)
         if edges.size:
             u = np.minimum(edges[:, 0], edges[:, 1])
             v = np.maximum(edges[:, 0], edges[:, 1])
             keep = u != v  # drop self-loops (simple-graph convention; DESIGN §1)
             u, v = u[keep], v[keep]
-            uv = np.unique(np.stack([u, v], axis=1), axis=0) if u.size else np.zeros((0, 2), np.int64)
-        else:
-            uv = np.zeros((0, 2), np.int64)
+            if u.size:
+                lo, hi = int(u.min()), int(v.max())
+                if lo < 0 or hi >= np.iinfo(np.int32).max:
+                    # src/dst and the sentinel n_nodes are int32
+                    raise ValueError(f"vertex ids must lie in [0, 2**31 - 1); got [{lo}, {hi}]")
+                span = hi - lo + 1  # span^2 < 2^62 fits int64
+                keys = np.sort((u - lo) * span + (v - lo))
+                keys = keys[np.r_[True, keys[1:] != keys[:-1]]]
+                uv = np.stack([keys // span + lo, keys % span + lo], axis=1)
         if n_nodes is None:
             n_nodes = int(uv.max()) + 1 if uv.size else 0
         m = uv.shape[0]

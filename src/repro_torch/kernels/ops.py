@@ -16,7 +16,7 @@ from repro_torch.kernels.embed import segment_embed_sorted
 from repro_torch.kernels.peel import peel_edges_sorted
 from repro_torch.kernels.segsum import segment_sum_sorted
 
-unsorted_fallback_count = 0  # presorted=False calls, each one a full sort
+unsorted_fallback_count = 0  # full sorts: presorted=False calls, the GNN forward's edge sort
 
 
 def segment_sum(

@@ -88,7 +88,9 @@ def segment_sum_sorted(
       out_dtype: the accumulator and output type, float32 (the JAX kernel's)
                 or int32 (exact integer counts at any size).
 
-    Returns [V] (for 1-D values) or [V, D] of ``out_dtype``. On a CPU tensor
+    Returns [V] (for 1-D values) or [V, D] of ``out_dtype``. Values that
+    require a gradient raise ``NotImplementedError`` under grad mode, on
+    every device: the kernel has no backward. On a CPU tensor
     this is the plain version (``ref.segment_sum_ref``), after a check that
     the ids ascend (``ValueError`` if not); on a CUDA tensor it is one call
     of the kernel, counted once in ``launches`` (for 1-D values a memset and
@@ -109,6 +111,13 @@ def segment_sum_sorted(
                          f"{tuple(values.shape)}")
     if values.device != seg_ids.device:
         raise ValueError(f"values on {values.device}, seg_ids on {seg_ids.device}")
+    if torch.is_grad_enabled() and values.requires_grad:
+        # the kernel writes a fresh tensor through ctypes, with no grad_fn: a
+        # loss through it would train with its gradients silently missing
+        raise NotImplementedError(
+            "segment_sum_sorted (K1) has no backward, as the JAX package's Pallas "
+            "kernel has none: call it under torch.no_grad() or "
+            "torch.inference_mode(), or run the plain path (kernel=False) to train")
     if values.device.type == "cpu":
         if bool((seg_ids[1:] < seg_ids[:-1]).any()):
             raise ValueError("segment_sum_sorted needs seg_ids in ascending "

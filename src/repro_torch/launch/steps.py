@@ -1,8 +1,9 @@
 """Step factory: (arch, shape) -> a step that runs on the device.
 
-The port of the recsys part of the JAX package's ``launch/steps.py``
-(``make_optimizer``, ``_recsys_step`` and ``build_step``) for one device: no
-mesh, so n_dev = 1 and the model axis is 1 in JAX's formulas. Kinds:
+The port of the recsys and GNN parts of the JAX package's
+``launch/steps.py`` (``make_optimizer``, ``_recsys_step``, ``_gnn_train``
+and ``build_step``) for one device: no mesh, so n_dev = 1 and the model
+axis is 1 in JAX's formulas. Kinds:
 
   train     fn(params, opt_state, batch) -> (params', opt_state', loss)
   serve     fn(model, batch) -> CTR logits [B]
@@ -11,30 +12,37 @@ mesh, so n_dev = 1 and the model axis is 1 in JAX's formulas. Kinds:
 The serve kinds take the model (``models.recsys.DCNv2``, which carries its
 config: ``multi_hot`` and ``kernel`` are the model's) and a batch of numpy
 arrays or tensors, move the batch to the step's device and run under
-``torch.inference_mode()``. The train kind is pure: it takes a
-``named_parameters`` dict (``train_state`` builds the first ``{"params",
-"opt"}`` from a model), runs ``dcn_loss`` on a skeleton of the config
-through ``torch.func.functional_call``, differentiates it and returns new
-tensors from the arch's optimizer; nothing it is given changes, so the
-train loop may run it twice from one state. It differentiates the plain bag,
-as the JAX package's step does with ``impl="xla"``: K5 has no backward, so a
-multi-hot config with the kernel on raises ``NotImplementedError`` rather
-than change path. Every kind runs its float32 products in full float32.
-``meta`` carries the analytic ``model_flops``, ``model_bytes_dev`` and
-``rows`` of the config (for retrieval, ``rows`` is the number of
-candidates). The LM and GNN families are not ported yet: they raise
-``NotImplementedError``.
+``torch.inference_mode()``. The train kind (DCN-v2's ``train_batch``, every
+shape of the GNN archs) is pure: it takes a ``named_parameters`` dict
+(``train_state`` builds the first ``{"params", "opt"}`` from a model), runs
+the arch's loss on a skeleton of the config through
+``torch.func.functional_call``, differentiates it and returns new tensors
+from the arch's optimizer; nothing it is given changes, so the train loop
+may run it twice from one state. It differentiates the plain path, as the
+JAX package's step does with ``impl="xla"``: K5 and K1 have no backward, so
+a config that asks for them (a multi-hot DCN-v2 with the kernel on, a GNN
+with ``kernel=True``) raises ``NotImplementedError`` rather than change
+path; ``kernel=None`` trains on the plain path. A GNN step takes the batch
+of ``data.gnn_batch`` / ``GraphBatcher`` / a sampled block at its own size
+(JAX's static shapes pad it to the padded sizes in ``meta``) and the
+shape's ``n_graphs``. Every kind runs its float32 products in full float32.
+``meta`` carries the analytic ``model_flops`` and ``model_bytes_dev`` of
+the config, and ``rows`` (recsys; for retrieval the number of candidates)
+or ``nodes`` and ``edges`` (GNN, padded as JAX pads them). The LM family is
+not ported yet: it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.configs.common import Arch, Shape
+from repro_torch.configs.common import Arch, Shape, sampled_subgraph_dims
 from repro_torch.core.dispatch import resolve_device, resolve_kernel
+from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as rec_mod
 from repro_torch.optim import Optimizer, adafactor, adamw, sgdm
 
@@ -69,7 +77,7 @@ def make_optimizer(name: str) -> Optimizer:
     return sgdm(1e-2)
 
 
-def train_state(model: rec_mod.DCNv2, opt: Optimizer) -> dict:
+def train_state(model: torch.nn.Module, opt: Optimizer) -> dict:
     """The train kind's first state, ``{"params", "opt"}``: the model's
     parameters by name (detached; the step never writes them) and
     ``opt.init`` of them."""
@@ -80,37 +88,52 @@ def train_state(model: rec_mod.DCNv2, opt: Optimizer) -> dict:
 def _check_precision() -> None:
     if torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError(
-            "DCN-v2's steps run their float32 products in full float32, as the JAX "
+            "the steps run their float32 products in full float32, as the JAX "
             "reference does; torch.get_float32_matmul_precision() is "
             f"{torch.get_float32_matmul_precision()!r} (TF32): set it to 'highest'")
 
 
-def _train_step(arch: Arch, cfg: rec_mod.DCNConfig, b: int, per_row: float,
-                device: torch.device, name: str) -> StepBundle:
+def _train_step(arch: Arch, skeleton: torch.nn.Module, loss_fn: Callable, extra: dict,
+                device: torch.device, name: str, meta: dict) -> StepBundle:
+    """The pure train kind: ``loss_fn(skeleton, batch, params)`` (the
+    arch's loss on a config's skeleton) differentiated with respect to
+    ``params`` and stepped by the arch's optimizer. The batch's arrays move
+    to ``device``; ``extra`` overrides its other entries (JAX's static
+    ``n_graphs``)."""
+    opt = make_optimizer(arch.optimizer)
+
+    def train(params, opt_state, batch):
+        _check_precision()
+        on = next(iter(params.values())).device
+        if on.type != device.type or device.index not in (None, on.index):
+            raise ValueError(f"{name} runs on {device}; the parameters are on {on}")
+        feed = {k: torch.as_tensor(v, device=device)
+                if isinstance(v, (np.ndarray, torch.Tensor)) else v
+                for k, v in batch.items()}
+        feed.update(extra)
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        with torch.enable_grad():
+            loss = loss_fn(skeleton, feed, leaves)
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        # a leaf the loss does not reach (EGNN's last phi_x) has a zero
+        # gradient, as in jax.grad
+        grads = {k: torch.zeros_like(v) if g is None else g
+                 for (k, v), g in zip(leaves.items(), grads)}
+        new_p, new_o = opt.update(grads, opt_state, params)
+        return new_p, new_o, loss.detach()
+
+    return StepBundle(name=name, kind="train", fn=train, meta=meta)
+
+
+def _dcn_train(arch: Arch, cfg: rec_mod.DCNConfig, b: int, per_row: float,
+               device: torch.device, name: str) -> StepBundle:
     if cfg.multi_hot > 1 and resolve_kernel(cfg.kernel, device):
         raise NotImplementedError(
             f"{name}: a multi-hot bag with the kernel on runs K5 "
             f"(kernels/ops.py:segment_embed), which has no backward, as the JAX "
             f"package's Pallas kernel has none; train with kernel=False")
-    opt = make_optimizer(arch.optimizer)
-    skeleton = rec_mod.DCNv2(cfg, device="meta")  # the structure; params come in
-
-    def train(params, opt_state, batch):
-        _check_precision()
-        on = params["tables"].device
-        if on.type != device.type or device.index not in (None, on.index):
-            raise ValueError(f"{name} runs on {device}; the parameters are on {on}")
-        feed = {k: torch.as_tensor(batch[k], device=device)
-                for k in ("dense", "sparse_ids", "labels")}
-        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
-        with torch.enable_grad():
-            loss = rec_mod.dcn_loss(skeleton, feed, leaves)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-        new_p, new_o = opt.update(dict(zip(leaves, grads)), opt_state, params)
-        return new_p, new_o, loss.detach()
-
-    return StepBundle(
-        name=name, kind="train", fn=train,
+    return _train_step(
+        arch, rec_mod.DCNv2(cfg, device="meta"), rec_mod.dcn_loss, {}, device, name,
         meta={"model_flops": 3.0 * b * per_row,
               "model_bytes_dev": (8.0 * _param_bytes(cfg)        # opt RMW on tables
                                   + 3.0 * b * (cfg.n_sparse * cfg.embed_dim + cfg.d_in) * 4),
@@ -128,7 +151,7 @@ def _recsys_step(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
     name = f"{arch.name}:{shape.name}"
 
     if shape.kind == "train":
-        return _train_step(arch, cfg, b, per_row, device, name)
+        return _dcn_train(arch, cfg, b, per_row, device, name)
 
     def run(model, batch, keys, forward):
         _check_precision()
@@ -161,12 +184,101 @@ def _recsys_step(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
               "rows": c})
 
 
+# ===========================================================================
+# GNN family
+# ===========================================================================
+_GNN_FNS = {
+    gnn_mod.GCNConfig: (gnn_mod.GCN, gnn_mod.gcn_loss),
+    gnn_mod.SchNetConfig: (gnn_mod.SchNet, gnn_mod.schnet_loss),
+    gnn_mod.EGNNConfig: (gnn_mod.EGNN, gnn_mod.egnn_loss),
+    gnn_mod.MACEConfig: (gnn_mod.MACE, gnn_mod.mace_loss),
+}
+
+
+def _gnn_dims(shape: Shape, n_dev: int) -> tuple[int, int, int, int]:
+    """(n_nodes_padded, n_directed_padded, n_graphs, d_feat)."""
+    d = shape.dims
+    if shape.name == "minibatch_lg":
+        n, e = sampled_subgraph_dims(d["batch_nodes"], d["fanout"])
+        e_dir = e          # sampler emits child->parent single direction
+        feat = 602         # Reddit-style features for the sampled benchmark
+    elif shape.name == "molecule":
+        n = d["n_nodes"] * d["batch"]
+        e_dir = 2 * d["n_edges"] * d["batch"]
+        feat = 32
+    else:
+        n = d["n_nodes"]
+        e_dir = 2 * d["n_edges"]
+        feat = d.get("d_feat", 100)
+    n_pad = _round_up(n, 512)
+    e_pad = _round_up(e_dir, max(512, n_dev))
+    n_graphs = d.get("batch", 1)
+    return n_pad, e_pad, n_graphs, feat
+
+
+def _gnn_model_flops(cfg, n: int, e: int, kind_train: bool) -> float:
+    mult = 3.0 if kind_train else 1.0
+    if isinstance(cfg, gnn_mod.GCNConfig):
+        dims = [cfg.d_feat] + [cfg.d_hidden] * (cfg.n_layers - 1) + [cfg.n_classes]
+        fwd = sum(2.0 * n * dims[i] * dims[i + 1] + 2.0 * e * dims[i + 1]
+                  for i in range(cfg.n_layers))
+    elif isinstance(cfg, gnn_mod.SchNetConfig):
+        dh = cfg.d_hidden
+        fwd = cfg.n_interactions * (
+            2.0 * e * (cfg.n_rbf * dh + dh * dh + 2 * dh) + 2.0 * n * 2 * dh * dh)
+    elif isinstance(cfg, gnn_mod.EGNNConfig):
+        dh = cfg.d_hidden
+        fwd = cfg.n_layers * (2.0 * e * (2 * dh + 1) * dh + 2.0 * e * dh * dh
+                              + 2.0 * n * 2 * dh * dh)
+    else:  # MACE
+        dh, m = cfg.d_hidden, (cfg.l_max + 1) ** 2
+        n_inv = (cfg.l_max + 1) * cfg.correlation
+        fwd = cfg.n_layers * (
+            2.0 * e * (cfg.n_rbf * dh + m * dh) + 2.0 * n * n_inv * dh * dh
+            + 2.0 * n * 2 * dh * dh)
+    return mult * fwd
+
+
+def _gnn_model_bytes(cfg, n: int, e: int, n_dev: int) -> float:
+    """Per-device traffic: edge gathers/scatters (x3 fwd/bwd/recomp)
+    + node arrays read per layer."""
+    d = getattr(cfg, "d_hidden", 16)
+    L = getattr(cfg, "n_layers", getattr(cfg, "n_interactions", 2))
+    feat = getattr(cfg, "d_feat", 0)
+    e_dev = e / n_dev
+    return 3 * (n * feat * 4 + L * (e_dev * d * 8 + n * d * 8))
+
+
+def _gnn_train(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
+    n, e, n_graphs, feat = _gnn_dims(shape, 1)
+    cfg = arch.full
+    if isinstance(cfg, gnn_mod.GCNConfig):
+        cfg = replace(cfg, d_feat=feat)
+    name = f"{arch.name}:{shape.name}"
+    if cfg.kernel:
+        raise NotImplementedError(
+            f"{name}: kernel=True sums the messages with K1 "
+            f"(kernels/segsum.py:segment_sum_sorted), which has no backward, as "
+            f"jax.grad through the JAX package's Pallas kernel raises; train with "
+            f"kernel=None or False (the plain path)")
+    model_cls, loss_fn = _GNN_FNS[type(cfg)]
+    return _train_step(
+        arch, model_cls(replace(cfg, kernel=False), device="meta"), loss_fn,
+        {"n_graphs": n_graphs}, device, name,
+        meta={"model_flops": _gnn_model_flops(cfg, n, e, True),
+              "model_bytes_dev": _gnn_model_bytes(cfg, n, e, 1),
+              "nodes": n, "edges": e})
+
+
 def build_step(arch_name: str, shape_name: str, device=None) -> StepBundle:
     """The step of one cell on ``device`` (None means the GPU, and raises
     without one). Archs that are not ported raise ``NotImplementedError``."""
     device = resolve_device(device)
-    arch = get_arch(arch_name)  # only the recsys family is ported
-    return _recsys_step(arch, arch.shape(shape_name), device)
+    arch = get_arch(arch_name)  # the recsys and GNN families are ported
+    shape = arch.shape(shape_name)
+    if arch.family == "gnn":
+        return _gnn_train(arch, shape, device)
+    return _recsys_step(arch, shape, device)
 
 
 __all__ = ["StepBundle", "build_step", "make_optimizer", "train_state"]

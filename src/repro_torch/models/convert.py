@@ -5,6 +5,8 @@ as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns a
 ``DCNv2`` holding the same values: the tables as they are, and each
 ``[in, out]`` matrix transposed into ``nn.Linear``'s ``[out, in]``. Both the
 full-rank cross weights and the low-rank ``(u, v)`` pairs are taken.
+``gnn_params_from_jax`` does the same for the four GNNs of
+``repro.models.gnn`` (GCN's bare ``[in, out]`` weights stay as they are).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dispatch import resolve_device
+from repro_torch.models import gnn
 from repro_torch.models.recsys import DCNConfig, DCNv2
 
 
@@ -52,4 +55,47 @@ def dcn_params_from_jax(tree: dict, cfg: DCNConfig, device=None) -> DCNv2:
     return model
 
 
-__all__ = ["dcn_params_from_jax"]
+_GNN_MODELS = {gnn.GCNConfig: gnn.GCN, gnn.SchNetConfig: gnn.SchNet,
+               gnn.EGNNConfig: gnn.EGNN, gnn.MACEConfig: gnn.MACE}
+
+
+def _put_mlp(mlp: gnn.MLP, layers, name: str) -> None:
+    if len(layers) != len(mlp):
+        raise ValueError(f"{name}: the tree has {len(layers)} layers, the port {len(mlp)}")
+    for i, (lin, (w, b)) in enumerate(zip(mlp, layers)):
+        _put(lin.weight, w, f"{name}[{i}][0]", transpose=True)
+        _put(lin.bias, b, f"{name}[{i}][1]")
+
+
+def gnn_params_from_jax(tree: dict, cfg, device=None):
+    """The port's model for ``cfg`` (a ``GCNConfig``, ``SchNetConfig``,
+    ``EGNNConfig`` or ``MACEConfig``) on ``device`` (None means the GPU)
+    with the parameters of the JAX pytree ``tree`` (numpy leaves) of the
+    matching ``repro.models.gnn.*_init``."""
+    model = _GNN_MODELS[type(cfg)](cfg, device=resolve_device(device))
+    blocks = {gnn.SchNet: "inter", gnn.EGNN: "layers", gnn.MACE: "layers"}.get(type(model))
+    with torch.no_grad():
+        if isinstance(model, gnn.GCN):
+            if len(tree["w"]) != len(model.w):
+                raise ValueError(f"the tree has {len(tree['w'])} layers; {cfg.name} "
+                                 f"needs {len(model.w)}")
+            for i, (param, w) in enumerate(zip(model.w, tree["w"])):
+                _put(param, w, f"w[{i}]")
+            return model
+        _put(model.embed, tree["embed"], "embed")
+        _put_mlp(model.readout, tree["readout"], "readout")
+        ours = getattr(model, blocks)
+        if len(tree[blocks]) != len(ours):
+            raise ValueError(f"the tree has {len(tree[blocks])} {blocks}; {cfg.name} "
+                             f"needs {len(ours)}")
+        for i, (block, layer) in enumerate(zip(ours, tree[blocks])):
+            mlps = dict(block.named_children())
+            if set(mlps) != set(layer):
+                raise ValueError(f"{blocks}[{i}]: the tree has {sorted(layer)}, the port "
+                                 f"{sorted(mlps)}")
+            for key, mlp in mlps.items():
+                _put_mlp(mlp, layer[key], f"{blocks}[{i}][{key!r}]")
+    return model
+
+
+__all__ = ["dcn_params_from_jax", "gnn_params_from_jax"]

@@ -1240,3 +1240,149 @@ def test_optim_quotients_on_card_equal_cpu(cuda):
     q, s = quantize_int8(x)
     qc, sc = quantize_int8(x.to(cuda))
     assert torch.equal(sc.cpu(), s) and torch.equal(qc.cpu(), q)
+
+
+# ---------------------------------------------------------------------------
+# the GNNs: K1 at [E, D] float32 and message passing on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("d", [1, 3, 16, 64, 1152])
+def test_kernel_float_rows_at_gnn_widths(cuda, d):
+    """K1's float32 [E, D] path at the GNNs' widths (degrees, EGNN's xw, GCN,
+    SchNet/EGNN, MACE's 9 x 128), with sentinel and negative ids: within
+    1e-5 of the plain version and bitwise equal across two runs."""
+    rng = np.random.default_rng(d)
+    e, v = (2000, 300) if d == 1152 else (40_000, 3000)
+    seg = torch.from_numpy(_lanes(rng, e, v, sentinels=9, negatives=4)).to(cuda)
+    shape = (seg.shape[0], d) if d > 1 else (seg.shape[0],)
+    vals = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
+    before = segsum.launches
+    a = segsum.segment_sum_sorted(vals, seg, num_segments=v)
+    b = segsum.segment_sum_sorted(vals, seg, num_segments=v)
+    torch.cuda.synchronize()
+    assert segsum.launches == before + 2
+    torch.testing.assert_close(a, ref.segment_sum_ref(vals, seg, v), rtol=1e-5, atol=1e-5)
+    assert torch.equal(a, b)
+
+
+def test_kernel_float_rows_empty_runs(cuda):
+    """K1's [E, D] row offsets where long runs of rows have no lanes (a
+    sampled block's ids end far below its row count): ids only in [70_000,
+    71_000) of 200_000 rows, with sentinels; against the plain version."""
+    rng = np.random.default_rng(5)
+    v = 200_000
+    ids = np.sort(rng.integers(70_000, 71_000, 30_000)).astype(np.int32)
+    seg = torch.from_numpy(np.r_[ids, np.full(7, v, np.int32)]).to(cuda)
+    vals = torch.from_numpy(rng.normal(size=(seg.shape[0], 16)).astype(np.float32)).to(cuda)
+    out = segsum.segment_sum_sorted(vals, seg, num_segments=v)
+    torch.testing.assert_close(out, ref.segment_sum_ref(vals, seg, v), rtol=1e-5, atol=1e-5)
+    assert not out[:70_000].any() and not out[71_000:].any()
+
+
+def test_kernel_refuses_grad_on_card(cuda):
+    """A CUDA tensor that requires a gradient never leaves K1 without a
+    grad_fn: it raises, under grad mode, on both entries."""
+    vals = torch.ones(5, 4, device=cuda, requires_grad=True)
+    ids = torch.tensor([0, 1, 1, 3, 4], dtype=torch.int32, device=cuda)
+    before = segsum.launches
+    with pytest.raises(NotImplementedError, match="no backward"):
+        segsum.segment_sum_sorted(vals, ids, num_segments=4)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.segment_sum(vals, ids.flip(0), num_segments=4, presorted=False)
+    assert segsum.launches == before
+    with torch.no_grad():
+        out = segsum.segment_sum_sorted(vals, ids, num_segments=4)
+    assert segsum.launches == before + 1 and not out.requires_grad
+
+
+def _gnn_case(arch, device):
+    """A SMOKE-config model (seeded on ``device``) and a batch: GCN on a
+    seeded graph with features, the geometric models on 8 small graphs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import GraphBatcher, gnn_batch
+    from repro_torch.graphs.generators import erdos_renyi
+    from repro_torch.models import gnn
+
+    cfg = get_arch(arch).smoke
+    init = {"gcn-cora": gnn.gcn_init, "schnet": gnn.schnet_init, "egnn": gnn.egnn_init,
+            "mace": gnn.mace_init}[arch]
+    model = init(cfg, device=device, generator=torch.Generator(device=device).manual_seed(2))
+    if arch == "gcn-cora":
+        batch = gnn_batch(erdos_renyi(400, 0.03, seed=5), d_feat=cfg.d_feat,
+                          n_classes=cfg.n_classes, seed=1)
+    else:
+        batch = GraphBatcher(30, 64, 8).random_batch(seed=3)
+    return model, {k: torch.as_tensor(v, device=device) if isinstance(v, np.ndarray) else v
+                   for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ["gcn-cora", "schnet", "egnn", "mace"])
+def test_gnn_forward_on_card(cuda, arch):
+    """Each GNN's SMOKE config on the card: the forward with K1 on (one K1
+    launch a ``_seg`` call, bitwise repeatable) against the same module with
+    the kernel off (atomic index_add_) and against the CPU, within 1e-5;
+    with a parameter that requires a gradient the kernel path raises."""
+    torch.set_float32_matmul_precision("highest")
+    model, batch = _gnn_case(arch, cuda)
+    assert model.cfg.kernel is None  # SMOKE: on for a CUDA device
+    cfg = model.cfg = dataclasses.replace(model.cfg, kernel=True)
+    calls = {"gcn-cora": lambda: 1 + cfg.n_layers, "schnet": lambda: cfg.n_interactions + 1,
+             "egnn": lambda: 3 * cfg.n_layers + 1, "mace": lambda: cfg.n_layers + 1}[arch]()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        model(batch)
+    before = segsum.launches
+    with torch.no_grad():
+        on, again = model(batch), model(batch)
+        torch.cuda.synchronize()
+        assert segsum.launches - before == 2 * calls
+        model.cfg = dataclasses.replace(cfg, kernel=False)
+        off = model(batch)
+        cpu_batch = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
+        host = model.to("cpu")(cpu_batch)
+    assert segsum.launches - before == 2 * calls
+    outs = [x if isinstance(x, tuple) else (x,) for x in (on, again, off, host)]
+    for a, b, c, h in zip(*outs):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(c, a, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(h, a.cpu(), rtol=1e-5, atol=1e-5)
+        assert torch.isfinite(a).all()
+
+
+def test_gnn_train_step_on_card_matches_cpu(cuda):
+    """One step of the GNN train kind (MACE's SMOKE config on the molecule
+    shape's 128 small graphs) on the card against the CPU from the same
+    weights: the loss within rtol 1e-5, mu and nu within rtol 1e-4 plus 1e-5
+    of each leaf's largest entry (float32 gradients summed by atomics in
+    another order); kernel=True refuses to build."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import GraphBatcher
+    from repro_torch.launch import make_optimizer, steps, train_state
+    from repro_torch.models import gnn
+
+    torch.set_float32_matmul_precision("highest")
+    arch = dataclasses.replace(get_arch("mace"), full=get_arch("mace").smoke)
+    with mock.patch.object(steps, "get_arch", lambda name: arch):
+        bundles = {d: build_step("mace", "molecule", device=d) for d in ("cpu", cuda)}
+    state = train_state(gnn.mace_init(arch.full, device="cpu"), make_optimizer("adamw"))
+    batch = GraphBatcher(30, 64, 128).random_batch(seed=7)
+    out = {"cpu": bundles["cpu"].fn(state["params"], state["opt"], batch),
+           cuda: bundles[cuda].fn(*_to(cuda, (state["params"], state["opt"])), batch)}
+    np.testing.assert_allclose(float(out[cuda][2]), float(out["cpu"][2]), rtol=1e-5)
+    for key in ("mu", "nu"):
+        for k, want in out["cpu"][1][key].items():
+            w = want.numpy()
+            np.testing.assert_allclose(out[cuda][1][key][k].cpu().numpy(), w, rtol=1e-4,
+                                       atol=1e-5 * np.abs(w).max(), err_msg=f"{key} {k}")
+    arch_k1 = dataclasses.replace(arch, full=dataclasses.replace(arch.full, kernel=True))
+    with mock.patch.object(steps, "get_arch", lambda name: arch_k1):
+        with pytest.raises(NotImplementedError, match="K1"):
+            build_step("mace", "molecule", device=cuda)
+
+
+def test_rbf_centers_on_card_equal_cpu(cuda):
+    """SchNet's and MACE's RBF centers (jnp.linspace's bits, which
+    tests/test_torch_gnn.py holds) are the same float32 bits on the card."""
+    from repro_torch.models import gnn
+
+    for n_rbf, cutoff in ((300, 10.0), (16, 5.0), (8, 5.0), (4, 5.0), (1000, 6.5)):
+        assert torch.equal(gnn._rbf_centers(n_rbf, cutoff, cuda).cpu(),
+                           gnn._rbf_centers(n_rbf, cutoff, torch.device("cpu")))

@@ -47,6 +47,35 @@ def test_small_named_match_jax(name):
     _assert_same_graph(tgen.small_named(name), jgen.small_named(name))
 
 
+@pytest.mark.parametrize("n,m,lo", [(12, 300, 0), (300, 4000, 0), (2**20, 50_000, 0),
+                                    (40, 500, 7), (3, 50, 0)])
+def test_from_edges_dedup_matches_jax(n, m, lo):
+    """``Graph.from_edges`` dedups on int64 keys; its arrays stay the JAX
+    package's on pairs with duplicates, both orientations of one edge and
+    self-loops (a few vertices and many pairs make all three common), and
+    when the smallest id is not 0."""
+    from repro.graphs.graph import Graph as JGraph
+    from repro_torch.graphs.graph import Graph
+
+    rng = np.random.default_rng(n + m)
+    pairs = rng.integers(lo, lo + n, (m, 2))
+    pairs = np.r_[pairs, pairs[:m // 4, ::-1], np.repeat(pairs[:3, :1], 2, axis=1)]
+    for n_nodes in (None, lo + n + 2):
+        tg, jg = Graph.from_edges(pairs, n_nodes), JGraph.from_edges(pairs, n_nodes)
+        _assert_same_graph(tg, jg)
+        assert tg.n_edges < len(pairs)
+
+
+@pytest.mark.parametrize("pair", [(-1, 5), (3, 2**31 - 1), (0, 2**40)])
+def test_from_edges_refuses_ids_outside_int32(pair):
+    """src, dst and the sentinel ``n_nodes`` are int32: an id that would
+    wrap is refused, not stored."""
+    from repro_torch.graphs.graph import Graph
+
+    with pytest.raises(ValueError, match="vertex ids"):
+        Graph.from_edges(np.array([pair, (1, 2)]))
+
+
 def test_small_named_rejects_unknown():
     with pytest.raises(ValueError):
         tgen.small_named("k7")

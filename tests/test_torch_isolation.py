@@ -2,6 +2,7 @@
 imports JAX or the JAX package, and its entry points never fall back to the
 CPU on their own."""
 import ast
+import functools
 from pathlib import Path
 
 import pytest
@@ -71,7 +72,9 @@ def test_scan_catches_forbidden_imports(tmp_path):
                                    "pbahmani_pruned", "plan_for_graph", "refine",
                                    "dcn_init", "build_step", "DCNv2", "DeltaEngine",
                                    "FusedEngine", "GraphRegistry", "StreamService",
-                                   "make_mesh", "pbahmani_distributed", "cbds_distributed"])
+                                   "make_mesh", "pbahmani_distributed", "cbds_distributed",
+                                   "gcn_init", "schnet_init", "egnn_init", "mace_init",
+                                   "gnn_params_from_jax", "build_step_gnn"])
 def test_default_device_needs_cuda(monkeypatch, entry):
     """device=None means the GPU: with no CUDA it raises and names the way
     out, instead of running on the CPU."""
@@ -80,7 +83,8 @@ def test_default_device_needs_cuda(monkeypatch, entry):
     from repro_torch.configs import get_arch
     from repro_torch.graphs.generators import small_named
     from repro_torch.launch import build_step
-    from repro_torch.models import DCNv2, dcn_init
+    from repro_torch.models import DCNv2, dcn_init, gnn_params_from_jax
+    from repro_torch.models import gnn as tgnn
     from repro_torch.stream import (
         DeltaEngine, FusedEngine, FusedPool, GraphRegistry, StreamService,
     )
@@ -93,7 +97,13 @@ def test_default_device_needs_cuda(monkeypatch, entry):
              "FusedEngine": lambda: FusedEngine("t", FusedPool(), 8),
              "GraphRegistry": lambda: GraphRegistry(fused=True),
              "StreamService": lambda: StreamService(fused=True),
-             "make_mesh": lambda: tcore.make_mesh()}
+             "make_mesh": lambda: tcore.make_mesh(),
+             "gnn_params_from_jax": lambda: gnn_params_from_jax({}, get_arch("gcn-cora").smoke),
+             "build_step_gnn": lambda: build_step("gcn-cora", "full_graph_sm"),
+             **{f"{name}_init": functools.partial(getattr(tgnn, f"{name}_init"),
+                                                  get_arch(arch).smoke)
+                for name, arch in (("gcn", "gcn-cora"), ("schnet", "schnet"),
+                                   ("egnn", "egnn"), ("mace", "mace"))}}
     fn = calls.get(entry) or (lambda: (getattr(tcore, entry, None)
                                        or getattr(trefine, entry))(small_named("petersen")))
     with pytest.raises(RuntimeError, match="device='cpu'"):
