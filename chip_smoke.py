@@ -188,7 +188,29 @@ takes a plain gather), and the kernel switched on. Phases:
      ``library_ms`` (``index_add_``) and the forward's one sort of its edge
      lanes (ids and the int32 ``src`` carried along); D = 64 and wider over
      (c)'s lanes would hold 32 GB and more a copy and are not run;
- 17. a JSON line of every kernel, then the card's name and power limit, then
+ 17. the transformer family's serving path (``models/transformer.py``,
+     ``launch/serve.py``) at the published widths of the five LM configs in
+     bfloat16, random seeded weights (``init_params`` on the card), seeded
+     uniform prompts (no tokenizer or checkpoint is read), each model freed
+     before the next: qwen2.5-3b at full depth (``serve_batch`` of 4 prompts
+     x 2,048 tokens, the flash path, with 32 new tokens; the first 16
+     positions decoded from an empty cache against the prefill's logits;
+     the prefill_32k kind at batch 1, cut from 32; decode_32k at batch 8, cut
+     from 128; long_500k through its 4,096-entry window at cache_len
+     524,287; its FULL widths at 2 layers in float32, card against CPU),
+     mistral-nemo-12b at full depth (``serve_batch``), phi3-mini's
+     decode_32k with its int8 cache at batch 2 (cut from 128) against a
+     bfloat16 cache of the same values, deepseek-v3 cut to 4 layers (3 dense
+     + 1 MoE of 256 experts; ``serve_batch`` through MLA and the absorbed
+     decode, long_500k over the full latent cache, ``moe_ep == moe_dense``
+     on 64 tokens) and grok-1 cut to 2 layers (``serve_batch``): two serve
+     runs bitwise equal, the first token the argmax of the prefill; prefill
+     tokens a second, time to the first token, decode ms a step (median of
+     3 after a warm call) against its byte bound (the parameters it reads
+     and the valid cache entries once, at 3.35 TB/s), host syncs a step (one
+     a MoE layer: its group sizes), one profiled step, peak device memory.
+     No kernel of K1-K5 runs on this path: their counts stay 0;
+ 18. a JSON line of every kernel, then the card's name and power limit, then
      the result line ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure, so the script exits non-zero and prints no
@@ -197,6 +219,7 @@ the ``repro_torch`` package is not beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -3896,6 +3919,516 @@ def phase_gnn(device: str, products: dict = GNN_PRODUCTS, seeds: int = GNN_SEEDS
     return k1, row, out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the transformer family's serving path (models/transformer.py,
+# launch/serve.py) at published widths, bfloat16
+# ---------------------------------------------------------------------------
+LM_SERVE = dict(batch=4, prompt=2048, new=32)   # 4 prompts x 2,048 tokens: the flash path
+LM_CUTS = {"deepseek-v3-671b": dict(n_layers=4, n_dense_layers=3),   # 3 dense + 1 MoE
+           "grok-1-314b": dict(n_layers=2)}
+LM_PREFILL_BATCH = 1                      # prefill_32k, cut from 32
+LM_DECODE_BATCH = {"qwen2.5-3b": 8, "phi3-mini-3.8b": 2}   # decode_32k, cut from 128
+LM_TIMED = 3                              # median of 3 after a warm call
+LM_CONSISTENCY_POS = 16                   # qwen: decode the first 16 positions
+# decode vs prefill logits in bfloat16, normwise: unit roundoff 2^-8 a rounding,
+# each of qwen's 36 layers rounds its residual update differently in the two
+# (products of M = 1 and M = 16 rows), a random walk: sqrt(36 * 2) * 2^-8 * ~1.5
+LM_BF16_NORMWISE = 5e-2
+# card vs CPU in float32 at "highest": sums of up to 11,008 products in
+# another order, sqrt(11008) * 2^-24 = 6e-6 each, a few in series
+LM_F32_NORMWISE = 5e-5
+LM_MOE_NORMWISE = 1e-2    # moe_ep vs moe_dense in bfloat16: the gate product rounds in bf16
+LM_INT8_REL, LM_INT8_AGREE = 0.03, 0.9    # tests/test_models_lm.py's int8 gates, at its config
+# phi3 at full depth, int8 cache vs a bfloat16 cache of the same values: each
+# layer adds its own quantization error, so the logits' error grows as
+# sqrt(depth) (the port on the CPU at phi3's widths in bfloat16: 2.4 % at 3
+# layers, 5.3 % at 12): 8-9 % expected at 32. A wrong scale or slot reads
+# errors of order 100 %. Greedy agreement is printed, not held: random
+# weights' logits are flat (a max near 5 among 32,064 of std ~1.2), so near
+# ties flip at this error (62.5 % agreement at 12 layers on the CPU).
+LM_INT8_FULL_REL = 0.15
+LM_INT8_STEPS = 8
+
+
+def lm_arch(name: str):
+    """The arch with its FULL config cut in depth where LM_CUTS says so."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    arch = get_arch(name)
+    cut = LM_CUTS.get(name)
+    return dataclasses.replace(arch, full=dataclasses.replace(arch.full, **cut)) if cut else arch
+
+
+def lm_step(name: str, shape: str, device):
+    """``build_step`` of one LM cell on the (cut) FULL config."""
+    from unittest import mock
+
+    from repro_torch.launch import build_step, steps
+
+    with mock.patch.object(steps, "get_arch", lambda _: lm_arch(name)):
+        return build_step(name, shape, device=device)
+
+
+def lm_model(cfg, device, seed: int = 0):
+    import torch
+
+    from repro_torch.models import init_params
+
+    return init_params(cfg, device=device,
+                       generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def lm_prompts(b: int, s: int, vocab: int, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(np.int32)
+
+
+def fill_cache(cache: dict, seed: int) -> dict:
+    """Seeded N(0, 1) entries (scales 1/127, so an int8 entry reads back as
+    about N(0, 1)), as a prefilled cache would hold."""
+    import torch
+
+    gen = torch.Generator(device=next(iter(cache.values())).device).manual_seed(seed)
+    for key, t in cache.items():
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=t.device,
+                                  dtype=torch.int8))
+        elif key.endswith("_scale"):
+            t.fill_(1 / 127)
+        else:
+            t.normal_(generator=gen)
+    return cache
+
+
+class GroupSizes:
+    """Logs each MoE layer's group sizes (``moe._ragged_swiglu``: the one
+    host read of a layer) while active: experts hit and rows, for the byte
+    bound. Read again here, so use it on calls that are not timed."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.mod, self.real, self.calls = moe, moe._ragged_swiglu, []
+
+        def logged(xs, wg, wi, wo, group_sizes, cd):
+            sizes = group_sizes.tolist()
+            self.calls.append(dict(experts=sum(1 for n in sizes if n), rows=sum(sizes)))
+            return self.real(xs, wg, wi, wo, group_sizes, cd)
+
+        moe._ragged_swiglu = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._ragged_swiglu = self.real
+
+
+def lm_param_bytes_read(model, b: int, experts_hit: list[int]) -> int:
+    """Bytes of the parameters one decode step of ``b`` tokens reads: every
+    matrix of its layers and head, ``b`` rows of the embedding, of each MoE
+    layer only the experts its tokens reach (``experts_hit``, one entry a
+    MoE layer in order), not the MTP block (serving does not run it)."""
+    total = 0
+    moe_layer = -1
+    for name, p in model.named_parameters():
+        if name.startswith("mtp."):
+            continue
+        if name == "embed":
+            total += b * p.shape[1] * p.element_size()
+        elif ".moe.w" in name:          # moe.wg / wi / wo: [E, ...] by expert
+            if name.endswith(".moe.wg"):
+                moe_layer += 1
+            total += experts_hit[moe_layer] * p[0].numel() * p.element_size()
+        else:
+            total += p.numel() * p.element_size()
+    return total
+
+
+def lm_cache_bytes_read(cache: dict, valid: int) -> int:
+    """Bytes of the valid cache entries (positions < ``valid``), read once."""
+    return sum(t[:, :, :valid].numel() * t.element_size() for t in cache.values())
+
+
+def lm_decode_point(model, cfg, cache: dict, tok, cache_len: int, label: str) -> dict:
+    """One decode step at ``cache_len``: its wall (median of LM_TIMED after a
+    warm call; each call writes the same slot), its host syncs (the MoE
+    layers' group sizes, nothing else), the bytes it must read against
+    3.35 TB/s, and a profile of one step."""
+    import torch
+
+    from repro_torch.models import decode_step
+
+    def step():
+        return decode_step(model, cache, tok, cache_len, cfg)
+
+    with torch.inference_mode():
+        with GroupSizes() as gs:
+            logits, _ = step()
+        syncs, _ = count_syncs(step)
+        check(syncs == cfg.n_moe_layers,
+              f"{label}: a decode step made {syncs} host syncs, not one a MoE layer "
+              f"({cfg.n_moe_layers})")
+        step()
+        walls = wall_s(step, LM_TIMED)
+        prof = profile_call(step, top=6)
+    check(bool(torch.isfinite(logits).all()), f"{label}: non-finite decode logits")
+    b = tok.shape[0]
+    valid = min(cache_len + 1, next(iter(cache.values())).shape[2])
+    n_bytes = (lm_param_bytes_read(model, b, [c["experts"] for c in gs.calls])
+               + lm_cache_bytes_read(cache, valid) + b * cfg.vocab * 4)
+    bound, by = bound_ms(n_bytes, 0)
+    ms = statistics.median(walls) * 1e3
+    return dict(batch=b, cache_len=cache_len, valid=valid, ms=ms, walls_s=walls,
+                tokens_per_s=b / (ms / 1e3), host_syncs=syncs,
+                moe_experts_hit=[c["experts"] for c in gs.calls], bytes=n_bytes,
+                bound_ms=bound, bound_by=by, bound_share=bound / ms, profile=prof)
+
+
+def log_decode_point(label: str, p: dict) -> None:
+    prof = p["profile"]
+    log(f"  {label}: decode step (B={p['batch']}, cache_len={p['cache_len']}, {p['valid']} "
+        f"valid entries) {p['ms']:.4f} ms median of {LM_TIMED} ({p['tokens_per_s']:.1f} "
+        f"tokens/s), bound {p['bound_ms']:.4f} ms ({p['bytes']} bytes at 3.35 TB/s; "
+        f"{100 * p['bound_share']:.1f} % of it); host syncs a step {p['host_syncs']} (the MoE "
+        f"group sizes; experts hit {p['moe_experts_hit']}); profiled step: busy "
+        f"{prof.get('busy_ms', float('nan')):.4f} ms, idle "
+        f"{100 * prof.get('idle_share', float('nan')):.1f} %, "
+        f"{prof.get('device_launches')} launches, top {prof.get('top_ms')}")
+
+
+def lm_serve_case(name: str, device, consistency: bool = False) -> dict:
+    """One model through ``serve_batch`` (LM_SERVE): two runs bitwise equal,
+    the first token the argmax of the prefill's last logits; the prefill's
+    tokens a second and time to the first token (median of LM_TIMED after a
+    warm call); a decode step at the serve's cache; peak device memory.
+    ``consistency``: the first LM_CONSISTENCY_POS positions decoded from an
+    empty cache against the forward's logits."""
+    import torch
+
+    from repro_torch.launch import serve_batch
+    from repro_torch.models import decode_step, forward, init_cache, prefill
+
+    cfg = lm_arch(name).full
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm_model(cfg, device)
+    torch.cuda.synchronize()
+    out = dict(layers=cfg.n_layers, params=sum(p.numel() for p in model.parameters()),
+               param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+               init_s=time.perf_counter() - t0)
+    b, s0, new = LM_SERVE["batch"], LM_SERVE["prompt"], LM_SERVE["new"]
+    prompts = lm_prompts(b, s0, cfg.vocab, seed=1)
+    t0 = time.perf_counter()
+    first = serve_batch(model, cfg, prompts, max_new_tokens=new, device=device)
+    torch.cuda.synchronize()
+    out["serve_s"] = time.perf_counter() - t0
+    again = serve_batch(model, cfg, prompts, max_new_tokens=new, device=device)
+    check(first.outputs.shape == (b, new) and np.array_equal(first.outputs, again.outputs),
+          f"{name}: two serve_batch runs differ")
+    dev_prompts = torch.as_tensor(prompts, device=device)
+    with torch.inference_mode():
+        last, cache = prefill(model, dev_prompts, cfg)
+        check(np.array_equal(first.outputs[:, 0], last.argmax(-1).cpu().numpy()),
+              f"{name}: serve_batch's first token is not the argmax of the prefill's last "
+              f"logits")
+        check(bool(torch.isfinite(last).all()), f"{name}: non-finite prefill logits")
+
+        def ttft():
+            return prefill(model, dev_prompts, cfg)[0].argmax(-1).cpu()
+
+        ttft()
+        walls = wall_s(ttft, LM_TIMED)
+    out["ttft_s"] = statistics.median(walls)
+    out["ttft_walls_s"] = walls
+    out["prefill_tokens_per_s"] = b * s0 / out["ttft_s"]
+    full = {k: torch.zeros((v.shape[0], b, s0 + new, *v.shape[3:]), dtype=v.dtype, device=device)
+            for k, v in cache.items()}
+    for k, v in cache.items():
+        full[k][:, :, :s0] = v
+    del cache
+    tok = torch.as_tensor(first.outputs[:, 0], device=device)
+    out["decode"] = lm_decode_point(model, cfg, full, tok, s0, f"{name} serve")
+    del full
+    if consistency:
+        toks = dev_prompts[:, :LM_CONSISTENCY_POS]
+        with torch.inference_mode():
+            want, _ = forward(model, toks, cfg)
+            c = init_cache(cfg, b, LM_CONSISTENCY_POS, device=device)
+            got = torch.stack([decode_step(model, c, toks[:, t], t, cfg)[0]
+                               for t in range(LM_CONSISTENCY_POS)], 1)
+        err = normwise(got, want)
+        check(err <= LM_BF16_NORMWISE, f"{name}: decoding the first {LM_CONSISTENCY_POS} "
+              f"positions misses the prefill's logits by {err} normwise")
+        out["decode_vs_prefill_normwise"] = err
+        del want, got, c
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["model"] = model
+    log(f"  {name} ({cfg.n_layers} layers, {out['params']} parameters, {out['param_bytes']} "
+        f"bytes bf16, drawn in {out['init_s']:.3f} s): serve_batch of {b} x {s0} tokens + {new} "
+        f"new {out['serve_s']:.3f} s, two runs bitwise equal, first token == argmax of the "
+        f"prefill; prefill {out['prefill_tokens_per_s']:.1f} tokens/s, time to first token "
+        f"{out['ttft_s']:.4f} s (median of {LM_TIMED}: {walls}); peak "
+        f"{out['peak_bytes']} bytes"
+        + (f"; the first {LM_CONSISTENCY_POS} positions decoded from an empty cache vs "
+           f"the prefill's logits {out['decode_vs_prefill_normwise']:.3g} normwise (<= "
+           f"{LM_BF16_NORMWISE})" if consistency else ""))
+    log_decode_point(f"{name} serve", out["decode"])
+    return out
+
+
+def lm_cell_decode(name: str, shape: str, model, device, batch: int, cache_len: int,
+                   seed: int) -> dict:
+    """A decode cell through ``build_step``: its cache (``init_cache`` of the
+    step's config, seeded entries), a step at ``cache_len`` timed."""
+    import torch
+
+    from repro_torch.models import init_cache
+
+    step = lm_step(name, shape, device)
+    cfg = step.cfg
+    seq = lm_arch(name).shape(shape).dims["seq_len"]
+    cache = fill_cache(init_cache(cfg, batch, seq, device=device), seed)
+    tok = torch.as_tensor(lm_prompts(batch, 1, cfg.vocab, seed)[:, 0], device=device)
+    with torch.inference_mode():
+        lg, _ = step.fn(model, cache, tok, cache_len)
+    check(bool(torch.isfinite(lg).all()) and tuple(lg.shape) == (batch, cfg.vocab),
+          f"{name}:{shape}: the decode kind's logits are {tuple(lg.shape)} or not finite")
+    p = lm_decode_point(model, cfg, cache, tok, cache_len, f"{name}:{shape}")
+    p.update(cache_entries=next(iter(cache.values())).shape[2],
+             cache_bytes=sum(t.numel() * t.element_size() for t in cache.values()),
+             window=cfg.sliding_window, meta=step.meta)
+    del cache
+    log_decode_point(f"{name}:{shape} ({p['cache_entries']}-entry cache, "
+                     f"{p['cache_bytes']} bytes, window {cfg.sliding_window})", p)
+    return p
+
+
+def lm_prefill_32k(name: str, model, device) -> dict:
+    """prefill_32k through ``build_step`` at batch LM_PREFILL_BATCH: one call
+    (the serve runs warmed the path), its logits finite and its cache the
+    step's shapes."""
+    import torch
+
+    step = lm_step(name, "prefill_32k", device)
+    seq = lm_arch(name).shape("prefill_32k").dims["seq_len"]
+    toks = lm_prompts(LM_PREFILL_BATCH, seq, step.cfg.vocab, seed=3)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last, cache = step.fn(model, toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(bool(torch.isfinite(last).all()) and all(
+        v.shape[1:3] == (LM_PREFILL_BATCH, seq) for v in cache.values()),
+        f"{name}:prefill_32k: non-finite logits or a cache of another shape")
+    out = dict(batch=LM_PREFILL_BATCH, seq=seq, wall_s=wall,
+               tokens_per_s=LM_PREFILL_BATCH * seq / wall,
+               peak_bytes=torch.cuda.max_memory_allocated(), meta=step.meta)
+    del cache, last
+    torch.cuda.empty_cache()
+    log(f"  {name}:prefill_32k at batch {LM_PREFILL_BATCH} (cut from 32): one call "
+        f"{wall:.3f} s, {out['tokens_per_s']:.1f} tokens/s, peak {out['peak_bytes']} bytes; "
+        f"meta model_flops {step.meta['model_flops']:.6g}")
+    return out
+
+
+def lm_float32_on_card(device) -> dict:
+    """qwen2.5's FULL widths at 2 layers in float32 (TF32 off), 64 tokens: the
+    card's logits against the port's CPU logits from the same weights."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import forward
+
+    cfg = dataclasses.replace(get_arch("qwen2.5-3b").full, n_layers=2,
+                              param_dtype=torch.float32, compute_dtype=torch.float32)
+    torch.set_float32_matmul_precision("highest")
+    t0 = time.perf_counter()
+    host = lm_model(cfg, "cpu", seed=4)
+    toks = torch.as_tensor(lm_prompts(1, 64, cfg.vocab, seed=4))
+    with torch.inference_mode():
+        want, _ = forward(host, toks, cfg)
+        card = copy.deepcopy(host).to(device)
+        got, _ = forward(card, toks.to(device), cfg)
+    err = normwise(got, want)
+    check(err <= LM_F32_NORMWISE, f"qwen2.5 FULL widths, 2 layers, float32: the card's logits "
+          f"miss the CPU's by {err} normwise")
+    del host, card, want, got
+    torch.cuda.empty_cache()
+    log(f"  qwen2.5-3b FULL widths at 2 layers, float32, 64 tokens: card vs CPU logits "
+        f"{err:.3g} normwise (<= {LM_F32_NORMWISE}) in {time.perf_counter() - t0:.3f} s")
+    return dict(normwise=err)
+
+
+def lm_moe_on_card(model, cfg, device) -> dict:
+    """64 tokens through deepseek's MoE layer (256 experts, top-8, 1 shared):
+    moe_ep == moe_dense normwise, moe_ep bitwise repeatable."""
+    import torch
+
+    from repro_torch.models import moe
+
+    p = model.moe_blocks[0].moe
+    x = torch.randn(1, 64, cfg.d_model, generator=torch.Generator(device=device).manual_seed(5),
+                    device=device).to(cfg.compute_dtype)
+    with torch.inference_mode():
+        ep, aux = moe.moe_ep(x, p, cfg.moe)
+        again, _ = moe.moe_ep(x, p, cfg.moe)
+        dense, aux_d = moe.moe_dense(x, p, cfg.moe)
+    check(torch.equal(ep, again), "deepseek's MoE: two moe_ep calls differ")
+    err = normwise(ep, dense)
+    check(err <= LM_MOE_NORMWISE and abs(float(aux) - float(aux_d)) <= 1e-6,
+          f"deepseek's MoE: moe_ep misses moe_dense by {err} normwise (aux {float(aux)} vs "
+          f"{float(aux_d)})")
+    log(f"  deepseek-v3 MoE layer (256 experts, top-8, 1 shared) on 64 tokens: moe_ep == "
+        f"moe_dense within {err:.3g} normwise (<= {LM_MOE_NORMWISE}), bitwise repeatable")
+    return dict(normwise=err)
+
+
+def lm_int8_jax_case(device) -> dict:
+    """tests/test_models_lm.py's test_int8_kv_cache_decode on the card: its
+    3-layer float32 config, weights drawn on the CPU (seed 2) and moved, 24
+    positions decoded through the int8 cache against the forward's logits:
+    <= 3 % relative error, >= 90 % greedy agreement."""
+    import copy
+
+    import torch
+
+    from repro_torch.models import TransformerConfig, decode_step, forward, init_cache
+
+    cfg = TransformerConfig(name="t", n_layers=3, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
+                            vocab=101, qkv_bias=True, rope_theta=1e4)
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    model = copy.deepcopy(lm_model(cfg, "cpu", seed=2)).to(device)
+    toks = torch.as_tensor(lm_prompts(2, 24, cfg.vocab, seed=2), device=device)
+    with torch.inference_mode():
+        ref, _ = forward(model, toks, cfg)
+        cache = init_cache(cfg8, 2, 24, device=device)
+        dec = torch.stack([decode_step(model, cache, toks[:, t], t, cfg8)[0]
+                           for t in range(24)], 1)
+    rel = float((dec - ref).abs().max() / ref.abs().max())
+    agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
+    check(rel < LM_INT8_REL and agree >= LM_INT8_AGREE,
+          f"the int8 decode test's case on the card: rel error {rel}, greedy agreement {agree}")
+    log(f"  tests/test_models_lm.py's int8 case on the card (3 layers, float32): rel error "
+        f"{rel:.4g} (< {LM_INT8_REL}), greedy agreement {agree:.3f} (>= {LM_INT8_AGREE})")
+    return dict(rel_err=rel, greedy_agree=agree)
+
+
+def lm_int8_decode(device) -> dict:
+    """phi3-mini's decode_32k with its int8 cache at batch LM_DECODE_BATCH
+    (cut from 128), and the same steps over a bfloat16 cache holding the
+    values the int8 one quantizes: relative error within LM_INT8_FULL_REL,
+    greedy agreement printed; then the JAX test's own case."""
+    import torch
+
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models.transformer import _quant
+
+    name = "phi3-mini-3.8b"
+    cfg = lm_arch(name).full
+    b, seq = LM_DECODE_BATCH[name], lm_arch(name).shape("decode_32k").dims["seq_len"]
+    torch.cuda.reset_peak_memory_stats()
+    model = lm_model(cfg, device, seed=6)
+    step = lm_step(name, "decode_32k", device)
+    check(step.cfg.kv_cache_dtype == "int8", "phi3's decode_32k runs without its int8 cache")
+    cfg16 = dataclasses.replace(cfg, kv_cache_dtype=None)
+    c16 = fill_cache(init_cache(cfg16, b, seq, device=device), seed=6)
+    c8 = init_cache(step.cfg, b, seq, device=device)
+    with torch.inference_mode():
+        for key in ("k", "v"):
+            for li in range(cfg.n_layers):
+                q8, scale = _quant(c16[key][li])
+                c8[key][li].copy_(q8)
+                c8[f"{key}_scale"][li].copy_(scale)
+    start = seq - LM_INT8_STEPS
+    toks = torch.as_tensor(lm_prompts(b, LM_INT8_STEPS, cfg.vocab, seed=7), device=device)
+    got, want = [], []
+    with torch.inference_mode():
+        for t in range(LM_INT8_STEPS):
+            got.append(step.fn(model, c8, toks[:, t], start + t)[0])
+            want.append(decode_step(model, c16, toks[:, t], start + t, cfg16)[0])
+    got, want = torch.stack(got, 1).float(), torch.stack(want, 1).float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    check(rel <= LM_INT8_FULL_REL,
+          f"phi3 int8 decode_32k: rel error {rel} against the bf16 cache (greedy agreement "
+          f"{agree})")
+    tok = toks[:, -1]
+    out = dict(rel_err=rel, greedy_agree=agree,
+               int8=lm_decode_point(model, step.cfg, c8, tok, seq - 1, f"{name}:decode_32k int8"),
+               bf16=lm_decode_point(model, cfg16, c16, tok, seq - 1, f"{name}:decode_32k bf16"))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"  {name}:decode_32k at batch {b} (cut from 128) with its int8 cache ("
+        f"{sum(t.numel() * t.element_size() for t in c8.values())} bytes) against a bf16 cache "
+        f"of the same values: {LM_INT8_STEPS} steps, rel error {rel:.4g} (<= "
+        f"{LM_INT8_FULL_REL}), greedy agreement {agree:.3f} (printed); peak "
+        f"{out['peak_bytes']} bytes")
+    log_decode_point(f"{name}:decode_32k int8", out["int8"])
+    log_decode_point(f"{name}:decode_32k bf16 cache", out["bf16"])
+    del model, c16, c8
+    torch.cuda.empty_cache()
+    out["jax_test_case"] = lm_int8_jax_case(device)
+    return out
+
+
+def phase_lm(device: str) -> dict:
+    """Phase 17: the five LM configs at published widths (bfloat16, random
+    seeded weights, seeded uniform prompts), depth cut where LM_CUTS says:
+    qwen2.5-3b (serve_batch, the decode-vs-prefill consistency, prefill_32k,
+    decode_32k, long_500k, float32 card vs CPU at 2 layers), mistral-nemo-12b
+    (serve_batch), phi3-mini (decode_32k with its int8 cache), deepseek-v3
+    (serve_batch through MLA and the 256-expert MoE, long_500k over the full
+    latent cache, moe_ep == moe_dense) and grok-1 (serve_batch). No kernel
+    of K1-K5 runs on this path. Returns the numbers."""
+    import torch
+
+    from repro_torch.kernels import embed
+
+    t_phase = time.perf_counter()
+    zero_launch_counts()
+    k5 = embed.launches
+    torch.cuda.empty_cache()
+    out: dict = {"allocated_at_start": torch.cuda.memory_allocated()}
+
+    qwen = lm_serve_case("qwen2.5-3b", device, consistency=True)
+    model = qwen.pop("model")
+    qwen["prefill_32k"] = lm_prefill_32k("qwen2.5-3b", model, device)
+    qwen["decode_32k"] = lm_cell_decode("qwen2.5-3b", "decode_32k", model, device,
+                                        LM_DECODE_BATCH["qwen2.5-3b"], 32768 - 1, seed=8)
+    qwen["long_500k"] = lm_cell_decode("qwen2.5-3b", "long_500k", model, device, 1,
+                                       524288 - 1, seed=9)
+    del model
+    torch.cuda.empty_cache()
+    qwen["float32_card_vs_cpu"] = lm_float32_on_card(device)
+    out["qwen2.5-3b"] = qwen
+
+    for name in ("mistral-nemo-12b", "grok-1-314b"):
+        res = lm_serve_case(name, device)
+        del res["model"]
+        torch.cuda.empty_cache()
+        out[name] = res
+
+    out["phi3-mini-3.8b"] = lm_int8_decode(device)
+
+    ds = lm_serve_case("deepseek-v3-671b", device)
+    model = ds.pop("model")
+    ds["moe_on_card"] = lm_moe_on_card(model, lm_arch("deepseek-v3-671b").full, device)
+    ds["long_500k"] = lm_cell_decode("deepseek-v3-671b", "long_500k", model, device, 1,
+                                     524288 - 1, seed=10)
+    del model
+    torch.cuda.empty_cache()
+    out["deepseek-v3-671b"] = ds
+
+    launches = launch_counts()
+    check(not any(launches.values()) and embed.launches == k5,
+          f"phase 17's LM path launched a kernel of K1-K5: {launches}, K5 "
+          f"{embed.launches - k5}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--rows"]):
         print(f"usage: python3 chip_smoke.py [--rows]; got {argv}", file=sys.stderr)
@@ -4035,6 +4568,11 @@ def main(argv: list[str]) -> int:
     log(f"  phase 16 took {gnn_times['phase_s']:.3f} s (its main path "
         f"{gnn_times['main_path_s']:.3f} s); K1 launches {k1_gnn_launches}")
 
+    log("phase 17: the transformer family's serving path (qwen2.5, mistral-nemo, phi3-mini, "
+        "deepseek-v3, grok-1 at published widths, bfloat16)")
+    lm_times = phase_lm(device)
+    log(f"  phase 17 took {lm_times['phase_s']:.3f} s; no kernel of K1-K5 on its path")
+
     k2_launches = (peel_launches + cbds_launches + pruned_launches["peel_edges"]
                    + fallback_launches + refine_launches + stream_launches["peel_edges"]
                    + fused_launches["peel_edges"] + shard_launches["peel_edges"]
@@ -4108,6 +4646,7 @@ def main(argv: list[str]) -> int:
                     "lint": lint,
                     "train": train_times,
                     "gnn": gnn_times,
+                    "lm": lm_times,
                     "k2_rows": k2_rows,
                     "k1_rows": k1_rows,
                     "smoke_s": time.perf_counter() - t_start}, default=str))

@@ -1,13 +1,25 @@
 """Step factory: (arch, shape) -> a step that runs on the device.
 
-The port of the recsys and GNN parts of the JAX package's
-``launch/steps.py`` (``make_optimizer``, ``_recsys_step``, ``_gnn_train``
-and ``build_step``) for one device: no mesh, so n_dev = 1 and the model
-axis is 1 in JAX's formulas. Kinds:
+The port of the JAX package's ``launch/steps.py`` (``make_optimizer``, the
+LM ``prefill`` and ``decode`` kinds, ``_recsys_step``, ``_gnn_train`` and
+``build_step``) for one device: no mesh, so n_dev = 1 and the model axis is
+1 in JAX's formulas. Kinds:
 
+  prefill   fn(model, tokens) -> (last_logits [B, V], kv_cache)
+  decode    fn(model, cache, tokens, cache_len) -> (logits [B, V], cache')
   train     fn(params, opt_state, batch) -> (params', opt_state', loss)
   serve     fn(model, batch) -> CTR logits [B]
   retrieval fn(model, batch) -> scores [Q, C]
+
+The LM kinds take a ``models.transformer.Transformer`` and run it with the
+step's config (``arch.full`` with the reference's changes: ``flash_q_chunk
+= seq`` for prefill, a 4,096-entry sliding window for long_500k on the GQA
+archs), under ``torch.inference_mode()``. Prefill computes the logits of
+the last position only (``transformer.prefill``): the same output as the
+reference's ``logits[:, -1]``. The decode kind writes the cache in place
+(the reference donates it); give it ``init_cache(cfg, batch, seq)`` of the
+step's config. The LM ``train`` kind raises ``NotImplementedError``: LM
+training is ROADMAP.md section 1, item 6d-ii.
 
 The serve kinds take the model (``models.recsys.DCNv2``, which carries its
 config: ``multi_hot`` and ``kernel`` are the model's) and a batch of numpy
@@ -27,9 +39,8 @@ of ``data.gnn_batch`` / ``GraphBatcher`` / a sampled block at its own size
 (JAX's static shapes pad it to the padded sizes in ``meta``) and the
 shape's ``n_graphs``. Every kind runs its float32 products in full float32.
 ``meta`` carries the analytic ``model_flops`` and ``model_bytes_dev`` of
-the config, and ``rows`` (recsys; for retrieval the number of candidates)
-or ``nodes`` and ``edges`` (GNN, padded as JAX pads them). The LM family is
-not ported yet: it raises ``NotImplementedError``.
+the config, and ``tokens`` (LM), ``rows`` (recsys; for retrieval the number
+of candidates) or ``nodes`` and ``edges`` (GNN, padded as JAX pads them).
 """
 from __future__ import annotations
 
@@ -44,6 +55,7 @@ from repro_torch.configs.common import Arch, Shape, sampled_subgraph_dims
 from repro_torch.core.dispatch import resolve_device, resolve_kernel
 from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as rec_mod
+from repro_torch.models import transformer as lm_mod
 from repro_torch.optim import Optimizer, adafactor, adamw, sgdm
 
 
@@ -53,6 +65,7 @@ class StepBundle:
     kind: str
     fn: Callable
     meta: dict
+    cfg: object = None   # the config an LM step runs (its cache is init_cache of it)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -85,6 +98,13 @@ def train_state(model: torch.nn.Module, opt: Optimizer) -> dict:
     return {"params": params, "opt": opt.init(params)}
 
 
+def _check_on(name: str, device: torch.device, on: torch.device, what: str) -> None:
+    """A step's inputs must be on the step's device (the GPU's index may be
+    left out)."""
+    if on.type != device.type or device.index not in (None, on.index):
+        raise ValueError(f"{name} runs on {device}; {what} on {on}")
+
+
 def _check_precision() -> None:
     if torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError(
@@ -104,9 +124,7 @@ def _train_step(arch: Arch, skeleton: torch.nn.Module, loss_fn: Callable, extra:
 
     def train(params, opt_state, batch):
         _check_precision()
-        on = next(iter(params.values())).device
-        if on.type != device.type or device.index not in (None, on.index):
-            raise ValueError(f"{name} runs on {device}; the parameters are on {on}")
+        _check_on(name, device, next(iter(params.values())).device, "the parameters are")
         feed = {k: torch.as_tensor(v, device=device)
                 if isinstance(v, (np.ndarray, torch.Tensor)) else v
                 for k, v in batch.items()}
@@ -155,9 +173,7 @@ def _recsys_step(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
 
     def run(model, batch, keys, forward):
         _check_precision()
-        on = model.tables.device
-        if on.type != device.type or device.index not in (None, on.index):
-            raise ValueError(f"{name} runs on {device}; the model is on {on}")
+        _check_on(name, device, model.tables.device, "the model is")
         with torch.inference_mode():
             return forward(model, {k: torch.as_tensor(batch[k], device=device)
                                    for k in keys})
@@ -182,6 +198,107 @@ def _recsys_step(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
         meta={"model_flops": 2.0 * b * c * cfg.embed_dim + b * per_row,
               "model_bytes_dev": c * cfg.embed_dim * 4 * 2,
               "rows": c})
+
+
+# ===========================================================================
+# LM family
+# ===========================================================================
+def _nbytes(tensors) -> int:
+    """Bytes of tensors (on the meta device: shapes only; JAX's ``_tree_bytes``)."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _lm_param_bytes(cfg: lm_mod.TransformerConfig) -> int:
+    return _nbytes(lm_mod.Transformer(cfg, device="meta").parameters())
+
+
+def _lm_cache_bytes(cfg: lm_mod.TransformerConfig, batch: int, seq: int) -> int:
+    return _nbytes(lm_mod.init_cache(cfg, batch, seq, device="meta").values())
+
+
+def _lm_model_flops(cfg: lm_mod.TransformerConfig, kind: str, batch: int, seq: int) -> float:
+    """Analytic step FLOPs: 2*N_active*D (+attention) for prefill/decode
+    (JAX's formula; its train branch comes with the train kind)."""
+    n_act = cfg.n_active_params()
+    if cfg.attn == "mla":
+        attn_tok = 2 * cfg.n_heads * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
+    else:
+        attn_tok = 4 * cfg.n_heads * cfg.hd
+    if kind == "prefill":
+        attn = cfg.n_layers * batch * seq * (seq / 2) * attn_tok / 2
+        return 2.0 * n_act * batch * seq + attn
+    s_eff = min(seq, cfg.sliding_window or seq)
+    attn = cfg.n_layers * batch * s_eff * attn_tok
+    return 2.0 * n_act * batch + attn
+
+
+def _lm_model_bytes(cfg: lm_mod.TransformerConfig, kind: str, batch: int, seq: int,
+                    p_bytes: int, cache_bytes: int) -> float:
+    """Analytic HBM traffic of one prefill or decode step (JAX's
+    ``_lm_model_bytes`` at n_dev = 1): parameter streams, activations, the
+    KV cache."""
+    n_dev = 1
+    p_dev = p_bytes / n_dev
+    ab = 2  # bf16 activations
+    cache = cache_bytes / n_dev
+    if kind == "prefill":
+        t_dev = batch * seq / n_dev
+        return 2 * p_dev + 8 * cfg.n_layers * t_dev * cfg.d_model * ab + cache
+    return p_dev + 2 * cache + batch * cfg.d_model * cfg.n_layers * ab / n_dev
+
+
+def _lm_check_model(model, name: str, device: torch.device) -> None:
+    _check_precision()
+    _check_on(name, device, model.embed.device, "the model is")
+
+
+def _lm_prefill(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
+    gb, seq = shape.dims["global_batch"], shape.dims["seq_len"]
+    cfg = replace(arch.full, flash_q_chunk=seq, flash_k_chunk=1024)
+    name = f"{arch.name}:{shape.name}"
+
+    def prefill(model, tokens):
+        _lm_check_model(model, name, device)
+        with torch.inference_mode():
+            return lm_mod.prefill(model, torch.as_tensor(tokens, device=device), cfg)
+
+    return StepBundle(
+        name=name, kind="prefill", fn=prefill,
+        meta={"model_flops": _lm_model_flops(cfg, "prefill", gb, seq),
+              "model_bytes_dev": _lm_model_bytes(cfg, "prefill", gb, seq, _lm_param_bytes(cfg),
+                                                 _lm_cache_bytes(cfg, gb, seq)),
+              "tokens": gb * seq}, cfg=cfg)
+
+
+def _lm_decode(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
+    gb, seq = shape.dims["global_batch"], shape.dims["seq_len"]
+    cfg = arch.full
+    if seq > 100_000 and cfg.attn != "mla":
+        cfg = replace(cfg, sliding_window=4096)   # the adapted long_500k cell
+    name = f"{arch.name}:{shape.name}"
+
+    def decode(model, cache, tokens, cache_len):
+        _lm_check_model(model, name, device)
+        with torch.inference_mode():
+            return lm_mod.decode_step(model, cache, torch.as_tensor(tokens, device=device),
+                                      cache_len, cfg)
+
+    return StepBundle(
+        name=name, kind="decode", fn=decode,
+        meta={"model_flops": _lm_model_flops(cfg, "decode", gb, seq),
+              "model_bytes_dev": _lm_model_bytes(cfg, "decode", gb, seq, _lm_param_bytes(cfg),
+                                                 _lm_cache_bytes(cfg, gb, seq)),
+              "tokens": gb}, cfg=cfg)
+
+
+def _lm_step(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
+    if shape.kind == "prefill":
+        return _lm_prefill(arch, shape, device)
+    if shape.kind == "decode":
+        return _lm_decode(arch, shape, device)
+    raise NotImplementedError(
+        f"{arch.name}:{shape.name}: the LM {shape.kind} kind (loss_fn, the MTP loss, "
+        f"microbatching) is not ported yet: ROADMAP.md section 1, item 6d-ii")
 
 
 # ===========================================================================
@@ -272,10 +389,12 @@ def _gnn_train(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
 
 def build_step(arch_name: str, shape_name: str, device=None) -> StepBundle:
     """The step of one cell on ``device`` (None means the GPU, and raises
-    without one). Archs that are not ported raise ``NotImplementedError``."""
+    without one). The LM train kind raises ``NotImplementedError``."""
     device = resolve_device(device)
-    arch = get_arch(arch_name)  # the recsys and GNN families are ported
+    arch = get_arch(arch_name)
     shape = arch.shape(shape_name)
+    if arch.family == "lm":
+        return _lm_step(arch, shape, device)
     if arch.family == "gnn":
         return _gnn_train(arch, shape, device)
     return _recsys_step(arch, shape, device)

@@ -7,6 +7,11 @@ as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns a
 full-rank cross weights and the low-rank ``(u, v)`` pairs are taken.
 ``gnn_params_from_jax`` does the same for the four GNNs of
 ``repro.models.gnn`` (GCN's bare ``[in, out]`` weights stay as they are).
+``lm_params_from_jax`` takes the pytree of ``repro.models.transformer.
+init_params`` and unstacks each ``[L, ...]`` leaf into its layer's
+parameter; the transformer keeps JAX's ``[in, out]`` layout, so nothing is
+transposed. A bfloat16 leaf goes through float32 (exact) into the
+parameter's dtype.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch
 from repro_torch.core.dispatch import resolve_device
 from repro_torch.models import gnn
 from repro_torch.models.recsys import DCNConfig, DCNv2
+from repro_torch.models.transformer import Transformer, TransformerConfig
 
 
 def _put(param: torch.Tensor, array, name: str, transpose: bool = False) -> None:
@@ -98,4 +104,44 @@ def gnn_params_from_jax(tree: dict, cfg, device=None):
     return model
 
 
-__all__ = ["dcn_params_from_jax", "gnn_params_from_jax"]
+def _flatten(tree, prefix: str = "") -> dict:
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, dict):
+            out.update(_flatten(value, name + "."))
+        else:
+            out[name] = value
+    return out
+
+
+def lm_params_from_jax(tree: dict, cfg: TransformerConfig, device=None) -> Transformer:
+    """A ``Transformer`` for ``cfg`` on ``device`` (None means the GPU) with
+    the parameters of the JAX pytree ``tree`` (numpy leaves) of
+    ``repro.models.transformer.init_params``: ``dense_blocks.<key>[i]`` into
+    ``dense_blocks.<i>.<key>`` (the same for ``moe_blocks``), the MTP
+    block's one-layer stack into ``mtp.block``, the rest as it is. Every
+    name and shape is checked."""
+    model = Transformer(cfg, device=resolve_device(device))
+    want = {}
+    for name, leaf in _flatten(tree).items():
+        group, _, rest = name.partition(".")
+        if group in ("dense_blocks", "moe_blocks"):
+            want.update({f"{group}.{i}.{rest}": leaf[i] for i in range(leaf.shape[0])})
+        elif name.startswith("mtp.block."):
+            if leaf.shape[0] != 1:
+                raise ValueError(f"{name}: the MTP block stacks {leaf.shape[0]} layers, not 1")
+            want[name] = leaf[0]
+        else:
+            want[name] = leaf
+    params = dict(model.named_parameters())
+    if want.keys() != params.keys():
+        raise ValueError(f"{cfg.name}: the tree lacks {sorted(params.keys() - want.keys())} "
+                         f"and has no place for {sorted(want.keys() - params.keys())}")
+    with torch.no_grad():
+        for name, param in params.items():
+            _put(param, want[name], name)
+    return model
+
+
+__all__ = ["dcn_params_from_jax", "gnn_params_from_jax", "lm_params_from_jax"]

@@ -1386,3 +1386,76 @@ def test_rbf_centers_on_card_equal_cpu(cuda):
     for n_rbf, cutoff in ((300, 10.0), (16, 5.0), (8, 5.0), (4, 5.0), (1000, 6.5)):
         assert torch.equal(gnn._rbf_centers(n_rbf, cutoff, cuda).cpu(),
                            gnn._rbf_centers(n_rbf, cutoff, torch.device("cpu")))
+
+
+LM_ARCHS = ("qwen2.5-3b", "mistral-nemo-12b", "phi3-mini-3.8b", "grok-1-314b",
+            "deepseek-v3-671b")
+
+
+def _lm_smoke(arch, device, seed=0):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+
+    cfg = get_arch(arch).smoke
+    return cfg, init_params(cfg, device=device,
+                            generator=torch.Generator(device=device).manual_seed(seed))
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_forward_on_card_matches_cpu(cuda, arch):
+    """Each LM's SMOKE forward (float32, TF32 off) on the card against the
+    same weights on the CPU: logits, aux and the cache within 1e-5, and the
+    rotary inverse frequencies bitwise equal."""
+    from repro_torch.models import forward, layers
+
+    torch.set_float32_matmul_precision("highest")
+    cfg, model = _lm_smoke(arch, "cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 24)))
+    with torch.inference_mode():
+        want = forward(model, toks, cfg, return_cache=True)
+        got = forward(model.to(cuda), toks.to(cuda), cfg, return_cache=True)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=1e-5)
+    for k in want[2]:
+        torch.testing.assert_close(got[2][k].cpu(), want[2][k], rtol=1e-5, atol=1e-5)
+    assert torch.equal(layers.rope_freqs(cfg.hd, cfg.rope_theta, cuda).cpu(),
+                       layers.rope_freqs(cfg.hd, cfg.rope_theta))
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "deepseek-v3-671b"])
+def test_serve_batch_on_card_bitwise_repeatable(cuda, arch):
+    """serve_batch on the card twice from the same weights: the same tokens,
+    and the first one the argmax of the prefill's last logits."""
+    from repro_torch.launch import serve_batch
+    from repro_torch.models import prefill
+
+    cfg, model = _lm_smoke(arch, cuda)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (3, 8)).astype(np.int32)
+    a = serve_batch(model, cfg, prompts, max_new_tokens=6, device=cuda)
+    b = serve_batch(model, cfg, prompts, max_new_tokens=6, device=cuda)
+    assert np.array_equal(a.outputs, b.outputs) and a.outputs.shape == (3, 6)
+    with torch.inference_mode():
+        last, _ = prefill(model, torch.as_tensor(prompts, device=cuda), cfg)
+    assert np.array_equal(a.outputs[:, 0], last.argmax(-1).cpu().numpy())
+
+
+def test_moe_ep_equals_dense_on_card(cuda):
+    """deepseek's SMOKE MoE layer: moe_ep (per-expert products over sorted
+    rows, the group sizes read once) == moe_dense within 2e-4 on the card,
+    bitwise repeatable, and == the CPU's moe_ep within 1e-5."""
+    from repro_torch.models import moe
+
+    torch.set_float32_matmul_precision("highest")
+    cfg, model = _lm_smoke("deepseek-v3-671b", cuda)
+    p = model.moe_blocks[0].moe
+    x = torch.randn(2, 32, cfg.d_model, generator=torch.Generator(device=cuda).manual_seed(3),
+                    device=cuda)
+    with torch.inference_mode():
+        ep, aux = moe.moe_ep(x, p, cfg.moe)
+        again, _ = moe.moe_ep(x, p, cfg.moe)
+        dense, aux_d = moe.moe_dense(x, p, cfg.moe)
+        host, _ = moe.moe_ep(x.cpu(), {k: v.cpu() for k, v in p.items()}, cfg.moe)
+    assert torch.equal(ep, again)
+    torch.testing.assert_close(ep, dense, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(aux, aux_d)
+    torch.testing.assert_close(ep.cpu(), host, rtol=1e-5, atol=1e-5)

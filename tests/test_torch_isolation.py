@@ -50,7 +50,12 @@ def test_port_files_found():
             "src/repro_torch/stream/service.py", "src/repro_torch/core/batched.py",
             "src/repro_torch/core/distributed.py", "src/repro_torch/graphs/partition.py",
             "src/repro_torch/core/collective.py", "src/repro_torch/analysis/framework.py",
-            "src/repro_torch/analysis/cli.py"} <= names
+            "src/repro_torch/analysis/cli.py", "src/repro_torch/models/layers.py",
+            "src/repro_torch/models/moe.py", "src/repro_torch/models/moe_tp.py",
+            "src/repro_torch/models/transformer.py", "src/repro_torch/launch/serve.py",
+            "src/repro_torch/configs/qwen2_5_3b.py", "src/repro_torch/configs/mistral_nemo_12b.py",
+            "src/repro_torch/configs/phi3_mini_3_8b.py", "src/repro_torch/configs/grok1_314b.py",
+            "src/repro_torch/configs/deepseek_v3_671b.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -74,7 +79,10 @@ def test_scan_catches_forbidden_imports(tmp_path):
                                    "FusedEngine", "GraphRegistry", "StreamService",
                                    "make_mesh", "pbahmani_distributed", "cbds_distributed",
                                    "gcn_init", "schnet_init", "egnn_init", "mace_init",
-                                   "gnn_params_from_jax", "build_step_gnn"])
+                                   "gnn_params_from_jax", "build_step_gnn",
+                                   "init_params", "Transformer", "init_cache",
+                                   "init_moe_params", "lm_params_from_jax", "build_step_lm",
+                                   "serve_batch"])
 def test_default_device_needs_cuda(monkeypatch, entry):
     """device=None means the GPU: with no CUDA it raises and names the way
     out, instead of running on the CPU."""
@@ -83,13 +91,17 @@ def test_default_device_needs_cuda(monkeypatch, entry):
     from repro_torch.configs import get_arch
     from repro_torch.graphs.generators import small_named
     from repro_torch.launch import build_step
-    from repro_torch.models import DCNv2, dcn_init, gnn_params_from_jax
+    from repro_torch.launch import serve_batch
+    from repro_torch.models import DCNv2, dcn_init, gnn_params_from_jax, lm_params_from_jax
     from repro_torch.models import gnn as tgnn
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import transformer as tlm
     from repro_torch.stream import (
         DeltaEngine, FusedEngine, FusedPool, GraphRegistry, StreamService,
     )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    qwen = get_arch("qwen2.5-3b").smoke
     calls = {"dcn_init": lambda: dcn_init(get_arch("dcn-v2").smoke),
              "build_step": lambda: build_step("dcn-v2", "serve_p99"),
              "DCNv2": lambda: DCNv2(get_arch("dcn-v2").smoke),
@@ -100,6 +112,14 @@ def test_default_device_needs_cuda(monkeypatch, entry):
              "make_mesh": lambda: tcore.make_mesh(),
              "gnn_params_from_jax": lambda: gnn_params_from_jax({}, get_arch("gcn-cora").smoke),
              "build_step_gnn": lambda: build_step("gcn-cora", "full_graph_sm"),
+             "init_params": lambda: tlm.init_params(qwen),
+             "Transformer": lambda: tlm.Transformer(qwen),
+             "init_cache": lambda: tlm.init_cache(qwen, 1, 4),
+             "init_moe_params": lambda: tmoe.init_moe_params(get_arch("grok-1-314b").smoke.moe, 1),
+             "lm_params_from_jax": lambda: lm_params_from_jax({}, qwen),
+             "build_step_lm": lambda: build_step("qwen2.5-3b", "decode_32k"),
+             "serve_batch": lambda: serve_batch(
+                 tlm.Transformer(qwen, device="cpu"), qwen, [[1, 2]], 2),
              **{f"{name}_init": functools.partial(getattr(tgnn, f"{name}_init"),
                                                   get_arch(arch).smoke)
                 for name, arch in (("gcn", "gcn-cora"), ("schnet", "schnet"),
