@@ -384,21 +384,25 @@ def wall_s(fn, runs: int) -> list[float]:
     return out
 
 
-def profile_call(fn, top: int | None = 6) -> dict:
+def profile_call(fn, top: int | None = 6, warm: bool = True, cpu: bool = True) -> dict:
     """Where one ``fn()`` call's time goes on the card, by torch.profiler:
     the device's busy time (the union of its kernel, memset and copy
     intervals), its idle share of the profiled window (host clock, so the
     profiler's own overhead counts as idle), and the busiest kernels. The
     ranges that ``obs`` spans name on the device timeline (``obs:<name>``)
     are annotations, not activity, and are left out. Empty when the
-    profiler records no device activity."""
+    profiler records no device activity. ``warm=False`` skips the warm call
+    before the profiled one (for a call already warm, seconds long);
+    ``cpu=False`` records the device's activity only (a train step's
+    million host ops take a minute to read back)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -4429,6 +4433,448 @@ def phase_lm(device: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: LM training (loss_fn, the MTP loss, microbatching, the LM train
+# kind, bfloat16 checkpoints) at published widths, bfloat16
+# ---------------------------------------------------------------------------
+# (a)-(c): the train kind at each config's published widths, depth and batch
+# cut (global_batch, microbatches are the arch's unless said)
+LM_TRAIN = {
+    "a": dict(arch="qwen2.5-3b", cut={}, gb=2, steps=3),   # all 36 layers; gb cut from 256
+    "b": dict(arch="grok-1-314b", cut=dict(n_layers=1), gb=8, steps=2),   # 1 of 64 layers
+    "c": dict(arch="deepseek-v3-671b", cut=dict(n_layers=3, n_dense_layers=3), gb=8, steps=2),
+}
+# (d): run_training at qwen2.5's widths cut to 2 layers, failures before steps 3 and 5
+LM_LOOP = dict(arch="qwen2.5-3b", cut=dict(n_layers=2), gb=2, steps=6, ckpt_every=2,
+               fails=(3, 5))
+LM_CPU_SEQ = 128   # (a)'s card-vs-CPU check: qwen2.5's widths at 2 layers, float32, 1 x 128
+# the loss on 128 tokens in float32: products of up to 11,008 terms in another order
+# (sqrt(11008) * 2^-24 ~ 6e-6 each) through 2 layers and a 151,936-way logsumexp
+LM_TRAIN_LOSS_RTOL = 1e-5
+# the step's gradient (mu / (1 - b1), each leaf, normwise): as LM_F32_NORMWISE
+LM_TRAIN_GRAD_NORMWISE = 1e-4
+FINGERPRINT_CHUNK = 1 << 26
+
+
+def fingerprint(tree) -> list:
+    """(key, sum, position-weighted sum) of every tensor leaf's bits, as
+    int64 sums mod 2^64: exact and independent of the summation order, so
+    two states with equal fingerprints are bitwise equal but for a
+    collision of both sums. One host read for the whole tree."""
+    import torch
+
+    from repro_torch.utils.tree import leaves_with_paths
+
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    keys, sums = [], []
+    for key, t in leaves_with_paths(tree):
+        bits = t.detach().reshape(-1).view(ints[t.element_size()])
+        s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+        s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+        for i in range(0, bits.numel(), FINGERPRINT_CHUNK):
+            c = bits[i:i + FINGERPRINT_CHUNK].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), dtype=torch.int64, device=t.device) % 65521 + 1
+            s1 += c.sum()
+            s2 += (c * w).sum()
+        keys.append(key)
+        sums.append(torch.stack([s1, s2]))
+    host = torch.stack(sums).cpu().tolist()
+    return [(k, a, b) for k, (a, b) in zip(keys, host)]
+
+
+class GradNorms:
+    """Records the global gradient norm each optimizer update computes
+    (``optim.optimizers.global_norm``, the clip's norm) while active, as
+    the 0-d tensors it returns: no host read in the step."""
+
+    def __enter__(self):
+        from repro_torch.optim import optimizers
+
+        self.mod, self.real, self.norms = optimizers, optimizers.global_norm, []
+
+        def recorded(tree):
+            out = self.real(tree)
+            self.norms.append(out)
+            return out
+
+        optimizers.global_norm = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.global_norm = self.real
+
+
+def lm_train_arch(name: str, cut: dict, gb: int, seq: int | None = None):
+    """The arch with its FULL config cut in depth (``cut``) and train_4k's
+    global batch (and, if given, its length) cut."""
+    from repro_torch.configs import get_arch
+
+    arch = get_arch(name)
+    shapes = tuple(dataclasses.replace(s, dims=dict(s.dims, global_batch=gb,
+                                                    **({"seq_len": seq} if seq else {})))
+                   if s.name == "train_4k" else s for s in arch.shapes)
+    return dataclasses.replace(arch, full=dataclasses.replace(arch.full, **cut), shapes=shapes)
+
+
+def lm_train_step(arch, device):
+    """``build_step(<arch>, "train_4k")`` with ``arch`` in place of the
+    registry's."""
+    from unittest import mock
+
+    from repro_torch.launch import build_step, steps
+
+    with mock.patch.object(steps, "get_arch", lambda _: arch):
+        return build_step(arch.name, "train_4k", device=device)
+
+
+def lm_train_batch(vocab: int, gb: int, seq: int, seed: int, device) -> dict:
+    """Seeded uniform token rows of length seq + 1 on the device: tokens
+    the first seq, labels the last seq."""
+    import torch
+
+    rows = torch.as_tensor(lm_prompts(gb, seq + 1, vocab, seed), device=device)
+    return {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
+
+
+def lm_train_state(cfg, arch, device, seed: int):
+    from repro_torch.launch import make_optimizer, train_state
+
+    return train_state(lm_model(cfg, device, seed), make_optimizer(arch.optimizer))
+
+
+def lm_train_case(label: str, spec: dict, device) -> dict:
+    """One train-kind case: step 1 twice from the same seeded state (made
+    anew for the second run, both fingerprinted: the state does not fit
+    twice beside a step) with bitwise equal results, then the other steps;
+    losses and gradient norms finite; each step after the warm first run
+    timed (the median), the second run's host syncs counted (2 a MoE layer a
+    microbatch under remat, 1 without, and no other), step 3 (or one more
+    step) profiled on the device; peak memory."""
+    import torch
+
+    arch = lm_train_arch(spec["arch"], spec["cut"], spec["gb"])
+    step = lm_train_step(arch, device)
+    cfg = step.cfg
+    seq = arch.shape("train_4k").dims["seq_len"]
+    gb, m = spec["gb"], arch.microbatches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batches = [lm_train_batch(cfg.vocab, gb, seq, seed=20 + i, device=device)
+               for i in range(spec["steps"])]
+    out = dict(arch=arch.name, layers=cfg.n_layers, moe_layers=cfg.n_moe_layers, batch=gb,
+               seq=seq, microbatches=m, accum=arch.grad_accum_dtype, optimizer=arch.optimizer,
+               flash=(cfg.flash_q_chunk, cfg.flash_k_chunk), remat=cfg.remat)
+    runs, walls, losses = [], [], []
+    with GradNorms() as gn:
+        for run in range(2):
+            t0 = time.perf_counter()
+            state = lm_train_state(cfg, arch, device, seed=0)
+            torch.cuda.synchronize()
+            out.setdefault("init_s", time.perf_counter() - t0)
+            before = fingerprint(state)
+            t0 = time.perf_counter()
+            if run:
+                out["host_syncs"], (p, o, loss) = count_syncs(
+                    lambda: step.fn(state["params"], state["opt"], batches[0]))
+            else:
+                p, o, loss = step.fn(state["params"], state["opt"], batches[0])
+            torch.cuda.synchronize()
+            if run:
+                walls.append(time.perf_counter() - t0)
+            else:
+                out["warm_s"] = time.perf_counter() - t0
+            del state
+            runs.append(dict(before=before, after=fingerprint({"params": p, "opt": o}),
+                             loss=float(loss), grad_norm=float(gn.norms[-1])))
+            if run == 0:
+                del p, o
+                torch.cuda.empty_cache()
+        check(runs[0] == runs[1], f"{label} {arch.name}: two runs of step 1 from one seeded state "
+              f"differ (loss {runs[0]['loss']} / {runs[1]['loss']}, gradient norm "
+              f"{runs[0]['grad_norm']} / {runs[1]['grad_norm']}, leaves "
+              f"{[a[0] for a, b in zip(runs[0]['after'], runs[1]['after']) if a != b][:5]})")
+        losses.append(runs[1]["loss"])
+        state = {"params": p, "opt": o}
+        del p, o
+        n_params = sum(t.numel() for t in state["params"].values())
+        out.update(params=n_params, param_bytes=tree_bytes(state["params"]),
+                   state_bytes=tree_bytes(state))
+        for i in range(1, spec["steps"]):
+            def one(i=i):
+                return step.fn(state["params"], state["opt"], batches[i])
+            if i == 2:   # step 3 ((a)): profiled, not timed
+                kept = []
+                out["profile"] = profile_call(lambda: kept.append(one()), warm=False, cpu=False)
+                (p, o, loss), = kept
+                del kept
+            else:
+                t0 = time.perf_counter()
+                p, o, loss = one()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            state = {"params": p, "opt": o}
+            del p, o
+            losses.append(float(loss))
+        norms = [float(x) for x in gn.norms]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"{label} {arch.name}: losses {losses} or gradient norms {norms} not finite")
+    out.update(losses=losses, grad_norms=norms, walls_s=walls,
+               step_ms=statistics.median(walls) * 1e3)
+    out["tokens_per_s"] = gb * seq / (out["step_ms"] / 1e3)
+    out["model_flops"] = step.meta["model_flops"]
+    out["tflops_per_s"] = step.meta["model_flops"] / (out["step_ms"] / 1e3) / 1e12
+    syncs = out["host_syncs"]
+    want = cfg.n_moe_layers * m * (2 if cfg.remat else 1)
+    check(syncs == want, f"{label} {arch.name}: a step made {syncs} host syncs, not {want} (the "
+          f"MoE layers' group sizes, read again by the remat)")
+    if "profile" not in out:   # one more step, profiled
+        out["profile"] = profile_call(
+            lambda: step.fn(state["params"], state["opt"], batches[-1]), warm=False, cpu=False)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    prof = out["profile"]
+    log(f"  ({label}) {arch.name}: {cfg.n_layers} layers ({cfg.n_moe_layers} MoE), {n_params} "
+        f"parameters, {gb} x {seq} tokens, {m} microbatches accumulated in "
+        f"{arch.grad_accum_dtype}, {arch.optimizer}, flash chunks {out['flash']}, remat "
+        f"{cfg.remat}: two runs of step 1 "
+        f"bitwise equal (fingerprints of every leaf, loss {runs[1]['loss']!r}, gradient norm "
+        f"{runs[1]['grad_norm']!r}); losses {losses}, gradient norms {norms}; step "
+        f"{out['step_ms']:.1f} ms median of {walls} s ({out['tokens_per_s']:.1f} tokens/s, "
+        f"{out['tflops_per_s']:.1f} TFLOP/s of model flops); host syncs a step {syncs}; profiled "
+        f"step: busy {prof.get('busy_ms', float('nan')):.1f} ms, idle "
+        f"{100 * prof.get('idle_share', float('nan')):.1f} %, {prof.get('device_launches')} "
+        f"launches, top {prof.get('top_ms')}; peak {out['peak_bytes']} bytes; state "
+        f"{out['state_bytes']} bytes")
+    out["state"] = state
+    return out
+
+
+def lm_update_ms(opt, state) -> dict:
+    """The optimizer's update of ``state`` with gradients of the parameters'
+    dtype: device time (CUDA events, 3 calls after a warm one) against its
+    byte bound (the parameters and the optimizer state read and written
+    once, the gradients read once, at 3.35 TB/s)."""
+    import torch
+
+    params, opt_state = state["params"], state["opt"]
+    grads = {k: torch.full_like(v, 1e-3) for k, v in params.items()}
+    ms = time_ms(lambda: opt.update(grads, opt_state, params), iters=3)
+    n_bytes = 2 * tree_bytes(params) + tree_bytes(grads) + 2 * tree_bytes(opt_state)
+    del grads
+    return dict(ms=ms, bytes=n_bytes, bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3)
+
+
+def lm_train_on_cpu(device) -> dict:
+    """(a)'s step 1 at qwen2.5's widths cut to 2 layers, float32 (TF32 off),
+    on 1 x LM_CPU_SEQ tokens, from the same weights (drawn on the CPU and
+    copied), as test_lm_forward_on_card_matches_cpu holds the forward: the
+    train kind's loss on the card against ``loss_fn`` on the CPU within rtol
+    LM_TRAIN_LOSS_RTOL, and each leaf's ``mu`` (``(1 - b1)`` x the clipped
+    gradient) against the CPU's gradient so scaled within
+    LM_TRAIN_GRAD_NORMWISE normwise."""
+    import torch
+
+    from repro_torch.launch import make_optimizer
+    from repro_torch.models import loss_fn
+
+    torch.set_float32_matmul_precision("highest")
+    t0 = time.perf_counter()
+    arch = lm_train_arch("qwen2.5-3b", dict(n_layers=2, param_dtype=torch.float32,
+                                            compute_dtype=torch.float32), 1, LM_CPU_SEQ)
+    cfg = arch.full
+    model = lm_model(cfg, "cpu", seed=4)
+    batch = lm_train_batch(cfg.vocab, 1, LM_CPU_SEQ, seed=4, device="cpu")
+    leaves = {k: v.detach().requires_grad_() for k, v in model.named_parameters()}
+    loss_cpu = loss_fn(model, batch["tokens"], batch["labels"], cfg, leaves)
+    g_cpu = dict(zip(leaves, torch.autograd.grad(loss_cpu, list(leaves.values()))))
+    cpu_s = time.perf_counter() - t0
+    card = {k: v.detach().to(device) for k, v in leaves.items()}
+    del leaves, model
+    opt = make_optimizer(arch.optimizer)
+    _, o_card, loss_card = lm_train_step(arch, device).fn(
+        card, opt.init(card), {k: v.to(device) for k, v in batch.items()})
+    a = ADAMW_STEP1
+    norm = float(torch.sqrt(sum(g.square().sum() for g in g_cpu.values())))
+    clip = min(1.0, a["grad_clip"] / norm)
+    rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    errs = {k: normwise(o_card["mu"][k], (1 - a["b1"]) * clip * g) for k, g in g_cpu.items()}
+    worst = max(errs, key=errs.get)
+    check(rel <= LM_TRAIN_LOSS_RTOL, f"(a) at 2 layers, float32: the card's step-1 loss "
+          f"{float(loss_card)!r} misses the CPU's {float(loss_cpu)!r} by {rel}")
+    check(errs[worst] <= LM_TRAIN_GRAD_NORMWISE, f"(a) at 2 layers, float32: the card's "
+          f"gradient of {worst} misses the CPU's by {errs[worst]} normwise")
+    del card, o_card, g_cpu
+    torch.cuda.empty_cache()
+    out = dict(loss_card=float(loss_card), loss_cpu=float(loss_cpu), loss_rel=rel,
+               worst_grad=(worst, errs[worst]), wall_s=time.perf_counter() - t0, cpu_s=cpu_s)
+    log(f"  (a) card vs CPU, qwen2.5's widths at 2 layers, float32, 1 x {LM_CPU_SEQ} tokens: "
+        f"step-1 loss {out['loss_card']!r} vs {out['loss_cpu']!r} (rel {rel:.3g} <= "
+        f"{LM_TRAIN_LOSS_RTOL}), worst gradient leaf {worst} {errs[worst]:.3g} normwise (<= "
+        f"{LM_TRAIN_GRAD_NORMWISE}); {out['wall_s']:.1f} s ({cpu_s:.1f} s on the CPU)")
+    return out
+
+
+def lm_train_loop(device) -> dict:
+    """(d): run_training of the train kind at qwen2.5's widths cut to 2
+    layers, bfloat16, AdamW: an uninterrupted run of LM_LOOP's steps, then
+    one with async checkpoints every ckpt_every steps in JAX's layout
+    (``LM_STATE_LAYOUT``, keep=1) and failures before steps ``fails``:
+    losses and every final leaf bitwise equal, and the newest checkpoint
+    restored onto the card bitwise equal to the final state (its bfloat16
+    parameters included). Snapshot, write and restore seconds."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import LoopConfig, make_optimizer, restore_elastic, run_training
+    from repro_torch.models import LM_STATE_LAYOUT
+
+    spec = LM_LOOP
+    arch = lm_train_arch(spec["arch"], spec["cut"], spec["gb"])
+    step = lm_train_step(arch, device)
+    cfg = step.cfg
+    seq = arch.shape("train_4k").dims["seq_len"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def init_state():
+        return lm_train_state(cfg, arch, device, seed=7)
+
+    def step_fn(state, batch):
+        p, o, loss = step.fn(state["params"], state["opt"], batch)
+        return {"params": p, "opt": o}, loss
+
+    def data(start):
+        i = start
+        while True:
+            yield lm_train_batch(cfg.vocab, spec["gb"], seq, seed=100 + i, device=device)
+            i += 1
+
+    loop = LoopConfig(total_steps=spec["steps"], ckpt_every=spec["ckpt_every"])
+    t0 = time.perf_counter()
+    ref = run_training(step_fn, init_state, data, None, loop)
+    out = dict(steps=spec["steps"], ckpt_every=spec["ckpt_every"], fails=spec["fails"],
+               uninterrupted_s=time.perf_counter() - t0, losses=ref.losses)
+    n_bytes = tree_bytes(ref.final_state)
+    tmp_root = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp_root).free
+    out.update(checkpoint_bytes=n_bytes, free_bytes=free)
+    check(free >= 2 * n_bytes, f"(d): {free} bytes free under {tmp_root}: too small for two "
+          f"checkpoints of {n_bytes} bytes")
+
+    class TimedCheckpoints(CheckpointManager):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.times = dict(snapshot_s=[], write_s=[], restore_s=[])
+
+        def save(self, step_, state, blocking=False):
+            self.wait()  # the snapshot below is timed alone
+            t0_ = time.perf_counter()
+            host = super().save(step_, state, blocking)
+            self.times["snapshot_s"].append(time.perf_counter() - t0_)
+            return host
+
+        def _write(self, step_, host_state):
+            t0_ = time.perf_counter()
+            super()._write(step_, host_state)
+            self.times["write_s"].append(time.perf_counter() - t0_)
+
+        def restore(self, target, step=None):
+            t0_ = time.perf_counter()
+            res_ = super().restore(target, step)
+            self.times["restore_s"].append(time.perf_counter() - t0_)
+            return res_
+
+    fails = set(spec["fails"])
+
+    def inject(s):
+        if s in fails:
+            fails.discard(s)
+            raise RuntimeError(f"simulated worker loss at step {s}")
+
+    ckpt_dir = tempfile.mkdtemp(prefix="smoke_lm_ckpt_")
+    try:
+        ckpt = TimedCheckpoints(ckpt_dir, keep=1, async_save=True, layout=LM_STATE_LAYOUT)
+        t0 = time.perf_counter()
+        res = run_training(step_fn, init_state, data, ckpt, loop, failure_injector=inject)
+        out["failure_run_s"] = time.perf_counter() - t0
+        with open(os.path.join(ckpt_dir, f"step_{spec['steps']}", "manifest.json")) as f:
+            keys = json.load(f)["leaves"]
+        last, restored = restore_elastic(ckpt, res.final_state, device=device)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    a, b = spec["fails"]
+    e = spec["ckpt_every"]
+    want = ref.losses[:a] + ref.losses[a - a % e:b] + ref.losses[b - b % e:]
+    check(res.restarts == 2 and res.losses == want,
+          f"(d): restarts {res.restarts}, losses {res.losses}, not {want}")
+    check(same_tensors(res.final_state, ref.final_state),
+          "(d): the run with two failures ends with other tensors than the uninterrupted run")
+    check(last == spec["steps"] and same_tensors(restored, ref.final_state),
+          "(d): the newest checkpoint restored onto the card is not the final state bit for bit")
+    check("params/dense_blocks/attn/wq" in keys and "opt/nu/embed" in keys,
+          f"(d): the checkpoint's keys are not JAX's: {sorted(keys)[:4]}")
+    out.update({k: v for k, v in ckpt.times.items()})
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["update"] = lm_update_ms(make_optimizer(arch.optimizer), ref.final_state)
+    del ref, res, restored
+    torch.cuda.empty_cache()
+    log(f"  (d) run_training at qwen2.5's widths, 2 layers, bf16, AdamW, {spec['steps']} steps of "
+        f"{spec['gb']} x {seq}: failures before steps {spec['fails']} with async checkpoints "
+        f"every {e} steps in JAX's layout ({n_bytes} bytes each, keep=1): restarts 2, losses "
+        f"and every final leaf bitwise equal to the uninterrupted run, the newest checkpoint "
+        f"restored onto the card bitwise (bf16 parameters included); runs "
+        f"{out['uninterrupted_s']:.1f} / {out['failure_run_s']:.1f} s; snapshots "
+        f"{ckpt.times['snapshot_s']} s, writes {ckpt.times['write_s']} s, restores "
+        f"{ckpt.times['restore_s']} s; AdamW update {out['update']['ms']:.2f} ms against a "
+        f"{out['update']['bound_ms']:.2f} ms bound ({out['update']['bytes']} bytes at 3.35 TB/s); "
+        f"peak {out['peak_bytes']} bytes")
+    return out
+
+
+def phase_lm_train(device: str) -> dict:
+    """Phase 18: LM training at published widths in bfloat16 (random seeded
+    weights, seeded uniform tokens): (a) qwen2.5-3b FULL, all 36 layers,
+    AdamW, with the card-vs-CPU check at 2 layers in float32; (b) grok-1 cut
+    to 1 layer, 8 microbatches in bf16, Adafactor: the MoE backward; (c)
+    deepseek-v3 cut to its 3 dense layers with its MTP block: MLA's backward
+    and the MTP loss, Adafactor, 8 microbatches; (d) the fault-tolerant loop
+    with bfloat16 checkpoints in JAX's layout. No kernel of K1-K5 runs on
+    this path. Returns the numbers."""
+    import torch
+
+    from repro_torch.kernels import embed
+    from repro_torch.launch import make_optimizer
+
+    t_phase = time.perf_counter()
+    zero_launch_counts()
+    k5 = embed.launches
+    torch.set_float32_matmul_precision("highest")
+    out: dict = {}
+    for label, spec in LM_TRAIN.items():
+        res = lm_train_case(label, spec, device)
+        state = res.pop("state")
+        if label == "c":
+            res["update"] = lm_update_ms(make_optimizer(res["optimizer"]), state)
+            log(f"  (c) Adafactor update of {res['params']} parameters: "
+                f"{res['update']['ms']:.2f} ms against a {res['update']['bound_ms']:.2f} ms "
+                f"bound ({res['update']['bytes']} bytes at 3.35 TB/s)")
+        del state
+        torch.cuda.empty_cache()
+        out[label] = res
+        if label == "a":
+            out["a_card_vs_cpu"] = lm_train_on_cpu(device)
+    out["d"] = lm_train_loop(device)
+    launches = launch_counts()
+    check(not any(launches.values()) and embed.launches == k5,
+          f"phase 18's LM training launched a kernel of K1-K5: {launches}, K5 "
+          f"{embed.launches - k5}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--rows"]):
         print(f"usage: python3 chip_smoke.py [--rows]; got {argv}", file=sys.stderr)
@@ -4573,6 +5019,11 @@ def main(argv: list[str]) -> int:
     lm_times = phase_lm(device)
     log(f"  phase 17 took {lm_times['phase_s']:.3f} s; no kernel of K1-K5 on its path")
 
+    log("phase 18: LM training (qwen2.5 FULL at 36 layers, grok-1 at 1 layer, deepseek-v3's 3 "
+        "dense layers with MTP, the checkpointed loop) at published widths, bfloat16")
+    lm_train_times = phase_lm_train(device)
+    log(f"  phase 18 took {lm_train_times['phase_s']:.3f} s; no kernel of K1-K5 on its path")
+
     k2_launches = (peel_launches + cbds_launches + pruned_launches["peel_edges"]
                    + fallback_launches + refine_launches + stream_launches["peel_edges"]
                    + fused_launches["peel_edges"] + shard_launches["peel_edges"]
@@ -4647,6 +5098,7 @@ def main(argv: list[str]) -> int:
                     "train": train_times,
                     "gnn": gnn_times,
                     "lm": lm_times,
+                    "lm_train": lm_train_times,
                     "k2_rows": k2_rows,
                     "k1_rows": k1_rows,
                     "smoke_s": time.perf_counter() - t_start}, default=str))

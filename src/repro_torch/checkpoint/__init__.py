@@ -1,4 +1,4 @@
 # Checkpoints on the JAX package's disk format (manager.py).
-from repro_torch.checkpoint.manager import CheckpointManager, snapshot
+from repro_torch.checkpoint.manager import CheckpointManager, Layout, snapshot
 
-__all__ = ["CheckpointManager", "snapshot"]
+__all__ = ["CheckpointManager", "Layout", "snapshot"]

@@ -11,21 +11,31 @@ LM ``prefill`` and ``decode`` kinds, ``_recsys_step``, ``_gnn_train`` and
   serve     fn(model, batch) -> CTR logits [B]
   retrieval fn(model, batch) -> scores [Q, C]
 
-The LM kinds take a ``models.transformer.Transformer`` and run it with the
-step's config (``arch.full`` with the reference's changes: ``flash_q_chunk
-= seq`` for prefill, a 4,096-entry sliding window for long_500k on the GQA
-archs), under ``torch.inference_mode()``. Prefill computes the logits of
-the last position only (``transformer.prefill``): the same output as the
-reference's ``logits[:, -1]``. The decode kind writes the cache in place
-(the reference donates it); give it ``init_cache(cfg, batch, seq)`` of the
-step's config. The LM ``train`` kind raises ``NotImplementedError``: LM
-training is ROADMAP.md section 1, item 6d-ii.
+The LM serving kinds take a ``models.transformer.Transformer`` and run it
+with the step's config (``arch.full`` with the reference's changes:
+``flash_q_chunk = seq`` for prefill, a 4,096-entry sliding window for
+long_500k on the GQA archs), under ``torch.inference_mode()``. Prefill
+computes the logits of the last position only (``transformer.prefill``):
+the same output as the reference's ``logits[:, -1]``. The decode kind
+writes the cache in place (the reference donates it); give it
+``init_cache(cfg, batch, seq)`` of the step's config.
+
+The LM ``train`` kind is the reference's ``_lm_train`` at n_dev = 1: the
+"zero3" layout (``arch.train_layout``; qwen2.5, phi3) runs ``flash_q_chunk
+= flash_k_chunk = min(1024, seq)``, every other arch ``flash_q_chunk =
+seq`` and ``flash_k_chunk = min(1024, seq)``. The ``[gb, seq]`` batch's
+rows split into ``arch.microbatches`` microbatches; each one's gradient
+``g`` is added as ``(g / m)`` cast to ``arch.grad_accum_dtype`` (bfloat16
+for deepseek-v3 and grok-1) and its loss as ``loss / m``; then one update by
+the arch's optimizer. It takes ``train_state``'s ``{"params", "opt"}`` of a
+``Transformer`` and a ``data.lm_token_batches`` batch.
 
 The serve kinds take the model (``models.recsys.DCNv2``, which carries its
 config: ``multi_hot`` and ``kernel`` are the model's) and a batch of numpy
 arrays or tensors, move the batch to the step's device and run under
-``torch.inference_mode()``. The train kind (DCN-v2's ``train_batch``, every
-shape of the GNN archs) is pure: it takes a ``named_parameters`` dict
+``torch.inference_mode()``. The train kind (the LMs' ``train_4k``, DCN-v2's
+``train_batch``, every shape of the GNN archs) is pure: it takes a
+``named_parameters`` dict
 (``train_state`` builds the first ``{"params", "opt"}`` from a model), runs
 the arch's loss on a skeleton of the config through
 ``torch.func.functional_call``, differentiates it and returns new tensors
@@ -56,6 +66,7 @@ from repro_torch.core.dispatch import resolve_device, resolve_kernel
 from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as rec_mod
 from repro_torch.models import transformer as lm_mod
+from repro_torch.models.layers import _scalar
 from repro_torch.optim import Optimizer, adafactor, adamw, sgdm
 
 
@@ -129,18 +140,23 @@ def _train_step(arch: Arch, skeleton: torch.nn.Module, loss_fn: Callable, extra:
                 if isinstance(v, (np.ndarray, torch.Tensor)) else v
                 for k, v in batch.items()}
         feed.update(extra)
-        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
-        with torch.enable_grad():
-            loss = loss_fn(skeleton, feed, leaves)
-            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-        # a leaf the loss does not reach (EGNN's last phi_x) has a zero
-        # gradient, as in jax.grad
-        grads = {k: torch.zeros_like(v) if g is None else g
-                 for (k, v), g in zip(leaves.items(), grads)}
+        loss, grads = _value_and_grad(lambda leaves: loss_fn(skeleton, feed, leaves), params)
         new_p, new_o = opt.update(grads, opt_state, params)
-        return new_p, new_o, loss.detach()
+        return new_p, new_o, loss
 
     return StepBundle(name=name, kind="train", fn=train, meta=meta)
+
+
+def _value_and_grad(loss_of: Callable, params: dict) -> tuple[torch.Tensor, dict]:
+    """(``loss_of(params)`` detached, its gradient by name): ``jax.value_and_grad``
+    over a dict of tensors, which stay untouched. A leaf the loss does not
+    reach (EGNN's last phi_x) has a zero gradient, as in ``jax.grad``."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    with torch.enable_grad():
+        loss = loss_of(leaves)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return loss.detach(), {k: torch.zeros_like(v) if g is None else g
+                           for (k, v), g in zip(leaves.items(), grads)}
 
 
 def _dcn_train(arch: Arch, cfg: rec_mod.DCNConfig, b: int, per_row: float,
@@ -217,13 +233,16 @@ def _lm_cache_bytes(cfg: lm_mod.TransformerConfig, batch: int, seq: int) -> int:
 
 
 def _lm_model_flops(cfg: lm_mod.TransformerConfig, kind: str, batch: int, seq: int) -> float:
-    """Analytic step FLOPs: 2*N_active*D (+attention) for prefill/decode
-    (JAX's formula; its train branch comes with the train kind)."""
+    """Analytic step FLOPs (JAX's formula): 6*N_active*D (+causal
+    attention) for train, 2*N_active*D (+attention) for prefill/decode."""
     n_act = cfg.n_active_params()
     if cfg.attn == "mla":
         attn_tok = 2 * cfg.n_heads * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
     else:
         attn_tok = 4 * cfg.n_heads * cfg.hd
+    if kind == "train":
+        attn = 3 * cfg.n_layers * batch * seq * (seq / 2) * attn_tok / 2
+        return 6.0 * n_act * batch * seq + attn
     if kind == "prefill":
         attn = cfg.n_layers * batch * seq * (seq / 2) * attn_tok / 2
         return 2.0 * n_act * batch * seq + attn
@@ -233,13 +252,20 @@ def _lm_model_flops(cfg: lm_mod.TransformerConfig, kind: str, batch: int, seq: i
 
 
 def _lm_model_bytes(cfg: lm_mod.TransformerConfig, kind: str, batch: int, seq: int,
-                    p_bytes: int, cache_bytes: int) -> float:
-    """Analytic HBM traffic of one prefill or decode step (JAX's
-    ``_lm_model_bytes`` at n_dev = 1): parameter streams, activations, the
-    KV cache."""
-    n_dev = 1
+                    p_bytes: int, cache_bytes: int = 0, m: int = 1) -> float:
+    """Analytic HBM traffic of one step (JAX's ``_lm_model_bytes`` at n_dev
+    = 1 and a model axis of 1): parameter streams (for train, forward and
+    backward reads a microbatch plus the optimizer's read-modify-write),
+    activations, logits, the KV cache."""
+    n_dev = tp = 1
     p_dev = p_bytes / n_dev
     ab = 2  # bf16 activations
+    if kind == "train":
+        t_sp = batch * seq / max(n_dev, 1)
+        param_traffic = p_dev * (4 * m + 6)
+        act = 10 * cfg.n_layers * t_sp * cfg.d_model * ab
+        logits = 3.0 * batch * seq / (n_dev / tp) * (cfg.vocab / tp) * 4
+        return param_traffic + act + logits
     cache = cache_bytes / n_dev
     if kind == "prefill":
         t_dev = batch * seq / n_dev
@@ -291,14 +317,62 @@ def _lm_decode(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
               "tokens": gb}, cfg=cfg)
 
 
+def _lm_train(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
+    gb, seq = shape.dims["global_batch"], shape.dims["seq_len"]
+    if arch.train_layout == "zero3":   # n_dev = 1 divides every batch
+        cfg = replace(arch.full, flash_q_chunk=min(1024, seq), flash_k_chunk=min(1024, seq))
+    else:
+        cfg = replace(arch.full, flash_q_chunk=seq, flash_k_chunk=min(1024, seq))
+    m = arch.microbatches
+    if gb % m:
+        raise ValueError(f"{arch.name}: global batch {gb} is not a multiple of "
+                         f"{m} microbatches")
+    name = f"{arch.name}:{shape.name}"
+    opt = make_optimizer(arch.optimizer)
+    acc_dt = getattr(torch, arch.grad_accum_dtype)   # "float32" or "bfloat16"
+    skeleton = lm_mod.Transformer(cfg, device="meta")
+
+    def grad(tok, lab, params):
+        return _value_and_grad(lambda leaves: lm_mod.loss_fn(skeleton, tok, lab, cfg, leaves),
+                               params)
+
+    def train(params, opt_state, batch):
+        _check_precision()
+        _check_on(name, device, next(iter(params.values())).device, "the parameters are")
+        tokens = torch.as_tensor(batch["tokens"], device=device)
+        labels = torch.as_tensor(batch["labels"], device=device)
+        if m == 1:
+            loss, grads = grad(tokens, labels, params)
+        else:
+            toks = tokens.reshape(m, gb // m, seq)
+            labs = labels.reshape(m, gb // m, seq)
+            # the accumulator is the step's own: added to in place, leaf by leaf
+            grads = {k: torch.zeros(v.shape, dtype=acc_dt, device=device)
+                     for k, v in params.items()}
+            loss = torch.zeros((), dtype=torch.float32, device=device)
+            for i in range(m):
+                loss_i, g = grad(toks[i], labs[i], params)
+                for k in grads:
+                    gk = g.pop(k)
+                    grads[k].add_((gk / _scalar(m, gk, gk.dtype)).to(acc_dt))
+                loss = loss + loss_i / _scalar(m, loss_i)
+        new_p, new_o = opt.update(grads, opt_state, params)
+        return new_p, new_o, loss
+
+    return StepBundle(
+        name=name, kind="train", fn=train,
+        meta={"model_flops": _lm_model_flops(cfg, "train", gb, seq),
+              "model_bytes_dev": _lm_model_bytes(cfg, "train", gb, seq, _lm_param_bytes(cfg),
+                                                 m=m),
+              "tokens": gb * seq}, cfg=cfg)
+
+
 def _lm_step(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
     if shape.kind == "prefill":
         return _lm_prefill(arch, shape, device)
     if shape.kind == "decode":
         return _lm_decode(arch, shape, device)
-    raise NotImplementedError(
-        f"{arch.name}:{shape.name}: the LM {shape.kind} kind (loss_fn, the MTP loss, "
-        f"microbatching) is not ported yet: ROADMAP.md section 1, item 6d-ii")
+    return _lm_train(arch, shape, device)
 
 
 # ===========================================================================
@@ -389,7 +463,7 @@ def _gnn_train(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
 
 def build_step(arch_name: str, shape_name: str, device=None) -> StepBundle:
     """The step of one cell on ``device`` (None means the GPU, and raises
-    without one). The LM train kind raises ``NotImplementedError``."""
+    without one)."""
     device = resolve_device(device)
     arch = get_arch(arch_name)
     shape = arch.shape(shape_name)

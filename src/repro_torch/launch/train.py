@@ -68,11 +68,12 @@ class LoopResult:
 
 
 def _place(host, template, device: torch.device | None = None):
-    """The host tree ``host`` on a device: each leaf where ``device`` says,
+    """The host tree ``host`` (numpy leaves, and CPU tensors where the
+    checkpoint held bfloat16) on a device: each leaf where ``device`` says,
     else where ``template``'s leaf lives, with the template tensor's dtype
     (a numpy leaf keeps its own; Python scalars stay Python)."""
     def put(h, ref):
-        if not isinstance(h, np.ndarray):
+        if not isinstance(h, (np.ndarray, torch.Tensor)):
             return h
         if isinstance(ref, torch.Tensor):
             return torch.as_tensor(h, dtype=ref.dtype,

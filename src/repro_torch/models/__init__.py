@@ -1,9 +1,11 @@
 # Model zoo: DCN-v2 with its EmbeddingBag over K5 (recsys.py), the GNNs with
 # their message passing over K1 (gnn.py), the transformer family's serving
-# path (layers.py, moe.py, moe_tp.py, transformer.py), and the carrying-across
-# of the JAX package's parameters (convert.py).
+# path and training loss (layers.py, moe.py, moe_tp.py, transformer.py), and
+# the carrying-across of the JAX package's parameters and LM train state
+# (convert.py).
 from repro_torch.models.convert import (
-    dcn_params_from_jax, gnn_params_from_jax, lm_params_from_jax,
+    LM_STATE_LAYOUT, dcn_params_from_jax, gnn_params_from_jax, lm_params_from_jax,
+    lm_state_from_jax, lm_state_to_jax,
 )
 from repro_torch.models.gnn import (
     EGNN, GCN, MACE, EGNNConfig, GCNConfig, MACEConfig, SchNet, SchNetConfig,
@@ -16,7 +18,8 @@ from repro_torch.models.recsys import (
     DCNConfig, DCNv2, dcn_forward, dcn_init, dcn_loss, embedding_bag, retrieval_score,
 )
 from repro_torch.models.transformer import (
-    Transformer, TransformerConfig, decode_step, forward, init_cache, init_params, prefill,
+    Transformer, TransformerConfig, decode_step, forward, init_cache, init_params, loss_fn,
+    prefill,
 )
 
 __all__ = ["DCNConfig", "DCNv2", "dcn_forward", "dcn_init", "dcn_loss",
@@ -28,4 +31,5 @@ __all__ = ["DCNConfig", "DCNv2", "dcn_forward", "dcn_init", "dcn_loss",
            "gnn_params_from_jax",
            "MoEConfig", "init_moe_params", "moe_dense", "moe_ep", "moe_tp",
            "TransformerConfig", "Transformer", "init_params", "forward", "prefill",
-           "init_cache", "decode_step", "lm_params_from_jax"]
+           "loss_fn", "init_cache", "decode_step", "lm_params_from_jax",
+           "lm_state_to_jax", "lm_state_from_jax", "LM_STATE_LAYOUT"]

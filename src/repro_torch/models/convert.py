@@ -12,12 +12,21 @@ init_params`` and unstacks each ``[L, ...]`` leaf into its layer's
 parameter; the transformer keeps JAX's ``[in, out]`` layout, so nothing is
 transposed. A bfloat16 leaf goes through float32 (exact) into the
 parameter's dtype.
+
+``lm_state_to_jax`` and ``lm_state_from_jax`` carry a whole LM train state
+(``{"params", "opt"}``, the optimizer's state any of JAX's three trees) to
+and from JAX's layout: the port's per-layer leaves (``dense_blocks.3.attn.wq``)
+stacked into JAX's ``[L, ...]`` leaves (``dense_blocks/attn/wq``), and back,
+with no change of value or dtype. ``LM_STATE_LAYOUT`` is that pair for the
+checkpoint manager, so the LM train loop's checkpoints hold JAX's keys,
+shapes and bytes.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import Layout
 from repro_torch.core.dispatch import resolve_device
 from repro_torch.models import gnn
 from repro_torch.models.recsys import DCNConfig, DCNv2
@@ -144,4 +153,114 @@ def lm_params_from_jax(tree: dict, cfg: TransformerConfig, device=None) -> Trans
     return model
 
 
-__all__ = ["dcn_params_from_jax", "gnn_params_from_jax", "lm_params_from_jax"]
+_BLOCKS = ("dense_blocks", "moe_blocks")
+
+
+def _jax_place(name: str) -> tuple[tuple, int | None]:
+    """(JAX's key path, layer index or None) of a port parameter name:
+    ``dense_blocks.3.attn.wq`` -> (("dense_blocks", "attn", "wq"), 3), the
+    MTP block's ``mtp.block.ln1`` -> (("mtp", "block", "ln1"), 0) (a stack
+    of one), ``embed`` -> (("embed",), None)."""
+    parts = name.split(".")
+    if parts[0] in _BLOCKS:
+        return (parts[0], *parts[2:]), int(parts[1])
+    if parts[:2] == ["mtp", "block"]:
+        return tuple(parts), 0
+    return tuple(parts), None
+
+
+def _stack(items: list):
+    """The leaves of like subtrees stacked on a new leading axis (numpy or
+    torch, as the leaves are)."""
+    if isinstance(items[0], dict):
+        return {k: _stack([it[k] for it in items]) for k in items[0]}
+    return (torch.stack if isinstance(items[0], torch.Tensor) else np.stack)(items)
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _set(tree: dict, path: tuple, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _get(tree: dict, path: tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _named_to_jax(named: dict) -> dict:
+    """A dict by port parameter name (each value a leaf or a subtree, as an
+    Adafactor moment's ``{"vr", "vc"}``) as JAX's nested tree."""
+    layers: dict = {}
+    out: dict = {}
+    for name, value in named.items():
+        path, i = _jax_place(name)
+        if i is None:
+            _set(out, path, value)
+        else:
+            layers.setdefault(path, {})[i] = value
+    for path, by_layer in layers.items():
+        if sorted(by_layer) != list(range(len(by_layer))):
+            raise ValueError(f"{'/'.join(path)}: layers {sorted(by_layer)} are not 0..L-1")
+        _set(out, path, _stack([by_layer[i] for i in range(len(by_layer))]))
+    return out
+
+
+def _param_names(params: dict, prefix: tuple = ()) -> list[tuple[str, tuple, int | None]]:
+    """(port name, JAX path, layer index) of every parameter of JAX's
+    nested parameter tree (array leaves)."""
+    out = []
+    for key, value in params.items():
+        path = prefix + (key,)
+        if isinstance(value, dict):
+            out += _param_names(value, path)
+        elif path[0] in _BLOCKS:
+            out += [(f"{path[0]}.{i}.{'.'.join(path[1:])}", path, i) for i in range(value.shape[0])]
+        elif path[:2] == ("mtp", "block"):
+            if value.shape[0] != 1:
+                raise ValueError(f"{'/'.join(path)}: the MTP block stacks {value.shape[0]} "
+                                 f"layers, not 1")
+            out.append((".".join(path), path, 0))
+        else:
+            out.append((".".join(path), path, None))
+    return out
+
+
+def lm_state_to_jax(state: dict) -> dict:
+    """The port's LM train state ``{"params": {name: leaf}, "opt": {"step",
+    <moment>: {name: leaf or subtree}}}`` in JAX's layout: per-layer leaves
+    stacked into JAX's ``[L, ...]`` leaves under JAX's nested keys (the
+    optimizer's moments as its tree over the parameters). Leaves may be
+    tensors (any device, ``"meta"`` for shapes only) or numpy arrays; the
+    stack is of the same kind."""
+    opt = {k: _named_to_jax(v) if isinstance(v, dict) else v for k, v in state["opt"].items()}
+    return {"params": _named_to_jax(state["params"]), "opt": opt}
+
+
+def lm_state_from_jax(tree: dict) -> dict:
+    """JAX's LM train state (``{"params", "opt"}`` of JAX's trees, numpy or
+    tensor leaves) in the port's layout, by parameter name: each stacked
+    leaf's layer ``i`` (a view) under ``<group>.<i>.<key>``. The inverse of
+    ``lm_state_to_jax``."""
+    names = _param_names(tree["params"])
+
+    def named(t: dict) -> dict:
+        return {name: (_get(t, path) if i is None else _index(_get(t, path), i))
+                for name, path, i in names}
+
+    opt = {k: named(v) if isinstance(v, dict) else v for k, v in tree["opt"].items()}
+    return {"params": named(tree["params"]), "opt": opt}
+
+
+LM_STATE_LAYOUT = Layout(lm_state_to_jax, lm_state_from_jax)
+
+
+__all__ = ["dcn_params_from_jax", "gnn_params_from_jax", "lm_params_from_jax",
+           "lm_state_to_jax", "lm_state_from_jax", "LM_STATE_LAYOUT"]

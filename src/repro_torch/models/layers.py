@@ -19,6 +19,7 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 F32 = torch.float32
 MASKED = -1e30   # the reference's fill for masked scores
@@ -124,6 +125,24 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     return _weigh(probs.to(v.dtype), v)
 
 
+def _kv_step(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, q_blk: torch.Tensor,
+             k_blk: torch.Tensor, v_blk: torch.Tensor, qpos: torch.Tensor | None,
+             kpos: torch.Tensor | None):
+    """One k-block of the online softmax: the running (acc, max, sum) after
+    ``k_blk``/``v_blk`` (the reference's ``kv_step``). ``qpos``/``kpos``
+    None: no causal mask."""
+    s = _scores(q_blk, k_blk)
+    if qpos is not None:
+        s = torch.where(kpos[None, :] <= qpos[:, None], s, _scalar(MASKED, s))
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    scale = torch.exp(m - m_new)
+    l = l * scale + p.sum(-1)
+    pv = _weigh(p.to(v_blk.dtype), v_blk)
+    acc = acc * scale.transpose(1, 2)[..., None] + pv.to(F32)
+    return acc, m_new, l
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_chunk: int = 1024,
                     k_chunk: int = 1024) -> torch.Tensor:
@@ -133,7 +152,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     blocks as two loops, with its float32 running max, sum and accumulator.
     Like the reference (which reshapes ``Sq`` into ``Sq // q_chunk`` blocks),
     it refuses lengths that are not a multiple of the chunks; it does not
-    pad."""
+    pad.
+
+    Under autograd (grad mode on and an input that requires a gradient)
+    each k-block is recomputed in the backward, as the reference's
+    ``jax.checkpoint(kv_step)``: the graph keeps each step's inputs, not
+    its ``[B, H, q_chunk, k_chunk]`` float32 scores and probabilities
+    (2.1 GB a k-block for DeepSeek-V3's 128 heads at a 4,096-row q block).
+    Values and gradients are the same bits with and without it."""
     b, sq, h, hd = q.shape
     dv = v.shape[-1]           # may differ from hd (MLA: qk 192, v 128)
     sk = k.shape[1]
@@ -143,27 +169,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"multiples of q_chunk={q_chunk} and k_chunk={k_chunk} (the reference "
             f"reshapes them into whole blocks)")
     nq, nk = sq // q_chunk, sk // k_chunk
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     out = []
     for qi in range(nq):
         q_blk = q[:, qi * q_chunk:(qi + 1) * q_chunk]
         acc = torch.zeros((b, q_chunk, h, dv), dtype=F32, device=q.device)
         m = torch.full((b, h, q_chunk), MASKED, dtype=F32, device=q.device)
         l = torch.zeros((b, h, q_chunk), dtype=F32, device=q.device)
-        qpos = qi * q_chunk + torch.arange(q_chunk, device=q.device)
+        qpos = qi * q_chunk + torch.arange(q_chunk, device=q.device) if causal else None
         for kj in range(nk):
-            k_blk = k[:, kj * k_chunk:(kj + 1) * k_chunk]
-            v_blk = v[:, kj * k_chunk:(kj + 1) * k_chunk]
-            s = _scores(q_blk, k_blk)
-            if causal:
-                kpos = kj * k_chunk + torch.arange(k_chunk, device=q.device)
-                s = torch.where(kpos[None, :] <= qpos[:, None], s, _scalar(MASKED, s))
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            scale = torch.exp(m - m_new)
-            l = l * scale + p.sum(-1)
-            pv = _weigh(p.to(v_blk.dtype), v_blk)
-            acc = acc * scale.transpose(1, 2)[..., None] + pv.to(F32)
-            m = m_new
+            blk = (q_blk, k[:, kj * k_chunk:(kj + 1) * k_chunk],
+                   v[:, kj * k_chunk:(kj + 1) * k_chunk], qpos,
+                   kj * k_chunk + torch.arange(k_chunk, device=q.device) if causal else None)
+            if remat:
+                acc, m, l = checkpoint(_kv_step, acc, m, l, *blk, use_reentrant=False,
+                                       preserve_rng_state=False)
+            else:
+                acc, m, l = _kv_step(acc, m, l, *blk)
         o = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
         out.append(o.to(q.dtype))
     return out[0] if nq == 1 else torch.cat(out, dim=1)

@@ -14,12 +14,23 @@ The port of the JAX package's ``models/moe.py`` for one device:
 
 The per-expert products need each expert's row count on the host: one read
 of ``group_sizes`` a MoE layer a call (``_ragged_swiglu``), the one host
-sync of the layer. ``lax.top_k`` puts the lower index first on ties; the
-port takes the top k of a stable descending ``torch.sort``, which does the
-same. The combine ``segment_sum(y_rep, repeat(arange(t), k))`` sums each
-token's k consecutive replicas, so it is ``y_rep.view(t, k, d).sum(1)`` in
-float32: no scatter, whose float atomics on the card would make serving
-non-repeatable.
+sync of the layer. Under training with ``remat`` (``models/transformer.py``)
+the block's forward runs again in the backward, and so does that read: two
+host syncs a MoE layer a microbatch, and no other. ``lax.top_k`` puts the
+lower index first on ties; the port takes the top k of a stable descending
+``torch.sort``, which does the same. The combine ``segment_sum(y_rep,
+repeat(arange(t), k))`` sums each token's k consecutive replicas, so it is
+``y_rep.view(t, k, d).sum(1)`` in float32: no scatter, whose float atomics
+on the card would make serving non-repeatable.
+
+Everything is differentiable, as ``jax.grad`` of the reference is: the
+router gets its gradient through the renormalized top-k gates (the sort's
+values) and through ``aux``; the expert weights through the per-expert
+products. Each backward sums in a fixed order, so a train step on the card
+is bitwise repeatable: the k replicas of a token are an ``expand`` of its
+row (the backward a sum over k), not a gather by repeated token ids (an
+``index_put_`` accumulation); the other gathers and scatters are
+permutations, or write zeros (dropped replicas) beside one value.
 
 Parameters are a mapping of tensors under the reference's keys
 (``router``, ``wg``, ``wi``, ``wo``, ``shared_wg``, ...): a MoE block's
@@ -148,7 +159,6 @@ def _moe_local(x2d, router, wg, wi, wo, cfg: MoEConfig):
     tk = t * cfg.top_k
     eid = idx.reshape(-1)                            # [tk] global expert id
     gate_r = gates.reshape(-1)                       # [tk]
-    tok_r = _token_ids(t, cfg.top_k, dev)
     peer = torch.div(eid, e_loc, rounding_mode="floor")   # destination device
 
     cap = int(round(tk / model_size * cfg.capacity_factor))
@@ -166,7 +176,8 @@ def _moe_local(x2d, router, wg, wi, wo, cfg: MoEConfig):
     # which is cut off (valid (peer, pos) pairs are unique)
     slot = torch.where(keep, pos, cap)
     send = torch.zeros((model_size, cap + 1, d), dtype=x2d.dtype, device=dev)
-    send[peer, slot] = torch.where(keep[:, None], x2d[tok_r], _scalar(0, x2d, x2d.dtype))
+    x_rep = x2d[:, None, :].expand(t, cfg.top_k, d).reshape(tk, d)   # x2d[repeat(arange(t), k)]
+    send[peer, slot] = torch.where(keep[:, None], x_rep, _scalar(0, x2d, x2d.dtype))
     send_eid = torch.full((model_size, cap + 1), -1, dtype=torch.int64, device=dev)
     send_eid[peer, slot] = torch.where(keep, eid % e_loc, -1)
 

@@ -1,16 +1,19 @@
-"""Decoder-only transformer family covering the five LM archs: the serving
-path on one device.
+"""Decoder-only transformer family covering the five LM archs on one
+device: serving and training.
 
 The port of the JAX package's ``models/transformer.py`` (``init_params``,
-``forward``, ``init_cache``, ``decode_step``):
+``forward``, ``loss_fn``, ``init_cache``, ``decode_step``):
 
   * GQA attention (Mistral-Nemo, Qwen-2.5, Phi-3, Grok-1) with optional QKV
     bias (Qwen), a sliding-window ring cache and an int8 cache;
-  * MLA attention (DeepSeek-V3): naive (materialized) form for prefill,
-    *absorbed* form for decode over the latent cache;
+  * MLA attention (DeepSeek-V3): naive (materialized) form for training and
+    prefill, *absorbed* form for decode over the latent cache;
   * dense SwiGLU or MoE FFN (``moe.moe_ep``'s single-device body);
-  * the MTP block (DeepSeek-V3) carried as parameters: serving does not run
-    it.
+  * the training loss (``loss_fn``): the cross-entropy, DeepSeek-V3's
+    depth-1 multi-token prediction (``_mtp_loss``, 0.1 of it) and the
+    routers' load-balance loss; per-block remat when ``cfg.remat`` is set
+    and grad mode is on (``torch.utils.checkpoint`` around each block, the
+    reference's ``jax.checkpoint`` of its scanned block).
 
 The parameters live in an ``nn.Module`` (``Transformer``) named after the
 reference's pytree keys: ``embed``, ``final_norm``, ``lm_head``,
@@ -19,29 +22,32 @@ of the reference's stacked ``[L, ...]`` leaves), each with ``ln1``, ``ln2``,
 ``attn.<key>`` (an ``nn.ParameterDict``) and ``wg``/``wi``/``wo`` or
 ``moe.<key>``, and ``mtp.ln``, ``mtp.proj``, ``mtp.block.*``. Matrices keep
 the reference's ``[in, out]`` layout (``x @ w``); ``convert.lm_params_from_jax``
-copies them as they are. ``forward`` and ``decode_step`` take the config
-apart from the module, as the reference's take it apart from the params:
-the step factory runs a module with another ``flash_q_chunk`` or
-``sliding_window`` than it was built with.
+copies them as they are. ``forward``, ``loss_fn`` and ``decode_step`` take
+the config apart from the module, as the reference's take it apart from the
+params: the step factory runs a module with another ``flash_q_chunk`` or
+``sliding_window`` than it was built with. ``loss_fn(..., params=)`` runs
+at a dict of tensors by parameter name (the train step's leaves) through
+``torch.func.functional_call``.
 
 ``decode_step`` writes the new entries into ``cache`` in place and returns
 it (the reference returns a new cache; its decode step donates the old
-one). The training path (``loss_fn``, the MTP loss) and the mesh paths
-(``param_specs``, ``cache_specs``, ``ShardCtx``) are not ported yet:
-ROADMAP.md section 1, items 6d-ii and 6c-ii.
+one). The mesh paths (``param_specs``, ``param_specs_zero3``,
+``cache_specs``, ``ShardCtx``) are the only part not ported: ROADMAP.md
+section 1, item 6c-ii.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.dispatch import resolve_device
 from repro_torch.models.layers import (
-    MASKED, _attend, _scalar, apply_rope, flash_attention, rms_norm, swiglu,
+    MASKED, _attend, _scalar, apply_rope, cross_entropy, flash_attention, rms_norm, swiglu,
 )
 from repro_torch.models.moe import MoEConfig, moe_ep
 
@@ -161,7 +167,8 @@ class Block(nn.Module):
 
 
 class MTP(nn.Module):
-    """DeepSeek-V3's multi-token-prediction head (carried, not served)."""
+    """DeepSeek-V3's multi-token-prediction head (trained by ``loss_fn``, not
+    served)."""
 
     def __init__(self, cfg: TransformerConfig, new):
         super().__init__()
@@ -284,28 +291,53 @@ def _mla_attn(x, ap, cfg: TransformerConfig, use_flash: bool, collect_cache: boo
 
 
 # ---------------------------------------------------------------------------
-# forward (prefill)
+# forward (training / prefill)
 # ---------------------------------------------------------------------------
+def _weights(lp: Block) -> dict:
+    """A block's tensors as a plain dict under the reference's keys, read
+    when the forward runs: the tensors a ``functional_call`` put in place,
+    which a remat's recompute (after the call has returned) must see too."""
+    w = {"ln1": lp.ln1, "ln2": lp.ln2, "attn": {k: lp.attn[k] for k in lp.attn}}
+    if lp.moe is None:
+        w.update(wg=lp.wg, wi=lp.wi, wo=lp.wo)
+    else:
+        w["moe"] = {k: lp.moe[k] for k in lp.moe}
+    return w
+
+
+def _block(h, aux, w: dict, cfg: TransformerConfig, use_flash: bool, collect_cache: bool):
+    """One layer on the residual stream: (h, aux + the MoE's aux, cache)."""
+    attn_fn = _mla_attn if cfg.attn == "mla" else _gqa_attn
+    att, cache = attn_fn(rms_norm(h, w["ln1"]), w["attn"], cfg, use_flash, collect_cache)
+    h = h + att
+    y = rms_norm(h, w["ln2"])
+    if "moe" not in w:
+        return h + swiglu(y, w["wg"], w["wi"], w["wo"], cfg.compute_dtype), aux, cache
+    ff, a = moe_ep(y, w["moe"], cfg.moe)
+    return h + ff, aux + a, cache
+
+
 def _trunk(model: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
            return_cache: bool):
-    """The layers and the final norm: (h [B, S, D], aux, stacked cache or None)."""
+    """The layers and the final norm: (h [B, S, D], aux, stacked cache or None).
+
+    With ``cfg.remat`` and grad mode on, each block keeps only its inputs
+    for the backward and runs again there (``torch.utils.checkpoint``,
+    non-reentrant): the reference's ``jax.checkpoint`` of its scanned
+    block. The values and gradients are the same bits either way."""
     s = tokens.shape[1]
     use_flash = s >= 2048
-    attn_fn = _mla_attn if cfg.attn == "mla" else _gqa_attn
+    remat = cfg.remat and torch.is_grad_enabled() and not return_cache
     h = F.embedding(tokens.long(), model.embed)
     aux = torch.zeros((), dtype=F32, device=h.device)
     caches = []
     for lp in model.blocks():
-        att, cache = attn_fn(rms_norm(h, lp.ln1), lp.attn, cfg, use_flash, return_cache)
-        h = h + att
-        y = rms_norm(h, lp.ln2)
-        if lp.moe is None:
-            h = h + swiglu(y, lp.wg, lp.wi, lp.wo, cfg.compute_dtype)
+        if remat:
+            h, aux, _ = checkpoint(_block, h, aux, _weights(lp), cfg, use_flash, False,
+                                   use_reentrant=False, preserve_rng_state=False)
         else:
-            ff, a = moe_ep(y, lp.moe, cfg.moe)
-            h = h + ff
-            aux = aux + a
-        caches.append(cache)
+            h, aux, cache = _block(h, aux, _weights(lp), cfg, use_flash, return_cache)
+            caches.append(cache)
     h = rms_norm(h, model.final_norm)
     if not return_cache:
         return h, aux, None
@@ -336,6 +368,70 @@ def prefill(model: Transformer, tokens: torch.Tensor, cfg: TransformerConfig):
     logits (20 GB at 32k tokens of a 152k vocabulary)."""
     h, _aux, cache = _trunk(model, tokens, cfg, True)
     return _head(model, h[:, -1], cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# training loss
+# ---------------------------------------------------------------------------
+class _Apply(nn.Module):
+    """``fn(model, *args)`` as a module's forward, so that
+    ``torch.func.functional_call`` runs it at other tensors."""
+
+    def __init__(self, model: Transformer):
+        super().__init__()
+        self.model = model
+
+    def forward(self, fn, *args):
+        return fn(self.model, *args)
+
+
+def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: TransformerConfig, params: dict | None = None) -> torch.Tensor:
+    """The training loss: the mean token cross-entropy of the logits, plus
+    0.1 x the MTP loss (``cfg.mtp``), plus ``router_aux_coef`` x the MoE
+    layers' summed load-balance loss. ``params`` (tensors by parameter
+    name) stand in for the model's own, through ``functional_call``."""
+    if params is None:
+        return _loss(model, tokens, labels, cfg)
+    return torch.func.functional_call(
+        _Apply(model), {f"model.{k}": v for k, v in params.items()},
+        (_loss, tokens, labels, cfg))
+
+
+def _loss(model: Transformer, tokens, labels, cfg: TransformerConfig) -> torch.Tensor:
+    logits, aux = forward(model, tokens, cfg)
+    loss = cross_entropy(logits, labels)
+    if cfg.mtp:
+        loss = loss + 0.1 * _mtp_loss(model, tokens, labels, cfg)
+    coef = cfg.moe.router_aux_coef if cfg.moe else 0.0
+    return loss + coef * aux
+
+
+def _mtp_loss(model: Transformer, tokens, labels, cfg: TransformerConfig) -> torch.Tensor:
+    """DeepSeek-V3 MTP (depth 1): predict token t+2 from the t-th hidden
+    state combined with the embedding of token t+1 (the labels rolled by
+    -1); the last two positions, whose targets wrapped round, are left
+    out."""
+    mp = model.mtp
+    cd = cfg.compute_dtype
+    h = F.embedding(tokens.long(), model.embed)
+    nxt = F.embedding(torch.roll(labels, -1, dims=1).long(), model.embed)
+    z = torch.cat([rms_norm(h, mp.ln), nxt.to(h.dtype)], dim=-1)
+    z = z.to(cd) @ mp.proj.to(cd)
+    bp = _weights(mp.block)
+    z = z + _gqa_mtp(rms_norm(z, bp["ln1"]), bp, cfg)
+    z = z + swiglu(rms_norm(z, bp["ln2"]), bp["wg"], bp["wi"], bp["wo"], cd)
+    lg = (rms_norm(z, mp.ln).to(cd) @ model.lm_head.to(cd)).to(F32)
+    tgt = torch.roll(labels, -2, dims=1)
+    return cross_entropy(lg[:, :-2], tgt[:, :-2])
+
+
+def _gqa_mtp(x, bp: dict, cfg: TransformerConfig) -> torch.Tensor:
+    """MTP block attention, never rematerialized; MLA configs reuse the MLA
+    projection weights (the block's own)."""
+    c = replace(cfg, remat=False)
+    fn = _mla_attn if cfg.attn == "mla" else _gqa_attn
+    return fn(x, bp["attn"], c, use_flash=x.shape[1] >= 2048)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -485,4 +581,4 @@ def _mla_decode(x, ap, layer_cache: dict, n: torch.Tensor, slot: torch.Tensor,
 
 
 __all__ = ["TransformerConfig", "Transformer", "Block", "MTP", "init_params", "forward",
-           "prefill", "init_cache", "decode_step"]
+           "prefill", "loss_fn", "init_cache", "decode_step"]

@@ -25,7 +25,9 @@ JAX's ``_map3`` threads an ``optimization_barrier`` between leaf updates and
 ``SCAN_LAYER_UPDATES`` scans big layer-stacked leaves; both steer XLA's
 scheduling of one fused program and have no counterpart here: eager torch
 already updates one leaf at a time, so the float32 temporaries alive at once
-are one leaf's.
+are one leaf's, and each update reuses its own temporaries in place (the
+same operations in the same order, so the same bits) to keep them few: at
+grok-1's widths one expert leaf's float32 copy is 6.4 GB.
 """
 from __future__ import annotations
 
@@ -95,13 +97,21 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
         c2 = 1.0 - b2 ** step.to(F32)
 
         def upd(p, g, mu, nu):
+            # JAX's expression, op for op: mhat / (sqrt(nhat) + eps) + wd * p,
+            # then p - lr * step; the in-place ops write only this leaf's own
+            # float32 temporaries, so fewer of them are alive at once
             g = g.to(F32) * clip_scale
             mu = b1 * mu + (1 - b1) * g
-            nu = b2 * nu + (1 - b2) * g * g
-            mhat = mu / c1
-            nhat = nu / c2
-            step_t = mhat / (torch.sqrt(nhat) + eps) + weight_decay * p.to(F32)
-            return _cast_like(p.to(F32) - lr_t * step_t, p), mu, nu
+            g2 = (1 - b2) * g
+            nu = (b2 * nu).add_(g2.mul_(g))
+            del g, g2
+            step_t = mu / c1                                   # mhat
+            den = (nu / c2).sqrt_().add_(eps)                  # sqrt(nhat) + eps
+            step_t.div_(den)
+            del den
+            pf = p.to(F32)
+            step_t.add_(weight_decay * pf).mul_(lr_t)
+            return _cast_like(pf - step_t, p), mu, nu
 
         new_p, new_mu, new_nu = _map_n(upd, 3, params, grads, state["mu"], state["nu"])
         return new_p, {"step": step, "mu": new_mu, "nu": new_nu}
@@ -137,21 +147,27 @@ def adafactor(lr: Callable | float, decay: float = 0.99, eps: float = 1e-30,
         lr_t = lr_fn(step)
 
         def upd(p, g, v):
+            # JAX's expression, op for op; the in-place ops write only this
+            # leaf's own float32 temporaries (see adamw)
             g = g.to(F32) * clip_scale
-            g2 = g * g + eps
+            g2 = (g * g).add_(eps)
             if "vr" in v:
                 vr = decay * v["vr"] + (1 - decay) * torch.mean(g2, dim=-1)
                 vc = decay * v["vc"] + (1 - decay) * torch.mean(g2, dim=-2)
-                denom = torch.sqrt(
-                    vr[..., None] * vc[..., None, :] /
-                    torch.clamp(torch.mean(vr, dim=-1, keepdim=True)[..., None], min=eps))
+                del g2
+                denom = (vr[..., None] * vc[..., None, :]).div_(
+                    torch.clamp(torch.mean(vr, dim=-1, keepdim=True)[..., None], min=eps)).sqrt_()
                 new_v = {"vr": vr, "vc": vc}
             else:
                 vv = decay * v["v"] + (1 - decay) * g2
+                del g2
                 denom = torch.sqrt(vv)
                 new_v = {"v": vv}
-            upd_t = g / torch.clamp(denom, min=eps) + weight_decay * p.to(F32)
-            return _cast_like(p.to(F32) - lr_t * upd_t, p), new_v
+            upd_t = g.div_(denom.clamp_(min=eps))
+            del denom
+            pf = p.to(F32)
+            upd_t.add_(weight_decay * pf).mul_(lr_t)
+            return _cast_like(pf - upd_t, p), new_v
 
         new_p, new_v = _map_n(upd, 2, params, grads, state["v"])
         return new_p, {"step": step, "v": new_v}

@@ -22,7 +22,9 @@ def _div(a: torch.Tensor, b) -> torch.Tensor:
 
 def constant(lr: float):
     def f(step):
-        return torch.tensor(lr, dtype=torch.float32, device=_step(step).device)
+        # a fill on the step's device: torch.tensor would copy from the host,
+        # a sync on the card each update
+        return torch.full((), lr, dtype=torch.float32, device=_step(step).device)
     return f
 
 

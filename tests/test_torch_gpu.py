@@ -1459,3 +1459,124 @@ def test_moe_ep_equals_dense_on_card(cuda):
     torch.testing.assert_close(ep, dense, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(aux, aux_d)
     torch.testing.assert_close(ep.cpu(), host, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# LM training on the card (loss_fn, the train kind, bfloat16 checkpoints)
+# ---------------------------------------------------------------------------
+LM_TRAIN_ARCHS = ("qwen2.5-3b", "deepseek-v3-671b", "grok-1-314b")   # GQA, MLA + MTP, MoE
+
+
+def _lm_train_step(arch, device, seq=64, gb=8):
+    """The train_4k kind with SMOKE as arch.full (float32) and the shape cut
+    to ``[gb, seq]``: the arch's microbatches, accumulation and optimizer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import Shape
+    from repro_torch.launch import steps
+
+    a = get_arch(arch)
+    a = dataclasses.replace(a, full=a.smoke, shapes=(
+        Shape("train_4k", "train", dict(seq_len=seq, global_batch=gb)),))
+    with mock.patch.object(steps, "get_arch", lambda _: a):
+        return a, build_step(arch, "train_4k", device=device)
+
+
+def _lm_train_batch(vocab, seed, device, seq=64, gb=8):
+    rows = torch.as_tensor(np.random.default_rng(seed).integers(0, vocab, (gb, seq + 1)),
+                           device=device)
+    return {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
+
+
+@pytest.mark.parametrize("arch", LM_TRAIN_ARCHS)
+def test_lm_train_steps_on_card_bitwise_repeatable(cuda, arch):
+    """Two train-kind steps on the card, run twice from one state: the same
+    losses and every parameter and moment bit for bit (the embedding's and
+    the MoE's gathers sum their backward in a fixed order, the MoE's
+    replicas are an expand)."""
+    from repro_torch.launch import make_optimizer, train_state
+    from repro_torch.utils.tree import leaves_with_paths
+
+    torch.set_float32_matmul_precision("highest")
+    a, step = _lm_train_step(arch, cuda)
+    cfg, model = _lm_smoke(arch, cuda, seed=3)
+    state = train_state(model, make_optimizer(a.optimizer))
+    batches = [_lm_train_batch(cfg.vocab, s, cuda) for s in (1, 2)]
+    runs = []
+    for _ in range(2):
+        p, o, losses = state["params"], state["opt"], []
+        for b in batches:
+            p, o, loss = step.fn(p, o, b)
+            losses.append(loss)
+        runs.append((losses, leaves_with_paths({"params": p, "opt": o})))
+    (la, xa), (lb, xb) = runs
+    assert all(torch.equal(x, y) for x, y in zip(la, lb))
+    assert [k for k, _ in xa] == [k for k, _ in xb]
+    for (k, x), (_, y) in zip(xa, xb):
+        assert torch.equal(x, y), k
+
+
+@pytest.mark.parametrize("arch", LM_TRAIN_ARCHS)
+def test_lm_train_step_on_card_matches_cpu(cuda, arch):
+    """One float32 train-kind step (TF32 off) on the card against the same
+    step on the CPU (which tests/test_torch_lm_train.py holds against JAX),
+    from the same weights and batch, with that test's tolerances: the loss
+    within rtol 1e-5; with float32 accumulation (qwen2.5) parameters within
+    rtol 1e-5, atol 1e-5 and moments within rtol 1e-4 with an atol of 1e-6
+    of the moment's largest entry; with bfloat16 accumulation (deepseek,
+    grok: an entry may round to the other neighbouring bfloat16) each leaf
+    within 2e-3 normwise."""
+    from repro_torch.launch import make_optimizer, train_state
+
+    torch.set_float32_matmul_precision("highest")
+    a, step_cpu = _lm_train_step(arch, "cpu")
+    _, step_card = _lm_train_step(arch, cuda)
+    cfg, model = _lm_smoke(arch, "cpu", seed=5)
+    opt = make_optimizer(a.optimizer)
+    state = train_state(model, opt)
+    batch = _lm_train_batch(cfg.vocab, 6, "cpu")
+    p, o, loss = step_cpu.fn(state["params"], state["opt"], batch)
+    card = {k: v.to(cuda) for k, v in state["params"].items()}
+    pc, oc, loss_c = step_card.fn(card, opt.init(card), {k: v.to(cuda) for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss_c), float(loss), rtol=1e-5)
+    bf = a.grad_accum_dtype == "bfloat16"
+
+    def normwise(got, want):
+        got, want = got.cpu().double(), want.double()
+        return float((got - want).norm() / want.norm()) if float(want.norm()) else 0.0
+
+    for k, want in p.items():
+        if bf:
+            assert normwise(pc[k], want) <= 2e-3, k
+        else:
+            torch.testing.assert_close(pc[k].cpu(), want, rtol=1e-5, atol=1e-5)
+    for moment in (m for m in o if m != "step"):
+        flat = {k: (v if isinstance(v, dict) else {"": v}) for k, v in o[moment].items()}
+        largest = max(float(x.abs().max()) for d in flat.values() for x in d.values())
+        for k, d in flat.items():
+            for sub, want in d.items():
+                got = oc[moment][k][sub] if sub else oc[moment][k]
+                if bf:
+                    assert normwise(got, want) <= 2e-3, (moment, k, sub)
+                else:
+                    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-6 * largest)
+
+
+def test_bfloat16_checkpoint_round_trip_from_cuda(cuda, tmp_path):
+    """bfloat16 CUDA tensors (an LM train state in JAX's layout) written by
+    an async save and put back on the card by restore_elastic: bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import make_optimizer, restore_elastic, train_state
+    from repro_torch.models import LM_STATE_LAYOUT, init_params
+    from repro_torch.utils.tree import leaves_with_paths
+
+    cfg = dataclasses.replace(get_arch("deepseek-v3-671b").smoke, param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16)
+    model = init_params(cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
+    state = train_state(model, make_optimizer("adafactor"))
+    mgr = CheckpointManager(str(tmp_path), layout=LM_STATE_LAYOUT)
+    mgr.save(4, state)
+    step, back = restore_elastic(mgr, state, device=cuda)
+    assert step == 4
+    for (k, x), (_, y) in zip(leaves_with_paths(back), leaves_with_paths(state)):
+        assert x.device.type == "cuda" and x.dtype == y.dtype and torch.equal(x, y), k

@@ -350,27 +350,24 @@ def test_step_refuses_tf32_and_other_devices():
 
 
 @pytest.mark.parametrize("arch,shape,error", [
-    ("qwen2.5-3b", None, NotImplementedError),  # the LM train kind: its first shape
+    ("qwen2.5-3b", "train_4k", None),  # ported: the LM train kind builds
     ("gcn-cora", "full_graph_sm", None),  # ported: the GNN train kind builds
     ("dcn-v2", "train_batch", None),  # ported: the train kind builds
     ("no-such-arch", None, KeyError),
     ("dcn-v2", "no_such_shape", KeyError),
 ])
 def test_unported_archs_and_kinds_raise(arch, shape, error):
-    """Every arch is ported; the LM train kind is not yet (shape None: the
-    arch's first shape, after get_arch)."""
+    """Every arch and kind is ported, the LM train kind included; an
+    unknown arch or shape raises (shape None: the arch's first shape, after
+    get_arch)."""
     if error is None:
         assert build_step(arch, shape, device="cpu").kind == "train"
         return
-    with pytest.raises(error, match="ROADMAP" if error is NotImplementedError else None):
+    with pytest.raises(error):
         if shape is None:
             build_step(arch, get_arch(arch).shapes[0].name, device="cpu")
         else:
             build_step(arch, shape, device="cpu")
-    if shape is None and error is NotImplementedError:
-        assert get_arch(arch).shapes[0].kind == "train"
-        with pytest.raises(NotImplementedError, match="item 6d-ii"):
-            build_step(arch, "train_4k", device="cpu")
 
 
 def test_whole_slice_smoke_config():

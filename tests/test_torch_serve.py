@@ -32,7 +32,9 @@ from repro.launch.mesh import make_local_mesh  # noqa: E402
 from repro.launch.serve import serve_batch as jserve_batch  # noqa: E402
 from repro.models import transformer as jt  # noqa: E402
 from repro_torch.configs import ARCH_IDS, all_archs, get_arch  # noqa: E402
-from repro_torch.launch import build_step, serve_batch, serve_metrics_endpoint  # noqa: E402
+from repro_torch.launch import (  # noqa: E402
+    build_step, make_optimizer, serve_batch, serve_metrics_endpoint, train_state,
+)
 from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch.serve import check_servable  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
@@ -146,11 +148,12 @@ def test_all_archs_match_jax():
 # ---------------------------------------------------------------------------
 # the step factory
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("shape", SERVE_SHAPES)
+@pytest.mark.parametrize("shape", SERVE_SHAPES + ["train_4k"])
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_build_step_meta_matches_jax(arch, shape):
     """The analytic meta of the published FULL configs at n_dev = 1 ==
-    JAX's build_step on a one-device mesh."""
+    JAX's build_step on a one-device mesh (train_4k: 6 N_active D plus
+    attention, the parameter streams of each microbatch)."""
     port = build_step(arch, shape, device="cpu")
     ref = jsteps.build_step(arch, shape, make_local_mesh())
     assert (port.name, port.kind) == (ref.name, ref.kind)
@@ -230,9 +233,15 @@ def test_prefill_then_decode_kinds_serve_like_serve_batch():
 
 
 def test_lm_train_kind_raises_and_steps_check_their_device():
-    with pytest.raises(NotImplementedError, match="6d-ii"):
-        build_step("qwen2.5-3b", "train_4k", device="cpu")
+    """Every LM kind refuses inputs on another device than its own, and
+    TF32: the train kind (now built for every arch) raises on parameters
+    on the CPU when it runs on ``meta``, the prefill kind on a model."""
     jcfg, _, tstep = _steps("qwen2.5-3b", "prefill_32k")
+    state = train_state(port_model(jcfg), make_optimizer("adamw"))
+    with pytest.raises(ValueError, match="the parameters are on cpu"):
+        build_step("qwen2.5-3b", "train_4k", device="meta").fn(
+            state["params"], state["opt"], {"tokens": tokens((1, 4), 256),
+                                            "labels": tokens((1, 4), 256)})
     with pytest.raises(ValueError, match="the model is on cpu"):
         build_step("qwen2.5-3b", "prefill_32k", device="meta").fn(port_model(jcfg),
                                                                   tokens((1, 4), 256))

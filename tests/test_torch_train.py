@@ -119,9 +119,18 @@ def test_save_snapshots_before_returning(tmp_path):
 
 
 def test_bfloat16_leaf_raises_naming_it(tmp_path):
+    """A bfloat16 leaf round-trips bit for bit (its bits on disk as the JAX
+    package writes them), and restoring it into a leaf of another dtype
+    raises a TypeError that names it."""
+    emb = torch.tensor([1 / 3, -2.5, 1e-40, float("inf")], dtype=torch.bfloat16)
     mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, {"params": {"emb": emb}}, blocking=True)
+    _, back = mgr.restore({"params": {"emb": torch.zeros(4, dtype=torch.bfloat16)}})
+    got = back["params"]["emb"]
+    assert got.dtype == torch.bfloat16 and torch.equal(got.view(torch.int16),
+                                                       emb.view(torch.int16))
     with pytest.raises(TypeError, match="params/emb"):
-        mgr.save(1, {"params": {"emb": torch.ones(2, dtype=torch.bfloat16)}})
+        mgr.restore({"params": {"emb": torch.zeros(4)}})
 
 
 def test_failed_async_write_raises_on_wait(tmp_path):
