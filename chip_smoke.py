@@ -182,12 +182,14 @@ takes a plain gather), and the kernel switched on. Phases:
      nodes and 168,960 lanes, depends only on the seeds and the fanout), the
      labels and MACE's readout at the seeds: gcn-cora (602 features) and MACE
      (K1 at D = 1,152), forward on / off and a step each, timed; (e) K1 apart
-     from the main path at float32 [E, D], D = 1 and 16 over (c)'s lanes, 1,
-     16, 64 and 1,152 over (d)'s: against its plain version, bitwise
-     repeatable, with ``ms``, ``device_ms``, ``bound_ms``, ``plain_ms``,
-     ``library_ms`` (``index_add_``) and the forward's one sort of its edge
-     lanes (ids and the int32 ``src`` carried along); D = 64 and wider over
-     (c)'s lanes would hold 32 GB and more a copy and are not run;
+     from the main path at float32 [E, D], D = 1, 16 and 7 (gcn-cora's
+     second layer) over (c)'s lanes, 1, 16, 64 and 1,152 over (d)'s: against
+     its plain version, bitwise repeatable, with ``ms``, ``device_ms``,
+     ``bound_ms`` and the share of it, ``plain_ms``, ``library_ms``
+     (``index_add_``) and the forward's one sort of its edge lanes (ids and
+     the int32 ``src`` carried along), then ptxas' registers, shared memory
+     and spills of the [E, D] path's kernels; D = 64 and wider over (c)'s
+     lanes would hold 32 GB and more a copy and are not run;
  17. the transformer family's serving path (``models/transformer.py``,
      ``launch/serve.py``) at the published widths of the five LM configs in
      bfloat16, random seeded weights (``init_params`` on the card), seeded
@@ -3477,9 +3479,11 @@ GNN_F64_RTOL = 1e-4          # float32 outputs and losses vs float64, normwise
 GNN_GRAD_RTOL = 1e-3         # float32 gradients (mu, nu) vs float64, normwise, each leaf
 GNN_SYM_TOL = (2e-3, 2e-4)   # tests/test_models_gnn.py's symmetry tolerance
 # K1 at the GNN's widths: (lanes of which path, D); [E, 64] and wider at the
-# ogb_products lanes would take 32 GB and more a copy
-GNN_K1_POINTS = (("ogb_products", 1), ("ogb_products", 16), ("minibatch_lg", 1),
-                 ("minibatch_lg", 16), ("minibatch_lg", 64), ("minibatch_lg", 1152))
+# ogb_products lanes would take 32 GB and more a copy. D = 7 is gcn-cora's
+# second-layer sum (n_classes) at ogb_products' size, on the main path.
+GNN_K1_POINTS = (("ogb_products", 1), ("ogb_products", 16), ("ogb_products", 7),
+                 ("minibatch_lg", 1), ("minibatch_lg", 16), ("minibatch_lg", 64),
+                 ("minibatch_lg", 1152))
 
 
 def gnn_feed(batch: dict, device, dtype=None) -> dict:
@@ -3909,12 +3913,22 @@ def phase_gnn(device: str, products: dict = GNN_PRODUCTS, seeds: int = GNN_SEEDS
         seg_s, seg_u, v = lanes[path]
         p = dict(k1_gnn_point(seg_s, seg_u, v, d, device), path=path)
         points.append(p)
+        p["bound_share"] = p["bound_ms"] / p["device_ms"]
         log(f"  (e) K1 [E={p['lanes']}, D={d}] onto {v} rows ({path}): max abs err "
             f"{p['max_abs_err']:g}, bitwise repeatable; ms={p['ms']:.6f} "
-            f"device_ms={p['device_ms']:.6f} bound_ms={p['bound_ms']:.6f} ({p['bound_by']}) "
-            f"plain_ms={p['plain_ms']:.6f} library_ms={p['library_ms']:.6f} (index_add_); the "
-            f"forward's one sort of its lanes {p['sort_ms']:.6f} ms")
+            f"device_ms={p['device_ms']:.6f} bound_ms={p['bound_ms']:.6f} ({p['bound_by']}), "
+            f"{p['bound_share']:.3f} of the bound; library_ms={p['library_ms']:.6f} (index_add_, "
+            f"{p['library_ms'] / p['device_ms']:.3f}x the kernel's device_ms); "
+            f"plain_ms={p['plain_ms']:.6f}; the forward's one sort of its lanes "
+            f"{p['sort_ms']:.6f} ms")
     del lanes, dst_c, blk
+    # the [E, D] path's kernels (segsum.cu's namespace dn): registers,
+    # shared memory and spills
+    out["k1_ptxas"] = ptxas_records(lambda fn: "dn::" in fn or "2dn" in fn)
+    for r in out["k1_ptxas"]:
+        log(f"  (e) ptxas {r['source']} {r['function'][:110]}: {r['registers']} registers, "
+            f"{r['smem_bytes']} bytes smem, spill {r['spill_store_bytes']} / "
+            f"{r['spill_load_bytes']} bytes")
     torch.cuda.empty_cache()
     out["k1_points"] = points
     out["phase_s"] = time.perf_counter() - t_phase

@@ -65,7 +65,7 @@ def load_library() -> ctypes.CDLL:
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.segsum_scratch_ints.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_int]
+                                        ctypes.c_int, ctypes.c_int]
     lib.segsum_scratch_ints.restype = ctypes.c_longlong
     _lib = lib
     return lib
@@ -95,7 +95,9 @@ def segment_sum_sorted(
     the ids ascend (``ValueError`` if not); on a CUDA tensor it is one call
     of the kernel, counted once in ``launches`` (for 1-D values a memset and
     one pass over the lanes, plus a short carry launch for float32 sums; for
-    [E, D] values a row-offset pass and a warp per row).
+    [E, D] values one pass of blocks over spans of lane tiles staged by bulk
+    copies, which also zeroes the rows with no lanes, and a short carry
+    launch that adds the rows crossing spans).
     """
     global launches
     accepted = _ACCEPTS.get(out_dtype)
@@ -142,9 +144,11 @@ def segment_sum_sorted(
                       dtype=out_dtype, device=values.device)
     if num_segments == 0 or d == 0:
         return out
-    # float32 carries at d = 1, row offsets at d > 1 (none for int32 at d = 1)
+    # float32 carries at d = 1 (none for int32), span records at d > 1 (as
+    # many as the card's SMs can hold blocks)
+    sms = torch.cuda.get_device_properties(values.device).multi_processor_count if d > 1 else 0
     scratch = torch.empty(lib.segsum_scratch_ints(n_lanes, num_segments, d,
-                                                  int(out_dtype == torch.float32)),
+                                                  int(out_dtype == torch.float32), sms),
                           dtype=torch.int32, device=values.device)
     err = build.on_device(values.device, fn, values.data_ptr(), seg_ids.data_ptr(), n_lanes,
                           num_segments, d, out.data_ptr(), scratch.data_ptr())

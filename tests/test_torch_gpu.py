@@ -39,21 +39,56 @@ def _lanes(rng, e, v, sentinels=7, negatives=0):
                  np.full(sentinels, v, np.int32)].astype(np.int32)
 
 
-@pytest.mark.parametrize("e,d,v,kind", [
-    (64, 0, 16, "float32"),
-    (1000, 33, 300, "float32"),
-    (512, 128, 256, "float32"),
-    (100, 200, 50, "float32"),
-    (50_000, 0, 40, "quarters"),  # rows past the one-thread length: warp rows
-    (50_000, 0, 40, "bool"),
-    (50_000, 0, 40, "int32"),
-    (70_000, 0, 3, "bool"),       # one hub run of most lanes
-    (3000, 0, 2000, "bool"),      # mostly one-thread rows, some empty
-    (0, 0, 5, "bool"),            # no lanes at all
+def _layout_lanes(rng, layout, e, v):
+    """Sorted ids for one case of K1: ``random`` (negative ids first,
+    sentinels last), ``hub`` (most lanes in one row), ``block`` (ids in the
+    first tenth of the rows, then a long empty tail, as a sampled block's),
+    ``runs`` (runs of 1-1,499 lanes with gaps, so rows cross the tiles, the
+    stages and the spans of the [E, D] path at every offset); ``shift<k>``
+    is ``random`` with the values viewed k elements off a 16-byte boundary."""
+    if layout in ("random", "shift1", "shift2", "shift3"):
+        return _lanes(rng, e, v, negatives=5)
+    if layout == "hub":
+        ids = np.r_[np.full(e - e // 10, v // 3), rng.integers(0, v, e // 10)]
+        return np.r_[np.full(3, -1), np.sort(ids), np.full(5, v + 2)].astype(np.int32)
+    if layout == "block":
+        return np.r_[np.sort(rng.integers(0, v // 10, e)), np.full(9, v)].astype(np.int32)
+    assert layout == "runs"
+    lengths = rng.integers(1, 1500, e // 500 + 2)
+    rows = np.cumsum(rng.integers(1, 3, lengths.size))
+    ids = np.repeat(rows * (v - 1) // (rows[-1] + 1), lengths)[:e]
+    return np.r_[np.full(4, -2), ids, np.full(3, v)].astype(np.int32)
+
+
+@pytest.mark.parametrize("e,d,v,kind,layout", [
+    (64, 0, 16, "float32", "random"),
+    (1000, 33, 300, "float32", "random"),
+    (512, 128, 256, "float32", "random"),
+    (100, 200, 50, "float32", "random"),
+    (50_000, 0, 40, "quarters", "random"),  # rows past the one-thread length: warp rows
+    (50_000, 0, 40, "bool", "random"),
+    (50_000, 0, 40, "int32", "random"),
+    (70_000, 0, 3, "bool", "random"),       # one hub run of most lanes
+    (3000, 0, 2000, "bool", "random"),      # mostly one-thread rows, some empty
+    (0, 0, 5, "bool", "random"),            # no lanes at all
+    # the [E, D] path at the GNNs' widths and around them, in the three types
+    *[(3000 if d < 1152 else 600, d, 300, kind, "random")
+      for d in (2, 3, 7, 16, 33, 64, 1152) for kind in ("float32", "int32", "bool")],
+    (60_000, 16, 500, "quarters", "hub"),
+    (60_000, 16, 500, "int32", "hub"),
+    (30_000, 16, 200_000, "float32", "block"),
+    (3000, 1152, 20_000, "quarters", "block"),
+    *[(40_000 if d < 1152 else 4000, d, 3000, kind, "runs")
+      for d in (3, 7, 16, 64, 1152) for kind in ("quarters", "bool")],
+    (5000, 16, 400, "float32", "shift1"),   # values off 16 bytes: the plain-load path
+    (5000, 7, 400, "int32", "shift2"),
+    (5000, 64, 400, "quarters", "shift3"),
+    (0, 16, 5, "float32", "random"),        # no lanes: every row zero
+    (0, 16, 5, "bool", "random"),
 ])
-def test_kernel_matches_plain(cuda, e, d, v, kind):
+def test_kernel_matches_plain(cuda, e, d, v, kind, layout):
     rng = np.random.default_rng(e + d + v)
-    seg = _lanes(rng, e, v, negatives=5)
+    seg = _layout_lanes(rng, layout, e, v)
     shape = (seg.size, d) if d else (seg.size,)
     vals = {"float32": lambda: rng.normal(size=shape).astype(np.float32),
             "bool": lambda: rng.random(shape) < 0.5,
@@ -62,6 +97,11 @@ def test_kernel_matches_plain(cuda, e, d, v, kind):
             }[kind]()
     out_dtype = torch.float32 if kind in ("float32", "quarters") else torch.int32
     tv, ts = torch.from_numpy(vals).to(cuda), torch.from_numpy(seg).to(cuda)
+    if layout.startswith("shift"):
+        shift = int(layout[5:])
+        base = torch.zeros(tv.numel() + 16, dtype=tv.dtype, device=cuda)
+        tv = base[shift:shift + tv.numel()].view(shape)
+        tv.copy_(torch.from_numpy(vals))
     before = segsum.launches
     out = segsum.segment_sum_sorted(tv, ts, num_segments=v, out_dtype=out_dtype)
     exp = ref.segment_sum_ref(tv, ts, v, out_dtype)
@@ -197,23 +237,27 @@ def test_kernel_unaligned_views(cuda, kind, shift):
         assert torch.equal(out, ref.segment_sum_ref(v, ts, 701, out_dtype))
 
 
-def test_kernel_float_sums_bitwise_repeatable(cuda):
+@pytest.mark.parametrize("d", [1, 16, 1152])
+def test_kernel_float_sums_bitwise_repeatable(cuda, d):
     """float32 sums of random values: bitwise equal across two runs
-    (crossing rows are added in tile order) and within 1e-6 of each row's
-    sum of |values| of the exact (float64) sum. The plain version's atomic
-    adds change their order from run to run, so the bound is taken against
-    float64, not against them: a 40,000-lane row of normals has |sum| near
-    200 and sum |values| near 32,000, and float32 rounding in any order
-    leaves a few 1e-3 of error there."""
+    (crossing rows are added in tile order at D = 1, in span order at
+    D > 1) and within 1e-6 of each row's sum of |values| of the exact
+    (float64) sum. The plain version's atomic adds change their order from
+    run to run, so the bound is taken against float64, not against them: a
+    40,000-lane row of normals has |sum| near 200 and sum |values| near
+    32,000, and float32 rounding in any order leaves a few 1e-3 of error
+    there. At D > 1 rows cross tiles, stages and spans."""
     rng = np.random.default_rng(8)
-    seg = torch.from_numpy(np.r_[np.zeros(40_000, np.int32),
-                                 np.sort(rng.integers(1, 5000, 300_000)).astype(np.int32)]).to(cuda)
-    vals = torch.from_numpy(rng.normal(size=seg.numel()).astype(np.float32)).to(cuda)
-    a = segsum.segment_sum_sorted(vals, seg, num_segments=5000)
-    b = segsum.segment_sum_sorted(vals, seg, num_segments=5000)
+    hub, rest, v = (40_000, 300_000, 5000) if d < 1152 else (2000, 20_000, 2000)
+    seg = torch.from_numpy(np.r_[np.zeros(hub, np.int32),
+                                 np.sort(rng.integers(1, v, rest)).astype(np.int32)]).to(cuda)
+    shape = (seg.numel(),) if d == 1 else (seg.numel(), d)
+    vals = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
+    a = segsum.segment_sum_sorted(vals, seg, num_segments=v)
+    b = segsum.segment_sum_sorted(vals, seg, num_segments=v)
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-    exact = ref.segment_sum_ref(vals.double(), seg, 5000, torch.float64)
-    scale = ref.segment_sum_ref(vals.double().abs(), seg, 5000, torch.float64)
+    exact = ref.segment_sum_ref(vals.double(), seg, v, torch.float64)
+    scale = ref.segment_sum_ref(vals.double().abs(), seg, v, torch.float64)
     assert bool(((a.double() - exact).abs() <= 1e-6 * scale + 1e-6).all())
 
 
@@ -1265,9 +1309,9 @@ def test_kernel_float_rows_at_gnn_widths(cuda, d):
 
 
 def test_kernel_float_rows_empty_runs(cuda):
-    """K1's [E, D] row offsets where long runs of rows have no lanes (a
-    sampled block's ids end far below its row count): ids only in [70_000,
-    71_000) of 200_000 rows, with sentinels; against the plain version."""
+    """K1's [E, D] path where long runs of rows have no lanes (a sampled
+    block's ids end far below its row count): ids only in [70_000, 71_000)
+    of 200_000 rows, with sentinels; against the plain version."""
     rng = np.random.default_rng(5)
     v = 200_000
     ids = np.sort(rng.integers(70_000, 71_000, 30_000)).astype(np.int32)

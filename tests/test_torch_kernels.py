@@ -37,17 +37,23 @@ def _port_segsum(vals, seg, v, **kw):
                            num_segments=v, **kw).numpy()
 
 
-@pytest.mark.parametrize("e,d,v", [
-    (64, 0, 16),
-    (1000, 33, 300),
-    (512, 128, 256),
-    (2048, 16, 1000),
-    (513, 7, 100),
-    (100, 200, 50),
+@pytest.mark.parametrize("e,d,v,ids_below", [
+    pytest.param(64, 0, 16, None, id="64-0-16"),
+    pytest.param(1000, 33, 300, None, id="1000-33-300"),
+    pytest.param(512, 128, 256, None, id="512-128-256"),
+    pytest.param(2048, 16, 1000, None, id="2048-16-1000"),
+    pytest.param(513, 7, 100, None, id="513-7-100"),
+    pytest.param(100, 200, 50, None, id="100-200-50"),
+    # the GNNs' other widths: EGNN's coordinates, SchNet/EGNN, MACE's 9 x 128
+    pytest.param(1500, 3, 400, None, id="1500-3-400"),
+    pytest.param(1024, 64, 200, None, id="1024-64-200"),
+    pytest.param(300, 1152, 40, None, id="300-1152-40"),
+    # ids only in the first 400 of 5,000 rows: a sampled block's long empty tail
+    pytest.param(3000, 16, 5000, 400, id="3000-16-5000-tail"),
 ])
-def test_segment_sum_shapes_match_jax(e, d, v):
+def test_segment_sum_shapes_match_jax(e, d, v, ids_below):
     rng = np.random.default_rng(e * 7 + d)
-    vals, seg = _problem(rng, e, d, v)
+    vals, seg = _problem(rng, e, d, ids_below or v)
     np.testing.assert_allclose(_port_segsum(vals, seg, v), _jax_segsum(vals, seg, v),
                                rtol=1e-5, atol=1e-5)
 
