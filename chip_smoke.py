@@ -129,7 +129,26 @@ takes a plain gather), and the kernel switched on. Phases:
      spawned: ``pbahmani_distributed`` at eps 0.1 and the stream's seed and 2
      batches, both ranks equal to world 1, under a time limit. Wall times
      (median of 3) and a torch.profiler split of the sharded peel (K2, the
-     all-reduce, the host); two ranks on one card give no scaling number;
+     all-reduce, the host); two ranks on one card give no scaling number.
+     Then a second world 2 over ``("data", "model")`` meshes (``phase_mesh``):
+     grok-1's MoE layer at published widths (8 experts, top-2, d_model 6,144,
+     d_ff 32,768, bfloat16) through ``moe_tp`` over (1, 2), each rank every
+     expert's d_ff 16,384 slice (4.83 GB), and deepseek-v3's (256 experts,
+     top-8, one shared, d_model 7,168, d_ff 2,048, capacity factor 1.25)
+     through ``moe_ep``, each rank 128 experts (11.3 GB), on 1 x 2,048
+     seeded tokens, each rank drawing only its shard from seeded generators:
+     equal to world 1 (``mesh=None``, in this process) and to ``moe_dense``
+     normwise within 1e-2, aux within rtol 0.2, no dropped replica (16,384
+     replicas, 10,240 a peer), bitwise repeatable, three all-to-alls a
+     ``moe_ep`` layer and one sum over "model" a ``moe_tp`` layer (from
+     ``collective.calls``); ``vp_segment_sum`` on ogbn-products' 123.7 M
+     lanes (phase 16's graph, ``partition_by_dst_block``, seeded ``[E, 16]``
+     float32 messages) over (2, 1) (two node blocks, no sum) and (1, 2) (one
+     block, the sum over "model"), K1 once on each rank: equal to K1 off,
+     the gathered blocks equal to world 1's ``segment_sum`` within 1e-5,
+     bitwise repeatable; the walls of each collective at these sizes, of
+     the MoE layers at world 1 and 2, and K1's per-rank ``device_ms``
+     against its byte bound;
  14. the invariant linter (``repro_torch.analysis``) on the card, in this process
      only: ``src/repro_torch`` under the full catalog with the auditor's live
      providers and this script under RPR401-402, 0 findings each, the
@@ -2685,6 +2704,438 @@ def phase_world2(g, device: str, stream_seed, stream_n: int, engine: dict, event
     return dict(spawn_s=spawn_s, pbahmani_wall_s=walls, pbahmani_split=split)
 
 
+# ---------------------------------------------------------------------------
+# phase 13, world 2 over ("data", "model"): sub-axis meshes, the MoE layers
+# at published widths over a mesh, vp_segment_sum with K1 on each rank
+# ---------------------------------------------------------------------------
+MESH_AXES = ("data", "model")
+MESH_MOE = (("grok-1-314b", "tp"), ("deepseek-v3-671b", "ep"))   # (arch, moe_tp / moe_ep)
+MESH_TOKENS = 2048          # 1 x 2,048 tokens a MoE layer
+MESH_SEED = 27
+MESH_VP_D = 16              # [E, 16] float32 messages
+# ogbn-products' 2,449,029 nodes (phase 16's GNN_PRODUCTS) and one pad row,
+# so that two node blocks split the rows: the sentinel lanes (id 2,449,029,
+# zero messages) land there
+MESH_VP_ROWS = 2_449_029 + 1
+MESH_VP_TOL = (1e-5, 1e-5)  # the gathered blocks against world 1's segment_sum
+MESH_AUX_RTOL = 1e-5  # a world-2 rank's aux against world 1's, the same tokens routed
+MESH_TIMED = 3
+
+
+def mesh_moe_layer(cfg, kind: str, device, mesh=None) -> dict:
+    """One MoE layer at ``cfg``'s widths in its compute dtype, seeded expert by
+    expert, so that a rank draws only its own shard and the shards equal the
+    whole layer's: every expert's ``d_ff / |model|`` slice for ``kind="tp"``
+    (``moe_tp``), its ``E / |model|`` experts for ``"ep"`` (``moe_ep``); the
+    whole layer without a mesh. The router and shared experts are whole."""
+    import torch
+
+    n, i = (1, 0) if mesh is None else (mesh.axis_size("model"), mesh.axis_index("model"))
+    d, f, e, dt = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.compute_dtype
+
+    def draw(seed, shape, scale, out=None):
+        g = torch.Generator(device=device).manual_seed(MESH_SEED * 1000 + seed)
+        out = torch.empty(shape, dtype=dt, device=device) if out is None else out
+        return out.normal_(generator=g).mul_(scale)
+
+    experts = range(i * e // n, (i + 1) * e // n) if kind == "ep" else range(e)
+    fl = f // n if kind == "tp" else f
+    p = {"router": draw(0, (d, e), d ** -0.5)}
+    for k, (shape, scale, cut) in {"wg": ((d, f), d ** -0.5, 1), "wi": ((d, f), d ** -0.5, 1),
+                                   "wo": ((f, d), f ** -0.5, 0)}.items():
+        local = (d, fl) if cut else (fl, d)
+        p[k] = torch.empty((len(experts),) + local, dtype=dt, device=device)
+        for j, ex in enumerate(experts):
+            seed = 1 + 3 * ex + ("wg", "wi", "wo").index(k)
+            if local == shape:
+                draw(seed, shape, scale, out=p[k][j])
+            else:
+                p[k][j].copy_(draw(seed, shape, scale).narrow(cut, i * fl, fl))
+    if cfg.n_shared:
+        fs = f * cfg.n_shared
+        p["shared_wg"] = draw(3 * e + 1, (d, fs), d ** -0.5)
+        p["shared_wi"] = draw(3 * e + 2, (d, fs), d ** -0.5)
+        p["shared_wo"] = draw(3 * e + 3, (fs, d), fs ** -0.5)
+    return p
+
+
+def mesh_tokens(cfg, device):
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(MESH_SEED)
+    return torch.randn((1, MESH_TOKENS, cfg.d_model), generator=g, device=device).to(
+        cfg.compute_dtype)
+
+
+def moe_dropped(x, p, cfg, model_size: int) -> int:
+    """The replicas moe_ep drops over ``model_size`` ranks along ``tp``: its
+    routing (``moe._route``) recomputed, each peer's replicas past
+    ``moe.capacity``."""
+    import torch
+
+    from repro_torch.models import moe
+
+    x2d = x.reshape(-1, cfg.d_model)
+    _, idx, _ = moe._route(x2d, p["router"], cfg)
+    tk = idx.numel()
+    cap = moe.capacity(tk, model_size, cfg.capacity_factor)
+    peer = torch.div(idx.reshape(-1), cfg.n_experts // model_size, rounding_mode="floor")
+    counts = torch.bincount(peer, minlength=model_size)
+    return int((counts - cap).clamp(min=0).sum())
+
+
+def mesh_vp_share(src, dst, n: int, shape, rank: int):
+    """A rank's share of the dst-sorted lanes for the mesh ``shape`` (node
+    blocks along "data", split along "model"): its block's lanes padded to
+    a multiple of the split with id ``MESH_VP_ROWS`` (outside every block)
+    and src ``n`` (a zero message), then its slice, as the reference's
+    ``P(all_axes)`` hands them out (tests/test_distributed.py's layout)."""
+    blocks, sub = shape
+    block = MESH_VP_ROWS // blocks
+    bounds = np.searchsorted(dst, np.arange(0, MESH_VP_ROWS + 1, block))
+    per = int(-(-int(np.diff(bounds).max()) // sub) * sub)
+    b, j = divmod(rank, sub)
+    ids = np.full(per, MESH_VP_ROWS, np.int32)
+    ss = np.full(per, n, np.int32)
+    lo, hi = bounds[b], bounds[b + 1]
+    ids[:hi - lo], ss[:hi - lo] = dst[lo:hi], src[lo:hi]
+    w = per // sub
+    return ss[j * w:(j + 1) * w], ids[j * w:(j + 1) * w]
+
+
+def mesh_messages(src, n: int, device):
+    """[E, 16] float32 messages ``h[src]`` of seeded node features, zero for
+    the sentinel src ``n``."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(MESH_SEED + 1)
+    h = torch.randn((n, MESH_VP_D), generator=g, device=device)
+    vals = h.index_select(0, src.clamp(max=n - 1))
+    return vals.masked_fill_((src >= n)[:, None], 0.0)
+
+
+def _mesh_rank(rank: int, world: int, init: str, data: str, out: str,
+               device: str = "cuda") -> None:
+    """One rank of phase 13's sub-axis world 2: a gloo group, both ranks on
+    cuda:0. Over the (1, 2) mesh, grok-1's MoE layer through ``moe_tp`` and
+    deepseek-v3's through ``moe_ep`` from this rank's seeded shard; the
+    collectives alone at the paths' sizes; ``vp_segment_sum`` over the
+    (2, 1) and (1, 2) meshes on this rank's share of ogbn-products' lanes,
+    K1 on and off. Writes its answers, counts and times to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import collective, distributed
+    from repro_torch.kernels import ops, segsum
+    from repro_torch.models import moe, moe_ep, moe_tp
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        segsum.load_library()  # built by the parent's phase 1: a load, not a build
+    dev = "cuda:0" if on_card else device
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
+    res = {}
+    try:
+        meshes = {s: distributed.make_mesh(s, MESH_AXES, device=dev) for s in ((1, 2), (2, 1))}
+        mesh = meshes[(1, 2)]
+        for name, kind in MESH_MOE:
+            cfg = get_arch(name).full.moe
+            p = mesh_moe_layer(cfg, kind, dev, mesh)
+            x = mesh_tokens(cfg, dev)
+            fn = moe_tp if kind == "tp" else moe_ep
+            site = ("all_reduce_sum", ("model",)) if kind == "tp" else ("all_to_all", ("model",))
+            with torch.inference_mode():
+                before = collective.calls[site]
+                y, aux = fn(x, p, cfg, mesh=mesh)
+                n_site = collective.calls[site] - before
+                again, aux2 = fn(x, p, cfg, mesh=mesh)
+                res[f"{name}/bitwise"] = np.array(torch.equal(y, again) and torch.equal(aux, aux2))
+                res[f"{name}/wall_s"] = np.array(wall_s(lambda: fn(x, p, cfg, mesh=mesh),
+                                                        MESH_TIMED))
+                res[f"{name}/dropped"] = np.array(
+                    moe_dropped(x, p, cfg, mesh.axis_size("model")) if kind == "ep" else 0)
+            res[f"{name}/y"] = y.float().cpu().numpy()
+            res[f"{name}/aux"] = np.array(float(aux))
+            res[f"{name}/site_calls"] = np.array(n_site)
+            res[f"{name}/weight_bytes"] = np.array(sum(t.numel() * t.element_size()
+                                                       for t in p.values()))
+            res[f"{name}/peak_bytes"] = np.array(torch.cuda.max_memory_allocated()
+                                                 if on_card else 0)
+            del p, x, y, again
+            if on_card:
+                torch.cuda.empty_cache()
+
+        # the collectives alone at the paths' sizes, every rank together
+        ds = get_arch("deepseek-v3-671b").full.moe
+        grok = get_arch("grok-1-314b").full.moe
+        cap = moe.capacity(MESH_TOKENS * ds.top_k, 2, ds.capacity_factor)
+        cases = [
+            ("all_to_all", (2, cap, ds.d_model), torch.bfloat16, "moe_ep's replicas",
+             lambda t: collective.all_to_all(t, mesh, "model")),
+            ("all_reduce_sum", (MESH_TOKENS * grok.top_k, grok.d_model), torch.bfloat16,
+             "moe_tp's partial products", lambda t: collective.all_reduce_sum(t, mesh, "model")),
+            ("all_reduce_sum", (MESH_VP_ROWS, MESH_VP_D), torch.float32,
+             "vp_segment_sum over (1, 2)", lambda t: collective.all_reduce_sum(t, mesh, "model")),
+            ("all_gather", (MESH_VP_ROWS // 2, MESH_VP_D), torch.float32,
+             "vp_segment_sum's blocks over (2, 1)",
+             lambda t: collective.all_gather(t, meshes[(2, 1)], "data")),
+        ]
+        coll = {}
+        for site, shape, dt, what, fn in cases:
+            t = torch.ones(shape, dtype=dt, device=dev)
+            fn(t.clone())
+            coll[f"{site} {list(shape)} {str(dt)[6:]} ({what})"] = wall_s(
+                lambda: fn(t.clone()), MESH_TIMED)
+            del t
+        res["collective_wall_s"] = np.array(json.dumps(coll))
+
+        # vp_segment_sum at ogbn-products' size
+        src_all = np.load(Path(data) / "src.npy", mmap_mode="r")
+        dst_all = np.load(Path(data) / "dst.npy", mmap_mode="r")
+        n = int(np.load(Path(data) / "n.npy"))
+        for shape, mesh in meshes.items():
+            key = f"vp/{shape[0]}x{shape[1]}"
+            ss, ids = mesh_vp_share(src_all, dst_all, n, shape, rank)
+            src = torch.from_numpy(np.ascontiguousarray(ss)).to(dev)
+            ids = torch.from_numpy(np.ascontiguousarray(ids)).to(dev)
+            vals = mesh_messages(src, n, dev)
+            del src
+            with torch.inference_mode(), ops.segment_output_sharding(mesh, ("data",)):
+                k1 = segsum.launches
+                on = ops.vp_segment_sum(vals, ids, MESH_VP_ROWS, kernel=True)
+                res[f"{key}/k1_launches"] = np.array(segsum.launches - k1)
+                again = ops.vp_segment_sum(vals, ids, MESH_VP_ROWS, kernel=True)
+                res[f"{key}/bitwise"] = np.array(torch.equal(on.view(torch.int32),
+                                                             again.view(torch.int32)))
+                del again
+                off = ops.vp_segment_sum(vals, ids, MESH_VP_ROWS, kernel=False)
+                res[f"{key}/on_off"] = np.array(float((on - off).abs().max()))
+                res[f"{key}/on_off_ok"] = np.array(bool(torch.allclose(
+                    on, off, rtol=GNN_TOL[0], atol=GNN_TOL[1])))
+                del off
+                full = collective.all_gather(on, mesh, "data")
+                res[f"{key}/out"] = full.cpu().numpy()
+                del full
+                res[f"{key}/wall_s"] = np.array(wall_s(
+                    lambda: ops.vp_segment_sum(vals, ids, MESH_VP_ROWS, kernel=True), MESH_TIMED))
+                # K1 alone on this rank's block, the ranks in turn (a sum as
+                # the barrier), so that the other rank's work is not in it
+                rows = MESH_VP_ROWS // shape[0]
+                rel = ids - mesh.axis_index("data") * rows
+                lanes = int(ids.shape[0])
+                k1_ms = []
+                for r in range(world):
+                    collective.all_reduce_sum(torch.zeros(1, device=dev), mesh)
+                    if mesh.rank == r and on_card:
+                        k1_ms.append(graph_ms(lambda: segsum.segment_sum_sorted(
+                            vals, rel, num_segments=rows), 5))
+                collective.all_reduce_sum(torch.zeros(1, device=dev), mesh)
+                b, by = bound_ms(lanes * MESH_VP_D * 4 + lanes * 4 + rows * MESH_VP_D * 4,
+                                 lanes * MESH_VP_D)
+                res[f"{key}/k1"] = np.array(json.dumps(dict(
+                    lanes=lanes, rows=rows, device_ms=k1_ms[0] if k1_ms else None,
+                    bound_ms=b, bound_by=by)))
+            del vals, ids, rel, on
+            if on_card:
+                torch.cuda.empty_cache()
+        np.savez(out, **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_world1(device) -> tuple[dict, dict]:
+    """World 1 of the sub-axis phase, in this process: each MoE layer whole
+    (``mesh=None``) and ``moe_dense`` on the same seeded weights and tokens,
+    then ogbn-products' graph (61,859,140 seeded pairs, as phase 16 (c)
+    builds it) partitioned by ``partition_by_dst_block`` and world 1's
+    ``segment_sum`` (K1) of its messages. Returns (answers, the sorted lanes
+    for the ranks), every card tensor freed."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.graphs import Graph
+    from repro_torch.graphs.partition import partition_by_dst_block
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe, moe_dense, moe_ep, moe_tp
+
+    out = {}
+    for name, kind in MESH_MOE:
+        cfg = get_arch(name).full.moe
+        torch.cuda.reset_peak_memory_stats()
+        p = mesh_moe_layer(cfg, kind, device)
+        x = mesh_tokens(cfg, device)
+        fn = moe_tp if kind == "tp" else moe_ep
+        with torch.inference_mode():
+            y, aux = fn(x, p, cfg)
+            wall = wall_s(lambda: fn(x, p, cfg), MESH_TIMED)
+            # the oracle in blocks of 256 tokens (its [T, E, D] products),
+            # its aux over all of them
+            dense = torch.cat([moe_dense(x[:, i:i + 256], p, cfg)[0]
+                               for i in range(0, MESH_TOKENS, 256)], dim=1)
+            aux_d = moe._route(x.reshape(-1, cfg.d_model), p["router"], cfg)[2]
+        out[name] = dict(y=y.float().cpu(), aux=float(aux), dense=dense.float().cpu(),
+                         aux_dense=float(aux_d), wall_s=wall,
+                         to_dense=normwise(y, dense),
+                         peak_bytes=torch.cuda.max_memory_allocated())
+        del p, x, y, dense
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(GNN_PRODUCTS["seed"])
+    g = Graph.from_edges(rng.integers(0, GNN_PRODUCTS["n"], (GNN_PRODUCTS["pairs"], 2)),
+                         GNN_PRODUCTS["n"])
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    src, dst, _ = partition_by_dst_block(g, 2)
+    t_part = time.perf_counter() - t0
+    n = g.n_nodes
+    del g
+    s = torch.from_numpy(src).to(device)
+    d = torch.from_numpy(dst).to(device)
+    vals = mesh_messages(s, n, device)
+    del s
+    with torch.inference_mode():
+        want = ops.segment_sum(vals, d, num_segments=MESH_VP_ROWS)
+    out["vp"] = dict(want=want.cpu().numpy(), lanes=int(dst.shape[0]), nodes=n,
+                     host_graph_s=t_graph, host_partition_s=t_part)
+    del vals, d, want
+    torch.cuda.empty_cache()
+    return out, dict(src=src, dst=dst, n=n)
+
+
+def phase_mesh(device: str) -> dict:
+    """Phase 13's sub-axis world 2: world 1 here (``mesh_world1``), then two
+    gloo ranks on the card spawned (``_mesh_rank``), both held to world 1
+    and the dense oracle. A rank that fails, or a spawn past
+    ``SPAWN_TIMEOUT_S``, fails the smoke. Returns the phase's numbers,
+    ``k1_launches`` K1's launches on both ranks."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    w1, lanes = mesh_world1(device)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_mesh_"))
+    try:
+        for k in ("src", "dst"):
+            np.save(tmp / f"{k}.npy", lanes[k])
+        np.save(tmp / "n.npy", np.array(lanes["n"]))
+        del lanes
+        ctx = multiprocessing.get_context("spawn")
+        init = f"file://{tmp / 'rendezvous'}"
+        outs = [tmp / f"rank{r}.npz" for r in range(2)]
+        procs = [ctx.Process(target=_mesh_rank,
+                             args=(r, 2, init, str(tmp), str(outs[r]), device))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SPAWN_TIMEOUT_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        check(not hung,
+              f"mesh world 2: {len(hung)} rank(s) still running after {SPAWN_TIMEOUT_S} s")
+        check(all(p.exitcode == 0 for p in procs),
+              f"mesh world 2: rank exit codes {[p.exitcode for p in procs]}")
+        spawn_s = time.perf_counter() - t0
+        ranks = [dict(np.load(o)) for o in outs]  # read into memory before the files go
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    card = card_line()
+    res = dict(spawn_s=spawn_s, card=card)
+    for name, kind in MESH_MOE:
+        want = w1[name]
+        site = "one sum over 'model'" if kind == "tp" else "three all-to-alls over 'model'"
+        to_w1, to_dense = [], []
+        for r, rk in enumerate(ranks):
+            y = torch.from_numpy(rk[f"{name}/y"])
+            to_w1.append(normwise(y, want["y"]))
+            to_dense.append(normwise(y, want["dense"]))
+            check(to_w1[r] <= LM_MOE_NORMWISE and to_dense[r] <= LM_MOE_NORMWISE,
+                  f"{name} world 2 rank {r}: {to_w1[r]} from world 1, {to_dense[r]} from "
+                  f"moe_dense (normwise, <= {LM_MOE_NORMWISE})")
+            aux = float(rk[f"{name}/aux"])
+            # without sp every rank routes world 1's tokens: the same aux
+            check(abs(aux - want["aux"]) <= MESH_AUX_RTOL * abs(want["aux"]),
+                  f"{name} world 2 rank {r}: aux {aux} vs world 1's {want['aux']} "
+                  f"(rtol {MESH_AUX_RTOL})")
+            check(abs(aux - want["aux_dense"]) <= 0.2 * abs(want["aux_dense"]),
+                  f"{name} world 2 rank {r}: aux {aux} vs moe_dense's {want['aux_dense']}")
+            check(bool(rk[f"{name}/bitwise"]), f"{name} world 2 rank {r}: two runs differ")
+            check(int(rk[f"{name}/site_calls"]) == (1 if kind == "tp" else 3),
+                  f"{name} world 2 rank {r}: {int(rk[f'{name}/site_calls'])} calls, not {site}")
+            check(int(rk[f"{name}/dropped"]) == 0,
+                  f"{name} world 2 rank {r}: {int(rk[f'{name}/dropped'])} replicas dropped")
+        res[name] = dict(world1_wall_s=want["wall_s"], world1_to_dense=want["to_dense"],
+                         world1_peak_bytes=want["peak_bytes"],
+                         world2_wall_s=[list(map(float, rk[f"{name}/wall_s"])) for rk in ranks],
+                         world2_to_world1=to_w1, world2_to_dense=to_dense,
+                         aux=[float(rk[f"{name}/aux"]) for rk in ranks], aux_world1=want["aux"],
+                         aux_dense=want["aux_dense"],
+                         dropped=[int(rk[f"{name}/dropped"]) for rk in ranks],
+                         weight_bytes_a_rank=int(ranks[0][f"{name}/weight_bytes"]),
+                         peak_bytes_a_rank=[int(rk[f"{name}/peak_bytes"]) for rk in ranks])
+        log(f"  mesh world 2 (gloo, both ranks on {device}:0): {name}'s MoE layer at published "
+            f"widths through {'moe_tp' if kind == 'tp' else 'moe_ep'} over (1, 2) "
+            f"('data', 'model'), {MESH_TOKENS} tokens: == world 1 within {to_w1} and == "
+            f"moe_dense within {to_dense} normwise by rank (<= {LM_MOE_NORMWISE}), aux by "
+            f"rank {res[name]['aux']} vs world 1 {want['aux']} and dense {want['aux_dense']}, "
+            f"{site} a layer, replicas dropped by rank {res[name]['dropped']}, bitwise "
+            f"repeatable; "
+            f"{res[name]['weight_bytes_a_rank']} weight bytes a rank; peak device memory world "
+            f"1 {want['peak_bytes']} bytes, world 2 by rank {res[name]['peak_bytes_a_rank']} "
+            f"bytes; wall world 1 {want['wall_s']} s, world 2 by rank "
+            f"{res[name]['world2_wall_s']} s ({card})")
+    vp = w1["vp"]
+    k1_launches = 0
+    for layout in ("2x1", "1x2"):
+        key = f"vp/{layout}"
+        for r, rk in enumerate(ranks):
+            check(int(rk[f"{key}/k1_launches"]) == 1,
+                  f"{key} rank {r}: {int(rk[f'{key}/k1_launches'])} K1 launches, not 1")
+            k1_launches += 1
+            check(bool(rk[f"{key}/bitwise"]), f"{key} rank {r}: two runs differ")
+            on_off = float(rk[f"{key}/on_off"])
+            check(bool(rk[f"{key}/on_off_ok"]), f"{key} rank {r}: K1 on and off differ by "
+                  f"{on_off} (rtol, atol {GNN_TOL})")
+            err = compare(torch.from_numpy(rk[f"{key}/out"]), torch.from_numpy(vp["want"]),
+                          MESH_VP_TOL)
+            res[f"{key}/rank{r}"] = dict(k1_on_off_max_abs=on_off, to_world1_max_abs=err,
+                                         wall_s=list(map(float, rk[f"{key}/wall_s"])),
+                                         k1=json.loads(str(rk[f"{key}/k1"])))
+        k1 = res[f"{key}/rank0"]["k1"]
+        log(f"  mesh world 2: vp_segment_sum over ({layout[0]}, {layout[2]}) on "
+            f"ogbn-products' {vp['lanes']} lanes ([E, {MESH_VP_D}] float32, "
+            f"{MESH_VP_ROWS} rows): K1 on == off (max abs "
+            f"{[res[f'{key}/rank{r}']['k1_on_off_max_abs'] for r in range(2)]}), the gathered "
+            f"blocks == world 1's segment_sum (max abs "
+            f"{[res[f'{key}/rank{r}']['to_world1_max_abs'] for r in range(2)]}), bitwise "
+            f"repeatable, one K1 launch a rank; wall by rank "
+            f"{[res[f'{key}/rank{r}']['wall_s'] for r in range(2)]} s; K1 alone on "
+            f"{k1['lanes']} lanes / {k1['rows']} rows a rank: device_ms by rank "
+            f"{[res[f'{key}/rank{r}']['k1']['device_ms'] for r in range(2)]} against a "
+            f"{k1['bound_ms']:.4f} ms {k1['bound_by']} bound ({card})")
+    coll = json.loads(str(ranks[0]["collective_wall_s"]))
+    res["collective_wall_s"] = {r: json.loads(str(rk["collective_wall_s"]))
+                                for r, rk in enumerate(ranks)}
+    log(f"  mesh world 2: collective walls (gloo through the host, rank 0, {MESH_TIMED} "
+        f"runs): {coll} ({card}); two ranks share one card: no scaling number")
+    res.update(k1_launches=k1_launches, host_graph_s=vp["host_graph_s"],
+               host_partition_s=vp["host_partition_s"],
+               phase_s=time.perf_counter() - t_phase)
+    log(f"  mesh world 2 took {res['phase_s']:.3f} s (spawn {spawn_s:.3f} s; host graph "
+        f"{vp['host_graph_s']:.3f} s, partition {vp['host_partition_s']:.3f} s)")
+    return res
+
+
 def phase_sharded(g, device: str, peel_answers: dict, cbds_answer: tuple,
                   stream_answers: list, backend: str = "nccl", graph: dict = STREAM_GRAPH,
                   engine: dict = STREAM_ENGINE, events: int = STREAM_EVENTS,
@@ -2951,6 +3402,7 @@ def phase_sharded(g, device: str, peel_answers: dict, cbds_answer: tuple,
     finally:
         dist.destroy_process_group()
     times["world2"] = phase_world2(g, device, seed_edges, gs.n_nodes, engine, events, world1)
+    times["mesh"] = phase_mesh(device)
     return launches, times
 
 
@@ -5038,6 +5490,7 @@ def main(argv: list[str]) -> int:
     lm_train_times = phase_lm_train(device)
     log(f"  phase 18 took {lm_train_times['phase_s']:.3f} s; no kernel of K1-K5 on its path")
 
+    vp_k1_launches = shard_times["mesh"]["k1_launches"]
     k2_launches = (peel_launches + cbds_launches + pruned_launches["peel_edges"]
                    + fallback_launches + refine_launches + stream_launches["peel_edges"]
                    + fused_launches["peel_edges"] + shard_launches["peel_edges"]
@@ -5065,7 +5518,8 @@ def main(argv: list[str]) -> int:
         f"{shard_launches['peel_edges']}, K1 {shard_launches['segment_sum_sorted']}; "
         f"peel_with_restarts (phase 15): K2 {restart_launches['peel_edges']}, K1 "
         f"{restart_launches['segment_sum_sorted']}; the GNNs (phase 16): K1 at [E, D] float32 "
-        f"{k1_gnn_launches}")
+        f"{k1_gnn_launches}; vp_segment_sum on both ranks of phase 13's mesh world 2: K1 at "
+        f"[E, D] float32 {vp_k1_launches}")
     rows = {
         "segment_sum_sorted": (k1_launches, k1["max_abs_err"], k1),
         "peel_edges": (k2_launches, k2["max_abs_err"], k2),
@@ -5079,7 +5533,8 @@ def main(argv: list[str]) -> int:
         "peel_edges_rows": (fused_launches["peel_edges_rows"], k2_rows["max_abs_err"], k2_rows),
         "segment_sum_rows": (fused_launches["segment_sum_rows"], k1_rows["max_abs_err"],
                              k1_rows),
-        "segment_sum_sorted_ed": (k1_gnn_launches, k1_gnn["max_abs_err"], k1_gnn),
+        "segment_sum_sorted_ed": (k1_gnn_launches + vp_k1_launches, k1_gnn["max_abs_err"],
+                                  k1_gnn),
     }
     kernels = [{
         "name": name,

@@ -25,9 +25,9 @@ because its hot loops run on the host and launch kernels:
     ``torch.compile``: what the port builds at run time, and so what the
     recompile auditor must count.
   * :func:`collective_reachers` — project-wide, to a fixpoint, the
-    functions that reach ``core/collective.py``'s ``all_reduce_sum`` or
-    ``all_reduce_max``, or a ``torch.distributed`` collective: every rank
-    must call them alike.
+    functions that reach one of ``core/collective.py``'s sites
+    (``COLLECTIVE_SITES``), or a ``torch.distributed`` collective: every
+    rank must call them alike.
 
 Rules yield :class:`Finding`s; the :class:`Analyzer` filters them
 through the pragma suppressions (recording which suppression fired, so
@@ -657,7 +657,9 @@ def find_library_loads(mod: ModuleInfo) -> list[LibraryLoad]:
 # collectives (RPR4xx)
 # ---------------------------------------------------------------------------
 COLLECTIVE_SITES = ("repro_torch.core.collective.all_reduce_sum",
-                    "repro_torch.core.collective.all_reduce_max")
+                    "repro_torch.core.collective.all_reduce_max",
+                    "repro_torch.core.collective.all_gather",
+                    "repro_torch.core.collective.all_to_all")
 DIST_COLLECTIVES = {
     "all_reduce", "all_gather", "all_gather_into_tensor", "all_gather_object",
     "all_gather_coalesced", "broadcast", "broadcast_object_list", "reduce",
@@ -705,7 +707,7 @@ def reaches_collective(call: ast.Call, imports: dict[str, str],
 
 def collective_reachers(mods: Iterable[ModuleInfo]) -> set[str]:
     """Bare names of the functions, methods and classes (by ``__init__``)
-    that reach ``collective.all_reduce_sum``/``all_reduce_max`` or a
+    that reach one of ``COLLECTIVE_SITES`` or a
     ``torch.distributed`` collective, over the given modules and the port's own, to a fixpoint.
     By name, not by object: a method of another class with a reacher's name
     counts as one (the rules keyed on this err towards a finding)."""

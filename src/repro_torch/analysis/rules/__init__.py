@@ -15,7 +15,7 @@ RPR301      float literal inside a ``# repro: proof`` scope
 RPR302      true division inside a proof scope
 RPR303      float dtype / float cast inside a proof scope
 RPR304      f32-envelope edge stage called without assert_exact_envelope
-RPR401      torch.distributed collective outside core/collective.py's two sites
+RPR401      torch.distributed collective outside core/collective.py's four sites
 RPR402      collective-reaching call under a rank-dependent branch
 RPR501      bucket-factory argument missing from the fused bucket key
 ==========  ================================================================

@@ -3,10 +3,12 @@
 The port's sharded paths run one process a rank, and every rank makes the
 same calls on the same inputs: the JAX package's shard_map bodies become
 ordinary host code around ``torch.distributed``. Two things keep that
-sound. RPR401: every collective goes through one of the two sites,
-``core/collective.py``'s ``all_reduce_sum`` and ``all_reduce_max``, which
-count it in ``collective.collectives`` (the counter the card checks hold at
-one a pass); a ``dist.*`` collective anywhere else is a finding. RPR402: a call
+sound. RPR401: every collective goes through one of the four sites,
+``core/collective.py``'s ``all_reduce_sum``, ``all_reduce_max``,
+``all_gather`` and ``all_to_all``, which count it in
+``collective.collectives`` and ``collective.calls`` (the counters the card
+checks hold at one a pass, three all-to-alls a MoE layer); a ``dist.*``
+collective anywhere else is a finding. RPR402: a call
 that reaches a collective must not sit under a branch that only some
 ranks take (``if rank == 0:``, a test of ``mesh.rank`` or
 ``dist.get_rank()``, or a name derived from one, or after a rank-tested
@@ -136,7 +138,7 @@ def _enclosing_defs(tree: ast.Module) -> dict[int, str]:
 class CollectiveSiteRule(Rule):
     rule_id = "RPR401"
     title = ("torch.distributed collective outside core/collective.py's "
-             "all_reduce_sum and all_reduce_max")
+             "all_reduce_sum, all_reduce_max, all_gather and all_to_all")
 
     def check_module(self, mod: ModuleInfo) -> Iterator[Finding]:
         rel = mod.rel()
@@ -154,10 +156,10 @@ class CollectiveSiteRule(Rule):
                 continue  # a counted site
             yield Finding(
                 rule=self.rule_id, path=rel, line=node.lineno, context=context,
-                message=f"{name}(...) outside {' and '.join(COLLECTIVE_SITES)} is a "
+                message=f"{name}(...) outside {', '.join(COLLECTIVE_SITES)} is a "
                         "collective that collective.collectives never counts; "
-                        "reduce through collective.all_reduce_sum(t, mesh) or "
-                        "collective.all_reduce_max(t, mesh)")
+                        "go through collective.all_reduce_sum, all_reduce_max, "
+                        "all_gather or all_to_all(t, mesh, axes)")
 
 
 class RankDivergenceRule(Rule):

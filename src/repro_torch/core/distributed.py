@@ -47,7 +47,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.cbds import _cbds
-from repro_torch.core.collective import Mesh
+from repro_torch.core.collective import Mesh, slices
 from repro_torch.core.dispatch import (
     assert_exact_envelope, lane_degrees, resolve_device, resolve_kernel,
 )
@@ -63,7 +63,16 @@ def make_mesh(shape: tuple[int, ...] | None = None, axis_names: tuple[str, ...] 
     out to the group's size. ``device=None`` means ``cuda:{rank %
     device_count}`` and raises where there is no CUDA, as every entry point
     does; pass ``device="cpu"`` for the plain PyTorch path (gloo). Every
-    rank of the group calls this together."""
+    rank of the group calls this together.
+
+    A mesh of more than one axis also gets a group for each slice along
+    each set of axes short of the whole mesh (the ``"model"`` ranks {0, 1}
+    and {2, 3} of a ``(2, 2)`` mesh over ``("data", "model")``), for the
+    collectives over sub-axes. Every rank creates every one of them, in one
+    fixed order (``collective.slices``), as ``torch.distributed.new_group``
+    asks of every process of the job: such a mesh's group must be the
+    default group. The groups are made once for a layout of the default
+    group, so two meshes over them share them (and compare equal)."""
     if group is None and dist.is_available() and dist.is_initialized():
         group = dist.group.WORLD
     rank = dist.get_rank(group) if group is not None else 0
@@ -78,7 +87,39 @@ def make_mesh(shape: tuple[int, ...] | None = None, axis_names: tuple[str, ...] 
         raise ValueError(f"mesh shape {shape} over axes {axis_names} does not lay out "
                          f"{size} ranks")
     return Mesh(group=group, shape=shape, axis_names=axis_names, rank=rank, size=size,
-                device=device)
+                device=device, subgroups=_subgroups(group, shape, axis_names, rank))
+
+
+_SUBGROUPS: dict = {}  # (shape, axis names) -> {axes: this rank's slice group}
+_subgroups_of = None  # the group whose slices _SUBGROUPS holds
+
+
+def _subgroups(group, shape: tuple[int, ...], axis_names: tuple[str, ...], rank: int) -> dict:
+    """This rank's sub-axis groups of ``group``'s ``shape`` layout, made on
+    the first call and cached for that group only: a mesh over another
+    group (a new default group after ``destroy_process_group``) empties the
+    cache, so it keeps no destroyed job's groups past the next mesh."""
+    global _subgroups_of
+    plan = list(slices(shape, axis_names))
+    if group is None or not plan:
+        return {}
+    if dist.get_world_size(group) != dist.get_world_size():
+        raise ValueError("a mesh with sub-axes needs the default group: every process "
+                         "of the job creates the sub-axis groups together")
+    if _subgroups_of is not group:
+        _SUBGROUPS.clear()
+        _subgroups_of = group
+    key = (shape, axis_names)
+    if key not in _SUBGROUPS:
+        backend = dist.get_backend(group)
+        out = {}
+        for axes, members in plan:
+            for ranks in members:
+                sub = dist.new_group(ranks, backend=backend)
+                if rank in ranks:
+                    out[axes] = sub
+        _SUBGROUPS[key] = out
+    return _SUBGROUPS[key]
 
 
 def _indexed(device) -> torch.device:

@@ -5,7 +5,7 @@
 # (convert.py).
 from repro_torch.models.convert import (
     LM_STATE_LAYOUT, dcn_params_from_jax, gnn_params_from_jax, lm_params_from_jax,
-    lm_state_from_jax, lm_state_to_jax,
+    lm_state_from_jax, lm_state_to_jax, moe_params_from_jax,
 )
 from repro_torch.models.gnn import (
     EGNN, GCN, MACE, EGNNConfig, GCNConfig, MACEConfig, SchNet, SchNetConfig,
@@ -29,7 +29,7 @@ __all__ = ["DCNConfig", "DCNv2", "dcn_forward", "dcn_init", "dcn_loss",
            "EGNNConfig", "EGNN", "egnn_init", "egnn_forward", "egnn_loss",
            "MACEConfig", "MACE", "mace_init", "mace_forward", "mace_loss",
            "gnn_params_from_jax",
-           "MoEConfig", "init_moe_params", "moe_dense", "moe_ep", "moe_tp",
+           "MoEConfig", "init_moe_params", "moe_dense", "moe_ep", "moe_tp", "moe_params_from_jax",
            "TransformerConfig", "Transformer", "init_params", "forward", "prefill",
            "loss_fn", "init_cache", "decode_step", "lm_params_from_jax",
            "lm_state_to_jax", "lm_state_from_jax", "LM_STATE_LAYOUT"]

@@ -13,6 +13,12 @@ parameter; the transformer keeps JAX's ``[in, out]`` layout, so nothing is
 transposed. A bfloat16 leaf goes through float32 (exact) into the
 parameter's dtype.
 
+``moe_params_from_jax`` takes one MoE layer's tree of
+``repro.models.moe.init_moe_params`` (a layer of its ``[L, ...]`` stacks)
+and returns this rank's shard of it for ``moe_ep`` (its block of experts) or
+``moe_tp`` (every expert's ``d_ff`` slice), or the whole layer without a
+mesh.
+
 ``lm_state_to_jax`` and ``lm_state_from_jax`` carry a whole LM train state
 (``{"params", "opt"}``, the optimizer's state any of JAX's three trees) to
 and from JAX's layout: the port's per-layer leaves (``dense_blocks.3.attn.wq``)
@@ -153,6 +159,49 @@ def lm_params_from_jax(tree: dict, cfg: TransformerConfig, device=None) -> Trans
     return model
 
 
+def moe_params_from_jax(tree: dict, cfg, *, layout: str = "ep", mesh=None,
+                        device=None) -> dict:
+    """One MoE layer's parameters (numpy leaves of JAX's keys: ``router``
+    ``[D, E]``, ``wg``/``wi`` ``[E, D, F]``, ``wo`` ``[E, F, D]``, the shared
+    experts' ``shared_*``) as float32 tensors on ``device`` (the mesh's
+    when given; None means the GPU). Over ``mesh``, rank i of the
+    ``"model"`` axis keeps its shard of the experts, as the reference's
+    ``shard_map`` specs split them: ``layout="ep"`` (``moe_ep``) the i-th
+    block of ``E / |model|`` experts, ``layout="tp"`` (``moe_tp``) the i-th
+    ``F / |model|`` slice of ``wg``'s and ``wi``'s last dim and of ``wo``'s
+    middle dim. The router and the shared experts stay whole."""
+    if layout not in ("ep", "tp"):
+        raise ValueError(f"layout must be 'ep' or 'tp', got {layout!r}")
+    want = {"router": (cfg.d_model, cfg.n_experts),
+            "wg": (cfg.n_experts, cfg.d_model, cfg.d_ff),
+            "wi": (cfg.n_experts, cfg.d_model, cfg.d_ff),
+            "wo": (cfg.n_experts, cfg.d_ff, cfg.d_model)}
+    if cfg.n_shared:
+        fs = cfg.d_ff * cfg.n_shared
+        want.update(shared_wg=(cfg.d_model, fs), shared_wi=(cfg.d_model, fs),
+                    shared_wo=(fs, cfg.d_model))
+    if set(tree) != set(want):
+        raise ValueError(f"the tree has {sorted(tree)}; {cfg} needs {sorted(want)}")
+    n, i = (1, 0) if mesh is None else (mesh.axis_size("model"), mesh.axis_index("model"))
+    split = cfg.n_experts if layout == "ep" else cfg.d_ff
+    if split % n:
+        raise ValueError(f"{split} {'experts' if layout == 'ep' else 'd_ff'} do not split "
+                         f"over {n} ranks")
+    w = split // n
+    cut = {"ep": {k: (0,) for k in ("wg", "wi", "wo")},
+           "tp": {"wg": (2,), "wi": (2,), "wo": (1,)}}[layout]
+    device = mesh.device if mesh is not None else resolve_device(device)
+    out = {}
+    for key, shape in want.items():
+        leaf = np.asarray(tree[key])
+        if tuple(leaf.shape) != shape:
+            raise ValueError(f"{key}: JAX gives {tuple(leaf.shape)}, {cfg} needs {shape}")
+        for axis in cut.get(key, ()):
+            leaf = np.take(leaf, np.arange(i * w, (i + 1) * w), axis=axis)
+        out[key] = torch.from_numpy(np.array(leaf, dtype=np.float32)).to(device)
+    return out
+
+
 _BLOCKS = ("dense_blocks", "moe_blocks")
 
 
@@ -263,4 +312,4 @@ LM_STATE_LAYOUT = Layout(lm_state_to_jax, lm_state_from_jax)
 
 
 __all__ = ["dcn_params_from_jax", "gnn_params_from_jax", "lm_params_from_jax",
-           "lm_state_to_jax", "lm_state_from_jax", "LM_STATE_LAYOUT"]
+           "moe_params_from_jax", "lm_state_to_jax", "lm_state_from_jax", "LM_STATE_LAYOUT"]

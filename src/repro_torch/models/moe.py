@@ -1,16 +1,19 @@
-"""Mixture-of-Experts layer: dense oracle + the expert-parallel path's
-single-device body.
+"""Mixture-of-Experts layer: dense oracle + the expert-parallel path.
 
-The port of the JAX package's ``models/moe.py`` for one device:
+The port of the JAX package's ``models/moe.py``:
 
 * ``moe_dense`` — one-hot combine over all experts (the numerical oracle);
-* ``moe_ep`` — ``_moe_local`` at one model shard: top-k routing, the
-  replicas bucketed into a fixed-capacity buffer (replicas past the capacity
-  drop, as in the reference), sorted by expert, one SwiGLU product per
-  expert over its contiguous rows (the reference's ``lax.ragged_dot``), and
-  the combine with the renormalized gates. ``mesh=`` (the all-to-all over
-  the ``model`` axis) raises ``NotImplementedError``: it comes with the
-  sharded zoo (ROADMAP.md section 1, item 6c-ii).
+* ``moe_ep`` — ``_moe_local``: top-k routing, the replicas bucketed by the
+  rank that owns their expert into fixed-capacity send buffers (replicas
+  past the capacity drop, as in the reference), sorted by expert, one
+  SwiGLU product per expert over its contiguous rows (the reference's
+  ``lax.ragged_dot``), and the combine with the renormalized gates. Over a
+  mesh (``mesh=``, the reference's ``shard_map``) a rank holds its share of
+  the tokens (split over ``dp``, and over ``tp`` on the sequence when
+  ``sp``) and ``E / |tp|`` experts; two ``collective.all_to_all`` calls over
+  ``tp`` send the replicas and their expert ids, one brings the outputs
+  back. Without ``sp`` the ``tp`` ranks hold the same tokens and each sends
+  its own copy, as the reference does.
 
 The per-expert products need each expert's row count on the host: one read
 of ``group_sizes`` a MoE layer a call (``_ragged_swiglu``), the one host
@@ -32,10 +35,22 @@ row (the backward a sum over k), not a gather by repeated token ids (an
 ``index_put_`` accumulation); the other gathers and scatters are
 permutations, or write zeros (dropped replicas) beside one value.
 
+Over a mesh the gradients follow ``core/collective.py``'s rule (every rank
+backpropagates the loss of the whole step): a rank's expert weights get
+their gradient from its data shard's tokens, and a weight held alike over
+an axis that splits the tokens (``dp``; ``tp`` with ``sp``) gets its own
+tokens' share, which the train step's data-parallel sum adds up. Without
+``sp`` the ``tp`` ranks send the same replicas, so an expert receives each
+one ``|tp|`` times: its weights' gradient is scaled by ``1 / |tp|``
+(``_scale_grad``). ``aux`` is the mean over the ranks holding different
+tokens (the reference's ``pmean`` over ``tp``, then each ``dp`` axis; the
+mean over ``tp`` of the equal values of ``tp`` ranks that hold the same
+tokens is left out, so that every rank's gradient of ``aux`` is whole).
+
 Parameters are a mapping of tensors under the reference's keys
 (``router``, ``wg``, ``wi``, ``wo``, ``shared_wg``, ...): a MoE block's
 ``nn.ParameterDict`` (``models/transformer.py``), or ``init_moe_params``'s
-dict.
+dict; over a mesh, this rank's shard (``models.convert.moe_params_from_jax``).
 """
 from __future__ import annotations
 
@@ -45,6 +60,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collective
 from repro_torch.core.dispatch import resolve_device
 from repro_torch.models.layers import _scalar
 
@@ -147,10 +163,39 @@ def moe_dense(x: torch.Tensor, p, cfg: MoEConfig) -> tuple[torch.Tensor, torch.T
 # ---------------------------------------------------------------------------
 # the expert-parallel path's body
 # ---------------------------------------------------------------------------
-def _moe_local(x2d, router, wg, wi, wo, cfg: MoEConfig):
-    """The reference's per-device body at ``axis=None``: one model shard,
-    whose send buffer is its receive buffer (no all-to-all)."""
-    model_size = 1
+class _GradScale(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, scale):
+        ctx.scale = scale
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def _scale_grad(t: torch.Tensor, scale: float) -> torch.Tensor:
+    """``t``, whose gradient is scaled by ``scale``."""
+    if scale == 1 or not (torch.is_grad_enabled() and t.requires_grad):
+        return t
+    return _GradScale.apply(t, scale)
+
+
+def capacity(tk: int, model_size: int, capacity_factor: float) -> int:
+    """The replicas a peer takes from a rank routing ``tk`` replicas over
+    ``model_size`` peers: ``round(tk / model_size * capacity_factor)``
+    rounded up to a multiple of 8, at least 8."""
+    cap = int(round(tk / model_size * capacity_factor))
+    return max(8, -(-cap // 8) * 8)
+
+
+def _moe_local(x2d, router, wg, wi, wo, cfg: MoEConfig, model_size: int = 1,
+               mesh=None, tp: str = "model", copies: int = 1):
+    """The reference's per-device body: ``model_size`` ranks along ``tp``
+    own ``e_loc`` experts each. With ``model_size = 1`` the send buffer is
+    the receive buffer (no all-to-all); else ``mesh`` carries the three
+    all-to-alls. ``copies`` is how many ``tp`` ranks send these same
+    replicas (``_scale_grad``)."""
     t, d = x2d.shape
     dev = x2d.device
     e_loc = wg.shape[0]
@@ -161,8 +206,7 @@ def _moe_local(x2d, router, wg, wi, wo, cfg: MoEConfig):
     gate_r = gates.reshape(-1)                       # [tk]
     peer = torch.div(eid, e_loc, rounding_mode="floor")   # destination device
 
-    cap = int(round(tk / model_size * cfg.capacity_factor))
-    cap = max(8, -(-cap // 8) * 8)                   # >=8, multiple of 8
+    cap = capacity(tk, model_size, cfg.capacity_factor)
 
     # position of each replica inside its peer bucket (stable order)
     order = torch.sort(peer, stable=True).indices
@@ -181,9 +225,15 @@ def _moe_local(x2d, router, wg, wi, wo, cfg: MoEConfig):
     send_eid = torch.full((model_size, cap + 1), -1, dtype=torch.int64, device=dev)
     send_eid[peer, slot] = torch.where(keep, eid % e_loc, -1)
 
+    recv, recv_eid = send[:, :cap], send_eid[:, :cap]
+    if model_size > 1:
+        recv = collective.all_to_all(recv, mesh, tp)
+        recv_eid = collective.all_to_all(recv_eid, mesh, tp)
+        wg, wi, wo = (_scale_grad(w, 1 / copies) for w in (wg, wi, wo))
+
     r = model_size * cap
-    xr = send[:, :cap].reshape(r, d)
-    er = send_eid[:, :cap].reshape(r)
+    xr = recv.reshape(r, d)
+    er = recv_eid.reshape(r)
     er_sort_key = torch.where(er < 0, e_loc, er)     # invalid slots last
     ord2 = torch.sort(er_sort_key, stable=True).indices
     cd = cfg.compute_dtype
@@ -195,6 +245,8 @@ def _moe_local(x2d, router, wg, wi, wo, cfg: MoEConfig):
     ys = torch.where((es < e_loc)[:, None], ys, _scalar(0, ys, ys.dtype))
 
     yr = torch.zeros_like(ys).index_copy_(0, ord2, ys).reshape(model_size, cap, d)
+    if model_size > 1:
+        yr = collective.all_to_all(yr, mesh, tp)
     y_rep = yr[peer, torch.clamp(pos, max=cap - 1)]  # [tk, D]; a gather clamps, as JAX's
     y_rep = torch.where(keep[:, None], y_rep, _scalar(0, y_rep, y_rep.dtype)) \
         * gate_r[:, None].to(yr.dtype)
@@ -202,15 +254,39 @@ def _moe_local(x2d, router, wg, wi, wo, cfg: MoEConfig):
     return y.to(x2d.dtype), aux
 
 
-def moe_ep(x: torch.Tensor, p, cfg: MoEConfig, *, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """[B,S,D] -> ([B,S,D], aux): the single-device body of the reference's
-    expert-parallel layer."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_ep over a mesh (the all-to-all over the 'model' axis) is not ported "
-            "yet: it comes with the sharded zoo, ROADMAP.md section 1, item 6c-ii")
+def token_mean(aux: torch.Tensor, mesh, axes: tuple[str, ...]) -> torch.Tensor:
+    """``aux`` averaged over the ranks along ``axes`` (those holding
+    different tokens): one ``all_reduce_sum``, none where they are one
+    rank."""
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return aux
+    return collective.all_reduce_sum(aux, mesh, axes) / n
+
+
+def moe_ep(x: torch.Tensor, p, cfg: MoEConfig, *, mesh=None, dp: tuple[str, ...] = ("data",),
+           tp: str = "model", sp: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B,S,D] -> ([B,S,D], aux): the reference's expert-parallel layer.
+
+    Without a mesh, its single-device body. Over ``mesh`` (a
+    ``core.collective.Mesh`` with axes ``dp`` and ``tp``), this rank's
+    share: ``x`` its ``[B / |dp|, S, D]`` block (``[B / |dp|, S / |tp|, D]``
+    with ``sp``), ``p`` the router and shared experts whole and ``wg``,
+    ``wi``, ``wo`` its ``E / |tp|`` experts (rank i along ``tp`` the i-th
+    block); returns its block of the output and the mean ``aux``."""
     b, s, d = x.shape
-    y2d, aux = _moe_local(x.reshape(-1, d), p["router"], p["wg"], p["wi"], p["wo"], cfg)
+    if mesh is None:
+        y2d, aux = _moe_local(x.reshape(-1, d), p["router"], p["wg"], p["wi"], p["wo"], cfg)
+    else:
+        dp = tuple(dp)
+        model_size = mesh.axis_size(tp)
+        if p["wg"].shape[0] * model_size != cfg.n_experts:
+            raise ValueError(f"{p['wg'].shape[0]} experts a rank over |{tp}| = {model_size} "
+                             f"is not the config's {cfg.n_experts}")
+        y2d, aux = _moe_local(x.reshape(-1, d), p["router"], p["wg"], p["wi"], p["wo"], cfg,
+                              model_size=model_size, mesh=mesh, tp=tp,
+                              copies=1 if sp else model_size)
+        aux = token_mean(aux, mesh, dp + (tp,) if sp else dp)
     y = y2d.reshape(b, s, d)
     if cfg.n_shared:
         y = y + _shared_ffn(x.reshape(-1, d), p, cfg).to(x.dtype).reshape(b, s, d)
@@ -243,4 +319,4 @@ def init_moe_params(cfg: MoEConfig, n_layers: int, param_dtype=torch.float32, *,
     return p
 
 
-__all__ = ["MoEConfig", "moe_dense", "moe_ep", "init_moe_params"]
+__all__ = ["MoEConfig", "moe_dense", "moe_ep", "init_moe_params", "token_mean", "capacity"]

@@ -629,9 +629,108 @@ def test_rpr401_admits_all_reduce_max(tmp_path, side):
     assert rule_ids(result) == (["RPR401"] if side == "bad" else [])
 
 
+# RPR401 and RPR402 through the sub-axis collectives: a raw gather or
+# all-to-all, and a rank-tested call of each new site or of a layer that
+# reaches one (moe_ep's all-to-alls, vp_segment_sum's sum over sub-axes)
+NEW_SITE_FIXTURES = {
+    "all_gather": ("RPR401", """
+        import torch
+        import torch.distributed as dist
+
+        def gather(t, mesh):
+            out = t.new_empty((mesh.size * t.shape[0],) + tuple(t.shape[1:]))
+            dist.all_gather_into_tensor(out, t, group=mesh.group)
+            return out
+        """, """
+        from repro_torch.core import collective
+
+        def gather(t, mesh):
+            return collective.all_gather(t, mesh, "model")
+        """),
+    "all_to_all": ("RPR401", """
+        import torch
+        import torch.distributed as dist
+
+        def exchange(t, mesh):
+            out = torch.empty_like(t)
+            dist.all_to_all_single(out, t, group=mesh.group)
+            return out
+        """, """
+        from repro_torch.core import collective
+
+        def exchange(t, mesh):
+            return collective.all_to_all(t, mesh, "model")
+        """),
+    "all_gather-by-rank": ("RPR402", """
+        from repro_torch.core import collective
+
+        def features(h, mesh):
+            if mesh.rank == 0:
+                h = collective.all_gather(h, mesh, "data")
+            return h
+        """, """
+        from repro_torch.core import collective
+
+        def features(h, mesh):
+            full = collective.all_gather(h, mesh, "data")
+            if mesh.rank == 0:
+                print(full.shape)
+            return full
+        """),
+    "moe_ep-by-rank": ("RPR402", """
+        import torch.distributed as dist
+        from repro_torch.models import moe_ep
+
+        def layer(x, p, cfg, mesh):
+            if dist.get_rank() == 0:
+                return moe_ep(x, p, cfg, mesh=mesh)[0]
+            return x
+        """, """
+        import torch.distributed as dist
+        from repro_torch.models import moe_ep
+
+        def layer(x, p, cfg, mesh):
+            y, aux = moe_ep(x, p, cfg, mesh=mesh)
+            if dist.get_rank() == 0:
+                print(float(aux))
+            return y
+        """),
+    "vp_segment_sum-by-rank": ("RPR402", """
+        from repro_torch.kernels.ops import segment_output_sharding, vp_segment_sum
+
+        def aggregate(vals, ids, n, mesh, rank):
+            with segment_output_sharding(mesh, ("data",)):
+                if rank == 0:
+                    return vp_segment_sum(vals, ids, n)
+            return None
+        """, """
+        from repro_torch.kernels.ops import segment_output_sharding, vp_segment_sum
+
+        def aggregate(vals, ids, n, mesh, rank):
+            with segment_output_sharding(mesh, ("data",)):
+                out = vp_segment_sum(vals, ids, n)
+            return out if rank == 0 else None
+        """),
+}
+
+
+@pytest.mark.parametrize("side", ["bad", "good"])
+@pytest.mark.parametrize("case", sorted(NEW_SITE_FIXTURES))
+def test_sub_axis_collective_sites(tmp_path, case, side):
+    """RPR401 fires on a raw all-gather or all-to-all and not on
+    collective.all_gather/all_to_all; RPR402 fires on a rank-tested call of
+    a new site or of a layer that reaches one, not on the call made by every
+    rank."""
+    rule, bad, good = NEW_SITE_FIXTURES[case]
+    result = lint_snippet(tmp_path, good if side == "good" else bad, ids={rule})
+    assert rule_ids(result) == ([rule] if side == "bad" else []), [
+        f"{f.line}: {f.rule} {f.message}" for f in result.findings]
+
+
 def test_collective_sites_are_the_two_reducers():
     """The port's only torch.distributed collective calls are the bodies of
-    core/collective.py's all_reduce_sum and all_reduce_max."""
+    core/collective.py's four sites: all_reduce_sum, all_reduce_max,
+    all_gather and all_to_all."""
     import ast
 
     from repro_torch.analysis.framework import (

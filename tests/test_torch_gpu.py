@@ -1624,3 +1624,109 @@ def test_bfloat16_checkpoint_round_trip_from_cuda(cuda, tmp_path):
     assert step == 4
     for (k, x), (_, y) in zip(leaves_with_paths(back), leaves_with_paths(state)):
         assert x.device.type == "cuda" and x.dtype == y.dtype and torch.equal(x, y), k
+
+
+# ---------------------------------------------------------------------------
+# sub-axis meshes: the collectives through gloo on the card, vp_segment_sum's
+# K1, the MoE layers over a mesh of one
+# ---------------------------------------------------------------------------
+def test_sub_axis_collectives_four_ranks_on_card(cuda, tmp_path):
+    """Four gloo ranks on cuda:0 over the (2, 2) and (4, 1) meshes: the four
+    collectives over every axis set (the sub-axis groups included) in float32
+    and bfloat16 equal their numpy closed forms, with their backward
+    (tests/_torch_mesh_ranks.py, its card mode)."""
+    import os
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    import _torch_mesh_ranks as mr
+
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, str(root / "tests" / "_torch_mesh_ranks.py"),
+                               str(r), "4", f"file://{tmp_path / 'rdzv'}", "-",
+                               str(tmp_path / f"rank{r}.npz")], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(4)]
+    deadline = time.monotonic() + 180
+    try:
+        logs = [p.communicate(timeout=max(deadline - time.monotonic(), 0.0))[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        pytest.fail("four ranks on the card did not finish in 180 s")
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, logs[r].decode()[-4000:]
+    for r in range(4):
+        ans = dict(np.load(tmp_path / f"rank{r}.npz"))
+        for shape in mr.MESHES[4]:
+            for label in mr.COLL_AXES:
+                want = mr.expected_collectives(shape, r, label)
+                for dt, tol in (("torch.float32", dict(rtol=1e-6, atol=1e-6)),
+                                ("torch.bfloat16", dict(rtol=2e-2, atol=2e-2))):
+                    key = f"{dt}/{mr.tag(shape)}/coll/{label}"
+                    for kind in ("sum", "max", "gather", "a2a", "sum_grad", "sum/grad",
+                                 "gather/grad", "a2a/grad", "sum_grad/grad"):
+                        np.testing.assert_allclose(ans[f"{key}/{kind}"], want[kind], **tol,
+                                                   err_msg=f"{key}/{kind}")
+
+
+@pytest.mark.parametrize("d", [0, 16])
+def test_vp_segment_sum_k1_on_card(cuda, d):
+    """vp_segment_sum over a mesh of one on the card: K1 once a call (K1 on)
+    equals the plain version and the CPU's, unsorted lanes are sorted and
+    counted, and the gradient (no K1 backward) equals the CPU's."""
+    from repro_torch.core.distributed import make_mesh
+
+    rng = np.random.default_rng(d)
+    n, e = 5000, 60_000
+    ids = np.r_[np.sort(rng.integers(0, n, e)), np.full(9, n)].astype(np.int32)
+    vals = rng.normal(size=(ids.shape[0], d) if d else ids.shape[0]).astype(np.float32)
+    w = rng.normal(size=(n, d) if d else n).astype(np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        v = torch.from_numpy(vals).to(dev).requires_grad_(True)
+        i = torch.from_numpy(ids).to(dev)
+        with ops.segment_output_sharding(mesh, ("data",), min_segments=1):
+            k1 = segsum.launches
+            on = ops.vp_segment_sum(v, i, n)
+            launched = segsum.launches - k1
+            off = ops.vp_segment_sum(v.detach(), i, n, kernel=False)
+            (g,) = torch.autograd.grad((on * torch.from_numpy(w).to(dev)).sum(), v)
+            before = ops.unsorted_fallback_count
+            flip = torch.flip(torch.arange(i.shape[0], device=dev), [0])
+            unsorted = ops.vp_segment_sum(v.detach()[flip], i[flip], n)
+            out[dev.type] = (on.detach().cpu(), off.cpu(), g.cpu(), unsorted.cpu(),
+                             ops.unsorted_fallback_count - before, launched)
+    on, off, g, unsorted, fallbacks, launched = out["cuda"]
+    assert launched == 1 and fallbacks == 1
+    torch.testing.assert_close(on, off, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(on, out["cpu"][0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(unsorted, on, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(g, out["cpu"][2], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["ep", "tp"])
+def test_moe_mesh_of_one_on_card(cuda, kind):
+    """moe_ep and moe_tp over a ("data", "model") mesh of one on the card:
+    the single-device body's bits, in bfloat16."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.models import init_moe_params, moe_ep, moe_tp
+
+    cfg = dataclasses.replace(get_arch("deepseek-v3-671b").smoke.moe,
+                              compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    p = {k: v[0] for k, v in init_moe_params(cfg, 1, torch.bfloat16, device=cuda,
+                                             generator=gen).items()}
+    x = torch.randn((2, 64, cfg.d_model), generator=gen, device=cuda).to(torch.bfloat16)
+    fn = moe_ep if kind == "ep" else moe_tp
+    mesh = make_mesh((1, 1), ("data", "model"), device=cuda)
+    with torch.inference_mode():
+        got, aux = fn(x, p, cfg, mesh=mesh)
+        want, waux = fn(x, p, cfg)
+    assert torch.equal(got, want) and torch.equal(aux, waux)

@@ -236,10 +236,21 @@ def test_moe_capacity_drops_match_jax(capacity_factor):
 
 
 def test_moe_ep_mesh_raises():
+    """moe_ep and moe_tp run over a mesh (tests/test_torch_mesh.py): a mesh
+    without the ``tp`` axis raises, and a world of one over ("data", "model")
+    gives the single-device body's bits."""
+    from repro_torch.core.distributed import make_mesh
+
     _, tp = _moe_params(MOE)
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(1, 4, 16)).astype(np.float32))
+    flat = make_mesh(device="cpu")
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
     for fn in (tmoe.moe_ep, tmoe_tp):
-        with pytest.raises(NotImplementedError, match="6c-ii"):
-            fn(torch.zeros(1, 2, 16), tp, torch_moe(MOE), mesh=object())
+        with pytest.raises(ValueError, match="not axes of the mesh"):
+            fn(x, tp, torch_moe(MOE), mesh=flat)
+        got, aux = fn(x, tp, torch_moe(MOE), mesh=mesh)
+        want, waux = fn(x, tp, torch_moe(MOE))
+        assert torch.equal(got, want) and torch.equal(aux, waux)
 
 
 def test_init_moe_params_shapes_match_jax():
