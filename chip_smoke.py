@@ -231,7 +231,29 @@ takes a plain gather), and the kernel switched on. Phases:
      and the valid cache entries once, at 3.35 TB/s), host syncs a step (one
      a MoE layer: its group sizes), one profiled step, peak device memory.
      No kernel of K1-K5 runs on this path: their counts stay 0;
- 18. a JSON line of every kernel, then the card's name and power limit, then
+ 18. LM training (``phase_lm_train``): qwen2.5-3b at full depth, grok-1 at 1
+     layer and deepseek-v3's 3 dense layers with MTP through the train kind,
+     step 1 twice bitwise, qwen2.5 at 2 layers card against CPU in float32,
+     and ``run_training`` with failures and checkpoints in JAX's layout;
+ 19. ``build_step`` over a mesh (``phase_step_mesh``): world 1 in this
+     process, then two gloo ranks on the card (``_step_mesh_rank``), each rank
+     drawing only its slices (``init_params(mesh=, specs=)``, one whole leaf
+     at a time). The train kind in float32 at published widths: mistral-nemo
+     at 2 layers (tp_sp with FSDP, 4 microbatches, 8 x 128 tokens) over (1, 2)
+     and (2, 1), qwen2.5 at 2 layers (zero3, 2 x 128) over (2, 1): the loss
+     against world 1 (rtol 1e-5), every gradient leaf put together against
+     world 1's (1e-4 normwise), the train kind bitwise repeatable (the
+     gradient's update, then the step from the same state; mistral-nemo over
+     (2, 1) runs its gradient only: its float32 state does not fit twice on
+     the card). qwen2.5 at 2
+     layers and deepseek-v3 at 4 (MLA, ``moe_ep``) in bfloat16 over (1, 2):
+     prefill (the sequence over "model"), its cache moved into decode's
+     layout, 8 decode steps teacher-forced by world 1's greedy tokens: the
+     logits within 5e-2 normwise (phase 17's bfloat16 gate), greedy tokens
+     equal, prefill bitwise repeatable. gcn-cora at ogb_products' size over (2, 1) (node blocks) and
+     (1, 2), K1 on each rank (``vp_segment_sum``, 3 launches a step): loss
+     and gradients against world 1's plain step, bitwise repeatable;
+ 20. a JSON line of every kernel, then the card's name and power limit, then
      the result line ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure, so the script exits non-zero and prints no
@@ -3024,6 +3046,7 @@ def phase_mesh(device: str) -> dict:
         for k in ("src", "dst"):
             np.save(tmp / f"{k}.npy", lanes[k])
         np.save(tmp / "n.npy", np.array(lanes["n"]))
+        PRODUCTS_LANES.update(lanes)   # phase 19's GCN step reads them again
         del lanes
         ctx = multiprocessing.get_context("spawn")
         init = f"file://{tmp / 'rendezvous'}"
@@ -4958,8 +4981,8 @@ class GradNorms:
 
         self.mod, self.real, self.norms = optimizers, optimizers.global_norm, []
 
-        def recorded(tree):
-            out = self.real(tree)
+        def recorded(tree, layout=None):
+            out = self.real(tree, layout)
             self.norms.append(out)
             return out
 
@@ -5341,6 +5364,513 @@ def phase_lm_train(device: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19, build_step over a mesh: the LM kinds' sharded layouts (tp_sp with
+# FSDP, zero3, prefill's and decode's caches) and the GNN train kind with K1
+# on each rank; world 1 in the smoke's process, then two gloo ranks on the card
+# ---------------------------------------------------------------------------
+# the train kind in float32 at published widths, depth and batch cut (the
+# arch's microbatches, optimizer and layout: mistral-nemo tp_sp with FSDP and
+# 4 microbatches, qwen2.5 zero3 where the batch covers the mesh)
+STEP_MESH_TRAIN = {
+    "mistral": dict(arch="mistral-nemo-12b", cut=dict(n_layers=2), gb=8, seq=128,
+                    meshes=((1, 2), (2, 1)), steps=((1, 2),)),
+    "qwen": dict(arch="qwen2.5-3b", cut=dict(n_layers=2), gb=2, seq=128, meshes=((2, 1),),
+                 steps=((2, 1),)),
+}
+# ``steps``: the meshes that also run the whole train step twice over (the
+# update of the gradient, then ``fn`` from the same state, bitwise). Over (2,
+# 1) mistral-nemo runs its gradient once: a rank holds 5.1 GB of parameters,
+# the 7.6 GB of weights it gathers, its gradient's accumulator and one
+# microbatch's gradient (7.6 GB each); AdamW's moments would add 10.2 GB, two
+# ranks 75 GB of the card's 80, and each gradient takes 25 s through gloo.
+# prefill then teacher-forced decode in the arch's bfloat16 over (1, 2), the
+# logits against world 1 within LM_BF16_NORMWISE: the two round each layer's
+# products differently (the ranks' halves of every product, their sums in
+# float32), phase 17's random walk of bfloat16 roundings; 1.0 % and 1.4 % were
+# read at qwen2.5's 2 layers, measured on one H100
+STEP_MESH_SERVE = {
+    "qwen": dict(arch="qwen2.5-3b", cut=dict(n_layers=2), batch=2, prompt=512, new=8),
+    "deepseek": dict(arch="deepseek-v3-671b", cut=LM_CUTS["deepseek-v3-671b"], batch=2,
+                     prompt=512, new=8),
+}
+STEP_MESH_GNN = ((2, 1), (1, 2))   # gcn-cora at ogb_products' size, K1 on each rank
+STEP_MESH_SEED = 19
+STEP_MESH_K1 = 3   # K1 launches of a GCN step a rank: the degrees and two layers' sums
+PRODUCTS_LANES: dict = {}   # phase 13's dst-sorted ogb_products lanes, for phase 19
+
+
+def step_mesh_train_arch(spec: dict):
+    """The arch of a train case: its FULL config cut and in float32."""
+    import torch
+
+    return lm_train_arch(spec["arch"], dict(spec["cut"], param_dtype=torch.float32,
+                                            compute_dtype=torch.float32),
+                         spec["gb"], spec["seq"])
+
+
+def step_mesh_build(arch, shape: str, device=None, mesh=None):
+    """``build_step`` with ``arch`` in place of the registry's."""
+    from unittest import mock
+
+    from repro_torch.launch import build_step, steps
+
+    with mock.patch.object(steps, "get_arch", lambda _: arch):
+        return build_step(arch.name, shape, device=device, mesh=mesh)
+
+
+def step_mesh_serve_arch(spec: dict):
+    from repro_torch.configs import get_arch
+
+    arch = get_arch(spec["arch"])
+    return dataclasses.replace(arch, full=dataclasses.replace(arch.full, **spec["cut"]))
+
+
+def products_lanes() -> dict:
+    """ogb_products' lanes sorted by dst (phase 13's, or built here)."""
+    if not PRODUCTS_LANES:
+        from repro_torch.graphs import Graph
+        from repro_torch.graphs.partition import partition_by_dst_block
+
+        rng = np.random.default_rng(GNN_PRODUCTS["seed"])
+        g = Graph.from_edges(rng.integers(0, GNN_PRODUCTS["n"], (GNN_PRODUCTS["pairs"], 2)),
+                             GNN_PRODUCTS["n"])
+        src, dst, _ = partition_by_dst_block(g, 2)
+        PRODUCTS_LANES.update(src=src, dst=dst, n=g.n_nodes)
+    return PRODUCTS_LANES
+
+
+def block_lanes(src, dst, n_rows: int, shape) -> tuple[np.ndarray, np.ndarray]:
+    """dst-sorted lanes as the reference's hint takes them over ``shape``:
+    ``shape[0]`` dst blocks of ``n_rows / shape[0]`` rows, each padded with
+    the sentinel ``n_rows`` to the same multiple of ``shape[1]`` lanes."""
+    blocks, sub = shape
+    bounds = np.searchsorted(dst, np.arange(0, n_rows + 1, n_rows // blocks))
+    per = int(-(-int(np.diff(bounds).max()) // sub) * sub)
+    s = np.full(per * blocks, n_rows, np.int32)
+    d = np.full(per * blocks, n_rows, np.int32)
+    for b in range(blocks):
+        lo, hi = bounds[b], bounds[b + 1]
+        s[b * per:b * per + hi - lo] = src[lo:hi]
+        d[b * per:b * per + hi - lo] = dst[lo:hi]
+    return s, d
+
+
+def step_mesh_gnn_batch(tmp: Path) -> dict:
+    """gcn-cora's ogb_products batch (seeded node features, labels, masks;
+    the node rows padded as the step pads them) and each mesh's lanes, as
+    npy files in ``tmp`` for the ranks; returns (2, 1)'s batch."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import _gnn_dims
+
+    lanes = products_lanes()
+    n_rows = _gnn_dims(get_arch("gcn-cora").shape("ogb_products"), 1)[0]
+    n = lanes["n"]
+    rng = np.random.default_rng(STEP_MESH_SEED)
+    real = np.arange(n_rows) < n
+    nodes = {"node_feat": rng.standard_normal((n_rows, 100), dtype=np.float32),
+             "labels": rng.integers(0, 7, n_rows).astype(np.int32),
+             "label_mask": real & (rng.random(n_rows) < 0.5),
+             "node_mask": real, "graph_id": np.zeros(n_rows, np.int32)}
+    for k, v in nodes.items():
+        np.save(tmp / f"gnn_{k}.npy", v)
+    for shape in STEP_MESH_GNN:
+        s, d = block_lanes(lanes["src"], lanes["dst"], n_rows, shape)
+        np.save(tmp / f"gnn_src_{shape[0]}x{shape[1]}.npy", s)
+        np.save(tmp / f"gnn_dst_{shape[0]}x{shape[1]}.npy", d)
+    return step_mesh_gnn_load(tmp, STEP_MESH_GNN[0])
+
+
+def step_mesh_gnn_load(tmp: Path, shape) -> dict:
+    """The batch of ``shape`` (read-only memory maps: a rank copies its share)."""
+    out = {k: np.load(tmp / f"gnn_{k}.npy", mmap_mode="r")
+           for k in ("node_feat", "labels", "label_mask", "node_mask", "graph_id")}
+    for k in ("src", "dst"):
+        out[k] = np.load(tmp / f"gnn_{k}_{shape[0]}x{shape[1]}.npy", mmap_mode="r")
+    return out
+
+
+def step_mesh_world1(device, tmp: Path) -> dict:
+    """World 1 of phase 19: each train case's loss and gradients (the
+    gradients to ``tmp`` for the ranks), each serving case's prefill logits
+    and cache and its greedy decode, and the GCN step at ogb_products' size
+    on the plain path; every card tensor freed."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train_state
+    from repro_torch.models import init_cache
+
+    out = {}
+    for label, spec in STEP_MESH_TRAIN.items():
+        arch = step_mesh_train_arch(spec)
+        step = step_mesh_build(arch, "train_4k", device=device)
+        torch.cuda.reset_peak_memory_stats()
+        model = lm_model(step.cfg, device, STEP_MESH_SEED)
+        params = {k: v.detach() for k, v in model.named_parameters()}
+        batch = lm_train_batch(step.cfg.vocab, spec["gb"], spec["seq"], STEP_MESH_SEED, device)
+        t0 = time.perf_counter()
+        loss, grads = step.grad(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        (tmp / label).mkdir()
+        for k, g in grads.items():
+            np.save(tmp / label / f"{k}.npy", g.float().cpu().numpy())
+        out[label] = dict(loss=float(loss), wall_s=wall,
+                          peak_bytes=torch.cuda.max_memory_allocated(),
+                          param_bytes=tree_bytes(params))
+        del model, params, grads, loss
+        torch.cuda.empty_cache()
+    for label, spec in STEP_MESH_SERVE.items():
+        arch = step_mesh_serve_arch(spec)
+        pre = step_mesh_build(arch, "prefill_32k", device=device)
+        dec = step_mesh_build(arch, "decode_32k", device=device)
+        torch.cuda.reset_peak_memory_stats()
+        model = lm_model(pre.cfg, device, STEP_MESH_SEED)
+        prompts = lm_prompts(spec["batch"], spec["prompt"], pre.cfg.vocab, STEP_MESH_SEED)
+        t0 = time.perf_counter()
+        logits, cache = pre.fn(model, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = init_cache(dec.cfg, spec["batch"], spec["prompt"] + spec["new"], device=device)
+        for k, v in cache.items():
+            c[k][:, :, :spec["prompt"]] = v
+        toks, steps = [logits.argmax(-1)], []
+        for t in range(spec["new"]):
+            lg, c = dec.fn(model, c, toks[-1], spec["prompt"] + t)
+            steps.append(lg.float().cpu())
+            toks.append(lg.argmax(-1))
+        out[label + "-serve"] = dict(prefill=logits.float().cpu(), decode=torch.stack(steps),
+                                     tokens=torch.stack(toks).cpu(), prefill_wall_s=wall,
+                                     peak_bytes=torch.cuda.max_memory_allocated())
+        np.save(tmp / f"{label}-tokens.npy", out[label + "-serve"]["tokens"].numpy())
+        del model, cache, c, logits, lg
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batch = step_mesh_gnn_batch(tmp)
+    host_s = time.perf_counter() - t0
+    gcn = get_arch("gcn-cora")
+    step = step_mesh_build(gcn, "ogb_products", device=device)
+    model = gnn_model("gcn-cora", dataclasses.replace(gcn.full, d_feat=100), device,
+                      STEP_MESH_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = step.grad(train_state(model, step.opt)["params"], batch)
+    torch.cuda.synchronize()
+    out["gcn"] = dict(loss=float(loss), grads={k: g.float().cpu() for k, g in grads.items()},
+                      wall_s=time.perf_counter() - t0, host_batch_s=host_s,
+                      peak_bytes=torch.cuda.max_memory_allocated())
+    del model, grads, loss, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grad_stats(grads: dict, specs: dict, ref_dir: Path, mesh) -> dict:
+    """Per leaf, (sum of squared differences, sum of squares of the
+    reference) over this rank's slice of world 1's gradient, float64."""
+    import torch
+
+    from repro_torch.models.shard import local_slice, spec_axes
+
+    out = {}
+    for k, g in grads.items():
+        ref = torch.from_numpy(np.ascontiguousarray(local_slice(
+            np.load(ref_dir / f"{k}.npy", mmap_mode="r"), specs[k], mesh))).to(g.device)
+        d = (g.float() - ref).double()
+        out[k] = (float(d.square().sum()), float(ref.double().square().sum()),
+                  bool(spec_axes(specs[k])))
+        del ref, d
+    return out
+
+
+def _step_mesh_rank(rank: int, world: int, init: str, data: str, out: str,
+                    device: str = "cuda") -> None:
+    """One rank of phase 19's world 2 (gloo, both ranks on cuda:0): the
+    train cases over their meshes (loss, gradient statistics against world
+    1's, the step's repeatability), the serving cases over (1, 2) (prefill,
+    then decode teacher-forced by world 1's greedy tokens), the GCN step
+    over (2, 1) and (1, 2) with K1 on; to ``out``."""
+    import os
+
+    # two ranks' float32 states share the card: allocate in growable segments
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed
+    from repro_torch.kernels import segsum
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.shard import gather, local_slice
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        segsum.load_library()  # built by the parent's phase 1: a load, not a build
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda:0") if on_card else torch.device(device)
+    tmp = Path(data)
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
+    res = {}
+    try:
+        meshes = {s: distributed.make_mesh(s, MESH_AXES, device=dev) for s in ((1, 2), (2, 1))}
+
+        def draw(cfg, mesh, specs):
+            # world 1's values: every whole leaf drawn in turn, this rank's slice kept
+            gen = torch.Generator(device=dev).manual_seed(STEP_MESH_SEED)
+            return init_params(cfg, generator=gen, mesh=mesh, specs=specs)
+
+        for label, spec in STEP_MESH_TRAIN.items():
+            arch = step_mesh_train_arch(spec)
+            for shape in spec["meshes"]:
+                mesh, key = meshes[shape], f"{label}/{shape[0]}x{shape[1]}"
+                step = step_mesh_build(arch, "train_4k", mesh=mesh)
+                layout = (mesh, step.specs)
+                params = {k: v.detach() for k, v in draw(step.cfg, mesh, step.specs)
+                          .named_parameters()}
+                batch = lm_train_batch(step.cfg.vocab, spec["gb"], spec["seq"], STEP_MESH_SEED,
+                                       dev)
+                torch.cuda.reset_peak_memory_stats() if on_card else None
+                t0 = time.perf_counter()
+                loss, grads = step.grad(params, batch)
+                torch.cuda.synchronize() if on_card else None
+                res[f"{key}/wall_s"] = np.array(time.perf_counter() - t0)
+                res[f"{key}/loss"] = np.array(float(loss))
+                res[f"{key}/stats"] = np.array(json.dumps(_grad_stats(grads, step.specs,
+                                                                      tmp / label, mesh)))
+                res[f"{key}/layout"] = np.array("zero3" if step.ctx.tp is None else "tp_sp")
+                res[f"{key}/finite"] = np.array(True)
+                res[f"{key}/bitwise"] = np.array(-1)   # not run
+                if shape in spec["steps"]:
+                    # the whole train kind twice over: the update of this
+                    # gradient, then the step from the same state, bitwise
+                    state0 = step.opt.init(params, layout)
+                    want = fingerprint(step.opt.update(grads, state0, params, layout)[0])
+                    del grads
+                    new_p, new_o, loss2 = step.fn(params, state0, batch)
+                    res[f"{key}/bitwise"] = np.array(int(fingerprint(new_p) == want
+                                                         and bool(torch.equal(loss2, loss))))
+                    res[f"{key}/finite"] = np.array(all(bool(torch.isfinite(v).all())
+                                                        for v in new_p.values()))
+                    del state0, new_p, new_o, loss2
+                else:
+                    del grads
+                res[f"{key}/peak_bytes"] = np.array(torch.cuda.max_memory_allocated()
+                                                    if on_card else 0)
+                res[f"{key}/shard_bytes"] = np.array(tree_bytes(params))
+                del params, loss, batch
+                torch.cuda.empty_cache() if on_card else None
+
+        mesh = meshes[(1, 2)]
+        for label, spec in STEP_MESH_SERVE.items():
+            arch = step_mesh_serve_arch(spec)
+            pre = step_mesh_build(arch, "prefill_32k", mesh=mesh)
+            dec = step_mesh_build(arch, "decode_32k", mesh=mesh)
+            torch.cuda.reset_peak_memory_stats() if on_card else None
+            model = draw(pre.cfg, mesh, pre.specs)
+            prompts = lm_prompts(spec["batch"], spec["prompt"], pre.cfg.vocab, STEP_MESH_SEED)
+            t0 = time.perf_counter()
+            logits, cache = pre.fn(model, prompts)
+            torch.cuda.synchronize() if on_card else None
+            res[f"{label}/prefill_wall_s"] = np.array(time.perf_counter() - t0)
+            again, _ = pre.fn(model, prompts)
+            res[f"{label}/bitwise"] = np.array(bool(torch.equal(again, logits)))
+            res[f"{label}/prefill"] = logits.float().cpu().numpy()
+            # prefill's layout (the sequence over "model") into decode's
+            c = init_cache(dec.cfg, spec["batch"], spec["prompt"] + spec["new"], mesh=mesh,
+                           specs=dec.cache_specs)
+            with torch.no_grad():
+                for k, v in cache.items():
+                    whole = gather(v, pre.cache_specs[k], mesh)
+                    c[k][:, :, :spec["prompt"]] = local_slice(whole, dec.cache_specs[k], mesh)
+            del cache, again
+            toks = torch.as_tensor(np.load(tmp / f"{label}-tokens.npy"), device=dev)
+            steps = []
+            for t in range(spec["new"]):
+                lg, c = dec.fn(model, c, toks[t], spec["prompt"] + t)
+                steps.append(lg.float().cpu().numpy())
+            res[f"{label}/decode"] = np.stack(steps)
+            res[f"{label}/peak_bytes"] = np.array(torch.cuda.max_memory_allocated()
+                                                  if on_card else 0)
+            del model, c, logits, lg
+            torch.cuda.empty_cache() if on_card else None
+
+        from repro_torch.configs import get_arch
+        from repro_torch.launch import train_state
+
+        # the gathers' backward (index_add_) in its sorted, repeatable form
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for shape in STEP_MESH_GNN:
+            mesh, key = meshes[shape], f"gcn/{shape[0]}x{shape[1]}"
+            step = step_mesh_build(get_arch("gcn-cora"), "ogb_products", mesh=mesh)
+            model = gnn_model("gcn-cora", dataclasses.replace(get_arch("gcn-cora").full,
+                                                              d_feat=100), dev, STEP_MESH_SEED)
+            params = train_state(model, step.opt)["params"]
+            batch = step_mesh_gnn_load(tmp, shape)
+            torch.cuda.reset_peak_memory_stats() if on_card else None
+            k1 = segsum.launches
+            t0 = time.perf_counter()
+            loss, grads = step.grad(params, batch)
+            torch.cuda.synchronize() if on_card else None
+            res[f"{key}/wall_s"] = np.array(time.perf_counter() - t0)
+            res[f"{key}/k1_launches"] = np.array(segsum.launches - k1)
+            again = step.grad(params, batch)
+            res[f"{key}/bitwise"] = np.array(bool(torch.equal(again[0], loss) and all(
+                torch.equal(again[1][k], g) for k, g in grads.items())))
+            res[f"{key}/loss"] = np.array(float(loss))
+            res.update({f"{key}/g/{k}": g.float().cpu().numpy() for k, g in grads.items()})
+            res[f"{key}/peak_bytes"] = np.array(torch.cuda.max_memory_allocated()
+                                                if on_card else 0)
+            del model, params, grads, again, loss
+            torch.cuda.empty_cache() if on_card else None
+        np.savez(out, **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_step_mesh(device: str) -> dict:
+    """Phase 19: world 1 here (``step_mesh_world1``), then two gloo ranks on
+    the card (``_step_mesh_rank``), each case held to world 1: the float32
+    loss (rtol ``LM_TRAIN_LOSS_RTOL``) and each gradient leaf put together
+    (normwise ``LM_TRAIN_GRAD_NORMWISE``), the bfloat16 logits (normwise
+    ``LM_BF16_NORMWISE``), greedy tokens, bitwise repeatability; K1 on each
+    rank in the GCN step. A rank that fails, or a spawn past
+    ``SPAWN_TIMEOUT_S``, fails the smoke. Returns the phase's numbers,
+    ``k1_launches`` K1's launches on both ranks."""
+    import gc
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.set_float32_matmul_precision("highest")
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_step_mesh_"))
+    try:
+        t0 = time.perf_counter()
+        w1 = step_mesh_world1(device, tmp)
+        world1_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  phase 19 world 1 took {world1_s:.3f} s; before the ranks this process holds "
+            f"{torch.cuda.memory_allocated()} bytes ({torch.cuda.memory_reserved()} reserved)")
+        ctx = multiprocessing.get_context("spawn")
+        init = f"file://{tmp / 'rendezvous'}"
+        outs = [tmp / f"rank{r}.npz" for r in range(2)]
+        procs = [ctx.Process(target=_step_mesh_rank,
+                             args=(r, 2, init, str(tmp), str(outs[r]), device))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SPAWN_TIMEOUT_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        check(not hung, f"phase 19: {len(hung)} rank(s) still running after {SPAWN_TIMEOUT_S} s")
+        check(all(p.exitcode == 0 for p in procs),
+              f"phase 19: rank exit codes {[p.exitcode for p in procs]}")
+        spawn_s = time.perf_counter() - t0
+        ranks = [dict(np.load(o)) for o in outs]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    card = card_line()
+    res = dict(card=card, world1_s=world1_s, spawn_s=spawn_s)
+    for label, spec in STEP_MESH_TRAIN.items():
+        want = w1[label]
+        for shape in spec["meshes"]:
+            key = f"{label}/{shape[0]}x{shape[1]}"
+            sums: dict = {}
+            for r, rk in enumerate(ranks):
+                loss = float(rk[f"{key}/loss"])
+                check(abs(loss - want["loss"]) <= LM_TRAIN_LOSS_RTOL * abs(want["loss"]),
+                      f"{key} rank {r}: loss {loss} vs world 1's {want['loss']}")
+                check(int(rk[f"{key}/bitwise"]) != 0, f"{key} rank {r}: the step is not "
+                      f"repeatable")
+                check(bool(rk[f"{key}/finite"]), f"{key} rank {r}: non-finite parameters")
+                for k, (d2, r2, split) in json.loads(str(rk[f"{key}/stats"])).items():
+                    if split or r == 0:
+                        a, b = sums.get(k, (0.0, 0.0))
+                        sums[k] = (a + d2, b + r2)
+            errs = {k: (d2 / r2) ** 0.5 if r2 else (0.0 if d2 == 0 else float("inf"))
+                    for k, (d2, r2) in sums.items()}
+            worst = max(errs, key=errs.get)
+            check(errs[worst] <= LM_TRAIN_GRAD_NORMWISE,
+                  f"{key}: gradient {worst} {errs[worst]} from world 1 (normwise, <= "
+                  f"{LM_TRAIN_GRAD_NORMWISE})")
+            res[key] = dict(layout=str(ranks[0][f"{key}/layout"]),
+                            loss=[float(rk[f"{key}/loss"]) for rk in ranks],
+                            world1_loss=want["loss"], worst_grad=(worst, errs[worst]),
+                            wall_s=[float(rk[f"{key}/wall_s"]) for rk in ranks],
+                            world1_wall_s=want["wall_s"],
+                            peak_bytes=[int(rk[f"{key}/peak_bytes"]) for rk in ranks],
+                            world1_peak_bytes=want["peak_bytes"],
+                            shard_bytes=[int(rk[f"{key}/shard_bytes"]) for rk in ranks],
+                            param_bytes=want["param_bytes"])
+            log(f"  phase 19 {key} ({res[key]['layout']}, {spec['arch']} at "
+                f"{spec['cut']['n_layers']} layers, float32, {spec['gb']} x {spec['seq']} tokens): "
+                f"loss by rank {res[key]['loss']} vs world 1 {want['loss']}; worst gradient leaf "
+                f"{worst} {errs[worst]:.3e} normwise; "
+                f"{'the step bitwise repeatable' if shape in spec['steps'] else 'no step'}; "
+                f"gradient wall by rank {res[key]['wall_s']} s (world 1 {want['wall_s']:.3f} s); "
+                f"{res[key]['shard_bytes']} bytes of parameters a rank of {want['param_bytes']}; "
+                f"peak by rank {res[key]['peak_bytes']} bytes (world 1 {want['peak_bytes']}) "
+                f"({card})")
+    for label, spec in STEP_MESH_SERVE.items():
+        want = w1[label + "-serve"]
+        for r, rk in enumerate(ranks):
+            pre = normwise(torch.from_numpy(rk[f"{label}/prefill"]), want["prefill"])
+            dec = torch.from_numpy(rk[f"{label}/decode"])
+            dec_err = normwise(dec, want["decode"])
+            check(pre <= LM_BF16_NORMWISE and dec_err <= LM_BF16_NORMWISE,
+                  f"phase 19 {label} rank {r}: prefill {pre}, decode {dec_err} from world 1 "
+                  f"(normwise, <= {LM_BF16_NORMWISE})")
+            check(bool(rk[f"{label}/bitwise"]), f"phase 19 {label} rank {r}: prefill twice differs")
+            got = torch.cat([torch.from_numpy(rk[f"{label}/prefill"]).argmax(-1)[None],
+                             dec.argmax(-1)])
+            check(torch.equal(got, want["tokens"]),
+                  f"phase 19 {label} rank {r}: greedy tokens {got.tolist()} vs world 1's "
+                  f"{want['tokens'].tolist()}")
+            res[f"{label}-serve/rank{r}"] = dict(prefill_normwise=pre, decode_normwise=dec_err,
+                                                 prefill_wall_s=float(rk[f"{label}/prefill_wall_s"]),
+                                                 peak_bytes=int(rk[f"{label}/peak_bytes"]))
+        log(f"  phase 19 {label} serving over (1, 2) ({spec['arch']} cut {spec['cut']}, bfloat16, "
+            f"{spec['batch']} x {spec['prompt']} prompts, {spec['new']} decode steps "
+            f"teacher-forced by world 1's greedy tokens): "
+            f"{ {r: res[f'{label}-serve/rank{r}'] for r in range(2)} }; world 1 prefill "
+            f"{want['prefill_wall_s']:.3f} s, peak {want['peak_bytes']} bytes; greedy tokens "
+            f"equal ({card})")
+    k1_launches = 0
+    want = w1["gcn"]
+    for shape in STEP_MESH_GNN:
+        key = f"gcn/{shape[0]}x{shape[1]}"
+        for r, rk in enumerate(ranks):
+            n = int(rk[f"{key}/k1_launches"])
+            check(n == STEP_MESH_K1, f"{key} rank {r}: {n} K1 launches, not {STEP_MESH_K1}")
+            k1_launches += n
+            loss = float(rk[f"{key}/loss"])
+            check(abs(loss - want["loss"]) <= LM_TRAIN_LOSS_RTOL * abs(want["loss"]),
+                  f"{key} rank {r}: loss {loss} vs world 1's {want['loss']}")
+            check(bool(rk[f"{key}/bitwise"]), f"{key} rank {r}: two steps differ")
+            errs = {k: normwise(torch.from_numpy(rk[f"{key}/g/{k}"]), g)
+                    for k, g in want["grads"].items()}
+            check(max(errs.values()) <= LM_TRAIN_GRAD_NORMWISE,
+                  f"{key} rank {r}: gradients {errs} from world 1 (normwise)")
+            res[f"{key}/rank{r}"] = dict(loss=loss, grad_normwise=errs, k1_launches=n,
+                                         wall_s=float(rk[f"{key}/wall_s"]),
+                                         peak_bytes=int(rk[f"{key}/peak_bytes"]))
+        log(f"  phase 19 {key}: gcn-cora's train step at ogb_products' size ({want['grads']['w.0'].shape} "
+            f"input weights), K1 on each rank ({STEP_MESH_K1} launches a rank): "
+            f"{ {r: res[f'{key}/rank{r}'] for r in range(2)} } vs world 1's plain step loss "
+            f"{want['loss']} ({want['wall_s']:.3f} s, peak {want['peak_bytes']} bytes; its batch "
+            f"built in {want['host_batch_s']:.3f} s) ({card})")
+    res.update(k1_launches=k1_launches, phase_s=time.perf_counter() - t_phase)
+    return res
+
+
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--rows"]):
         print(f"usage: python3 chip_smoke.py [--rows]; got {argv}", file=sys.stderr)
@@ -5490,6 +6020,15 @@ def main(argv: list[str]) -> int:
     lm_train_times = phase_lm_train(device)
     log(f"  phase 18 took {lm_train_times['phase_s']:.3f} s; no kernel of K1-K5 on its path")
 
+    log("phase 19: build_step over a mesh (mistral-nemo tp_sp with FSDP and qwen2.5 zero3 "
+        "training in float32, qwen2.5 and deepseek-v3 prefill and decode in bfloat16, gcn-cora "
+        "at ogb_products' size with K1 on each rank), world 1 and two gloo ranks on the card")
+    step_mesh_times = phase_step_mesh(device)
+    step_mesh_k1 = step_mesh_times["k1_launches"]
+    log(f"  phase 19 took {step_mesh_times['phase_s']:.3f} s (world 1 "
+        f"{step_mesh_times['world1_s']:.3f} s, world 2 {step_mesh_times['spawn_s']:.3f} s); "
+        f"K1 launches {step_mesh_k1}")
+
     vp_k1_launches = shard_times["mesh"]["k1_launches"]
     k2_launches = (peel_launches + cbds_launches + pruned_launches["peel_edges"]
                    + fallback_launches + refine_launches + stream_launches["peel_edges"]
@@ -5519,7 +6058,8 @@ def main(argv: list[str]) -> int:
         f"peel_with_restarts (phase 15): K2 {restart_launches['peel_edges']}, K1 "
         f"{restart_launches['segment_sum_sorted']}; the GNNs (phase 16): K1 at [E, D] float32 "
         f"{k1_gnn_launches}; vp_segment_sum on both ranks of phase 13's mesh world 2: K1 at "
-        f"[E, D] float32 {vp_k1_launches}")
+        f"[E, D] float32 {vp_k1_launches}; phase 19's GCN steps over a mesh (both ranks): K1 "
+        f"{step_mesh_k1}")
     rows = {
         "segment_sum_sorted": (k1_launches, k1["max_abs_err"], k1),
         "peel_edges": (k2_launches, k2["max_abs_err"], k2),
@@ -5533,8 +6073,8 @@ def main(argv: list[str]) -> int:
         "peel_edges_rows": (fused_launches["peel_edges_rows"], k2_rows["max_abs_err"], k2_rows),
         "segment_sum_rows": (fused_launches["segment_sum_rows"], k1_rows["max_abs_err"],
                              k1_rows),
-        "segment_sum_sorted_ed": (k1_gnn_launches + vp_k1_launches, k1_gnn["max_abs_err"],
-                                  k1_gnn),
+        "segment_sum_sorted_ed": (k1_gnn_launches + vp_k1_launches + step_mesh_k1,
+                                  k1_gnn["max_abs_err"], k1_gnn),
     }
     kernels = [{
         "name": name,
@@ -5568,6 +6108,7 @@ def main(argv: list[str]) -> int:
                     "gnn": gnn_times,
                     "lm": lm_times,
                     "lm_train": lm_train_times,
+                    "step_mesh": step_mesh_times,
                     "k2_rows": k2_rows,
                     "k1_rows": k1_rows,
                     "smoke_s": time.perf_counter() - t_start}, default=str))

@@ -33,6 +33,11 @@ on every rank of that group.
   ``axes``: for a tensor every rank of those axes holds alike, each using it
   for its own share of the work (``moe_tp``'s tokens through a ``d_ff``
   slice of the experts).
+* :func:`split` keeps this rank's block of a tensor every rank of the
+  slice holds alike (no collective); its backward gathers the ranks'
+  cotangent blocks (one :func:`all_gather`), so that what the tensor fed
+  before the split (a sum's summands) gets the whole cotangent. After an
+  :func:`all_reduce_sum` it is Megatron's reduce-scatter.
 * :func:`all_reduce_max` has no backward.
 """
 from __future__ import annotations
@@ -237,6 +242,25 @@ def all_to_all(t: torch.Tensor, mesh: Mesh | None, axes=None) -> torch.Tensor:
     return out
 
 
+def split(t: torch.Tensor, mesh: Mesh | None, axes=None) -> torch.Tensor:
+    """This rank's block of ``t``'s dim 0 along ``axes`` (the slice's
+    size must divide it): no collective. Backward: the ranks' cotangent
+    blocks gathered (one :func:`all_gather`), for a ``t`` every rank of the
+    slice holds alike. ``t`` itself where the slice is this rank alone."""
+    if mesh is None:
+        return t
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return t
+    if t.shape[0] % n:
+        raise ValueError(f"split over {mesh.axes_of(axes)}: dim 0 of {tuple(t.shape)} does "
+                         f"not divide into {n} blocks")
+    if _wants_grad(t):
+        return _Split.apply(t, mesh, axes)
+    rows = t.shape[0] // n
+    return t.narrow(0, mesh.axis_index(axes) * rows, rows)
+
+
 def sum_grad(t: torch.Tensor, mesh: Mesh | None, axes=None) -> torch.Tensor:
     """``t`` itself, whose backward sums the cotangent over ``axes`` (one
     :func:`all_reduce_sum`): for a tensor every rank of those axes holds
@@ -284,6 +308,18 @@ class _AllToAll(torch.autograd.Function):
         return all_to_all(g, ctx.mesh, ctx.axes), None, None
 
 
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        rows = t.shape[0] // mesh.axis_size(axes)
+        return t.narrow(0, mesh.axis_index(axes) * rows, rows).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.mesh, ctx.axes), None, None
+
+
 class _SumGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh, axes):
@@ -297,4 +333,4 @@ class _SumGrad(torch.autograd.Function):
 
 
 __all__ = ["Mesh", "all_gather", "all_reduce_max", "all_reduce_sum", "all_to_all", "calls",
-           "collectives", "slices", "sum_grad"]
+           "collectives", "slices", "split", "sum_grad"]

@@ -128,6 +128,12 @@ def segment_output_sharding(mesh, axes: tuple, min_segments: int = 65536):
         _SEG_OUT_HINT.pop()
 
 
+def active_sharding():
+    """(mesh, node axes, min_segments) of the innermost
+    :func:`segment_output_sharding`, or None outside one."""
+    return _SEG_OUT_HINT[-1] if _SEG_OUT_HINT else None
+
+
 def _hint_active(num_segments: int) -> bool:
     if not _SEG_OUT_HINT:
         return False
@@ -210,5 +216,5 @@ def vp_segment_sum(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: in
     return out[:, 0] if squeeze else out
 
 
-__all__ = ["segment_output_sharding", "segment_sum", "peel_update", "segment_embed",
+__all__ = ["active_sharding", "segment_output_sharding", "segment_sum", "peel_update", "segment_embed",
            "vp_segment_sum"]

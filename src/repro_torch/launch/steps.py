@@ -51,6 +51,39 @@ shape's ``n_graphs``. Every kind runs its float32 products in full float32.
 ``meta`` carries the analytic ``model_flops`` and ``model_bytes_dev`` of
 the config, and ``tokens`` (LM), ``rows`` (recsys; for retrieval the number
 of candidates) or ``nodes`` and ``edges`` (GNN, padded as JAX pads them).
+
+``build_step(arch, shape, mesh=...)`` builds the reference's step over a
+mesh for the LM kinds and the GNN train kind. ``mesh`` is a
+``core.collective.Mesh`` of live ranks (every rank builds and calls the
+step together; the step runs on the mesh's device), or a
+``launch.mesh.MeshLayout`` for ``meta`` alone (calling its ``fn`` raises).
+Each kind takes the same global inputs as on one device and uses this
+rank's share; parameters, optimizer states and caches are this rank's
+slices (``step.specs``, ``step.cache_specs``):
+
+  prefill   fn(model, tokens [gb, S]) -> (this rank's batch block's last
+            logits, cache slices in ``transformer.cache_specs``' layout)
+  decode    fn(model, cache, tokens [gb], cache_len) -> (this rank's
+            tokens' logits, cache), the cache in ``decode_cache_specs``'
+            layout (``init_cache(step.cfg, gb, S, mesh=, specs=step.cache_specs)``)
+  train     fn(params, opt_state, batch) -> (params', opt_state', loss):
+            the LMs' ``_lm_train`` layout choice (zero3 only where the
+            batch covers the mesh, its batch axes trimmed; tp_sp else),
+            ``step.grad(params, batch)`` its (loss, gradients) and
+            ``step.opt`` its optimizer (``opt.init(params, (mesh,
+            step.specs))``); the GNNs' parameters replicated, its lanes and
+            node rows split over the mesh, under
+            ``ops.segment_output_sharding`` (``ogb_products``: the reference's
+            node blocks over the batch axes; the others: none), K1 on each
+            rank with the kernel on.
+
+The LM train kind gathers every weight it uses once a step (over its FSDP
+axes, or the whole mesh for zero3), accumulates the microbatches' gradients
+of the gathered weights in ``grad_accum_dtype``, and then sums each over
+the ranks that hold a part of it (``transformer.grad_sum_axes``) and keeps
+this rank's slice: the reference's gradients, summed once a step rather
+than once a microbatch. DCN-v2 over a mesh is not ported (ROADMAP.md,
+item 6c-ii-d).
 """
 from __future__ import annotations
 
@@ -60,13 +93,19 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch
+import math
+
+from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.configs.common import Arch, Shape, sampled_subgraph_dims
+from repro_torch.core import collective
 from repro_torch.core.dispatch import resolve_device, resolve_kernel
+from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import axis_sizes, dp_axes, n_devices
 from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as rec_mod
 from repro_torch.models import transformer as lm_mod
-from repro_torch.models.layers import _scalar
+from repro_torch.models.layers import ShardCtx, _scalar
+from repro_torch.models.shard import local_slice, norm_spec
 from repro_torch.optim import Optimizer, adafactor, adamw, sgdm
 
 
@@ -77,6 +116,12 @@ class StepBundle:
     fn: Callable
     meta: dict
     cfg: object = None   # the config an LM step runs (its cache is init_cache of it)
+    mesh: object = None  # the mesh the step runs over (None: one device)
+    ctx: object = None   # the LM kinds' ShardCtx over the mesh
+    specs: dict | None = None        # parameter specs by name over the mesh
+    cache_specs: dict | None = None  # the LM serving kinds' cache specs
+    grad: Callable | None = None     # the train kind's (params, batch) -> (loss, grads)
+    opt: Optimizer | None = None     # the train kind's optimizer
 
 
 def _round_up(x: int, m: int) -> int:
@@ -101,12 +146,13 @@ def make_optimizer(name: str) -> Optimizer:
     return sgdm(1e-2)
 
 
-def train_state(model: torch.nn.Module, opt: Optimizer) -> dict:
+def train_state(model: torch.nn.Module, opt: Optimizer, layout=None) -> dict:
     """The train kind's first state, ``{"params", "opt"}``: the model's
     parameters by name (detached; the step never writes them) and
-    ``opt.init`` of them."""
+    ``opt.init`` of them. Over a mesh, ``model`` holds this rank's slices
+    and ``layout`` is ``(mesh, step.specs)``."""
     params = {k: v.detach() for k, v in model.named_parameters()}
-    return {"params": params, "opt": opt.init(params)}
+    return {"params": params, "opt": opt.init(params, layout)}
 
 
 def _check_on(name: str, device: torch.device, on: torch.device, what: str) -> None:
@@ -133,18 +179,22 @@ def _train_step(arch: Arch, skeleton: torch.nn.Module, loss_fn: Callable, extra:
     ``n_graphs``)."""
     opt = make_optimizer(arch.optimizer)
 
-    def train(params, opt_state, batch):
+    def value_and_grad(params, batch):
         _check_precision()
         _check_on(name, device, next(iter(params.values())).device, "the parameters are")
         feed = {k: torch.as_tensor(v, device=device)
                 if isinstance(v, (np.ndarray, torch.Tensor)) else v
                 for k, v in batch.items()}
         feed.update(extra)
-        loss, grads = _value_and_grad(lambda leaves: loss_fn(skeleton, feed, leaves), params)
+        return _value_and_grad(lambda leaves: loss_fn(skeleton, feed, leaves), params)
+
+    def train(params, opt_state, batch):
+        loss, grads = value_and_grad(params, batch)
         new_p, new_o = opt.update(grads, opt_state, params)
         return new_p, new_o, loss
 
-    return StepBundle(name=name, kind="train", fn=train, meta=meta)
+    return StepBundle(name=name, kind="train", fn=train, meta=meta, grad=value_and_grad,
+                      opt=opt)
 
 
 def _value_and_grad(loss_of: Callable, params: dict) -> tuple[torch.Tensor, dict]:
@@ -252,12 +302,12 @@ def _lm_model_flops(cfg: lm_mod.TransformerConfig, kind: str, batch: int, seq: i
 
 
 def _lm_model_bytes(cfg: lm_mod.TransformerConfig, kind: str, batch: int, seq: int,
-                    p_bytes: int, cache_bytes: int = 0, m: int = 1) -> float:
-    """Analytic HBM traffic of one step (JAX's ``_lm_model_bytes`` at n_dev
-    = 1 and a model axis of 1): parameter streams (for train, forward and
-    backward reads a microbatch plus the optimizer's read-modify-write),
-    activations, logits, the KV cache."""
-    n_dev = tp = 1
+                    p_bytes: int, cache_bytes: int = 0, m: int = 1, n_dev: int = 1,
+                    tp: int = 1) -> float:
+    """Analytic per-device HBM traffic of one step (JAX's
+    ``_lm_model_bytes``; one device: n_dev = tp = 1): parameter streams (for
+    train, forward and backward reads a microbatch plus the optimizer's
+    read-modify-write), activations, logits, the KV cache."""
     p_dev = p_bytes / n_dev
     ab = 2  # bf16 activations
     if kind == "train":
@@ -278,48 +328,108 @@ def _lm_check_model(model, name: str, device: torch.device) -> None:
     _check_on(name, device, model.embed.device, "the model is")
 
 
-def _lm_prefill(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
+def _ranks_of(mesh, name: str):
+    """``mesh`` (None: one device), refused where it is a ``MeshLayout``
+    (no ranks to run over)."""
+    if mesh is not None and not isinstance(mesh, collective.Mesh):
+        raise ValueError(f"{name} was built over a layout for its meta; build it over a "
+                         f"core.collective.Mesh to run it")
+    return mesh
+
+
+def _rows(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """This rank's block of ``t``'s rows along ``axes`` (all of them for no
+    axes)."""
+    n = mesh.axis_size(axes)
+    if t.shape[0] % n:
+        raise ValueError(f"a batch of {t.shape[0]} does not split over {axes} ({n} ranks)")
+    w = t.shape[0] // n
+    return t.narrow(0, mesh.axis_index(axes) * w, w)
+
+
+def _lm_mesh_meta(cfg, kind: str, gb: int, seq: int, mesh, m: int = 1, cache=None) -> dict:
+    n_dev = n_devices(mesh) if mesh is not None else 1
+    tp = axis_sizes(mesh)["model"] if mesh is not None else 1
+    cache_bytes = _lm_cache_bytes(cfg, gb, seq) if cache else 0
+    return {"model_flops": _lm_model_flops(cfg, kind, gb, seq),
+            "model_bytes_dev": _lm_model_bytes(cfg, kind, gb, seq, _lm_param_bytes(cfg),
+                                               cache_bytes, m, n_dev, tp),
+            "tokens": gb * seq if kind != "decode" else gb}
+
+
+def _lm_prefill(arch: Arch, shape: Shape, device: torch.device, mesh=None) -> StepBundle:
     gb, seq = shape.dims["global_batch"], shape.dims["seq_len"]
     cfg = replace(arch.full, flash_q_chunk=seq, flash_k_chunk=1024)
     name = f"{arch.name}:{shape.name}"
+    ctx = specs = cspecs = None
+    if mesh is not None:
+        dp = dp_axes(mesh)
+        ctx = ShardCtx(mesh=mesh, dp=dp, sp=True)   # sequence-parallel prefill
+        specs, cspecs = lm_mod.param_specs(cfg, mesh), lm_mod.cache_specs(cfg, dp)
 
     def prefill(model, tokens):
+        m = _ranks_of(mesh, name)
         _lm_check_model(model, name, device)
+        tokens = torch.as_tensor(tokens, device=device)
         with torch.inference_mode():
-            return lm_mod.prefill(model, torch.as_tensor(tokens, device=device), cfg)
+            if m is None:
+                return lm_mod.prefill(model, tokens, cfg)
+            return lm_mod.prefill(model, _rows(tokens, m, ctx.dp), cfg, ctx=ctx, mesh=m)
 
-    return StepBundle(
-        name=name, kind="prefill", fn=prefill,
-        meta={"model_flops": _lm_model_flops(cfg, "prefill", gb, seq),
-              "model_bytes_dev": _lm_model_bytes(cfg, "prefill", gb, seq, _lm_param_bytes(cfg),
-                                                 _lm_cache_bytes(cfg, gb, seq)),
-              "tokens": gb * seq}, cfg=cfg)
+    return StepBundle(name=name, kind="prefill", fn=prefill,
+                      meta=_lm_mesh_meta(cfg, "prefill", gb, seq, mesh, cache=True), cfg=cfg,
+                      mesh=mesh, ctx=ctx, specs=specs, cache_specs=cspecs)
 
 
-def _lm_decode(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
+def _lm_decode(arch: Arch, shape: Shape, device: torch.device, mesh=None) -> StepBundle:
     gb, seq = shape.dims["global_batch"], shape.dims["seq_len"]
     cfg = arch.full
     if seq > 100_000 and cfg.attn != "mla":
         cfg = replace(cfg, sliding_window=4096)   # the adapted long_500k cell
     name = f"{arch.name}:{shape.name}"
+    ctx = specs = cspecs = None
+    if mesh is not None:
+        # gb=1 cannot split over the batch axes: replicated-token decode
+        ctx = ShardCtx(mesh=mesh, dp=dp_axes(mesh) if gb > 1 else ())
+        specs = lm_mod.param_specs(cfg, mesh)
+        cspecs = lm_mod.decode_cache_specs(cfg, mesh, gb)
 
     def decode(model, cache, tokens, cache_len):
+        m = _ranks_of(mesh, name)
         _lm_check_model(model, name, device)
+        tokens = torch.as_tensor(tokens, device=device)
         with torch.inference_mode():
-            return lm_mod.decode_step(model, cache, torch.as_tensor(tokens, device=device),
-                                      cache_len, cfg)
+            if m is None:
+                return lm_mod.decode_step(model, cache, tokens, cache_len, cfg)
+            return lm_mod.decode_step(model, cache, _rows(tokens, m, ctx.dp), cache_len, cfg,
+                                      ctx=ctx, mesh=m)
 
-    return StepBundle(
-        name=name, kind="decode", fn=decode,
-        meta={"model_flops": _lm_model_flops(cfg, "decode", gb, seq),
-              "model_bytes_dev": _lm_model_bytes(cfg, "decode", gb, seq, _lm_param_bytes(cfg),
-                                                 _lm_cache_bytes(cfg, gb, seq)),
-              "tokens": gb}, cfg=cfg)
+    return StepBundle(name=name, kind="decode", fn=decode,
+                      meta=_lm_mesh_meta(cfg, "decode", gb, seq, mesh, cache=True), cfg=cfg,
+                      mesh=mesh, ctx=ctx, specs=specs, cache_specs=cspecs)
 
 
-def _lm_train(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
+def _reduce_grad(g: torch.Tensor, spec, ctx: ShardCtx, mesh) -> torch.Tensor:
+    """A rank's gradient of a weight it gathered for its use, as its
+    slice's gradient (``transformer.grad_sum_axes``)."""
+    summed, gathered, repeat = lm_mod.grad_sum_axes(spec, ctx, mesh)
+    if summed:
+        g = collective.all_reduce_sum(g.contiguous(), mesh, summed)
+    if gathered:
+        keep = tuple(tuple(a for a in names if a in gathered) or None
+                     for names in norm_spec(spec, g.dim()))
+        g = local_slice(g, keep, mesh).contiguous()
+    if repeat > 1:
+        g = g / _scalar(repeat, g, g.dtype)
+    return g
+
+
+def _lm_train(arch: Arch, shape: Shape, device: torch.device, mesh=None) -> StepBundle:
     gb, seq = shape.dims["global_batch"], shape.dims["seq_len"]
-    if arch.train_layout == "zero3":   # n_dev = 1 divides every batch
+    # zero3 only where the batch covers the mesh (n_dev = 1 covers every
+    # batch); else tp_sp with one q block a sequence
+    zero3 = arch.train_layout == "zero3" and gb % (n_devices(mesh) if mesh else 1) == 0
+    if zero3:
         cfg = replace(arch.full, flash_q_chunk=min(1024, seq), flash_k_chunk=min(1024, seq))
     else:
         cfg = replace(arch.full, flash_q_chunk=seq, flash_k_chunk=min(1024, seq))
@@ -331,48 +441,93 @@ def _lm_train(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
     opt = make_optimizer(arch.optimizer)
     acc_dt = getattr(torch, arch.grad_accum_dtype)   # "float32" or "bfloat16"
     skeleton = lm_mod.Transformer(cfg, device="meta")
+    ctx = specs = None
+    if mesh is not None:
+        if zero3:
+            # pure DP: the batch over as many mesh axes as divide it (a
+            # microbatch's rows: the reference's arches with zero3 take one),
+            # the state split over the whole mesh whatever they are
+            axes = list(mesh.axis_names)
+            sizes = axis_sizes(mesh)
+            while axes and (gb // m) % math.prod(sizes[a] for a in axes):
+                axes.pop()
+            ctx = ShardCtx(mesh=mesh, dp=tuple(axes), tp=None, sp=False)
+            specs = lm_mod.param_specs_zero3(cfg, mesh)
+        else:
+            ctx = ShardCtx(mesh=mesh, dp=dp_axes(mesh), sp=True)
+            specs = lm_mod.param_specs(cfg, mesh)
 
-    def grad(tok, lab, params):
-        return _value_and_grad(lambda leaves: lm_mod.loss_fn(skeleton, tok, lab, cfg, leaves),
-                               params)
+    def accumulate(tokens, labels, params):
+        """(loss, gradients of ``params``) over the microbatches: each one's
+        gradient added as (g / m) in ``acc_dt``, its loss as loss / m.
+        Over a mesh, this rank's rows of each microbatch."""
+        kw = {} if mesh is None else {"ctx": ctx, "mesh": mesh}
+        if tokens.shape[0] % m:
+            raise ValueError(f"{name}: a batch of {tokens.shape[0]} rows is not a multiple of "
+                             f"{m} microbatches")
+        rows = tokens.shape[0] // m
+        per, first = rows, 0
+        if mesh is not None:
+            nb = mesh.axis_size(ctx.dp)
+            if rows % nb:
+                raise ValueError(f"{name}: a microbatch of {rows} rows does not split over "
+                                 f"{ctx.dp} ({nb} ranks)")
+            per = rows // nb
+            first = mesh.axis_index(ctx.dp) * per
 
-    def train(params, opt_state, batch):
+        def grad(i, leaves):
+            tok = tokens[i * rows + first:i * rows + first + per]
+            lab = labels[i * rows + first:i * rows + first + per]
+            return _value_and_grad(
+                lambda lv: lm_mod.loss_fn(skeleton, tok, lab, cfg, lv, **kw), leaves)
+
+        if m == 1:
+            return grad(0, params)
+        # the accumulator is the step's own: added to in place, leaf by leaf
+        grads = {k: torch.zeros(v.shape, dtype=acc_dt, device=v.device)
+                 for k, v in params.items()}
+        loss = torch.zeros((), dtype=torch.float32, device=device)
+        for i in range(m):
+            loss_i, g = grad(i, params)
+            for k in grads:
+                gk = g.pop(k)
+                grads[k].add_((gk / _scalar(m, gk, gk.dtype)).to(acc_dt))
+            loss = loss + loss_i / _scalar(m, loss_i)
+        return loss, grads
+
+    def value_and_grad(params, batch):
+        _ranks_of(mesh, name)
         _check_precision()
         _check_on(name, device, next(iter(params.values())).device, "the parameters are")
         tokens = torch.as_tensor(batch["tokens"], device=device)
         labels = torch.as_tensor(batch["labels"], device=device)
-        if m == 1:
-            loss, grads = grad(tokens, labels, params)
-        else:
-            toks = tokens.reshape(m, gb // m, seq)
-            labs = labels.reshape(m, gb // m, seq)
-            # the accumulator is the step's own: added to in place, leaf by leaf
-            grads = {k: torch.zeros(v.shape, dtype=acc_dt, device=device)
-                     for k, v in params.items()}
-            loss = torch.zeros((), dtype=torch.float32, device=device)
-            for i in range(m):
-                loss_i, g = grad(toks[i], labs[i], params)
-                for k in grads:
-                    gk = g.pop(k)
-                    grads[k].add_((gk / _scalar(m, gk, gk.dtype)).to(acc_dt))
-                loss = loss + loss_i / _scalar(m, loss_i)
-        new_p, new_o = opt.update(grads, opt_state, params)
+        if mesh is None:
+            return accumulate(tokens, labels, params)
+        ranks = lm_mod._Ranks(cfg, ctx, mesh)
+        # every weight gathered once a step for this rank's use
+        work = {k: ranks.weight(k, v.detach()) for k, v in params.items()}
+        loss, grads = accumulate(tokens, labels, work)
+        del work
+        return loss, {k: _reduce_grad(grads.pop(k), specs[k], ctx, mesh) for k in params}
+
+    layout = None if mesh is None else (mesh, specs)
+
+    def train(params, opt_state, batch):
+        loss, grads = value_and_grad(params, batch)
+        new_p, new_o = opt.update(grads, opt_state, params, layout)
         return new_p, new_o, loss
 
-    return StepBundle(
-        name=name, kind="train", fn=train,
-        meta={"model_flops": _lm_model_flops(cfg, "train", gb, seq),
-              "model_bytes_dev": _lm_model_bytes(cfg, "train", gb, seq, _lm_param_bytes(cfg),
-                                                 m=m),
-              "tokens": gb * seq}, cfg=cfg)
+    return StepBundle(name=name, kind="train", fn=train,
+                      meta=_lm_mesh_meta(cfg, "train", gb, seq, mesh, m=m), cfg=cfg,
+                      mesh=mesh, ctx=ctx, specs=specs, grad=value_and_grad, opt=opt)
 
 
-def _lm_step(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
+def _lm_step(arch: Arch, shape: Shape, device: torch.device, mesh=None) -> StepBundle:
     if shape.kind == "prefill":
-        return _lm_prefill(arch, shape, device)
+        return _lm_prefill(arch, shape, device, mesh)
     if shape.kind == "decode":
-        return _lm_decode(arch, shape, device)
-    return _lm_train(arch, shape, device)
+        return _lm_decode(arch, shape, device, mesh)
+    return _lm_train(arch, shape, device, mesh)
 
 
 # ===========================================================================
@@ -440,38 +595,110 @@ def _gnn_model_bytes(cfg, n: int, e: int, n_dev: int) -> float:
     return 3 * (n * feat * 4 + L * (e_dev * d * 8 + n * d * 8))
 
 
-def _gnn_train(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
-    n, e, n_graphs, feat = _gnn_dims(shape, 1)
+_GNN_LANES = ("src", "dst")      # split over every mesh axis
+_GNN_GRAPHS = ("energy",)        # whole on every rank; the other arrays are node rows
+
+
+def _gnn_share(batch: dict, mesh, device: torch.device) -> dict:
+    """This rank's share of a GNN batch (numpy arrays or tensors; the
+    integers stay as they are): the lanes and the node rows each split over
+    every mesh axis in rank order, the per-graph arrays whole."""
+    out = {}
+    for k, v in batch.items():
+        if not isinstance(v, (np.ndarray, torch.Tensor)):
+            out[k] = v
+            continue
+        if k not in _GNN_GRAPHS:
+            if v.shape[0] % mesh.size:
+                raise ValueError(f"{k}: {v.shape[0]} rows do not split over {mesh.size} ranks")
+            w = v.shape[0] // mesh.size
+            v = v[mesh.rank * w:(mesh.rank + 1) * w]
+        out[k] = torch.as_tensor(v, device=device)
+    return out
+
+
+def _gnn_train(arch: Arch, shape: Shape, device: torch.device, mesh=None) -> StepBundle:
+    n, e, n_graphs, feat = _gnn_dims(shape, n_devices(mesh) if mesh is not None else 1)
     cfg = arch.full
     if isinstance(cfg, gnn_mod.GCNConfig):
         cfg = replace(cfg, d_feat=feat)
     name = f"{arch.name}:{shape.name}"
-    if cfg.kernel:
-        raise NotImplementedError(
-            f"{name}: kernel=True sums the messages with K1 "
-            f"(kernels/segsum.py:segment_sum_sorted), which has no backward, as "
-            f"jax.grad through the JAX package's Pallas kernel raises; train with "
-            f"kernel=None or False (the plain path)")
     model_cls, loss_fn = _GNN_FNS[type(cfg)]
-    return _train_step(
-        arch, model_cls(replace(cfg, kernel=False), device="meta"), loss_fn,
-        {"n_graphs": n_graphs}, device, name,
-        meta={"model_flops": _gnn_model_flops(cfg, n, e, True),
-              "model_bytes_dev": _gnn_model_bytes(cfg, n, e, 1),
-              "nodes": n, "edges": e})
+    meta = {"model_flops": _gnn_model_flops(cfg, n, e, True),
+            "model_bytes_dev": _gnn_model_bytes(cfg, n, e,
+                                                n_devices(mesh) if mesh is not None else 1),
+            "nodes": n, "edges": e}
+    if mesh is None:
+        if cfg.kernel:
+            raise NotImplementedError(
+                f"{name}: kernel=True sums the messages with K1 "
+                f"(kernels/segsum.py:segment_sum_sorted), which has no backward on one "
+                f"device, as jax.grad through the JAX package's Pallas kernel raises; train "
+                f"with kernel=None or False (the plain path), or over a mesh, where K1 runs "
+                f"in ops.vp_segment_sum with its backward")
+        return _train_step(arch, model_cls(replace(cfg, kernel=False), device="meta"), loss_fn,
+                           {"n_graphs": n_graphs}, device, name, meta)
+    # vp aggregation at ogb_products: node blocks over the batch axes (the
+    # reference's hint); the other shapes keep no node blocks, so every
+    # rank sums its lanes onto every node row
+    big = shape.name == "ogb_products"
+    node_axes = dp_axes(mesh) if big else ()
+    skeleton = model_cls(cfg, device="meta")
+    opt = make_optimizer(arch.optimizer)
+
+    def value_and_grad(params, batch):
+        m = _ranks_of(mesh, name)
+        _check_precision()
+        _check_on(name, device, next(iter(params.values())).device, "the parameters are")
+        feed = _gnn_share(batch, m, device)
+        feed["n_graphs"] = n_graphs
+        # every node-sized sum under the hint (a rank holds its node rows
+        # only); the per-graph readouts sum over the ranks without it
+        with kops.segment_output_sharding(m, node_axes, min_segments=1):
+            loss, grads = _value_and_grad(lambda leaves: loss_fn(skeleton, feed, leaves),
+                                          params)
+        # every rank's gradient is its share: one sum over the mesh
+        flat = collective.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads.values()]),
+                                         m)
+        out, at = {}, 0
+        for k, g in grads.items():
+            out[k] = flat[at:at + g.numel()].view_as(g)
+            at += g.numel()
+        return loss, out
+
+    def train(params, opt_state, batch):
+        loss, grads = value_and_grad(params, batch)
+        new_p, new_o = opt.update(grads, opt_state, params)
+        return new_p, new_o, loss
+
+    return StepBundle(name=name, kind="train", fn=train, meta=meta, mesh=mesh,
+                      grad=value_and_grad, opt=opt)
 
 
-def build_step(arch_name: str, shape_name: str, device=None) -> StepBundle:
+def build_step(arch_name: str, shape_name: str, device=None, mesh=None) -> StepBundle:
     """The step of one cell on ``device`` (None means the GPU, and raises
-    without one)."""
-    device = resolve_device(device)
+    without one), or over ``mesh`` (a ``core.collective.Mesh``, on its
+    device; a ``launch.mesh.MeshLayout`` for ``meta`` only)."""
     arch = get_arch(arch_name)
     shape = arch.shape(shape_name)
+    if mesh is not None:
+        if arch.family == "recsys":
+            raise NotImplementedError(
+                f"{arch.name} over a mesh (its tables row-split over 'model', K5 on each "
+                f"rank's rows) is ROADMAP.md section 1, item 6c-ii-d; build it with mesh=None")
+        device = mesh.device if isinstance(mesh, collective.Mesh) else torch.device("meta")
+    else:
+        device = resolve_device(device)
     if arch.family == "lm":
-        return _lm_step(arch, shape, device)
+        return _lm_step(arch, shape, device, mesh)
     if arch.family == "gnn":
-        return _gnn_train(arch, shape, device)
+        return _gnn_train(arch, shape, device, mesh)
     return _recsys_step(arch, shape, device)
 
 
-__all__ = ["StepBundle", "build_step", "make_optimizer", "train_state"]
+def all_cells() -> list[tuple[str, str]]:
+    """Every (arch, shape) cell, in the registry's order."""
+    return [(a, s.name) for a in ARCH_IDS for s in get_arch(a).shapes]
+
+
+__all__ = ["StepBundle", "all_cells", "build_step", "make_optimizer", "train_state"]

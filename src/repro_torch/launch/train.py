@@ -44,7 +44,8 @@ from repro_torch.core.collective import Mesh
 from repro_torch.core.dispatch import assert_exact_envelope, lane_degrees, resolve_kernel
 from repro_torch.core.distributed import mesh_device, shard_edges
 from repro_torch.core.pbahmani import pbahmani_pass, state_from_degrees
-from repro_torch.utils.tree import tree_map
+from repro_torch.models.shard import local_slice, norm_spec
+from repro_torch.utils.tree import path_key, tree_map
 
 
 @dataclass
@@ -159,17 +160,38 @@ def run_training(
 
 
 def restore_elastic(ckpt: CheckpointManager, state_template, device=None,
-                    mesh: Mesh | None = None):
+                    mesh: Mesh | None = None, specs: dict | None = None):
     """Restore the newest checkpoint onto the CURRENT topology, whatever
     wrote it: every leaf on ``device`` (None means the GPU, and raises
     without one), or with ``mesh`` on the mesh's device (the state is
     replicated, so every rank holds all of it). Tensor leaves of the
-    template give their dtypes. Returns (step, state)."""
+    template give their dtypes. Returns (step, state).
+
+    With ``specs`` (``{path_key: spec}`` of the template's array leaves,
+    ``models.convert.lm_state_specs``; the reference's ``shardings=``) the
+    template holds this rank's slices: the checkpoint's whole arrays are
+    read and each rank keeps its slice of every leaf."""
     device = mesh_device(mesh, device)
     last = _latest(ckpt)
     if last is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt.dir}")
-    _, host = ckpt.restore(state_template, step=last)
+    if specs is None:
+        _, host = ckpt.restore(state_template, step=last)
+        return last, _place(host, state_template, device)
+    if mesh is None:
+        raise ValueError("restore_elastic(specs=) slices over a mesh: pass mesh=")
+
+    def whole(path, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        spec = norm_spec(specs[path_key(path)], leaf.dim())
+        return torch.empty([n * mesh.axis_size(axes) if axes else n
+                            for n, axes in zip(leaf.shape, spec)], dtype=leaf.dtype,
+                           device="meta")
+
+    _, host = ckpt.restore(tree_map(whole, state_template, with_path=True), step=last)
+    host = tree_map(lambda path, leaf: local_slice(leaf, specs[path_key(path)], mesh)
+                    if path_key(path) in specs else leaf, host, with_path=True)
     return last, _place(host, state_template, device)
 
 

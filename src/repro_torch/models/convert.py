@@ -19,6 +19,17 @@ and returns this rank's shard of it for ``moe_ep`` (its block of experts) or
 ``moe_tp`` (every expert's ``d_ff`` slice), or the whole layer without a
 mesh.
 
+Over a mesh, ``lm_params_from_jax(tree, cfg, mesh=, specs=)`` gives each
+rank its slice of every leaf by ``specs`` (``transformer.param_specs``,
+``param_specs_zero3``), as ``moe_params_from_jax(mesh=)`` does for one MoE
+layer; ``lm_state_specs`` names the spec of every leaf of a sharded LM train
+state (the optimizer's moments sliced like their parameters, Adafactor's
+factored ``vr``/``vc`` like the leaf's rows and columns), and
+``lm_sharded_layout(mesh, specs)`` is ``LM_STATE_LAYOUT`` for such a state:
+it writes the whole arrays (each gathered over the mesh), so a state
+written on one mesh restores on another and a JAX file restores on a mesh,
+each rank reading its slices.
+
 ``lm_state_to_jax`` and ``lm_state_from_jax`` carry a whole LM train state
 (``{"params", "opt"}``, the optimizer's state any of JAX's three trees) to
 and from JAX's layout: the port's per-layer leaves (``dense_blocks.3.attn.wq``)
@@ -33,10 +44,13 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import Layout
+from repro_torch.checkpoint.manager import BF16_ON_DISK
 from repro_torch.core.dispatch import resolve_device
 from repro_torch.models import gnn
 from repro_torch.models.recsys import DCNConfig, DCNv2
-from repro_torch.models.transformer import Transformer, TransformerConfig
+from repro_torch.models.shard import gather, local_shape, local_slice, norm_spec, spec_axes
+from repro_torch.models.transformer import Transformer, TransformerConfig, sharded
+from repro_torch.utils.tree import path_key, tree_map
 
 
 def _put(param: torch.Tensor, array, name: str, transpose: bool = False) -> None:
@@ -130,14 +144,19 @@ def _flatten(tree, prefix: str = "") -> dict:
     return out
 
 
-def lm_params_from_jax(tree: dict, cfg: TransformerConfig, device=None) -> Transformer:
+def lm_params_from_jax(tree: dict, cfg: TransformerConfig, device=None, *, mesh=None,
+                       specs: dict | None = None) -> Transformer:
     """A ``Transformer`` for ``cfg`` on ``device`` (None means the GPU) with
     the parameters of the JAX pytree ``tree`` (numpy leaves) of
     ``repro.models.transformer.init_params``: ``dense_blocks.<key>[i]`` into
     ``dense_blocks.<i>.<key>`` (the same for ``moe_blocks``), the MTP
     block's one-layer stack into ``mtp.block``, the rest as it is. Every
-    name and shape is checked."""
-    model = Transformer(cfg, device=resolve_device(device))
+    name and shape is checked. With ``mesh`` and ``specs``, this rank's
+    slice of every leaf, on the mesh's device (``transformer.sharded``)."""
+    if mesh is not None:
+        model = sharded(cfg, mesh, specs)
+    else:
+        model = Transformer(cfg, device=resolve_device(device))
     want = {}
     for name, leaf in _flatten(tree).items():
         group, _, rest = name.partition(".")
@@ -155,7 +174,11 @@ def lm_params_from_jax(tree: dict, cfg: TransformerConfig, device=None) -> Trans
                          f"and has no place for {sorted(want.keys() - params.keys())}")
     with torch.no_grad():
         for name, param in params.items():
-            _put(param, want[name], name)
+            leaf = want[name]
+            if mesh is not None:
+                local_shape(np.shape(leaf), specs[name], mesh)   # every split even
+                leaf = local_slice(np.asarray(leaf), specs[name], mesh)
+            _put(param, leaf, name)
     return model
 
 
@@ -311,5 +334,71 @@ def lm_state_from_jax(tree: dict) -> dict:
 LM_STATE_LAYOUT = Layout(lm_state_to_jax, lm_state_from_jax)
 
 
+def _leaf_spec(path: tuple, ndim: int, specs: dict) -> tuple:
+    """The spec of the leaf at ``path`` of a port-layout LM train state:
+    ``("params", name)`` and an optimizer moment ``("opt", m, name)`` its
+    parameter's, Adafactor's ``vr`` (``mean`` over the last dim) and ``vc``
+    (over the second-to-last) the parameter's without that dim, the step
+    whole."""
+    if path[0] == "params":
+        return specs[path[1]]
+    if len(path) < 3:
+        return ()
+    spec = specs[path[2]]
+    if len(path) == 4 and path[3] in ("vr", "vc"):
+        full = norm_spec(spec, ndim + 1)
+        spec = full[:-1] if path[3] == "vr" else full[:-2] + full[-1:]
+    return tuple(a or None for a in norm_spec(spec, ndim))
+
+
+def lm_state_specs(state: dict, specs: dict) -> dict:
+    """``{path_key: spec}`` of every array leaf of a port-layout LM train
+    state (``launch.steps.train_state``'s ``{"params", "opt"}``) by the
+    parameters' ``specs``: ``restore_elastic``'s ``specs``."""
+    out = {}
+
+    def visit(path, leaf):
+        if hasattr(leaf, "shape"):
+            out[path_key(path)] = _leaf_spec(path, len(leaf.shape), specs)
+    tree_map(visit, state, with_path=True)
+    return out
+
+
+def lm_sharded_layout(mesh, specs: dict) -> Layout:
+    """``LM_STATE_LAYOUT`` for a state of this rank's slices (``specs``:
+    the parameters' specs by name). Writing gathers each leaf over the mesh
+    (``collective.all_gather``): every rank saves together, in the caller's
+    thread (``save(..., blocking=True)`` or a synchronous manager), each to
+    a directory of its own; the files hold the whole arrays, in JAX's keys.
+    Reading gives each rank its slices; a restore's target holds slices."""
+    def whole_leaf(path, leaf):
+        if not hasattr(leaf, "shape"):
+            return leaf
+        spec = _leaf_spec(path, len(leaf.shape), specs)
+        if isinstance(leaf, torch.Tensor) and leaf.device.type == "meta":
+            shape = [n * mesh.axis_size(axes) if axes else n
+                     for n, axes in zip(leaf.shape, norm_spec(spec, leaf.dim()))]
+            return torch.empty(shape, dtype=leaf.dtype, device="meta")
+        arr = np.asarray(leaf)
+        if not spec_axes(spec):
+            return arr
+        bf16 = arr.dtype == BF16_ON_DISK   # gathered as bfloat16: gloo takes no int16
+        t = torch.from_numpy(np.ascontiguousarray(arr.view(np.int16) if bf16 else arr))
+        t = gather((t.view(torch.bfloat16) if bf16 else t).to(mesh.device), spec, mesh).cpu()
+        return t.view(torch.int16).numpy().view(BF16_ON_DISK) if bf16 else t.numpy()
+
+    def to_disk(tree):
+        return lm_state_to_jax(tree_map(whole_leaf, tree, with_path=True))
+
+    def from_disk(tree):
+        named = lm_state_from_jax(tree)
+        return tree_map(lambda path, leaf: local_slice(leaf, _leaf_spec(
+            path, len(leaf.shape), specs), mesh) if hasattr(leaf, "shape") else leaf,
+            named, with_path=True)
+
+    return Layout(to_disk, from_disk)
+
+
 __all__ = ["dcn_params_from_jax", "gnn_params_from_jax", "lm_params_from_jax",
-           "moe_params_from_jax", "lm_state_to_jax", "lm_state_from_jax", "LM_STATE_LAYOUT"]
+           "moe_params_from_jax", "lm_state_to_jax", "lm_state_from_jax", "LM_STATE_LAYOUT",
+           "lm_state_specs", "lm_sharded_layout"]

@@ -47,6 +47,21 @@ integers int32):
   node_mask [N] bool; edge padding uses src/dst == N (sentinel)
   n_graphs  a Python int, the readout's segments
 
+Over a mesh (inside ``kernels.ops.segment_output_sharding(mesh,
+node_axes)``, the reference's hint) every rank holds its share of the
+batch: the edge lanes split over every mesh axis in rank order (with
+``node_axes``, partitioned by dst block as
+``graphs/partition.py:partition_by_dst_block`` lays them out), and the node
+rows split over every axis in rank order (its sub-block of its node block).
+A node-sized edge sum (``ops._hint_active``) is ``ops.vp_segment_sum`` (K1
+with the kernel on, and its backward) on this rank's lanes, then this
+rank's rows of its block (``collective.split``); node features are
+gathered over the mesh (``collective.all_gather``) before a gather by
+``src`` or ``dst``; the per-graph readout and the GCN loss's masked sums are
+summed over the ranks. Every rank's gradient is then its own share of
+every parameter's, which the train kind (``launch.steps``) sums over the
+mesh, as it keeps the parameters replicated.
+
 MACE note (the JAX package's documented adaptation, kept): the full
 Clebsch–Gordan coupled B-basis is simplified to channel-wise invariant
 contractions of the A-basis (per-l norms and their products up to
@@ -64,16 +79,41 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import collective
 from repro_torch.core.dispatch import resolve_device, resolve_kernel
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import segment_sum_ref
+
+
+def _layout():
+    """(mesh, node axes) of the active ``segment_output_sharding`` hint, or
+    None: one device."""
+    hint = kops.active_sharding()
+    return None if hint is None else hint[:2]
+
+
+def _n_nodes(h: torch.Tensor) -> int:
+    """The batch's node count from this rank's rows."""
+    lay = _layout()
+    return h.shape[0] * (1 if lay is None else lay[0].size)
 
 
 def _seg(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
          kernel: bool | None, presorted: bool = False) -> torch.Tensor:
     """The per-vertex (or per-graph) sum of ``values`` [E] or [E, D] over
     ``seg_ids``; ids outside ``[0, num_segments)`` drop. ``presorted``: the
-    ids are ascending (the lanes of ``_by_dst``), for the kernel."""
+    ids are ascending (the lanes of ``_by_dst``), for the kernel. Under the
+    hint, a node-sized sum is ``vp_segment_sum`` and returns this rank's
+    rows."""
+    if kops._hint_active(num_segments):
+        mesh, node_axes = _layout()
+        out = kops.vp_segment_sum(values, seg_ids, num_segments, kernel=kernel)
+        return collective.split(out, mesh, tuple(a for a in mesh.axis_names
+                                                 if a not in node_axes))
+    if _layout() is not None:
+        raise ValueError(f"a sum onto {num_segments} nodes under segment_output_sharding "
+                         f"that the hint does not cover (min_segments, or a block count "
+                         f"that does not divide it)")
     if resolve_kernel(kernel, values.device):
         return kops.segment_sum(values, seg_ids, num_segments=num_segments,
                                 presorted=presorted)
@@ -93,8 +133,30 @@ def _by_dst(src: torch.Tensor, dst: torch.Tensor,
 
 
 def _gather_nodes(h: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    # the sentinel lane (idx == n) reads row n - 1; callers mask it out
+    # the sentinel lane (idx == n) reads row n - 1; callers mask it out. Over
+    # a mesh h is this rank's rows: every rank's, gathered, are the batch's
+    lay = _layout()
+    if lay is not None:
+        h = collective.all_gather(h, lay[0])
     return h.index_select(0, idx.clamp(max=n - 1))
+
+
+def _readout(values: torch.Tensor, graph_id: torch.Tensor, n_graphs: int,
+             kernel: bool | None) -> torch.Tensor:
+    """The per-graph sum of this rank's node ``values``: over a mesh, the
+    plain sum of its rows summed over the ranks (every rank holds the
+    whole ``[n_graphs]``)."""
+    lay = _layout()
+    if lay is None:
+        return _seg(values, graph_id, n_graphs, kernel)
+    out = segment_sum_ref(values, graph_id, n_graphs, values.dtype)
+    return collective.all_reduce_sum(out, lay[0])
+
+
+def _mesh_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the mesh's ranks (itself on one device)."""
+    lay = _layout()
+    return t if lay is None else collective.all_reduce_sum(t, lay[0])
 
 
 def _call(model: nn.Module, batch: dict, params: dict | None):
@@ -202,7 +264,7 @@ class GCN(nn.Module):
         """Symmetric-normalized GCN: H' = D^-1/2 (A+I) D^-1/2 H W. Returns
         the logits [N, n_classes]."""
         h = batch["node_feat"]
-        n = h.shape[0]
+        n = _n_nodes(h)
         kernel = self.cfg.kernel
         src, dst = _by_dst(batch["src"], batch["dst"], kernel)
         valid = (src < n) & (dst < n)
@@ -242,7 +304,8 @@ def gcn_loss(model: GCN, batch: dict, params: dict | None = None) -> torch.Tenso
     mask = batch["label_mask"].to(logits.dtype)
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, labels[:, None])[:, 0]
-    return torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return _mesh_sum(torch.sum((lse - ll) * mask)) / torch.clamp(_mesh_sum(torch.sum(mask)),
+                                                                  min=1.0)
 
 
 # ===========================================================================
@@ -278,7 +341,7 @@ class SchNet(nn.Module):
         cfg, kernel = self.cfg, self.cfg.kernel
         z, pos, gid = batch["atom_type"], batch["pos"], batch["graph_id"]
         src, dst = _by_dst(batch["src"], batch["dst"], kernel)
-        n = z.shape[0]
+        n = _n_nodes(z)
         valid = (src < n) & (dst < n)
         d_vec = _gather_nodes(pos, dst, n) - _gather_nodes(pos, src, n)
         dist = torch.sqrt(torch.sum(d_vec * d_vec, -1) + 1e-12)
@@ -293,7 +356,7 @@ class SchNet(nn.Module):
             h = h + blk.out(agg)
         atom_e = self.readout(h)[:, 0]                            # [N]
         atom_e = atom_e * batch["node_mask"].to(atom_e.dtype)
-        return _seg(atom_e, gid, batch["n_graphs"], kernel)
+        return _readout(atom_e, gid, batch["n_graphs"], kernel)
 
 
 def schnet_init(cfg: SchNetConfig, *, device=None,
@@ -347,7 +410,7 @@ class EGNN(nn.Module):
         kernel = self.cfg.kernel
         z, pos, gid = batch["atom_type"], batch["pos"], batch["graph_id"]
         src, dst = _by_dst(batch["src"], batch["dst"], kernel)
-        n = z.shape[0]
+        n = _n_nodes(z)
         valid = ((src < n) & (dst < n)).to(pos.dtype)
         h = _embed(self.embed, z)
         x = pos
@@ -364,7 +427,7 @@ class EGNN(nn.Module):
             agg = _seg(m, dst, n, kernel, presorted=True)
             h = h + lp.phi_h(torch.cat([h, agg], -1))
         atom_e = self.readout(h)[:, 0] * batch["node_mask"].to(h.dtype)
-        return _seg(atom_e, gid, batch["n_graphs"], kernel), x
+        return _readout(atom_e, gid, batch["n_graphs"], kernel), x
 
 
 def egnn_init(cfg: EGNNConfig, *, device=None,
@@ -438,7 +501,7 @@ class MACE(nn.Module):
         cfg, kernel = self.cfg, self.cfg.kernel
         z, pos, gid = batch["atom_type"], batch["pos"], batch["graph_id"]
         src, dst = _by_dst(batch["src"], batch["dst"], kernel)
-        n = z.shape[0]
+        n = _n_nodes(z)
         d_vec = _gather_nodes(pos, dst, n) - _gather_nodes(pos, src, n)
         dist = torch.sqrt(torch.sum(d_vec * d_vec, -1) + 1e-12)
         # degenerate edges (self/padding, d_vec=0) must contribute NOTHING: the
@@ -461,7 +524,8 @@ class MACE(nn.Module):
             # A-basis: A_i[m, c] = sum_j R_l(r) Y_lm(u) h_j[c]
             edge_feat = r_m * ylm[:, :, None] * hj[:, None, :]
             edge_feat = edge_feat * valid[:, None, None]
-            a = _seg(edge_feat.reshape(-1, m * d), dst, n, kernel, presorted=True).reshape(n, m, d)
+            a = _seg(edge_feat.reshape(-1, m * d), dst, n, kernel, presorted=True)
+            a = a.reshape(a.shape[0], m, d)
             # invariant contractions per l: ||A_l||^2 summed over m
             a2 = a * a
             inv1 = torch.stack([a2[:, l * l:(l + 1) * (l + 1), :].sum(dim=1)
@@ -469,11 +533,11 @@ class MACE(nn.Module):
             inv1 = torch.sqrt(inv1 + 1e-12)
             # correlation powers 1..nu (simplified B-basis)
             feats = [inv1 ** p for p in range(1, cfg.correlation + 1)]
-            b = torch.cat(feats, dim=1).reshape(n, -1)             # [N, n_l*nu*D]
+            b = torch.cat(feats, dim=1).reshape(a.shape[0], -1)    # [N, n_l*nu*D]
             msg = lp.mix(b)
             h = h + lp.update(torch.cat([h, msg], -1))
         atom_e = self.readout(h)[:, 0] * batch["node_mask"].to(h.dtype)
-        return _seg(atom_e, gid, batch["n_graphs"], kernel)
+        return _readout(atom_e, gid, batch["n_graphs"], kernel)
 
 
 def mace_init(cfg: MACEConfig, *, device=None,

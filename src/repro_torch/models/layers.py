@@ -7,14 +7,19 @@ functions on tensors, with the reference's casts kept. Weights are in JAX's
 float32 whatever the compute dtype. Every float32 quotient has a tensor
 divisor on the operand's device (``_scalar``): CUDA multiplies by the
 reciprocal of a Python-scalar (or CPU-scalar) divisor, which is not the
-quotient JAX computes. ``ShardCtx`` and ``NO_SHARD`` (activation sharding
-hints that do nothing without a mesh) are not ported: they come with
-the sharded zoo (ROADMAP.md section 1, item 6c-ii), and the single-device
-functions take no ``ctx``.
+quotient JAX computes.
+
+``ShardCtx`` and ``NO_SHARD`` carry the reference's fields (``mesh``,
+``dp``, ``tp``, ``sp``). In the reference they are sharding constraints on
+one program; in the port, where every rank runs its own share, they name the
+layout a rank holds its activations in (``act3``, ``act4``), which
+``models/transformer.py`` follows over a mesh.
 """
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
@@ -23,6 +28,47 @@ from torch.utils.checkpoint import checkpoint
 
 F32 = torch.float32
 MASKED = -1e30   # the reference's fill for masked scores
+
+
+# ---------------------------------------------------------------------------
+# a rank's layout over a mesh
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShardCtx:
+    """The layout of a rank's activations. ``mesh=None`` is one device.
+
+    ``dp`` names the batch axes, ``tp`` the tensor axis (None: no tensor
+    parallelism, the ZeRO-3 layout), ``sp`` splits the sequence over
+    ``tp`` between blocks (training and prefill)."""
+
+    mesh: Any = None
+    dp: tuple[str, ...] = ("data",)   # batch axes (("pod","data") multi-pod)
+    tp: str | None = "model"          # tensor axis
+    sp: bool = False                  # shard sequence dim over tp (long prefill)
+
+    def tp_size(self) -> int:
+        if self.mesh is None or self.tp is None:
+            return 1
+        from repro_torch.launch.mesh import axis_sizes
+
+        return axis_sizes(self.mesh)[self.tp]
+
+    def act3(self) -> tuple:
+        """The spec of the ``[B, S, D]`` residual stream a rank holds
+        between blocks: the batch over ``dp``, the sequence over ``tp`` with
+        ``sp``."""
+        return (self.dp, self.tp if self.sp else None, None)
+
+    def act4(self, n_heads: int) -> tuple:
+        """The spec of a ``[B, S, H, hd]`` attention tensor a rank holds:
+        the heads over ``tp`` where ``H % |tp| == 0``, else whole. With
+        ``sp`` the sequence is gathered over ``tp`` inside the block (the
+        reference's constraint splits it; the values are the same)."""
+        heads_ok = self.tp is not None and n_heads % self.tp_size() == 0
+        return (self.dp, None, self.tp if heads_ok else None, None)
+
+
+NO_SHARD = ShardCtx()
 
 
 def _scalar(value, like: torch.Tensor, dtype=F32) -> torch.Tensor:
@@ -206,5 +252,5 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return loss
 
 
-__all__ = ["rms_norm", "apply_rope", "rope_freqs", "swiglu", "flash_attention",
+__all__ = ["ShardCtx", "NO_SHARD", "rms_norm", "apply_rope", "rope_freqs", "swiglu", "flash_attention",
            "cross_entropy"]

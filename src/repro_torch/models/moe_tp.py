@@ -13,6 +13,18 @@ every expert's ``d_ff / |tp|`` slice and the same tokens as the other
 that every ``tp`` rank's gradient of them sums the slices' shares; ``aux``
 is averaged over ``dp`` only (``moe.token_mean``: the ``tp`` ranks' values
 are equal).
+
+With ``sp`` (the transformer's sequence-parallel training and prefill) a
+rank holds its ``[B / |dp|, S / |tp|, D]`` block, and the layer does what
+the reference's enclosing program does around it: it gathers the sequence
+over ``tp`` (``collective.all_gather``, whose backward sums the slices'
+shares of the tokens, so no ``sum_grad``), routes and multiplies every
+token of its batch block, sums the partial products over ``tp``, and keeps
+its own sequence block of the replicas (``collective.split``: the summed
+products get the whole cotangent) to combine with its own tokens' gates.
+Every ``tp`` rank routes the same tokens, so ``aux`` is averaged over
+``tp`` too: the same value, and each rank's router gets its share of the
+aux gradient, which the train step's sum over the token axes adds up.
 """
 from __future__ import annotations
 
@@ -22,6 +34,7 @@ from repro_torch.core import collective
 from repro_torch.models.moe import (
     MoEConfig, _group_sizes, _ragged_swiglu, _route, _shared_ffn, _token_ids, token_mean,
 )
+from repro_torch.models.shard import gather_dim, split_dim
 
 F32 = torch.float32
 
@@ -47,18 +60,43 @@ def _moe_tp_local(x2d, router, wg, wi, wo, cfg: MoEConfig, mesh=None, tp: str = 
     return y.to(x2d.dtype), aux
 
 
+def _moe_tp_sp(x, p, cfg: MoEConfig, mesh, dp: tuple[str, ...], tp: str):
+    """``moe_tp`` on this rank's sequence block (see the module docstring)."""
+    b, s_rank, d = x.shape
+    xf = gather_dim(x, 1, mesh, tp)                       # [B, S, D]
+    x2d = xf.reshape(-1, d)
+    t, k = x2d.shape[0], cfg.top_k
+    gates, idx, aux = _route(x2d, p["router"], cfg)
+    eid = idx.reshape(-1)
+    order = torch.sort(eid, stable=True).indices
+    xs = x2d[_token_ids(t, k, x.device)[order]].to(cfg.compute_dtype)
+    ys = _ragged_swiglu(xs, p["wg"], p["wi"], p["wo"], _group_sizes(eid[order], cfg.n_experts),
+                        cfg.compute_dtype)
+    ys = collective.all_reduce_sum(ys, mesh, tp)          # partial over the d_ff slices
+    y_rep = torch.zeros_like(ys).index_copy_(0, order, ys).view(b, xf.shape[1], k, d)
+    y_rep = split_dim(y_rep, 1, mesh, tp)                 # this rank's sequence block
+    g = gates.view(b, xf.shape[1], k).narrow(1, mesh.axis_index(tp) * s_rank, s_rank)
+    y = (y_rep.to(F32) * g[..., None]).sum(2)
+    return y.to(x.dtype), token_mean(aux, mesh, dp + (tp,))
+
+
 def moe_tp(x: torch.Tensor, p, cfg: MoEConfig, *, mesh=None, dp: tuple[str, ...] = ("data",),
            tp: str = "model", sp: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """[B,S,D] -> ([B,S,D], aux): the reference's TP-within-expert layer.
 
     Without a mesh, its single-device body. Over ``mesh``, this rank's
-    share: ``x`` its ``[B / |dp|, S, D]`` block, ``p`` the router and shared
-    experts whole, ``wg`` and ``wi`` their last dim's i-th ``1 / |tp|``
-    slice and ``wo`` its middle dim's, for rank i along ``tp``. ``sp`` is
-    accepted and dropped, as the reference drops it: ``d_ff`` and the
-    sequence cannot split the same axis."""
-    del sp
+    share: ``x`` its ``[B / |dp|, S, D]`` block (``[B / |dp|, S / |tp|, D]``
+    with ``sp``), ``p`` the router and shared experts whole, ``wg`` and
+    ``wi`` their last dim's i-th ``1 / |tp|`` slice and ``wo`` its middle
+    dim's, for rank i along ``tp``. ``d_ff`` and the sequence cannot split
+    the same axis: with ``sp`` the layer gathers the sequence and splits its
+    output (the reference's enclosing program does)."""
     b, s, d = x.shape
+    if mesh is not None and sp and mesh.axis_size(tp) > 1:
+        y, aux = _moe_tp_sp(x, p, cfg, mesh, tuple(dp), tp)
+        if cfg.n_shared:
+            y = y + _shared_ffn(x.reshape(-1, d), p, cfg).to(x.dtype).reshape(b, s, d)
+        return y, aux
     y2d, aux = _moe_tp_local(x.reshape(-1, d), p["router"], p["wg"], p["wi"], p["wo"], cfg,
                              mesh=mesh, tp=tp)
     if mesh is not None:

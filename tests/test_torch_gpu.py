@@ -1730,3 +1730,102 @@ def test_moe_mesh_of_one_on_card(cuda, kind):
         got, aux = fn(x, p, cfg, mesh=mesh)
         want, waux = fn(x, p, cfg)
     assert torch.equal(got, want) and torch.equal(aux, waux)
+
+
+# ---------------------------------------------------------------------------
+# build_step over a mesh: two gloo ranks on cuda:0 against the CPU's one device
+# ---------------------------------------------------------------------------
+def _card_ranks(script: str, tmp_path, world: int = 2, timeout: float = 240.0) -> list[dict]:
+    """``tests/<script>``'s card mode on ``world`` gloo ranks, every one on
+    cuda:0, killed past ``timeout``; each rank's answers."""
+    import os
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, str(root / "tests" / script), str(r), str(world),
+                               f"file://{tmp_path / 'rdzv'}", "-", str(tmp_path / f"rank{r}.npz")],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        logs = [p.communicate(timeout=max(deadline - time.monotonic(), 0.0))[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        pytest.fail(f"{world} ranks on the card did not finish in {timeout} s")
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, logs[r].decode()[-4000:]
+    return [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(world)]
+
+
+def test_lm_mesh_on_card_matches_cpu(cuda, tmp_path):
+    """The small LM (tests/test_distributed.py:92's config) over (1, 2) on
+    the card, two gloo ranks: the train kind's loss and gradients (tp_sp and
+    zero3, each bitwise repeatable), prefill's and decode's logits equal the
+    CPU's one device (rtol = atol = 3e-4); greedy tokens equal."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    import _torch_lm_mesh_ranks as lr
+
+    from repro_torch.models import transformer as lm
+
+    answers = _card_ranks("_torch_lm_mesh_ranks.py", tmp_path)
+    torch.set_float32_matmul_precision("highest")
+    cfg, model = lr.seeded_gqa()
+    step = lr.build_train_step(cfg, "adamw", "tp_sp", None)
+    loss, grads = step.grad({k: v.detach() for k, v in model.named_parameters()},
+                            lr.train_batch(cfg.vocab))
+    toks = torch.from_numpy(lr.tokens(cfg.vocab, lr.BATCH, lr.SEQ + lr.NEW, 7))
+    with torch.no_grad():
+        pre, _ = lm.prefill(model, toks[:, :lr.SEQ], cfg)
+        c = lm.init_cache(cfg, lr.BATCH, lr.SEQ + lr.NEW, device="cpu")
+        dec = np.stack([lm.decode_step(model, c, toks[:, t], t, cfg)[0].numpy()
+                        for t in range(lr.SEQ + lr.NEW)], axis=1)
+    tol = dict(rtol=3e-4, atol=3e-4)
+    for ans in answers:
+        for layout in ("tp_sp", "zero3"):
+            np.testing.assert_allclose(float(ans[f"1x2/{layout}/loss"]), float(loss), rtol=1e-5)
+            assert bool(ans[f"1x2/{layout}/bitwise"])
+            for k, g in grads.items():
+                np.testing.assert_allclose(ans[f"1x2/{layout}/g/{k}"], g.numpy(), **tol,
+                                           err_msg=f"{layout} {k}")
+        np.testing.assert_allclose(ans["1x2/prefill"], pre.numpy(), **tol)
+        np.testing.assert_allclose(ans["1x2/decode"], dec, **tol)
+        np.testing.assert_array_equal(ans["1x2/decode"].argmax(-1), dec.argmax(-1))
+
+
+def test_gnn_mesh_step_k1_on_card_matches_cpu(cuda, tmp_path):
+    """A GCN train step over (2, 1) and (1, 2) on the card, two gloo ranks
+    with K1 on (vp_segment_sum, with its backward): three K1 launches a rank
+    (the degrees and two layers), loss and gradients equal the CPU's
+    one-device plain step (rtol = atol = 1e-5), bitwise repeatable."""
+    import dataclasses
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    import _torch_gnn_mesh_ranks as gr
+
+    from repro_torch.launch.steps import train_state
+
+    answers = _card_ranks("_torch_gnn_mesh_ranks.py", tmp_path)
+    torch.set_float32_matmul_precision("highest")
+    cfg, model = gr.seeded_gcn()
+    cfg = dataclasses.replace(cfg, kernel=False)
+    step = gr.build(cfg, "ogb_products", None, 1)
+    for shape in gr.MESHES[2]:
+        key = gr.tag(shape)
+        loss, grads = step.grad(train_state(model, step.opt)["params"], gr.gcn_batch(shape))
+        for ans in answers:
+            assert int(ans[f"{key}/k1_launches"]) == 3
+            assert bool(ans[f"{key}/bitwise"])
+            np.testing.assert_allclose(float(ans[f"{key}/loss"]), float(loss), rtol=1e-5)
+            for k, g in grads.items():
+                np.testing.assert_allclose(ans[f"{key}/g/{k}"], g.numpy(), rtol=1e-5,
+                                           atol=1e-5, err_msg=f"{key} {k}")
