@@ -253,7 +253,23 @@ takes a plain gather), and the kernel switched on. Phases:
      equal, prefill bitwise repeatable. gcn-cora at ogb_products' size over (2, 1) (node blocks) and
      (1, 2), K1 on each rank (``vp_segment_sum``, 3 launches a step): loss
      and gradients against world 1's plain step, bitwise repeatable;
- 20. a JSON line of every kernel, then the card's name and power limit, then
+ 20. DCN-v2 over a mesh (``phase_dcn_mesh``): first the dry run
+     (``launch.dryrun.run_cell``) of dcn-v2's four cells, gcn-cora's
+     full_graph_sm and qwen2.5's decode_32k on both production meshes, and
+     of dcn-v2's train_batch at (1, 2), on the meta device; then world 1 in
+     this process and two gloo ranks on the card (``_dcn_mesh_rank``), each
+     drawing the whole seeded tables and keeping its rows. FULL's widths
+     (26 tables x 1,000,000 x 16 float32): serve_bulk (262,144 rows) at
+     multi_hot=4 with K5 on each rank's rows over (1, 2) and (2, 1), one K5
+     launch a rank a call, K5 on a rank's half tables against its plain
+     version and timed beside world 1's; serve_p99 and retrieval_cand
+     (1,000,448 candidates) at multi_hot=1 over (1, 2), the one-hot bags
+     bitwise equal to world 1's; train_batch (65,536 rows, AdamW) over (2, 1)
+     and (1, 2), two steps: logits and scores within 1e-5 normwise of world
+     1, the loss within 1e-5, each gradient and parameter leaf put together
+     within 1e-4 normwise, the step bitwise repeatable; the dry run's
+     ``peak_bytes`` printed beside rank 0's measured peak of the same step;
+ 21. a JSON line of every kernel, then the card's name and power limit, then
      the result line ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure, so the script exits non-zero and prints no
@@ -5783,7 +5799,6 @@ def phase_step_mesh(device: str) -> dict:
         want = w1[label]
         for shape in spec["meshes"]:
             key = f"{label}/{shape[0]}x{shape[1]}"
-            sums: dict = {}
             for r, rk in enumerate(ranks):
                 loss = float(rk[f"{key}/loss"])
                 check(abs(loss - want["loss"]) <= LM_TRAIN_LOSS_RTOL * abs(want["loss"]),
@@ -5791,12 +5806,7 @@ def phase_step_mesh(device: str) -> dict:
                 check(int(rk[f"{key}/bitwise"]) != 0, f"{key} rank {r}: the step is not "
                       f"repeatable")
                 check(bool(rk[f"{key}/finite"]), f"{key} rank {r}: non-finite parameters")
-                for k, (d2, r2, split) in json.loads(str(rk[f"{key}/stats"])).items():
-                    if split or r == 0:
-                        a, b = sums.get(k, (0.0, 0.0))
-                        sums[k] = (a + d2, b + r2)
-            errs = {k: (d2 / r2) ** 0.5 if r2 else (0.0 if d2 == 0 else float("inf"))
-                    for k, (d2, r2) in sums.items()}
+            errs = _split_stats([json.loads(str(rk[f"{key}/stats"])) for rk in ranks])
             worst = max(errs, key=errs.get)
             check(errs[worst] <= LM_TRAIN_GRAD_NORMWISE,
                   f"{key}: gradient {worst} {errs[worst]} from world 1 (normwise, <= "
@@ -5868,6 +5878,447 @@ def phase_step_mesh(device: str) -> dict:
             f"{want['loss']} ({want['wall_s']:.3f} s, peak {want['peak_bytes']} bytes; its batch "
             f"built in {want['host_batch_s']:.3f} s) ({card})")
     res.update(k1_launches=k1_launches, phase_s=time.perf_counter() - t_phase)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 20: DCN-v2 over a mesh at FULL's widths (its tables' rows over
+# "model", K5 on each rank's rows), world 1 here and two gloo ranks on the
+# card; the dry run of a few cells on the meta device
+# ---------------------------------------------------------------------------
+DCN_MESH_SEED = 20
+DCN_MESH_BULK = ((1, 2), (2, 1))   # serve_bulk at multi_hot=4, K5 on
+DCN_MESH_TRAIN = ((2, 1), (1, 2))  # train_batch at multi_hot=1, AdamW, two steps
+DCN_MESH_NORMWISE = 1e-5           # logits and scores against world 1 (float32, TF32 off)
+DCN_MESH_LOSS_RTOL = 1e-5          # phase 18's card gates
+DCN_MESH_STEP_NORMWISE = 1e-4      # each gradient and parameter leaf put together, after a step
+DRYRUN_CELLS = (("dcn-v2", "train_batch"), ("dcn-v2", "serve_p99"), ("dcn-v2", "serve_bulk"),
+                ("dcn-v2", "retrieval_cand"), ("gcn-cora", "full_graph_sm"),
+                ("qwen2.5-3b", "decode_32k"))
+
+
+def dcn_mesh_configs():
+    """(the multi-hot serving config with K5 on, FULL as published: one-hot)."""
+    from repro_torch.configs import get_arch
+
+    full = get_arch("dcn-v2").full
+    return dataclasses.replace(full, multi_hot=4, kernel=True), full
+
+
+def dcn_mesh_batches(tmp: Path) -> None:
+    """Every case's batch, seeded on the host, as npy files in ``tmp``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import recsys_batches
+    from repro_torch.launch import MeshLayout, build_step
+
+    arch = get_arch("dcn-v2")
+    hot, one = dcn_mesh_configs()
+    sizes = {s.name: s.dims for s in arch.shapes}
+    cases = {"bulk": next(recsys_batches(hot, sizes["serve_bulk"]["batch"], seed=DCN_MESH_SEED)),
+             "p99": next(recsys_batches(one, sizes["serve_p99"]["batch"], seed=DCN_MESH_SEED)),
+             "query": next(recsys_batches(one, 1, seed=DCN_MESH_SEED + 1)),
+             "train": next(recsys_batches(one, sizes["train_batch"]["batch"],
+                                          seed=DCN_MESH_SEED + 2))}
+    # the candidates as the step rounds them for two ranks
+    c = build_step("dcn-v2", "retrieval_cand", mesh=MeshLayout((1, 2), MESH_AXES)).meta["rows"]
+    cases["query"]["candidates"] = np.random.default_rng(DCN_MESH_SEED).standard_normal(
+        (c, one.embed_dim), dtype=np.float32)
+    for case, batch in cases.items():
+        for k, v in batch.items():
+            if isinstance(v, np.ndarray):
+                np.save(tmp / f"dcn_{case}_{k}.npy", v)
+
+
+def dcn_mesh_batch(tmp: Path, case: str) -> dict:
+    keys = {"bulk": ("dense", "sparse_ids"), "p99": ("dense", "sparse_ids"),
+            "query": ("dense", "sparse_ids", "candidates"),
+            "train": ("dense", "sparse_ids", "labels")}[case]
+    return {k: np.load(tmp / f"dcn_{case}_{k}.npy") for k in keys}
+
+
+def dcn_mesh_model(cfg, device, mesh=None):
+    """FULL's seeded parameters (world 1's values; over a mesh this rank's
+    slice of them)."""
+    import torch
+
+    from repro_torch.models import dcn_init
+
+    dev = mesh.device if mesh is not None else torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(DCN_MESH_SEED)
+    return dcn_init(cfg, device=dev, generator=gen, mesh=mesh)
+
+
+def k5_bulk_call(model, ids, mesh=None):
+    """The K5 call ``embedding_bag`` makes at serve_bulk (over a mesh: on
+    this rank's rows, the ids shifted by its first row), its inputs."""
+    import torch
+
+    from repro_torch.kernels import embed
+
+    b, m = ids.shape[0], ids.shape[2]
+    if mesh is not None:
+        r0 = mesh.axis_index("model") * model.tables.shape[1]
+        ids = ids - torch.tensor(r0, dtype=ids.dtype, device=ids.device)
+    view = ids.permute(1, 0, 2)
+    seg = torch.arange(b, dtype=torch.int32, device=ids.device)[:, None].expand(b, m).reshape(-1)
+    return (lambda: embed.segment_embed_sorted(model.tables, view, seg, num_segments=b)), (
+        model.tables, view, seg, b)
+
+
+def dcn_mesh_world1(device, tmp: Path) -> dict:
+    """World 1 of phase 20 on the card: serve_bulk at multi_hot=4 (K5),
+    serve_p99 and retrieval_cand at multi_hot=1, the train kind's gradient
+    and two AdamW steps; the answers to ``tmp`` for the ranks, every card
+    tensor freed."""
+    import torch
+
+    from repro_torch.launch import build_step, train_state
+    from repro_torch.models import embedding_bag
+
+    hot, one = dcn_mesh_configs()
+    out = {}
+    model = dcn_mesh_model(hot, device).requires_grad_(False)
+    bulk = dcn_mesh_batch(tmp, "bulk")
+    step = build_step("dcn-v2", "serve_bulk", device=device)
+    step.fn(model, bulk)   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = step.fn(model, bulk)
+    torch.cuda.synchronize()
+    out["bulk_wall_s"] = time.perf_counter() - t0
+    np.save(tmp / "w1_bulk.npy", logits.cpu().numpy())
+    with torch.inference_mode():
+        k5, _ = k5_bulk_call(model, torch.as_tensor(bulk["sparse_ids"], device=device))
+        out["k5_device_ms"] = graph_ms(k5)
+    del model, logits, k5
+    model = dcn_mesh_model(one, device).requires_grad_(False)
+    p99 = dcn_mesh_batch(tmp, "p99")
+    np.save(tmp / "w1_p99.npy", build_step("dcn-v2", "serve_p99", device=device).fn(
+        model, p99).cpu().numpy())
+    with torch.inference_mode():
+        emb = embedding_bag(model.tables, torch.as_tensor(p99["sparse_ids"], device=device), one)
+    np.save(tmp / "w1_p99_bags.npy", emb.cpu().numpy())
+    np.save(tmp / "w1_scores.npy", build_step("dcn-v2", "retrieval_cand", device=device).fn(
+        model, dcn_mesh_batch(tmp, "query")).cpu().numpy())
+    del model, emb
+    train = dcn_mesh_batch(tmp, "train")
+    step = build_step("dcn-v2", "train_batch", device=device)
+    state = train_state(dcn_mesh_model(one, device), step.opt)
+    torch.cuda.reset_peak_memory_stats()
+    step.grad(state["params"], train)   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = step.grad(state["params"], train)
+    torch.cuda.synchronize()
+    out["grad_wall_s"] = time.perf_counter() - t0
+    (tmp / "grad").mkdir()
+    for k, v in grads.items():
+        np.save(tmp / "grad" / f"{k}.npy", v.cpu().numpy())
+    del grads
+    p1, o1, _ = step.fn(state["params"], state["opt"], train)
+    (tmp / "p1").mkdir()
+    for k, v in p1.items():
+        np.save(tmp / "p1" / f"{k}.npy", v.cpu().numpy())
+    loss2 = step.fn(p1, o1, train)[2]
+    out.update(loss=float(loss), loss2=float(loss2),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    del state, p1, o1, loss, loss2
+    torch.cuda.empty_cache()
+    return out
+
+
+def _split_stats(stats: list[dict]) -> dict:
+    """Each leaf's normwise error from the ranks' (d2, r2, split): a split
+    leaf's sums over the ranks, a whole one's from rank 0."""
+    sums: dict = {}
+    for r, st in enumerate(stats):
+        for k, (d2, r2, split) in st.items():
+            if split or r == 0:
+                a, b = sums.get(k, (0.0, 0.0))
+                sums[k] = (a + d2, b + r2)
+    return {k: (d2 / r2) ** 0.5 if r2 else (0.0 if d2 == 0 else float("inf"))
+            for k, (d2, r2) in sums.items()}
+
+
+def _dcn_mesh_rank(rank: int, world: int, init: str, data: str, out: str,
+                   device: str = "cuda") -> None:
+    """One rank of phase 20's world 2 (gloo, both ranks on cuda:0): the
+    serving cases (serve_bulk with K5 on this rank's rows over (1, 2) and
+    (2, 1); serve_p99, its one-hot bags and retrieval_cand over (1, 2)) and
+    the train kind over (2, 1) and (1, 2), each against world 1's answers in
+    ``data``; to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import collective, distributed
+    from repro_torch.kernels import embed, ref
+    from repro_torch.launch import build_step, steps, train_state
+    from repro_torch.models import embedding_bag
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        embed.load_library()  # built by the parent's phase 1: a load, not a build
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda:0") if on_card else torch.device(device)
+    tmp = Path(data)
+    hot, one = dcn_mesh_configs()
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
+    res = {}
+    try:
+        meshes = {s: distributed.make_mesh(s, MESH_AXES, device=dev) for s in ((1, 2), (2, 1))}
+
+        bulk = dcn_mesh_batch(tmp, "bulk")
+        want = np.load(tmp / "w1_bulk.npy")
+        for shape in DCN_MESH_BULK:
+            mesh, key = meshes[shape], f"bulk/{shape[0]}x{shape[1]}"
+            step = build_step("dcn-v2", "serve_bulk", mesh=mesh)
+            model = dcn_mesh_model(hot, dev, mesh).requires_grad_(False)
+            step.fn(model, bulk)   # warm
+            torch.cuda.synchronize() if on_card else None
+            n0 = embed.launches
+            t0 = time.perf_counter()
+            logits = step.fn(model, bulk)
+            torch.cuda.synchronize() if on_card else None
+            res[f"{key}/wall_s"] = np.array(time.perf_counter() - t0)
+            res[f"{key}/k5_launches"] = np.array(embed.launches - n0)
+            res[f"{key}/normwise"] = np.array(normwise(
+                logits, torch.from_numpy(steps._block(want, mesh, ("data",)))))
+            res[f"{key}/finite"] = np.array(bool(torch.isfinite(logits).all()))
+            if shape == (1, 2):
+                # K5 on this rank's half of the tables, the ids shifted by its
+                # first row: its plain version, its device time
+                with torch.inference_mode():
+                    k5, (tab, view, seg, b) = k5_bulk_call(
+                        model, torch.as_tensor(bulk["sparse_ids"], device=dev), mesh)
+                    got = k5()
+                    exp = ref.segment_embed_ref(tab, view, seg, None, b)
+                    check(torch.allclose(got, exp, rtol=EMBED_TOL[0], atol=EMBED_TOL[1]),
+                          f"rank {rank}: K5 on its rows differs from its plain version")
+                    res["k5/max_abs_err"] = np.array(float((got - exp).abs().max()))
+                    # timed one rank at a time (both share the card); a sum
+                    # over every rank between the turns holds the other back
+                    for turn in range(world + 1):
+                        collective.all_reduce_sum(torch.zeros(1), mesh)
+                        if turn == rank:
+                            res["k5/device_ms"] = np.array(graph_ms(k5) if on_card else 0.0)
+                    res["k5/tables"] = np.array(list(tab.shape))
+                    del got, exp, k5, tab, view, seg
+            del model, logits
+        torch.cuda.empty_cache() if on_card else None
+
+        mesh = meshes[(1, 2)]
+        model = dcn_mesh_model(one, dev, mesh).requires_grad_(False)
+        p99 = dcn_mesh_batch(tmp, "p99")
+        logits = build_step("dcn-v2", "serve_p99", mesh=mesh).fn(model, p99)
+        res["p99/normwise"] = np.array(normwise(logits, torch.from_numpy(
+            np.load(tmp / "w1_p99.npy"))))
+        with torch.inference_mode():
+            bags = embedding_bag(model.tables, torch.as_tensor(p99["sparse_ids"], device=dev),
+                                 one, mesh).cpu()
+        res["p99/bags_bitwise"] = np.array(bool(torch.equal(
+            bags, torch.from_numpy(np.load(tmp / "w1_p99_bags.npy")))))
+        scores = build_step("dcn-v2", "retrieval_cand", mesh=mesh).fn(
+            model, dcn_mesh_batch(tmp, "query"))
+        want = np.load(tmp / "w1_scores.npy")
+        res["retrieval/normwise"] = np.array(normwise(scores, torch.from_numpy(
+            steps._block(want.T, mesh, None).T.copy())))
+        res["retrieval/columns"] = np.array(scores.shape[1])
+        del model, logits, scores, bags
+        torch.cuda.empty_cache() if on_card else None
+
+        train = dcn_mesh_batch(tmp, "train")
+        for shape in DCN_MESH_TRAIN:
+            mesh, key = meshes[shape], f"train/{shape[0]}x{shape[1]}"
+            step = build_step("dcn-v2", "train_batch", mesh=mesh)
+            layout = (mesh, step.specs)
+            state = train_state(dcn_mesh_model(one, dev, mesh), step.opt, layout)
+            params, opt = state["params"], state["opt"]
+            collective.traffic.clear()
+            t0 = time.perf_counter()
+            loss, grads = step.grad(params, train)
+            torch.cuda.synchronize() if on_card else None
+            res[f"{key}/grad_wall_s"] = np.array(time.perf_counter() - t0)
+            res[f"{key}/traffic"] = np.array(json.dumps(collective.traffic))
+            res[f"{key}/loss"] = np.array(float(loss))
+            res[f"{key}/grad_stats"] = np.array(json.dumps(_grad_stats(grads, step.specs,
+                                                                      tmp / "grad", mesh)))
+            del grads
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            res[f"{key}/held_bytes"] = np.array(torch.cuda.memory_allocated() if on_card else 0)
+            t0 = time.perf_counter()
+            p1, o1, loss1 = step.fn(params, opt, train)
+            torch.cuda.synchronize() if on_card else None
+            res[f"{key}/step_wall_s"] = np.array(time.perf_counter() - t0)
+            res[f"{key}/peak_bytes"] = np.array(torch.cuda.max_memory_allocated()
+                                                if on_card else 0)
+            want_fp = fingerprint(p1)
+            again = step.fn(params, opt, train)
+            res[f"{key}/bitwise"] = np.array(bool(fingerprint(again[0]) == want_fp
+                                                  and torch.equal(again[2], loss1)))
+            del again
+            res[f"{key}/param_stats"] = np.array(json.dumps(_grad_stats(p1, step.specs,
+                                                                       tmp / "p1", mesh)))
+            loss2 = step.fn(p1, o1, train)[2]   # step 2's state dropped at once
+            res[f"{key}/loss2"] = np.array(float(loss2))
+            res[f"{key}/state_bytes"] = np.array(tree_bytes(params) + tree_bytes(opt))
+            del state, params, opt, p1, o1, loss, loss1, loss2
+            torch.cuda.empty_cache() if on_card else None
+        np.savez(out, **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dcn_mesh(device: str) -> dict:
+    """Phase 20: the dry run of ``DRYRUN_CELLS`` on both production meshes
+    (meta device) and of dcn-v2's train_batch at (1, 2); world 1 here
+    (``dcn_mesh_world1``), then two gloo ranks on the card
+    (``_dcn_mesh_rank``), each case held to world 1: logits and scores
+    within ``DCN_MESH_NORMWISE``, one-hot bags bitwise, the loss within
+    ``DCN_MESH_LOSS_RTOL``, each gradient and parameter leaf put together
+    within ``DCN_MESH_STEP_NORMWISE``, the step bitwise repeatable, one K5
+    launch a rank a multi-hot serve call. A rank that fails, or a spawn past
+    ``SPAWN_TIMEOUT_S``, fails the smoke. Returns the phase's numbers,
+    ``k5_launches`` K5's launches on both ranks' serve calls."""
+    import gc
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import MeshLayout
+    from repro_torch.launch.dryrun import run_cell
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    res: dict = {"dryrun": {}}
+    t0 = time.perf_counter()
+    for arch, shape in DRYRUN_CELLS:
+        for multi_pod in (False, True):
+            rec = run_cell(arch, shape, multi_pod, verbose=False)
+            check(rec["ok"], f"dry run {arch}:{shape} {rec['mesh']}: {rec.get('error')}")
+            key = f"{arch}:{shape}:{rec['mesh']}"
+            res["dryrun"][key] = {k: rec[k] for k in ("kind", "arg_bytes", "out_bytes",
+                                                      "peak_bytes", "flops", "model_flops",
+                                                      "collectives")}
+            log(f"  phase 20 dry run {key} (rank 0, meta device, plain path): "
+                f"{res['dryrun'][key]}")
+    est = run_cell("dcn-v2", "train_batch", False, verbose=False,
+                   layout=MeshLayout((1, 2), MESH_AXES))
+    check(est["ok"], f"dry run dcn-v2:train_batch at 1x2: {est.get('error')}")
+    res["dryrun_s"] = time.perf_counter() - t0
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_dcn_mesh_"))
+    try:
+        t0 = time.perf_counter()
+        dcn_mesh_batches(tmp)
+        res["batches_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        w1 = dcn_mesh_world1(device, tmp)
+        res["world1_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctx = multiprocessing.get_context("spawn")
+        init = f"file://{tmp / 'rendezvous'}"
+        outs = [tmp / f"rank{r}.npz" for r in range(2)]
+        procs = [ctx.Process(target=_dcn_mesh_rank,
+                             args=(r, 2, init, str(tmp), str(outs[r]), device))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SPAWN_TIMEOUT_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        check(not hung, f"phase 20: {len(hung)} rank(s) still running after {SPAWN_TIMEOUT_S} s")
+        check(all(p.exitcode == 0 for p in procs),
+              f"phase 20: rank exit codes {[p.exitcode for p in procs]}")
+        res["spawn_s"] = time.perf_counter() - t0
+        ranks = [dict(np.load(o)) for o in outs]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    card = card_line()
+    k5_launches = 0
+    for shape in DCN_MESH_BULK:
+        key = f"bulk/{shape[0]}x{shape[1]}"
+        for r, rk in enumerate(ranks):
+            n = int(rk[f"{key}/k5_launches"])
+            check(n == 1, f"phase 20 {key} rank {r}: {n} K5 launches for one serve call")
+            k5_launches += n
+            err = float(rk[f"{key}/normwise"])
+            check(bool(rk[f"{key}/finite"]) and err <= DCN_MESH_NORMWISE,
+                  f"phase 20 {key} rank {r}: logits {err} from world 1 (normwise)")
+        res[key] = dict(normwise=[float(rk[f"{key}/normwise"]) for rk in ranks],
+                        wall_s=[float(rk[f"{key}/wall_s"]) for rk in ranks],
+                        world1_wall_s=w1["bulk_wall_s"])
+        log(f"  phase 20 serve_bulk over {shape} (262,144 rows, multi_hot=4, K5 on each rank's "
+            f"rows, one launch a rank): {res[key]} ({card})")
+    res["k5"] = dict(rank_device_ms=[float(rk["k5/device_ms"]) for rk in ranks],
+                     rank_tables=ranks[0]["k5/tables"].tolist(),
+                     world1_device_ms=w1["k5_device_ms"],
+                     max_abs_err=max(float(rk["k5/max_abs_err"]) for rk in ranks))
+    log(f"  phase 20 K5 at serve_bulk on a rank's half tables {res['k5']['rank_tables']} (ids "
+        f"shifted by its first row) device_ms by rank {res['k5']['rank_device_ms']} vs world 1's "
+        f"whole tables {w1['k5_device_ms']:.6f}; == its plain version (max abs err "
+        f"{res['k5']['max_abs_err']:g}) ({card})")
+    for r, rk in enumerate(ranks):
+        for key in ("p99/normwise", "retrieval/normwise"):
+            check(float(rk[key]) <= DCN_MESH_NORMWISE,
+                  f"phase 20 rank {r}: {key} {float(rk[key])} from world 1")
+        check(bool(rk["p99/bags_bitwise"]), f"phase 20 rank {r}: one-hot bags differ from "
+              f"world 1's")
+    res["one_hot"] = dict(p99_normwise=[float(rk["p99/normwise"]) for rk in ranks],
+                          retrieval_normwise=[float(rk["retrieval/normwise"]) for rk in ranks],
+                          retrieval_columns=[int(rk["retrieval/columns"]) for rk in ranks])
+    log(f"  phase 20 over (1, 2) at multi_hot=1: serve_p99 and retrieval_cand {res['one_hot']}; "
+        f"one-hot bags bitwise equal to world 1's ({card})")
+    for shape in DCN_MESH_TRAIN:
+        key = f"train/{shape[0]}x{shape[1]}"
+        for r, rk in enumerate(ranks):
+            for lk, wk in (("loss", "loss"), ("loss2", "loss2")):
+                got = float(rk[f"{key}/{lk}"])
+                check(abs(got - w1[wk]) <= DCN_MESH_LOSS_RTOL * abs(w1[wk]),
+                      f"phase 20 {key} rank {r}: {lk} {got} vs world 1's {w1[wk]}")
+            check(bool(rk[f"{key}/bitwise"]), f"phase 20 {key} rank {r}: the step is not "
+                  f"repeatable")
+        errs = {}
+        for what in ("grad_stats", "param_stats"):
+            e = _split_stats([json.loads(str(rk[f"{key}/{what}"])) for rk in ranks])
+            worst = max(e, key=e.get)
+            check(e[worst] <= DCN_MESH_STEP_NORMWISE,
+                  f"phase 20 {key}: {what} {worst} {e[worst]} from world 1 (normwise)")
+            errs[what] = (worst, e[worst])
+        res[key] = dict(loss=[float(rk[f"{key}/loss"]) for rk in ranks], world1_loss=w1["loss"],
+                        loss2=[float(rk[f"{key}/loss2"]) for rk in ranks],
+                        world1_loss2=w1["loss2"], worst=errs,
+                        grad_wall_s=[float(rk[f"{key}/grad_wall_s"]) for rk in ranks],
+                        world1_grad_wall_s=w1["grad_wall_s"],
+                        step_wall_s=[float(rk[f"{key}/step_wall_s"]) for rk in ranks],
+                        peak_bytes=[int(rk[f"{key}/peak_bytes"]) for rk in ranks],
+                        held_bytes=[int(rk[f"{key}/held_bytes"]) for rk in ranks],
+                        state_bytes=[int(rk[f"{key}/state_bytes"]) for rk in ranks],
+                        world1_peak_bytes=w1["peak_bytes"],
+                        traffic=[json.loads(str(rk[f"{key}/traffic"])) for rk in ranks])
+        log(f"  phase 20 train_batch over {shape} (65,536 rows, multi_hot=1, AdamW, two steps): "
+            f"{res[key]} ({card})")
+    measured = res["train/1x2"]["peak_bytes"][0]
+    res["peak_estimate"] = dict(dryrun_peak_bytes=est["peak_bytes"],
+                                dryrun_arg_bytes=est["arg_bytes"], measured_peak_bytes=measured,
+                                measured_held_bytes=res["train/1x2"]["held_bytes"][0],
+                                ratio=est["peak_bytes"] / measured if measured else None)
+    log(f"  phase 20 estimator: the dry run's peak_bytes of dcn-v2 train_batch at MeshLayout((1, "
+        f"2)) {est['peak_bytes']} (its arg_bytes {est['arg_bytes']}) vs rank 0's measured "
+        f"max_memory_allocated over the same step {measured} (held before it "
+        f"{res['peak_estimate']['measured_held_bytes']}) ({card})")
+    res.update(k5_launches=k5_launches, phase_s=time.perf_counter() - t_phase, card=card)
     return res
 
 
@@ -6029,6 +6480,13 @@ def main(argv: list[str]) -> int:
         f"{step_mesh_times['world1_s']:.3f} s, world 2 {step_mesh_times['spawn_s']:.3f} s); "
         f"K1 launches {step_mesh_k1}")
 
+    log("phase 20: DCN-v2 over a mesh at FULL's widths (the tables' rows over 'model', K5 on "
+        "each rank's rows), world 1 and two gloo ranks on the card; the dry run on the meta device")
+    dcn_mesh_times = phase_dcn_mesh(device)
+    log(f"  phase 20 took {dcn_mesh_times['phase_s']:.3f} s (world 1 "
+        f"{dcn_mesh_times['world1_s']:.3f} s, world 2 {dcn_mesh_times['spawn_s']:.3f} s, the dry "
+        f"run {dcn_mesh_times['dryrun_s']:.3f} s); K5 launches {dcn_mesh_times['k5_launches']}")
+
     vp_k1_launches = shard_times["mesh"]["k1_launches"]
     k2_launches = (peel_launches + cbds_launches + pruned_launches["peel_edges"]
                    + fallback_launches + refine_launches + stream_launches["peel_edges"]
@@ -6059,7 +6517,8 @@ def main(argv: list[str]) -> int:
         f"{restart_launches['segment_sum_sorted']}; the GNNs (phase 16): K1 at [E, D] float32 "
         f"{k1_gnn_launches}; vp_segment_sum on both ranks of phase 13's mesh world 2: K1 at "
         f"[E, D] float32 {vp_k1_launches}; phase 19's GCN steps over a mesh (both ranks): K1 "
-        f"{step_mesh_k1}")
+        f"{step_mesh_k1}; phase 20's serve_bulk over a mesh (both ranks): K5 "
+        f"{dcn_mesh_times['k5_launches']}")
     rows = {
         "segment_sum_sorted": (k1_launches, k1["max_abs_err"], k1),
         "peel_edges": (k2_launches, k2["max_abs_err"], k2),
@@ -6069,7 +6528,9 @@ def main(argv: list[str]) -> int:
         "stream_compact": (pruned_launches["stream_compact"] + stream_launches["stream_compact"]
                            + fused_launches["stream_compact"],
                            compact_err, compact_times["stream_compact_edge"]),
-        "segment_embed": (k5_launches, max(embed_err, k5["max_abs_err"]), k5),
+        "segment_embed": (k5_launches + dcn_mesh_times["k5_launches"],
+                          max(embed_err, k5["max_abs_err"], dcn_mesh_times["k5"]["max_abs_err"]),
+                          k5),
         "peel_edges_rows": (fused_launches["peel_edges_rows"], k2_rows["max_abs_err"], k2_rows),
         "segment_sum_rows": (fused_launches["segment_sum_rows"], k1_rows["max_abs_err"],
                              k1_rows),
@@ -6109,6 +6570,7 @@ def main(argv: list[str]) -> int:
                     "lm": lm_times,
                     "lm_train": lm_train_times,
                     "step_mesh": step_mesh_times,
+                    "dcn_mesh": dcn_mesh_times,
                     "k2_rows": k2_rows,
                     "k1_rows": k1_rows,
                     "smoke_s": time.perf_counter() - t_start}, default=str))

@@ -9,6 +9,18 @@ sharded entry points on top of them. :func:`all_reduce_sum`,
 port's only collective sites (the linter's RPR401). Each call of one counts
 once in ``collectives`` and once in ``calls`` under its site's name and the
 axes it ran over; a backward that makes a collective counts it the same way.
+Where its slice holds more than one rank, it also adds one call and its
+output's bytes on this rank to ``traffic`` under its kind, as
+``launch/hlo_analysis.py`` names XLA's collectives (``all_reduce_sum`` and
+``all_reduce_max``: ``"all-reduce"``, ``all_gather``: ``"all-gather"``,
+``all_to_all``: ``"all-to-all"``): the reference's dry run counts "the op's
+output shape per device" the same way.
+
+A *dry* mesh (``Mesh(..., dry=True)``, ``launch.mesh.dry_mesh``) stands for
+one rank of a layout with no process group behind it: its collectives are
+counted as a live mesh's are and return tensors of the right shape on the
+input's device (the meta device in ``launch/dryrun.py``), communicating
+nothing.
 
 ``axes`` names the mesh axes a collective runs over: the ranks that differ
 from this one only along those axes (JAX's ``psum(x, axes)`` inside a
@@ -52,6 +64,10 @@ import torch.distributed as dist
 
 collectives = 0  # collective calls over a mesh, whatever their kind
 calls: Counter = Counter()  # (site, axes) -> its calls: ("all_to_all", ("model",)) -> 3
+# kind -> {"count": calls over more than one rank, "bytes": their output bytes here}
+traffic: dict = {}
+_KINDS = {"all_reduce_sum": "all-reduce", "all_reduce_max": "all-reduce",
+          "all_gather": "all-gather", "all_to_all": "all-to-all"}
 
 
 @dataclass(frozen=True)
@@ -67,7 +83,8 @@ class Mesh:
     holds, for each set of axes a collective may run over short of the
     whole group, the group of this rank's slice along them
     (``distributed.make_mesh`` builds them). Two meshes over the same group,
-    layout and device are equal, so their tenants share a fused bucket."""
+    layout and device are equal, so their tenants share a fused bucket.
+    ``dry`` marks a mesh with no ranks behind it (module docstring)."""
 
     group: object
     shape: tuple[int, ...]
@@ -76,6 +93,7 @@ class Mesh:
     size: int
     device: torch.device
     subgroups: dict = field(default_factory=dict, compare=False, repr=False)
+    dry: bool = False
 
     def axes_of(self, axes) -> tuple[str, ...]:
         """``axes`` (a name, a tuple of names, or None for every axis) as a
@@ -145,10 +163,18 @@ def slices(shape: tuple[int, ...], axis_names: tuple[str, ...]):
                    [members[key] for key in sorted(members)])
 
 
-def _count(site: str, mesh: Mesh, axes) -> None:
+def _count(site: str, mesh: Mesh, axes, out_bytes: int) -> None:
     global collectives
     collectives += 1
     calls[(site, mesh.axes_of(axes))] += 1
+    if mesh.axis_size(axes) > 1:
+        kind = traffic.setdefault(_KINDS[site], {"count": 0, "bytes": 0})
+        kind["count"] += 1
+        kind["bytes"] += out_bytes
+
+
+def _nbytes(t: torch.Tensor, parts: int = 1) -> int:
+    return parts * t.numel() * t.element_size()
 
 
 def _wants_grad(t: torch.Tensor) -> bool:
@@ -168,8 +194,8 @@ def all_reduce_sum(t: torch.Tensor, mesh: Mesh | None, axes=None) -> torch.Tenso
         return t
     if _wants_grad(t):
         return _AllReduceSum.apply(t, mesh, axes)
-    _count("all_reduce_sum", mesh, axes)
-    group = mesh.group_of(axes)
+    _count("all_reduce_sum", mesh, axes, _nbytes(t))
+    group = None if mesh.dry else mesh.group_of(axes)
     if group is None:
         return t
     t = t.contiguous()
@@ -185,8 +211,8 @@ def all_reduce_max(t: torch.Tensor, mesh: Mesh | None, axes=None) -> torch.Tenso
         return t
     if _wants_grad(t):
         raise NotImplementedError("all_reduce_max has no backward")
-    _count("all_reduce_max", mesh, axes)
-    group = mesh.group_of(axes)
+    _count("all_reduce_max", mesh, axes, _nbytes(t))
+    group = None if mesh.dry else mesh.group_of(axes)
     if group is None:
         return t
     t = t.contiguous()
@@ -205,13 +231,14 @@ def all_gather(t: torch.Tensor, mesh: Mesh | None, axes=None) -> torch.Tensor:
         return t
     if _wants_grad(t):
         return _AllGather.apply(t, mesh, axes)
-    _count("all_gather", mesh, axes)
-    group = mesh.group_of(axes)
-    if group is None:
+    n = mesh.axis_size(axes)
+    _count("all_gather", mesh, axes, _nbytes(t, n))
+    if n == 1:
         return t
-    t = t.contiguous()
-    out = t.new_empty((mesh.axis_size(axes) * t.shape[0],) + tuple(t.shape[1:]))
-    dist.all_gather_into_tensor(out, t, group=group)
+    out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
+    if mesh.dry:
+        return out
+    dist.all_gather_into_tensor(out, t.contiguous(), group=mesh.group_of(axes))
     return out
 
 
@@ -232,10 +259,10 @@ def all_to_all(t: torch.Tensor, mesh: Mesh | None, axes=None) -> torch.Tensor:
                          f"got {tuple(t.shape)}")
     if _wants_grad(t):
         return _AllToAll.apply(t, mesh, axes)
-    _count("all_to_all", mesh, axes)
-    group = mesh.group_of(axes)
+    _count("all_to_all", mesh, axes, _nbytes(t))
+    group = None if mesh.dry else mesh.group_of(axes)
     if group is None:
-        return t
+        return t if n == 1 or not mesh.dry else torch.empty_like(t)
     t = t.contiguous()
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t, group=group)
@@ -333,4 +360,4 @@ class _SumGrad(torch.autograd.Function):
 
 
 __all__ = ["Mesh", "all_gather", "all_reduce_max", "all_reduce_sum", "all_to_all", "calls",
-           "collectives", "slices", "split", "sum_grad"]
+           "collectives", "slices", "split", "sum_grad", "traffic"]

@@ -7,8 +7,11 @@ production mesh, described on a box that runs one process). The spec
 functions of ``models/transformer.py`` and the ``meta`` of
 ``launch.steps.build_step`` take either; running a step needs the ranks.
 ``make_local_mesh`` lays out the current process group (a world of one
-without one). ``make_production_mesh`` comes with the dry-run (ROADMAP.md
-section 1, item 6e).
+without one). ``make_production_mesh`` is the reference's 16 x 16 pod or
+2 x 16 x 16 two-pod layout, and ``dry_mesh`` rank 0 of a layout as a
+``collective.Mesh`` with no process group, whose collectives count and
+communicate nothing (``launch/dryrun.py`` runs each cell's step on it, on
+the meta device).
 """
 from __future__ import annotations
 
@@ -41,6 +44,25 @@ def axis_sizes(mesh) -> dict:
     return dict(zip(mesh.axis_names, mesh.shape))
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> MeshLayout:
+    """16 x 16 single pod (256 chips) or 2 x 16 x 16 two-pod (512 chips)."""
+    if multi_pod:
+        return MeshLayout((2, 16, 16), ("pod", "data", "model"))
+    return MeshLayout((16, 16), ("data", "model"))
+
+
+def dry_mesh(layout: MeshLayout):
+    """Rank 0 of ``layout`` as a dry ``collective.Mesh`` on the meta device:
+    no process group; its collectives are counted and return tensors of
+    their output's shape."""
+    import torch
+
+    from repro_torch.core.collective import Mesh
+
+    return Mesh(group=None, shape=tuple(layout.sizes), axis_names=tuple(layout.axis_names),
+                rank=0, size=math.prod(layout.sizes), device=torch.device("meta"), dry=True)
+
+
 def make_local_mesh(model: int = 1, device=None):
     """The current group's ranks as a ``("data", "model")`` mesh of
     ``(world / model, model)`` (a world of one without a process group).
@@ -64,4 +86,5 @@ def n_devices(mesh) -> int:
     return math.prod(axis_sizes(mesh).values())
 
 
-__all__ = ["MeshLayout", "axis_sizes", "make_local_mesh", "dp_axes", "n_devices"]
+__all__ = ["MeshLayout", "axis_sizes", "dry_mesh", "make_local_mesh", "make_production_mesh",
+           "dp_axes", "n_devices"]

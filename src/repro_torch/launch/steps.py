@@ -1,9 +1,9 @@
 """Step factory: (arch, shape) -> a step that runs on the device.
 
 The port of the JAX package's ``launch/steps.py`` (``make_optimizer``, the
-LM ``prefill`` and ``decode`` kinds, ``_recsys_step``, ``_gnn_train`` and
-``build_step``) for one device: no mesh, so n_dev = 1 and the model axis is
-1 in JAX's formulas. Kinds:
+LM ``prefill``, ``decode`` and ``train`` kinds, ``_recsys_step``,
+``_gnn_train``, ``build_step`` and ``all_cells``), on one device (n_dev = 1
+and the model axis 1 in JAX's formulas) or over a mesh (below). Kinds:
 
   prefill   fn(model, tokens) -> (last_logits [B, V], kv_cache)
   decode    fn(model, cache, tokens, cache_len) -> (logits [B, V], cache')
@@ -53,7 +53,7 @@ the config, and ``tokens`` (LM), ``rows`` (recsys; for retrieval the number
 of candidates) or ``nodes`` and ``edges`` (GNN, padded as JAX pads them).
 
 ``build_step(arch, shape, mesh=...)`` builds the reference's step over a
-mesh for the LM kinds and the GNN train kind. ``mesh`` is a
+mesh for every kind. ``mesh`` is a
 ``core.collective.Mesh`` of live ranks (every rank builds and calls the
 step together; the step runs on the mesh's device), or a
 ``launch.mesh.MeshLayout`` for ``meta`` alone (calling its ``fn`` raises).
@@ -75,15 +75,23 @@ slices (``step.specs``, ``step.cache_specs``):
             node rows split over the mesh, under
             ``ops.segment_output_sharding`` (``ogb_products``: the reference's
             node blocks over the batch axes; the others: none), K1 on each
-            rank with the kernel on.
+            rank with the kernel on; DCN-v2's tables' rows over ``"model"``
+            (``recsys.param_specs``), the rest whole, its batch's rows over
+            the batch axes, the loss the global mean and every gradient summed
+            over the batch axes (the tables' too; none over ``"model"``)
+  serve     fn(model, batch) -> this rank's block of the [B] logits, the
+            batch's rows over the batch axes, the model a ``DCNv2`` over the
+            step's mesh (this rank's table rows; K5 on them for multi-hot
+            bags with the kernel on)
+  retrieval fn(model, batch) -> this rank's [Q, C / n_dev] columns, the
+            candidates' rows split over every axis, the query whole
 
 The LM train kind gathers every weight it uses once a step (over its FSDP
 axes, or the whole mesh for zero3), accumulates the microbatches' gradients
 of the gathered weights in ``grad_accum_dtype``, and then sums each over
 the ranks that hold a part of it (``transformer.grad_sum_axes``) and keeps
 this rank's slice: the reference's gradients, summed once a step rather
-than once a microbatch. DCN-v2 over a mesh is not ported (ROADMAP.md,
-item 6c-ii-d).
+than once a microbatch.
 """
 from __future__ import annotations
 
@@ -209,22 +217,64 @@ def _value_and_grad(loss_of: Callable, params: dict) -> tuple[torch.Tensor, dict
                            for (k, v), g in zip(leaves.items(), grads)}
 
 
-def _dcn_train(arch: Arch, cfg: rec_mod.DCNConfig, b: int, per_row: float,
-               device: torch.device, name: str) -> StepBundle:
+def _block(a, mesh, axes):
+    """This rank's block of rows of ``a`` (numpy or a tensor) along ``axes``
+    (every axis for None; all of them for no axes)."""
+    n = mesh.axis_size(axes)
+    if a.shape[0] % n:
+        raise ValueError(f"{a.shape[0]} rows do not split over {mesh.axes_of(axes)} "
+                         f"({n} ranks)")
+    w = a.shape[0] // n
+    i = mesh.axis_index(axes)
+    return a[i * w:(i + 1) * w]
+
+
+def _dcn_train(arch: Arch, cfg: rec_mod.DCNConfig, device: torch.device, name: str,
+               meta: dict, mesh=None, specs=None) -> StepBundle:
     if cfg.multi_hot > 1 and resolve_kernel(cfg.kernel, device):
         raise NotImplementedError(
             f"{name}: a multi-hot bag with the kernel on runs K5 "
             f"(kernels/ops.py:segment_embed), which has no backward, as the JAX "
             f"package's Pallas kernel has none; train with kernel=False")
-    return _train_step(
-        arch, rec_mod.DCNv2(cfg, device="meta"), rec_mod.dcn_loss, {}, device, name,
-        meta={"model_flops": 3.0 * b * per_row,
-              "model_bytes_dev": (8.0 * _param_bytes(cfg)        # opt RMW on tables
-                                  + 3.0 * b * (cfg.n_sparse * cfg.embed_dim + cfg.d_in) * 4),
-              "rows": b})
+    if mesh is None:
+        return _train_step(arch, rec_mod.DCNv2(cfg, device="meta"), rec_mod.dcn_loss, {},
+                           device, name, meta)
+    dp = dp_axes(mesh)
+    # a layout (no ranks) has no skeleton: its fn refuses to run
+    skeleton = (rec_mod.DCNv2(cfg, device="meta", mesh=mesh)
+                if isinstance(mesh, collective.Mesh) else None)
+    opt = make_optimizer(arch.optimizer)
+    layout = (mesh, specs)
+
+    def value_and_grad(params, batch):
+        m = _ranks_of(mesh, name)
+        _check_precision()
+        _check_on(name, device, next(iter(params.values())).device, "the parameters are")
+        rows = batch["labels"].shape[0]
+        feed = {k: torch.as_tensor(_block(batch[k], m, dp), device=device)
+                for k in ("dense", "sparse_ids", "labels")}
+        # this rank's rows' terms over the global batch; the loss and every
+        # gradient summed over the batch axes in one all-reduce
+        loss, grads = _value_and_grad(
+            lambda leaves: rec_mod.dcn_loss(skeleton, feed, leaves, divisor=rows), params)
+        flat = collective.all_reduce_sum(
+            torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads.values()]), m, dp)
+        out, at = {}, 1
+        for k, g in grads.items():
+            out[k] = flat[at:at + g.numel()].view_as(g)
+            at += g.numel()
+        return flat[0].clone(), out   # the loss holds no view of the gradients
+
+    def train(params, opt_state, batch):
+        loss, grads = value_and_grad(params, batch)
+        new_p, new_o = opt.update(grads, opt_state, params, layout)
+        return new_p, new_o, loss
+
+    return StepBundle(name=name, kind="train", fn=train, meta=meta, mesh=mesh, specs=specs,
+                      grad=value_and_grad, opt=opt)
 
 
-def _recsys_step(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
+def _recsys_step(arch: Arch, shape: Shape, device: torch.device, mesh=None) -> StepBundle:
     cfg = arch.full
     d_in = cfg.d_in
     cross = cfg.n_cross_layers * 2.0 * d_in * d_in
@@ -233,36 +283,54 @@ def _recsys_step(arch: Arch, shape: Shape, device: torch.device) -> StepBundle:
     per_row = cross + mlp
     b = shape.dims["batch"]
     name = f"{arch.name}:{shape.name}"
+    # the reference's formulas: n_dev devices, the tables' rows over |model|
+    n_dev = n_devices(mesh) if mesh is not None else 1
+    tp = axis_sizes(mesh)["model"] if mesh is not None else 1
+    specs = rec_mod.param_specs(cfg) if mesh is not None else None
+    p_bytes = _param_bytes(cfg)
 
     if shape.kind == "train":
-        return _dcn_train(arch, cfg, b, per_row, device, name)
+        return _dcn_train(arch, cfg, device, name, mesh=mesh, specs=specs, meta={
+            "model_flops": 3.0 * b * per_row,
+            "model_bytes_dev": (8.0 * p_bytes / tp           # opt RMW on tables
+                                + 3.0 * (b / n_dev) * (cfg.n_sparse * cfg.embed_dim + d_in) * 4),
+            "rows": b})
 
-    def run(model, batch, keys, forward):
+    def run(model, batch, keys, forward, split):
+        m = _ranks_of(mesh, name)
         _check_precision()
         _check_on(name, device, model.tables.device, "the model is")
+        if model.mesh != m:
+            raise ValueError(f"{name} runs over {m}; the model holds its tables over "
+                             f"{model.mesh}")
+        feed = {k: batch[k] if m is None or k not in split else _block(batch[k], m, split[k])
+                for k in keys}
         with torch.inference_mode():
-            return forward(model, {k: torch.as_tensor(batch[k], device=device)
-                                   for k in keys})
+            return forward(model, {k: torch.as_tensor(v, device=device)
+                                   for k, v in feed.items()})
 
     if shape.kind == "serve":
+        dp = dp_axes(mesh) if mesh is not None else ()
+
         def serve(model, batch):
-            return run(model, batch, ("dense", "sparse_ids"), rec_mod.dcn_forward)
+            return run(model, batch, ("dense", "sparse_ids"), rec_mod.dcn_forward,
+                       {"dense": dp, "sparse_ids": dp})
         return StepBundle(
-            name=name, kind="serve", fn=serve,
+            name=name, kind="serve", fn=serve, mesh=mesh, specs=specs,
             meta={"model_flops": b * per_row,
-                  "model_bytes_dev": _param_bytes(cfg) + b * d_in * 4 * 2,
+                  "model_bytes_dev": p_bytes / tp + (b / n_dev) * d_in * 4 * 2,
                   "rows": b})
 
-    # retrieval: 1 query vs 1M candidates (rounded up as JAX rounds for its mesh)
-    c = _round_up(shape.dims["n_candidates"], 512)
+    # retrieval: 1 query vs 1M candidates, rounded up as JAX rounds for its mesh
+    c = _round_up(shape.dims["n_candidates"], max(512, n_dev))
 
     def retrieval(model, batch):
         return run(model, batch, ("dense", "sparse_ids", "candidates"),
-                   rec_mod.retrieval_score)
+                   rec_mod.retrieval_score, {"candidates": None})
     return StepBundle(
-        name=name, kind="retrieval", fn=retrieval,
+        name=name, kind="retrieval", fn=retrieval, mesh=mesh, specs=specs,
         meta={"model_flops": 2.0 * b * c * cfg.embed_dim + b * per_row,
-              "model_bytes_dev": c * cfg.embed_dim * 4 * 2,
+              "model_bytes_dev": (c / n_dev) * cfg.embed_dim * 4 * 2,
               "rows": c})
 
 
@@ -337,16 +405,6 @@ def _ranks_of(mesh, name: str):
     return mesh
 
 
-def _rows(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """This rank's block of ``t``'s rows along ``axes`` (all of them for no
-    axes)."""
-    n = mesh.axis_size(axes)
-    if t.shape[0] % n:
-        raise ValueError(f"a batch of {t.shape[0]} does not split over {axes} ({n} ranks)")
-    w = t.shape[0] // n
-    return t.narrow(0, mesh.axis_index(axes) * w, w)
-
-
 def _lm_mesh_meta(cfg, kind: str, gb: int, seq: int, mesh, m: int = 1, cache=None) -> dict:
     n_dev = n_devices(mesh) if mesh is not None else 1
     tp = axis_sizes(mesh)["model"] if mesh is not None else 1
@@ -374,7 +432,7 @@ def _lm_prefill(arch: Arch, shape: Shape, device: torch.device, mesh=None) -> St
         with torch.inference_mode():
             if m is None:
                 return lm_mod.prefill(model, tokens, cfg)
-            return lm_mod.prefill(model, _rows(tokens, m, ctx.dp), cfg, ctx=ctx, mesh=m)
+            return lm_mod.prefill(model, _block(tokens, m, ctx.dp), cfg, ctx=ctx, mesh=m)
 
     return StepBundle(name=name, kind="prefill", fn=prefill,
                       meta=_lm_mesh_meta(cfg, "prefill", gb, seq, mesh, cache=True), cfg=cfg,
@@ -401,7 +459,7 @@ def _lm_decode(arch: Arch, shape: Shape, device: torch.device, mesh=None) -> Ste
         with torch.inference_mode():
             if m is None:
                 return lm_mod.decode_step(model, cache, tokens, cache_len, cfg)
-            return lm_mod.decode_step(model, cache, _rows(tokens, m, ctx.dp), cache_len, cfg,
+            return lm_mod.decode_step(model, cache, _block(tokens, m, ctx.dp), cache_len, cfg,
                                       ctx=ctx, mesh=m)
 
     return StepBundle(name=name, kind="decode", fn=decode,
@@ -682,10 +740,6 @@ def build_step(arch_name: str, shape_name: str, device=None, mesh=None) -> StepB
     arch = get_arch(arch_name)
     shape = arch.shape(shape_name)
     if mesh is not None:
-        if arch.family == "recsys":
-            raise NotImplementedError(
-                f"{arch.name} over a mesh (its tables row-split over 'model', K5 on each "
-                f"rank's rows) is ROADMAP.md section 1, item 6c-ii-d; build it with mesh=None")
         device = mesh.device if isinstance(mesh, collective.Mesh) else torch.device("meta")
     else:
         device = resolve_device(device)
@@ -693,7 +747,7 @@ def build_step(arch_name: str, shape_name: str, device=None, mesh=None) -> StepB
         return _lm_step(arch, shape, device, mesh)
     if arch.family == "gnn":
         return _gnn_train(arch, shape, device, mesh)
-    return _recsys_step(arch, shape, device)
+    return _recsys_step(arch, shape, device, mesh)
 
 
 def all_cells() -> list[tuple[str, str]]:

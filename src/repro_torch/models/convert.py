@@ -5,6 +5,9 @@ as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns a
 ``DCNv2`` holding the same values: the tables as they are, and each
 ``[in, out]`` matrix transposed into ``nn.Linear``'s ``[out, in]``. Both the
 full-rank cross weights and the low-rank ``(u, v)`` pairs are taken.
+Over a mesh, ``dcn_params_from_jax(tree, cfg, mesh=)`` gives each rank its
+slice of every leaf by ``recsys.param_specs`` (this rank's rows of the
+tables, the rest whole).
 ``gnn_params_from_jax`` does the same for the four GNNs of
 ``repro.models.gnn`` (GCN's bare ``[in, out]`` weights stay as they are).
 ``lm_params_from_jax`` takes the pytree of ``repro.models.transformer.
@@ -48,45 +51,59 @@ from repro_torch.checkpoint.manager import BF16_ON_DISK
 from repro_torch.core.dispatch import resolve_device
 from repro_torch.models import gnn
 from repro_torch.models.recsys import DCNConfig, DCNv2
+from repro_torch.models.recsys import param_specs as dcn_param_specs
 from repro_torch.models.shard import gather, local_shape, local_slice, norm_spec, spec_axes
 from repro_torch.models.transformer import Transformer, TransformerConfig, sharded
 from repro_torch.utils.tree import path_key, tree_map
 
 
-def _put(param: torch.Tensor, array, name: str, transpose: bool = False) -> None:
+def _put(param: torch.Tensor, array, name: str, transpose: bool = False,
+         cut=None) -> None:
     value = torch.from_numpy(np.array(array, dtype=np.float32))  # a writable copy
     if transpose:
         value = value.T
+    if cut is not None:
+        value = cut(name, value)
     if tuple(value.shape) != tuple(param.shape):
         raise ValueError(f"{name}: JAX gives {tuple(value.shape)}, the port holds "
                          f"{tuple(param.shape)}")
     param.copy_(value)
 
 
-def dcn_params_from_jax(tree: dict, cfg: DCNConfig, device=None) -> DCNv2:
+def dcn_params_from_jax(tree: dict, cfg: DCNConfig, device=None, *, mesh=None) -> DCNv2:
     """A ``DCNv2`` on ``device`` (None means the GPU) with the parameters of
-    the JAX pytree ``tree`` (numpy leaves) for ``cfg``."""
-    model = DCNv2(cfg, device=resolve_device(device))
+    the JAX pytree ``tree`` (numpy leaves) for ``cfg``. Over ``mesh`` (a
+    ``core.collective.Mesh``, on its device), this rank's slice of every
+    leaf by ``recsys.param_specs(cfg)``."""
+    cut = None
+    if mesh is None:
+        model = DCNv2(cfg, device=resolve_device(device))
+    else:
+        model = DCNv2(cfg, mesh=mesh)
+        specs = dcn_param_specs(cfg)
+
+        def cut(name, value):
+            return local_slice(value, specs[name], mesh)
     if len(tree["cross_w"]) != cfg.n_cross_layers or len(tree["mlp"]) != len(model.mlp):
         raise ValueError(f"the tree has {len(tree['cross_w'])} cross and "
                          f"{len(tree['mlp'])} MLP layers; {cfg.name} needs "
                          f"{cfg.n_cross_layers} and {len(model.mlp)}")
     with torch.no_grad():
-        _put(model.tables, tree["tables"], "tables")
+        _put(model.tables, tree["tables"], "tables", cut=cut)
         for i, (layer, w, b) in enumerate(zip(model.cross, tree["cross_w"], tree["cross_b"])):
             if isinstance(w, (tuple, list)) != bool(cfg.cross_rank):
                 raise ValueError(f"cross layer {i}: the tree's rank does not match "
                                  f"cross_rank={cfg.cross_rank}")
             if cfg.cross_rank:
-                _put(layer[0].weight, w[0], f"cross_w[{i}][0]", transpose=True)
-                _put(layer[1].weight, w[1], f"cross_w[{i}][1]", transpose=True)
-                _put(layer[1].bias, b, f"cross_b[{i}]")
+                _put(layer[0].weight, w[0], f"cross.{i}.0.weight", transpose=True, cut=cut)
+                _put(layer[1].weight, w[1], f"cross.{i}.1.weight", transpose=True, cut=cut)
+                _put(layer[1].bias, b, f"cross.{i}.1.bias", cut=cut)
             else:
-                _put(layer.weight, w, f"cross_w[{i}]", transpose=True)
-                _put(layer.bias, b, f"cross_b[{i}]")
+                _put(layer.weight, w, f"cross.{i}.weight", transpose=True, cut=cut)
+                _put(layer.bias, b, f"cross.{i}.bias", cut=cut)
         for i, (lin, (w, b)) in enumerate(zip(model.mlp, tree["mlp"])):
-            _put(lin.weight, w, f"mlp[{i}][0]", transpose=True)
-            _put(lin.bias, b, f"mlp[{i}][1]")
+            _put(lin.weight, w, f"mlp.{i}.weight", transpose=True, cut=cut)
+            _put(lin.bias, b, f"mlp.{i}.bias", cut=cut)
     return model
 
 

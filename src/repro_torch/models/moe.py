@@ -125,8 +125,13 @@ def _ragged_swiglu(xs: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor, wo: tor
     """``ragged_dot``'s grouped SwiGLU: rows ``[off_e, off_e + n_e)`` of
     ``xs`` (sorted by expert) through expert e, rows past the last group
     zero. One plain product per expert with rows; the row counts are read
-    on the host once."""
-    sizes = group_sizes.tolist()  # the layer's one host read (see the module docstring)
+    on the host once. On the meta device (``launch/dryrun.py``), which has no
+    sizes to read, every row goes through expert 0's weights: the static
+    ``ragged_dot``'s shape and FLOPs, no values."""
+    if xs.device.type == "meta":
+        sizes = [xs.shape[0]] + [0] * (wg.shape[0] - 1)
+    else:
+        sizes = group_sizes.tolist()  # the layer's one host read (see the module docstring)
     ys = torch.zeros((xs.shape[0], wo.shape[-1]), dtype=cd, device=xs.device)
     off = 0
     for e, n in enumerate(sizes):

@@ -1829,3 +1829,74 @@ def test_gnn_mesh_step_k1_on_card_matches_cpu(cuda, tmp_path):
             for k, g in grads.items():
                 np.testing.assert_allclose(ans[f"{key}/g/{k}"], g.numpy(), rtol=1e-5,
                                            atol=1e-5, err_msg=f"{key} {k}")
+
+
+# ---------------------------------------------------------------------------
+# DCN-v2 over a mesh: K5 on a rank's rows; two gloo ranks on cuda:0
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("rank,ranks", [(0, 2), (1, 2), (3, 4)])
+def test_segment_embed_on_a_ranks_rows(cuda, rank, ranks):
+    """K5 on one rank's block of rows of 26 tables, the global ids shifted by
+    the block's first row (so some fall below 0 and some past the block, and
+    add nothing), as ``embedding_bag`` over a mesh hands them: the plain
+    version's sums; the blocks' sums add up to the whole tables' bags."""
+    t, r, d, b, m = 26, 4000, 16, 1024, 4
+    gen = torch.Generator(device=cuda).manual_seed(rank)
+    tables = torch.randn((t, r, d), generator=gen, device=cuda)
+    ids = torch.randint(-9, r + 9, (b, t, m), generator=gen, device=cuda, dtype=torch.int32)
+    seg = torch.arange(b, dtype=torch.int32, device=cuda)[:, None].expand(b, m).reshape(-1)
+    rows = r // ranks
+    parts = []
+    for i in range(ranks):
+        local = (ids - i * rows).permute(1, 0, 2)       # a [T, B, M] view
+        block = tables[:, i * rows:(i + 1) * rows].contiguous()
+        got = ops.segment_embed(block, local, seg, num_segments=b)
+        want = ref.segment_embed_ref(block, local, seg, None, b)
+        if i == rank:
+            assert bool(((local < 0) | (local >= rows)).any() & ((local >= 0) & (local < rows)).any())
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5,
+                                       atol=1e-6)
+        parts.append(got)
+    whole = ref.segment_embed_ref(tables, ids.permute(1, 0, 2), seg, None, b)
+    np.testing.assert_allclose(sum(parts).cpu().numpy(), whole.cpu().numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_dcn_mesh_on_card_matches_cpu(cuda, tmp_path):
+    """The small DCN-v2 over (1, 2) on the card, two gloo ranks: serve at
+    multi_hot 4 (one K5 launch a rank on its table rows) and 1, and a train
+    step equal the CPU's one device (logits rtol 1e-4, atol 1e-5; the loss
+    rtol 1e-5; gradients and new parameters rtol 1e-5, atol 1e-6), the
+    step bitwise repeatable."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    import _torch_recsys_mesh_ranks as rr
+
+    from repro_torch.launch.steps import train_state
+
+    answers = _card_ranks("_torch_recsys_mesh_ranks.py", tmp_path)
+    torch.set_float32_matmul_precision("highest")
+    data = rr.batches()
+    for hot in (1, 4):
+        cfg = rr.dcn_config(DCNConfig, multi_hot=hot, kernel=False)
+        want = rr.build(cfg, "serve_p99", None).fn(rr.seeded(cfg), rr.part(data, f"serve{hot}/"))
+        for ans in answers:
+            assert int(ans[f"1x2/serve{hot}/k5_launches"]) == (1 if hot == 4 else 0)
+            np.testing.assert_allclose(ans[f"1x2/serve{hot}/logits"], want.numpy(), rtol=1e-4,
+                                       atol=1e-5)
+    cfg = rr.dcn_config(DCNConfig, kernel=False)
+    step = rr.build(cfg, "train_batch", None)
+    state = train_state(rr.seeded(cfg), step.opt)
+    batch = rr.part(data, "train/")
+    loss, grads = step.grad(state["params"], batch)
+    new_p, _, _ = step.fn(state["params"], state["opt"], batch)
+    for ans in answers:
+        assert bool(ans["1x2/train/bitwise"])
+        np.testing.assert_allclose(float(ans["1x2/train/loss"]), float(loss), rtol=1e-5)
+        for k in grads:
+            np.testing.assert_allclose(ans[f"1x2/train/g/{k}"], grads[k].numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=k)
+            np.testing.assert_allclose(ans[f"1x2/train/new/{k}"], new_p[k].numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=k)

@@ -406,8 +406,9 @@ def test_layout_steps_refuse_to_run():
     step = build_step("qwen2.5-3b", "prefill_32k", mesh=MeshLayout((2, 4), ranks.AXES))
     with pytest.raises(ValueError, match="layout"):
         step.fn(None, None)
-    with pytest.raises(NotImplementedError, match="6c-ii-d"):
-        build_step("dcn-v2", "train_batch", mesh=MeshLayout((2, 4), ranks.AXES))
+    dcn = build_step("dcn-v2", "train_batch", mesh=MeshLayout((2, 4), ranks.AXES))
+    with pytest.raises(ValueError, match="layout"):
+        dcn.fn({}, None, None)
 
 
 # ---------------------------------------------------------------------------
