@@ -252,7 +252,14 @@ takes a plain gather), and the kernel switched on. Phases:
      logits within 5e-2 normwise (phase 17's bfloat16 gate), greedy tokens
      equal, prefill bitwise repeatable. gcn-cora at ogb_products' size over (2, 1) (node blocks) and
      (1, 2), K1 on each rank (``vp_segment_sum``, 3 launches a step): loss
-     and gradients against world 1's plain step, bitwise repeatable;
+     and gradients against world 1's plain step, bitwise repeatable. Then
+     four gloo ranks over (1, 4): qwen2.5's tp_sp gradient at 2 layers in
+     float32, 2 x 2,048 tokens (the flash path), whose 2 key heads do not
+     split over 4 ranks: each rank computes its sequence block of every
+     head (the reference's ``act4`` under ``sp``), against world 1 at the
+     same gates. Every train case's attention FLOPs a rank (its forward,
+     from the shapes of each call) are world 1's over the mesh's size
+     (within 2 %);
  20. DCN-v2 over a mesh (``phase_dcn_mesh``): first the dry run
      (``launch.dryrun.run_cell``) of dcn-v2's four cells, gcn-cora's
      full_graph_sm and qwen2.5's decode_32k on both production meshes, and
@@ -5393,7 +5400,15 @@ STEP_MESH_TRAIN = {
                     meshes=((1, 2), (2, 1)), steps=((1, 2),)),
     "qwen": dict(arch="qwen2.5-3b", cut=dict(n_layers=2), gb=2, seq=128, meshes=((2, 1),),
                  steps=((2, 1),)),
+    # qwen2.5's 2 key heads do not split over 4: each rank its sequence block
+    # of every head (the reference's act4 under sp), 2,048 tokens the flash path
+    "qwen-sp": dict(arch="qwen2.5-3b", cut=dict(n_layers=2), gb=2, seq=2048,
+                    meshes=((1, 4),), steps=()),
 }
+STEP_MESH_WORLDS = {2: ((1, 2), (2, 1)), 4: ((1, 4),)}   # the meshes of each gloo world
+# a rank's attention FLOPs against world 1's over the mesh's size: every rank
+# computes its share of the same score and value products
+STEP_MESH_ATTN_RTOL = 0.02
 # ``steps``: the meshes that also run the whole train step twice over (the
 # update of the gradient, then ``fn`` from the same state, bitwise). Over (2,
 # 1) mistral-nemo runs its gradient once: a rank holds 5.1 GB of parameters,
@@ -5433,6 +5448,28 @@ def step_mesh_build(arch, shape: str, device=None, mesh=None):
 
     with mock.patch.object(steps, "get_arch", lambda _: arch):
         return build_step(arch.name, shape, device=device, mesh=mesh)
+
+
+def counted_attention(fn):
+    """(``fn()``, the attention's forward FLOPs in every call of
+    ``transformer._flash_or_plain`` during it, once more in a remat's
+    recompute): the scores and the weighted sum of q ``[B, Sq, H, hd]``
+    against every key, ``2 B H Sq Sk (hd + dv)``, what ``FlopCounterMode``
+    counts for both paths (the flash path runs every k-block). Read from the
+    shapes: the counter itself costs about 0.1 s an entry."""
+    from unittest import mock
+
+    from repro_torch.models import transformer
+
+    inner, total = transformer._flash_or_plain, [0]
+
+    def counted(q, k, v, *args, **kwargs):
+        b, sq, h, hd = q.shape
+        total[0] += 2 * b * h * sq * k.shape[1] * (hd + v.shape[-1])
+        return inner(q, k, v, *args, **kwargs)
+
+    with mock.patch.object(transformer, "_flash_or_plain", counted):
+        return fn(), total[0]
 
 
 def step_mesh_serve_arch(spec: dict):
@@ -5526,7 +5563,7 @@ def step_mesh_world1(device, tmp: Path) -> dict:
         params = {k: v.detach() for k, v in model.named_parameters()}
         batch = lm_train_batch(step.cfg.vocab, spec["gb"], spec["seq"], STEP_MESH_SEED, device)
         t0 = time.perf_counter()
-        loss, grads = step.grad(params, batch)
+        (loss, grads), attn = counted_attention(lambda: step.grad(params, batch))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         (tmp / label).mkdir()
@@ -5534,7 +5571,7 @@ def step_mesh_world1(device, tmp: Path) -> dict:
             np.save(tmp / label / f"{k}.npy", g.float().cpu().numpy())
         out[label] = dict(loss=float(loss), wall_s=wall,
                           peak_bytes=torch.cuda.max_memory_allocated(),
-                          param_bytes=tree_bytes(params))
+                          param_bytes=tree_bytes(params), attn_flops=attn)
         del model, params, grads, loss
         torch.cuda.empty_cache()
     for label, spec in STEP_MESH_SERVE.items():
@@ -5601,14 +5638,15 @@ def _grad_stats(grads: dict, specs: dict, ref_dir: Path, mesh) -> dict:
 
 def _step_mesh_rank(rank: int, world: int, init: str, data: str, out: str,
                     device: str = "cuda") -> None:
-    """One rank of phase 19's world 2 (gloo, both ranks on cuda:0): the
-    train cases over their meshes (loss, gradient statistics against world
-    1's, the step's repeatability), the serving cases over (1, 2) (prefill,
-    then decode teacher-forced by world 1's greedy tokens), the GCN step
-    over (2, 1) and (1, 2) with K1 on; to ``out``."""
+    """One rank of phase 19's world 2 or 4 (gloo, every rank on cuda:0):
+    the train cases over the world's meshes (loss, gradient statistics
+    against world 1's, attention FLOPs, the step's repeatability); in world
+    2 also the serving cases over (1, 2) (prefill, then decode
+    teacher-forced by world 1's greedy tokens) and the GCN step over (2, 1)
+    and (1, 2) with K1 on; to ``out``."""
     import os
 
-    # two ranks' float32 states share the card: allocate in growable segments
+    # the ranks' float32 states share the card: allocate in growable segments
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     import torch.distributed as dist
@@ -5628,7 +5666,8 @@ def _step_mesh_rank(rank: int, world: int, init: str, data: str, out: str,
     dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
     res = {}
     try:
-        meshes = {s: distributed.make_mesh(s, MESH_AXES, device=dev) for s in ((1, 2), (2, 1))}
+        meshes = {s: distributed.make_mesh(s, MESH_AXES, device=dev)
+                  for s in STEP_MESH_WORLDS[world]}
 
         def draw(cfg, mesh, specs):
             # world 1's values: every whole leaf drawn in turn, this rank's slice kept
@@ -5637,7 +5676,7 @@ def _step_mesh_rank(rank: int, world: int, init: str, data: str, out: str,
 
         for label, spec in STEP_MESH_TRAIN.items():
             arch = step_mesh_train_arch(spec)
-            for shape in spec["meshes"]:
+            for shape in (s for s in spec["meshes"] if s in meshes):
                 mesh, key = meshes[shape], f"{label}/{shape[0]}x{shape[1]}"
                 step = step_mesh_build(arch, "train_4k", mesh=mesh)
                 layout = (mesh, step.specs)
@@ -5647,9 +5686,12 @@ def _step_mesh_rank(rank: int, world: int, init: str, data: str, out: str,
                                        dev)
                 torch.cuda.reset_peak_memory_stats() if on_card else None
                 t0 = time.perf_counter()
-                loss, grads = step.grad(params, batch)
+                (loss, grads), attn = counted_attention(lambda: step.grad(params, batch))
                 torch.cuda.synchronize() if on_card else None
                 res[f"{key}/wall_s"] = np.array(time.perf_counter() - t0)
+                res[f"{key}/attn_flops"] = np.array(attn)
+                res[f"{key}/heads_split"] = np.array(
+                    step.ctx.act4(step.cfg.n_heads, step.cfg.n_kv_heads)[2] is not None)
                 res[f"{key}/loss"] = np.array(float(loss))
                 res[f"{key}/stats"] = np.array(json.dumps(_grad_stats(grads, step.specs,
                                                                       tmp / label, mesh)))
@@ -5675,6 +5717,9 @@ def _step_mesh_rank(rank: int, world: int, init: str, data: str, out: str,
                 res[f"{key}/shard_bytes"] = np.array(tree_bytes(params))
                 del params, loss, batch
                 torch.cuda.empty_cache() if on_card else None
+        if world != 2:   # the serving cases and the GCN step run in world 2
+            np.savez(out, **res)
+            return
 
         mesh = meshes[(1, 2)]
         for label, spec in STEP_MESH_SERVE.items():
@@ -5743,17 +5788,101 @@ def _step_mesh_rank(rank: int, world: int, init: str, data: str, out: str,
         dist.destroy_process_group()
 
 
+def spawn_step_mesh_ranks(world: int, tmp: Path, device: str) -> tuple[list[dict], float]:
+    """``world`` gloo ranks of ``_step_mesh_rank`` (every one on cuda:0),
+    each killed past ``SPAWN_TIMEOUT_S``: (their outputs, the seconds)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    init = f"file://{tmp / f'rendezvous{world}'}"
+    outs = [tmp / f"world{world}_rank{r}.npz" for r in range(world)]
+    procs = [ctx.Process(target=_step_mesh_rank,
+                         args=(r, world, init, str(tmp), str(outs[r]), device))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    check(not hung, f"phase 19: {len(hung)} of world {world}'s ranks still running after "
+          f"{SPAWN_TIMEOUT_S} s")
+    check(all(p.exitcode == 0 for p in procs),
+          f"phase 19: world {world}'s rank exit codes {[p.exitcode for p in procs]}")
+    return [dict(np.load(o)) for o in outs], time.perf_counter() - t0
+
+
+def step_mesh_train_results(w1: dict, worlds: dict, card: str) -> dict:
+    """Each train case over each of its meshes, the ranks of its world
+    (``worlds[size]``) held to world 1's ``w1``: loss, repeatability,
+    finite parameters, attention FLOPs, gradients; its numbers by key."""
+    res = {}
+    for label, spec in STEP_MESH_TRAIN.items():
+        want = w1[label]
+        for shape in spec["meshes"]:
+            key = f"{label}/{shape[0]}x{shape[1]}"
+            size = shape[0] * shape[1]
+            group = worlds[size]
+            attn = [int(rk[f"{key}/attn_flops"]) for rk in group]
+            for r, rk in enumerate(group):
+                loss = float(rk[f"{key}/loss"])
+                check(abs(loss - want["loss"]) <= LM_TRAIN_LOSS_RTOL * abs(want["loss"]),
+                      f"{key} rank {r}: loss {loss} vs world 1's {want['loss']}")
+                check(int(rk[f"{key}/bitwise"]) != 0, f"{key} rank {r}: the step is not "
+                      f"repeatable")
+                check(bool(rk[f"{key}/finite"]), f"{key} rank {r}: non-finite parameters")
+                check(abs(attn[r] * size / want["attn_flops"] - 1) <= STEP_MESH_ATTN_RTOL,
+                      f"{key} rank {r}: {attn[r]} attention FLOPs, world 1's "
+                      f"{want['attn_flops']} over {size} ranks")
+            if label == "qwen-sp":
+                check(not any(bool(rk[f"{key}/heads_split"]) for rk in group),
+                      f"{key}: the heads split over 'model'; the case is for a layout "
+                      f"whose key heads do not")
+            errs = _split_stats([json.loads(str(rk[f"{key}/stats"])) for rk in group])
+            worst = max(errs, key=errs.get)
+            check(errs[worst] <= LM_TRAIN_GRAD_NORMWISE,
+                  f"{key}: gradient {worst} {errs[worst]} from world 1 (normwise, <= "
+                  f"{LM_TRAIN_GRAD_NORMWISE})")
+            res[key] = dict(layout=str(group[0][f"{key}/layout"]),
+                            loss=[float(rk[f"{key}/loss"]) for rk in group],
+                            world1_loss=want["loss"], worst_grad=(worst, errs[worst]),
+                            attn_flops=attn, world1_attn_flops=want["attn_flops"],
+                            wall_s=[float(rk[f"{key}/wall_s"]) for rk in group],
+                            world1_wall_s=want["wall_s"],
+                            peak_bytes=[int(rk[f"{key}/peak_bytes"]) for rk in group],
+                            world1_peak_bytes=want["peak_bytes"],
+                            shard_bytes=[int(rk[f"{key}/shard_bytes"]) for rk in group],
+                            param_bytes=want["param_bytes"])
+            log(f"  phase 19 {key} ({res[key]['layout']}, {spec['arch']} at "
+                f"{spec['cut']['n_layers']} layers, float32, {spec['gb']} x {spec['seq']} tokens): "
+                f"loss by rank {res[key]['loss']} vs world 1 {want['loss']}; worst gradient leaf "
+                f"{worst} {errs[worst]:.3e} normwise; "
+                f"{'the step bitwise repeatable' if shape in spec['steps'] else 'no step'}; "
+                f"attention FLOPs (forward) by rank {attn} vs world 1's over {size} "
+                f"{want['attn_flops'] / size:.6g}; "
+                f"gradient wall by rank {res[key]['wall_s']} s (world 1 {want['wall_s']:.3f} s); "
+                f"{res[key]['shard_bytes']} bytes of parameters a rank of {want['param_bytes']}; "
+                f"peak by rank {res[key]['peak_bytes']} bytes (world 1 {want['peak_bytes']}) "
+                f"({card})")
+    return res
+
+
 def phase_step_mesh(device: str) -> dict:
     """Phase 19: world 1 here (``step_mesh_world1``), then two gloo ranks on
-    the card (``_step_mesh_rank``), each case held to world 1: the float32
-    loss (rtol ``LM_TRAIN_LOSS_RTOL``) and each gradient leaf put together
-    (normwise ``LM_TRAIN_GRAD_NORMWISE``), the bfloat16 logits (normwise
+    the card (``_step_mesh_rank``), then four, each case held to world 1:
+    the float32 loss (rtol ``LM_TRAIN_LOSS_RTOL``) and each gradient leaf
+    put together (normwise ``LM_TRAIN_GRAD_NORMWISE``), each rank's
+    attention FLOPs (world 1's over the mesh's size, rtol
+    ``STEP_MESH_ATTN_RTOL``), the bfloat16 logits (normwise
     ``LM_BF16_NORMWISE``), greedy tokens, bitwise repeatability; K1 on each
     rank in the GCN step. A rank that fails, or a spawn past
     ``SPAWN_TIMEOUT_S``, fails the smoke. Returns the phase's numbers,
     ``k1_launches`` K1's launches on both ranks."""
     import gc
-    import multiprocessing
     import shutil
     import tempfile
 
@@ -5770,65 +5899,15 @@ def phase_step_mesh(device: str) -> dict:
         torch.cuda.empty_cache()
         log(f"  phase 19 world 1 took {world1_s:.3f} s; before the ranks this process holds "
             f"{torch.cuda.memory_allocated()} bytes ({torch.cuda.memory_reserved()} reserved)")
-        ctx = multiprocessing.get_context("spawn")
-        init = f"file://{tmp / 'rendezvous'}"
-        outs = [tmp / f"rank{r}.npz" for r in range(2)]
-        procs = [ctx.Process(target=_step_mesh_rank,
-                             args=(r, 2, init, str(tmp), str(outs[r]), device))
-                 for r in range(2)]
-        t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + SPAWN_TIMEOUT_S
-        for p in procs:
-            p.join(max(deadline - time.monotonic(), 0.0))
-        hung = [p for p in procs if p.is_alive()]
-        for p in hung:
-            p.kill()
-            p.join()
-        check(not hung, f"phase 19: {len(hung)} rank(s) still running after {SPAWN_TIMEOUT_S} s")
-        check(all(p.exitcode == 0 for p in procs),
-              f"phase 19: rank exit codes {[p.exitcode for p in procs]}")
-        spawn_s = time.perf_counter() - t0
-        ranks = [dict(np.load(o)) for o in outs]
+        worlds, spawn_s = {}, {}
+        for world in STEP_MESH_WORLDS:
+            worlds[world], spawn_s[world] = spawn_step_mesh_ranks(world, tmp, device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    ranks = worlds[2]
     card = card_line()
     res = dict(card=card, world1_s=world1_s, spawn_s=spawn_s)
-    for label, spec in STEP_MESH_TRAIN.items():
-        want = w1[label]
-        for shape in spec["meshes"]:
-            key = f"{label}/{shape[0]}x{shape[1]}"
-            for r, rk in enumerate(ranks):
-                loss = float(rk[f"{key}/loss"])
-                check(abs(loss - want["loss"]) <= LM_TRAIN_LOSS_RTOL * abs(want["loss"]),
-                      f"{key} rank {r}: loss {loss} vs world 1's {want['loss']}")
-                check(int(rk[f"{key}/bitwise"]) != 0, f"{key} rank {r}: the step is not "
-                      f"repeatable")
-                check(bool(rk[f"{key}/finite"]), f"{key} rank {r}: non-finite parameters")
-            errs = _split_stats([json.loads(str(rk[f"{key}/stats"])) for rk in ranks])
-            worst = max(errs, key=errs.get)
-            check(errs[worst] <= LM_TRAIN_GRAD_NORMWISE,
-                  f"{key}: gradient {worst} {errs[worst]} from world 1 (normwise, <= "
-                  f"{LM_TRAIN_GRAD_NORMWISE})")
-            res[key] = dict(layout=str(ranks[0][f"{key}/layout"]),
-                            loss=[float(rk[f"{key}/loss"]) for rk in ranks],
-                            world1_loss=want["loss"], worst_grad=(worst, errs[worst]),
-                            wall_s=[float(rk[f"{key}/wall_s"]) for rk in ranks],
-                            world1_wall_s=want["wall_s"],
-                            peak_bytes=[int(rk[f"{key}/peak_bytes"]) for rk in ranks],
-                            world1_peak_bytes=want["peak_bytes"],
-                            shard_bytes=[int(rk[f"{key}/shard_bytes"]) for rk in ranks],
-                            param_bytes=want["param_bytes"])
-            log(f"  phase 19 {key} ({res[key]['layout']}, {spec['arch']} at "
-                f"{spec['cut']['n_layers']} layers, float32, {spec['gb']} x {spec['seq']} tokens): "
-                f"loss by rank {res[key]['loss']} vs world 1 {want['loss']}; worst gradient leaf "
-                f"{worst} {errs[worst]:.3e} normwise; "
-                f"{'the step bitwise repeatable' if shape in spec['steps'] else 'no step'}; "
-                f"gradient wall by rank {res[key]['wall_s']} s (world 1 {want['wall_s']:.3f} s); "
-                f"{res[key]['shard_bytes']} bytes of parameters a rank of {want['param_bytes']}; "
-                f"peak by rank {res[key]['peak_bytes']} bytes (world 1 {want['peak_bytes']}) "
-                f"({card})")
+    res.update(step_mesh_train_results(w1, worlds, card))
     for label, spec in STEP_MESH_SERVE.items():
         want = w1[label + "-serve"]
         for r, rk in enumerate(ranks):
@@ -6473,12 +6552,13 @@ def main(argv: list[str]) -> int:
 
     log("phase 19: build_step over a mesh (mistral-nemo tp_sp with FSDP and qwen2.5 zero3 "
         "training in float32, qwen2.5 and deepseek-v3 prefill and decode in bfloat16, gcn-cora "
-        "at ogb_products' size with K1 on each rank), world 1 and two gloo ranks on the card")
+        "at ogb_products' size with K1 on each rank; qwen2.5 tp_sp over (1, 4), each rank its "
+        "sequence block of every head), world 1, two and four gloo ranks on the card")
     step_mesh_times = phase_step_mesh(device)
     step_mesh_k1 = step_mesh_times["k1_launches"]
     log(f"  phase 19 took {step_mesh_times['phase_s']:.3f} s (world 1 "
-        f"{step_mesh_times['world1_s']:.3f} s, world 2 {step_mesh_times['spawn_s']:.3f} s); "
-        f"K1 launches {step_mesh_k1}")
+        f"{step_mesh_times['world1_s']:.3f} s, world 2 {step_mesh_times['spawn_s'][2]:.3f} s, "
+        f"world 4 {step_mesh_times['spawn_s'][4]:.3f} s); K1 launches {step_mesh_k1}")
 
     log("phase 20: DCN-v2 over a mesh at FULL's widths (the tables' rows over 'model', K5 on "
         "each rank's rows), world 1 and two gloo ranks on the card; the dry run on the meta device")

@@ -226,7 +226,7 @@ def all_gather(t: torch.Tensor, mesh: Mesh | None, axes=None) -> torch.Tensor:
     ``collectives``. Where the slice is this rank alone, ``t`` itself.
 
     Backward: the ranks' cotangents summed (one :func:`all_reduce_sum`) and
-    this rank's slice of the sum kept."""
+    a copy of this rank's slice of the sum kept."""
     if mesh is None:
         return t
     if _wants_grad(t):
@@ -320,7 +320,9 @@ class _AllGather(torch.autograd.Function):
         total = all_reduce_sum(g.clone(memory_format=torch.contiguous_format), ctx.mesh,
                                ctx.axes)
         i = ctx.mesh.axis_index(ctx.axes)
-        return total[i * ctx.rows:(i + 1) * ctx.rows], None, None
+        # a copy: a view would hold the whole sum as long as the gradient
+        # (a weight gathered whole, |axes| times its own gradient's bytes)
+        return total[i * ctx.rows:(i + 1) * ctx.rows].clone(), None, None
 
 
 class _AllToAll(torch.autograd.Function):

@@ -59,13 +59,20 @@ class ShardCtx:
         ``sp``."""
         return (self.dp, self.tp if self.sp else None, None)
 
-    def act4(self, n_heads: int) -> tuple:
+    def act4(self, n_heads: int, n_kv_heads: int | None = None) -> tuple:
         """The spec of a ``[B, S, H, hd]`` attention tensor a rank holds:
-        the heads over ``tp`` where ``H % |tp| == 0``, else whole. With
-        ``sp`` the sequence is gathered over ``tp`` inside the block (the
-        reference's constraint splits it; the values are the same)."""
-        heads_ok = self.tp is not None and n_heads % self.tp_size() == 0
-        return (self.dp, None, self.tp if heads_ok else None, None)
+        the heads over ``tp`` where ``H`` (and the key heads ``n_kv_heads``,
+        where given) divide ``|tp|``; else, with ``sp``, the sequence over
+        ``tp`` (the reference's spec under ``sp``: each rank its sequence
+        block of every head); else whole. Where the heads divide, the port
+        splits them under ``sp`` too: a rank's share of the attention is
+        the same ``1 / |tp|``."""
+        tp = self.tp_size()
+        heads_ok = self.tp is not None and all(
+            n % tp == 0 for n in (n_heads, n_kv_heads) if n is not None)
+        if heads_ok:
+            return (self.dp, None, self.tp, None)
+        return (self.dp, self.tp if self.sp else None, None, None)
 
 
 NO_SHARD = ShardCtx()
@@ -191,8 +198,13 @@ def _kv_step(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, q_blk: torch.T
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_chunk: int = 1024,
-                    k_chunk: int = 1024) -> torch.Tensor:
+                    k_chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
     """Chunked online-softmax attention (never materializes [Sq, Sk]).
+
+    ``q_offset`` is the absolute position of ``q[:, 0]`` for the causal
+    mask (as ``_attend`` takes it). A block of queries that starts on a
+    ``q_chunk`` boundary, against every key, gives the whole call's rows
+    bit for bit at the same chunks: a rank's sequence block under ``sp``.
 
     The JAX reference's ``lax.map`` over q blocks and ``lax.scan`` over k
     blocks as two loops, with its float32 running max, sum and accumulator.
@@ -222,7 +234,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = torch.zeros((b, q_chunk, h, dv), dtype=F32, device=q.device)
         m = torch.full((b, h, q_chunk), MASKED, dtype=F32, device=q.device)
         l = torch.zeros((b, h, q_chunk), dtype=F32, device=q.device)
-        qpos = qi * q_chunk + torch.arange(q_chunk, device=q.device) if causal else None
+        qpos = (q_offset + qi * q_chunk + torch.arange(q_chunk, device=q.device)
+                if causal else None)
         for kj in range(nk):
             blk = (q_blk, k[:, kj * k_chunk:(kj + 1) * k_chunk],
                    v[:, kj * k_chunk:(kj + 1) * k_chunk], qpos,

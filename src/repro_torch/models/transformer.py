@@ -42,10 +42,13 @@ reference's jitted program computes on the same global arrays:
 
   * tp_sp (``ShardCtx(mesh, dp, sp=True)``, training and prefill): the
     residual stream ``[B / |dp|, S / |tp|, D]``; each block gathers the
-    sequence over ``tp``, runs attention and SwiGLU column- then
-    row-parallel (heads split over ``tp`` where the query and key heads
-    both divide, else every head's projections gathered), and sums and
-    splits its output over ``tp`` (Megatron's sequence parallelism); the
+    sequence over ``tp``, runs SwiGLU, and attention where the query and
+    key heads both divide ``|tp|``, column- then row-parallel (the heads
+    over ``tp``), and sums and splits its output over ``tp`` (Megatron's
+    sequence parallelism); where the heads do not divide, attention takes
+    the reference's ``act4`` layout: each rank its own sequence block of
+    every head's queries and outputs (``wq`` and ``wo`` gathered whole),
+    against every key and value (column-parallel, gathered); the
     embedding, ``lm_head`` and the float32 cross-entropy vocab-parallel
     where ``vocab % |tp| == 0``; weights gathered over the FSDP axes; the
     MoE layers through ``moe_ep``/``moe_tp(mesh=, sp=True)``;
@@ -491,12 +494,13 @@ def grad_sum_axes(spec, ctx: ShardCtx, mesh) -> tuple[tuple[str, ...], tuple[str
 # ---------------------------------------------------------------------------
 # attention forward
 # ---------------------------------------------------------------------------
-def _flash_or_plain(q, k, v, cfg: TransformerConfig, use_flash: bool):
-    s = q.shape[1]
+def _flash_or_plain(q, k, v, cfg: TransformerConfig, use_flash: bool, q_offset: int = 0):
+    """Causal attention of ``q`` (its first row at position ``q_offset``)
+    against every key ``k`` / ``v``."""
     if use_flash:
-        return flash_attention(q, k, v, causal=True, q_chunk=min(cfg.flash_q_chunk, s),
-                               k_chunk=min(cfg.flash_k_chunk, s))
-    return _attend(q, k, v, causal=True)
+        return flash_attention(q, k, v, causal=True, q_chunk=min(cfg.flash_q_chunk, q.shape[1]),
+                               k_chunk=min(cfg.flash_k_chunk, k.shape[1]), q_offset=q_offset)
+    return _attend(q, k, v, causal=True, q_offset=q_offset)
 
 
 def _gqa_attn(x, ap, cfg: TransformerConfig, use_flash: bool, collect_cache: bool = False):
@@ -914,8 +918,8 @@ class _Ranks:
         self.sp = ctx.act3()[1] is not None          # the sequence over tp between blocks
         self.vocab_split = not self.zero3 and _div(cfg.vocab, self.n_tp)
         # a block's heads over tp where the query heads, and GQA's key heads, split
-        self.heads_split = ctx.act4(cfg.n_heads)[2] is not None and (
-            cfg.attn == "mla" or ctx.act4(cfg.n_kv_heads)[2] is not None)
+        self.heads_split = ctx.act4(
+            cfg.n_heads, None if cfg.attn == "mla" else cfg.n_kv_heads)[2] is not None
 
     # -- weights -----------------------------------------------------------
     def weight(self, name: str, t: torch.Tensor, whole: bool = False) -> torch.Tensor:
@@ -1088,28 +1092,43 @@ class _Ranks:
         return got.movedim(0, 2).reshape(b, w, self.n_tp * t.shape[2], *t.shape[3:])
 
     def gqa(self, y, ap, cfg: TransformerConfig, use_flash: bool, collect_cache: bool):
+        """GQA on this rank's stream. Heads split over ``tp``: this rank's
+        heads over the whole sequence (column-parallel ``wq``, ``wk``,
+        ``wv``; row-parallel ``wo`` summed over ``tp``). Else the
+        reference's ``act4``: this rank's rows (its sequence block with
+        ``sp``) of every head, its queries against ``wq`` gathered whole,
+        every key and value (column-parallel, gathered), and ``wo``
+        gathered whole, whose product is this rank's block of the output."""
         yf = self.seq_in(y)
         b, s, _ = yf.shape
         hd, h, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
         cd = cfg.compute_dtype
         xc = yf.to(cd)
-        q, k, v = xc @ ap["wq"].to(cd), xc @ ap["wk"].to(cd), xc @ ap["wv"].to(cd)
+        k, v = xc @ ap["wk"].to(cd), xc @ ap["wv"].to(cd)
         if cfg.qkv_bias:
-            q, k, v = q + ap["bq"].to(cd), k + ap["bk"].to(cd), v + ap["bv"].to(cd)
+            k, v = k + ap["bk"].to(cd), v + ap["bv"].to(cd)
+        wq, wo = ap["wq"], ap["wo"]
+        bq = ap["bq"] if cfg.qkv_bias else None
         if self.heads_split:
             h, kv = h // self.n_tp, kv // self.n_tp
+            xq, start = xc, 0
         else:
-            q, k, v = self.cols(q), self.cols(k), self.cols(v)
-        q = q.reshape(b, s, h, hd)
+            k, v = self.cols(k), self.cols(v)
+            xq, start = y.to(cd), (self.i_tp * y.shape[1] if self.sp else 0)
+            wq, wo = self.cols(wq), gather_dim(wo, 0, self.mesh, self.tp)
+            bq = None if bq is None else self.cols(bq)
+        q = xq @ wq.to(cd)
+        if bq is not None:
+            q = q + bq.to(cd)
+        sq = q.shape[1]
+        q = q.reshape(b, sq, h, hd)
         k = k.reshape(b, s, kv, hd)
         v = v.reshape(b, s, kv, hd)
-        pos = torch.arange(s, device=y.device)[None, :]
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
-        o = _flash_or_plain(q, k, v, cfg, use_flash).reshape(b, s, h * hd)
-        if not self.heads_split:
-            o = self.rows(o)
-        out = self.seq_out(o.to(cd) @ ap["wo"].to(cd), y.dtype)
+        q = apply_rope(q, (start + torch.arange(sq, device=y.device))[None, :], cfg.rope_theta)
+        k = apply_rope(k, torch.arange(s, device=y.device)[None, :], cfg.rope_theta)
+        o = _flash_or_plain(q, k, v, cfg, use_flash, q_offset=start).reshape(b, sq, h * hd)
+        o = o.to(cd) @ wo.to(cd)
+        out = self.seq_out(o, y.dtype) if self.heads_split else o.to(y.dtype)
         if not collect_cache:
             return out, None
         return out, {"k": self._to_seq_blocks(k), "v": self._to_seq_blocks(v)}
