@@ -70,9 +70,9 @@ takes a plain gather), and the kernel switched on. Phases:
  11. the streaming ``DeltaEngine`` on a fraud pipeline's resident graph,
      ``planted_dense(2**18, 1024, 16 / 2**18, 0.9, seed=0)`` in an engine of
      ``capacity=1 << 22`` (8,388,608 lanes), ``eps=0.1``, ``refresh_every=4``:
-     8 churn batches of 16,384 events (80 % uniform inserts, 20 % deletes of
-     present edges) with a pruned query after each, three of them epoch
-     refreshes, then a refined query, another after a delete-only batch, and
+     4 churn batches of 16,384 events (80 % uniform inserts, 20 % deletes of
+     present edges) with a pruned query after each, one of them an epoch
+     refresh, then a refined query, another after a delete-only batch, and
      ``cbds(rounds=1)``; a second engine with the kernels off fed the same
      batches equals it at every query, and a cold ``pbahmani`` of the
      materialized graph equals it after the first refresh and the last
@@ -231,8 +231,8 @@ takes a plain gather), and the kernel switched on. Phases:
      and the valid cache entries once, at 3.35 TB/s), host syncs a step (one
      a MoE layer: its group sizes), one profiled step, peak device memory.
      No kernel of K1-K5 runs on this path: their counts stay 0;
- 18. LM training (``phase_lm_train``): qwen2.5-3b at full depth, grok-1 at 1
-     layer and deepseek-v3's 3 dense layers with MTP through the train kind,
+ 18. LM training (``phase_lm_train``): qwen2.5-3b at 12 layers, grok-1 at 1
+     layer and deepseek-v3's first (dense) layer with MTP through the train kind,
      step 1 twice bitwise, qwen2.5 at 2 layers card against CPU in float32,
      and ``run_training`` with failures and checkpoints in JAX's layout;
  19. ``build_step`` over a mesh (``phase_step_mesh``): world 1 in this
@@ -333,7 +333,7 @@ PLANTED = dict(n=2**19, clique_size=2048, p_background=16 / 2**19, p_planted=0.9
 # in 262,144 accounts), 8,388,608 lanes, and its churn batches
 STREAM_GRAPH = dict(n=2**18, clique_size=1024, p_background=16 / 2**18, p_planted=0.9, seed=0)
 STREAM_ENGINE = dict(eps=0.1, capacity=1 << 22, refresh_every=4)
-STREAM_BATCHES = 8
+STREAM_BATCHES = 4   # depth cut for the smoke's time limit
 STREAM_EVENTS = 16384   # a batch: 80 % uniform inserts, 20 % deletes of present edges
 # phase 12: a multi-tenant fraud/spam deployment (one tenant a customer's
 # account graph) through the fused service: a lane bucket of 32 tenants at
@@ -4951,10 +4951,12 @@ def phase_lm(device: str) -> dict:
 # ---------------------------------------------------------------------------
 # (a)-(c): the train kind at each config's published widths, depth and batch
 # cut (global_batch, microbatches are the arch's unless said)
+# (a) and (c) are cut in depth so that phase 19's per-microbatch gathers
+# over gloo fit in the smoke's time
 LM_TRAIN = {
-    "a": dict(arch="qwen2.5-3b", cut={}, gb=2, steps=3),   # all 36 layers; gb cut from 256
+    "a": dict(arch="qwen2.5-3b", cut=dict(n_layers=12), gb=2, steps=3),   # gb cut from 256
     "b": dict(arch="grok-1-314b", cut=dict(n_layers=1), gb=8, steps=2),   # 1 of 64 layers
-    "c": dict(arch="deepseek-v3-671b", cut=dict(n_layers=3, n_dense_layers=3), gb=8, steps=2),
+    "c": dict(arch="deepseek-v3-671b", cut=dict(n_layers=1, n_dense_layers=1), gb=8, steps=2),
 }
 # (d): run_training at qwen2.5's widths cut to 2 layers, failures before steps 3 and 5
 LM_LOOP = dict(arch="qwen2.5-3b", cut=dict(n_layers=2), gb=2, steps=6, ckpt_every=2,
@@ -5348,10 +5350,11 @@ def lm_train_loop(device) -> dict:
 
 def phase_lm_train(device: str) -> dict:
     """Phase 18: LM training at published widths in bfloat16 (random seeded
-    weights, seeded uniform tokens): (a) qwen2.5-3b FULL, all 36 layers,
-    AdamW, with the card-vs-CPU check at 2 layers in float32; (b) grok-1 cut
-    to 1 layer, 8 microbatches in bf16, Adafactor: the MoE backward; (c)
-    deepseek-v3 cut to its 3 dense layers with its MTP block: MLA's backward
+    weights, seeded uniform tokens): (a) qwen2.5-3b cut to 12 of its 36
+    layers, AdamW, with the card-vs-CPU check at 2 layers in float32; (b)
+    grok-1 cut to 1 layer, 8 microbatches in bf16, Adafactor: the MoE
+    backward; (c) deepseek-v3 cut to its first (dense) layer with its MTP
+    block: MLA's backward
     and the MTP loss, Adafactor, 8 microbatches; (d) the fault-tolerant loop
     with bfloat16 checkpoints in JAX's layout. No kernel of K1-K5 runs on
     this path. Returns the numbers."""
@@ -5406,15 +5409,23 @@ STEP_MESH_TRAIN = {
                     meshes=((1, 4),), steps=()),
 }
 STEP_MESH_WORLDS = {2: ((1, 2), (2, 1)), 4: ((1, 4),)}   # the meshes of each gloo world
+# each train case's peak a rank (max_memory_allocated) where the train kind
+# gathered every weight once a step and accumulated gathered-size gradients,
+# read on one NVIDIA H100 80GB HBM3 at 700 W: logged beside today's
+STEP_MESH_PEAK_ONCE_A_STEP = {"mistral/1x2": 27834127360, "mistral/2x1": 31147111936,
+                              "qwen/2x1": 12310534144, "qwen-sp/1x4": 3798316544}
 # a rank's attention FLOPs against world 1's over the mesh's size: every rank
 # computes its share of the same score and value products
 STEP_MESH_ATTN_RTOL = 0.02
 # ``steps``: the meshes that also run the whole train step twice over (the
 # update of the gradient, then ``fn`` from the same state, bitwise). Over (2,
-# 1) mistral-nemo runs its gradient once: a rank holds 5.1 GB of parameters,
-# the 7.6 GB of weights it gathers, its gradient's accumulator and one
-# microbatch's gradient (7.6 GB each); AdamW's moments would add 10.2 GB, two
-# ranks 75 GB of the card's 80, and each gradient takes 25 s through gloo.
+# 1) mistral-nemo runs its gradient once: a rank holds its 5.1 GB of
+# parameter slices, an accumulator of them and one microbatch's gradient of
+# them (5.1 GB each; a block's 1.1 GB of gathered weights and their gradient
+# come and go), so AdamW's 10.2 GB of moments would fit, but each of its 4
+# microbatches gathers every block twice (forward, recompute) and sums their
+# gradients and the tables' through gloo: a second gradient would add its
+# wall again.
 # prefill then teacher-forced decode in the arch's bfloat16 over (1, 2), the
 # logits against world 1 within LM_BF16_NORMWISE: the two round each layer's
 # products differently (the ranks' halves of every product, their sums in
@@ -5866,7 +5877,8 @@ def step_mesh_train_results(w1: dict, worlds: dict, card: str) -> dict:
                 f"{want['attn_flops'] / size:.6g}; "
                 f"gradient wall by rank {res[key]['wall_s']} s (world 1 {want['wall_s']:.3f} s); "
                 f"{res[key]['shard_bytes']} bytes of parameters a rank of {want['param_bytes']}; "
-                f"peak by rank {res[key]['peak_bytes']} bytes (world 1 {want['peak_bytes']}) "
+                f"peak by rank {res[key]['peak_bytes']} bytes (world 1 {want['peak_bytes']}; "
+                f"every weight gathered once a step: {STEP_MESH_PEAK_ONCE_A_STEP.get(key)}) "
                 f"({card})")
     return res
 
@@ -6545,8 +6557,8 @@ def main(argv: list[str]) -> int:
     lm_times = phase_lm(device)
     log(f"  phase 17 took {lm_times['phase_s']:.3f} s; no kernel of K1-K5 on its path")
 
-    log("phase 18: LM training (qwen2.5 FULL at 36 layers, grok-1 at 1 layer, deepseek-v3's 3 "
-        "dense layers with MTP, the checkpointed loop) at published widths, bfloat16")
+    log("phase 18: LM training (qwen2.5 at 12 layers, grok-1 at 1 layer, deepseek-v3's first "
+        "(dense) layer with MTP, the checkpointed loop) at published widths, bfloat16")
     lm_train_times = phase_lm_train(device)
     log(f"  phase 18 took {lm_train_times['phase_s']:.3f} s; no kernel of K1-K5 on its path")
 

@@ -71,11 +71,11 @@ padded here to hide it.
 A whole sweep (the 40 cells of ``all_cells()`` over both meshes, 80 runs)
 is in ``results/dryrun_torch.json``: 80 ok, run on the 8-core host of an H100
 machine (torch 2.11.0+cu128) as ten processes at once, one an architecture
-(``--arch``, then merged in ``all_cells()`` order; 417 s). Its cells' own
-``build_s`` and ``run_s`` sum to 1,135 s, so one process takes about 19
+(``--arch``, then merged in ``all_cells()`` order; 402 s). Its cells' own
+``build_s`` and ``run_s`` sum to 1,032 s, so one process takes about 17
 minutes: the meta device computes nothing, so the time is Python's dispatch
 of each operation, most of it in the LM train cells (grok-1's and
-deepseek-v3's 135-206 s each, their MoE layers' per-expert loops); the GNN
+deepseek-v3's 128-185 s each, their MoE layers' per-expert loops); the GNN
 and DCN-v2 cells take under a second each but for the first cell a process
 runs (about 6 s of imports in ``build_s``).
 """

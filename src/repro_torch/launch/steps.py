@@ -86,12 +86,13 @@ slices (``step.specs``, ``step.cache_specs``):
   retrieval fn(model, batch) -> this rank's [Q, C / n_dev] columns, the
             candidates' rows split over every axis, the query whole
 
-The LM train kind gathers every weight it uses once a step (over its FSDP
-axes, or the whole mesh for zero3), accumulates the microbatches' gradients
-of the gathered weights in ``grad_accum_dtype``, and then sums each over
-the ranks that hold a part of it (``transformer.grad_sum_axes``) and keeps
-this rank's slice: the reference's gradients, summed once a step rather
-than once a microbatch.
+The LM train kind over a mesh differentiates each microbatch's loss with
+respect to this rank's slices: a block gathers its weights (over its FSDP
+axes, or the whole mesh for zero3) inside its remat, and each gradient
+leaves the backward reduced to the slice (``transformer._Ranks.weight``),
+so one block's gathered weights and their gradient are alive at a time.
+The slices' gradients are accumulated in ``grad_accum_dtype``: the
+reference's order, whose accumulator is pinned to the parameters' sharding.
 """
 from __future__ import annotations
 
@@ -113,7 +114,6 @@ from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as rec_mod
 from repro_torch.models import transformer as lm_mod
 from repro_torch.models.layers import ShardCtx, _scalar
-from repro_torch.models.shard import local_slice, norm_spec
 from repro_torch.optim import Optimizer, adafactor, adamw, sgdm
 
 
@@ -467,21 +467,6 @@ def _lm_decode(arch: Arch, shape: Shape, device: torch.device, mesh=None) -> Ste
                       mesh=mesh, ctx=ctx, specs=specs, cache_specs=cspecs)
 
 
-def _reduce_grad(g: torch.Tensor, spec, ctx: ShardCtx, mesh) -> torch.Tensor:
-    """A rank's gradient of a weight it gathered for its use, as its
-    slice's gradient (``transformer.grad_sum_axes``)."""
-    summed, gathered, repeat = lm_mod.grad_sum_axes(spec, ctx, mesh)
-    if summed:
-        g = collective.all_reduce_sum(g.contiguous(), mesh, summed)
-    if gathered:
-        keep = tuple(tuple(a for a in names if a in gathered) or None
-                     for names in norm_spec(spec, g.dim()))
-        g = local_slice(g, keep, mesh).contiguous()
-    if repeat > 1:
-        g = g / _scalar(repeat, g, g.dtype)
-    return g
-
-
 def _lm_train(arch: Arch, shape: Shape, device: torch.device, mesh=None) -> StepBundle:
     gb, seq = shape.dims["global_batch"], shape.dims["seq_len"]
     # zero3 only where the batch covers the mesh (n_dev = 1 covers every
@@ -518,7 +503,8 @@ def _lm_train(arch: Arch, shape: Shape, device: torch.device, mesh=None) -> Step
     def accumulate(tokens, labels, params):
         """(loss, gradients of ``params``) over the microbatches: each one's
         gradient added as (g / m) in ``acc_dt``, its loss as loss / m.
-        Over a mesh, this rank's rows of each microbatch."""
+        Over a mesh, this rank's rows of each microbatch, and the gradients
+        of this rank's slices at their own shapes."""
         kw = {} if mesh is None else {"ctx": ctx, "mesh": mesh}
         if tokens.shape[0] % m:
             raise ValueError(f"{name}: a batch of {tokens.shape[0]} rows is not a multiple of "
@@ -559,14 +545,15 @@ def _lm_train(arch: Arch, shape: Shape, device: torch.device, mesh=None) -> Step
         _check_on(name, device, next(iter(params.values())).device, "the parameters are")
         tokens = torch.as_tensor(batch["tokens"], device=device)
         labels = torch.as_tensor(batch["labels"], device=device)
-        if mesh is None:
-            return accumulate(tokens, labels, params)
-        ranks = lm_mod._Ranks(cfg, ctx, mesh)
-        # every weight gathered once a step for this rank's use
-        work = {k: ranks.weight(k, v.detach()) for k, v in params.items()}
-        loss, grads = accumulate(tokens, labels, work)
-        del work
-        return loss, {k: _reduce_grad(grads.pop(k), specs[k], ctx, mesh) for k in params}
+        loss, grads = accumulate(tokens, labels, params)
+        if mesh is not None:
+            for k, g in grads.items():
+                # zero3's trimmed batch axes gave their ranks the same
+                # tokens: the gathers' backward summed that many equal shares
+                repeat = lm_mod.grad_sum_axes(specs[k], ctx, mesh)[2]
+                if repeat > 1:
+                    grads[k] = g / _scalar(repeat, g, g.dtype)
+        return loss, grads
 
     layout = None if mesh is None else (mesh, specs)
 

@@ -62,9 +62,12 @@ reference's jitted program computes on the same global arrays:
 
 Gradients follow ``core/collective.py``'s rule (every rank backpropagates
 the loss of the whole step): a rank's gradient of a weight it gathered
-comes out of the gather's backward summed over the gathered axes; a weight
-held alike over an axis that splits the tokens gets its own tokens' share,
-which ``launch.steps``' train kind sums (``grad_sum_axes``).
+comes out of the gather's backward summed over the gathered axes, at its
+slice's size; a weight held alike over an axis that splits the tokens gets
+its own tokens' share, which ``_Ranks.weight`` sums over that axis in the
+backward (``grad_sum_axes``). Under remat a block gathers its weights
+inside its checkpoint, so one block's gathered weights are alive at a time
+and each leaves the backward as its slice's gradient.
 """
 from __future__ import annotations
 
@@ -623,7 +626,7 @@ def forward(model: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
     ranks = _ranks(cfg, ctx, mesh)
     if ranks is not None:
         h, aux, cache = ranks.trunk(model, tokens, return_cache)
-        logits = ranks.logits(h, model.lm_head)
+        logits = ranks.logits(h, ranks.weight("lm_head", model.lm_head))
     else:
         h, aux, cache = _trunk(model, tokens, cfg, return_cache)
         logits = _head(model, h, cfg)
@@ -641,7 +644,7 @@ def prefill(model: Transformer, tokens: torch.Tensor, cfg: TransformerConfig,
     ranks = _ranks(cfg, ctx, mesh)
     if ranks is not None:
         h, _aux, cache = ranks.trunk(model, tokens, True)
-        return ranks.head_last(h, model.lm_head), cache
+        return ranks.head_last(h, ranks.weight("lm_head", model.lm_head)), cache
     h, _aux, cache = _trunk(model, tokens, cfg, True)
     return _head(model, h[:, -1], cfg), cache
 
@@ -670,9 +673,10 @@ def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
     name) stand in for the model's own, through ``functional_call``.
 
     Over ``mesh``: ``tokens`` and ``labels`` are this rank's batch block
-    (every position), the parameters this rank's slices (or slices already
-    gathered for its use: ``_Ranks.weight`` gathers what is still split),
-    and the loss is the global batch's, the same on every rank."""
+    (every position), the parameters this rank's slices, and the loss is
+    the global batch's, the same on every rank. Its gradients are the
+    slices' own (``_Ranks.weight``), but for the count ``grad_sum_axes``
+    divides by."""
     ranks = _ranks(cfg, ctx, mesh)
     fn = _loss if ranks is None else (lambda m, t, l, c: ranks.loss(m, t, l))
     if params is None:
@@ -896,6 +900,27 @@ def _mla_decode(x, ap, layer_cache: dict, n: torch.Tensor, slot: torch.Tensor,
 _WHOLE_KEYS = ("shared_wg", "shared_wi", "shared_wo")   # used on a rank's own tokens
 
 
+class _TokenNLL(torch.autograd.Function):
+    """Each position's ``logsumexp(lg) - lg[label]`` over the last dim
+    (float32 logits), whose backward writes ``softmax(lg) - onehot(label)``
+    into one new tensor: autograd of the two terms holds four more
+    logits-sized tensors at once (2.3 GiB each for a zero3 rank's
+    vocabulary-wide logits at qwen2.5-3b's train_4k)."""
+
+    @staticmethod
+    def forward(ctx, lg, lab):
+        lse = torch.logsumexp(lg, dim=-1)
+        ctx.save_for_backward(lg, lab, lse)
+        return lse - torch.gather(lg, -1, lab[..., None])[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, lab, lse = ctx.saved_tensors
+        p = (lg - lse[..., None]).exp_()
+        p.scatter_add_(-1, lab[..., None], torch.full_like(lse, -1.0)[..., None])
+        return p.mul_(g[..., None]), None
+
+
 class _Ranks:
     """A rank's layout for one call over ``mesh`` (see the module
     docstring): its parameter specs, its place along the tensor axis, and
@@ -923,24 +948,26 @@ class _Ranks:
 
     # -- weights -----------------------------------------------------------
     def weight(self, name: str, t: torch.Tensor, whole: bool = False) -> torch.Tensor:
-        """``t`` (this rank's slice of ``name``, or a tensor already
-        gathered) gathered over every axis of its spec but the tensor axis
-        (``whole``: that too; ZeRO-3 gathers everything)."""
+        """``t``, this rank's slice of ``name``, gathered over every axis of
+        its spec but the tensor axis (``whole``: that too; ZeRO-3 gathers
+        everything). Its backward leaves the slice's gradient of this use:
+        each gather's backward sums the ranks' cotangents and keeps this
+        rank's block, and the axes that split the tokens but not the weight
+        (``grad_sum_axes``) are summed at the slice's size. Call it once a
+        slice and loss: every call sums its own share."""
         keep = () if (whole or self.zero3) else (self.tp,)
-        spec = norm_spec(self.specs[name], len(self.shapes[name]))
-        for dim, (n, names) in enumerate(zip(self.shapes[name], spec)):
+        summed, gathered, _ = grad_sum_axes(self.specs[name], self.ctx, self.mesh)
+        tokens = tuple(a for a in summed if a not in gathered)
+        if self.mesh.axis_size(tokens) > 1:
+            t = collective.sum_grad(t, self.mesh, tokens)
+        for dim, names in enumerate(norm_spec(self.specs[name], len(self.shapes[name]))):
             pick = tuple(a for a in names if a not in keep)
-            if not pick:
-                continue
-            kept = math.prod(self.mesh.axis_size(a) for a in names if a in keep)
-            if t.shape[dim] == n // kept:
-                continue   # gathered already
-            t = gather_dim(t, dim, self.mesh, pick)
+            if pick:
+                t = gather_dim(t, dim, self.mesh, pick)
         return t
 
-    def block(self, lp: "Block", prefix: str) -> dict:
-        """A layer's tensors (``_weights``) gathered for this rank's use."""
-        w = _weights(lp)
+    def block(self, w: dict, prefix: str) -> dict:
+        """A layer's slices (``_weights``) gathered for this rank's use."""
         out = {"ln1": self.weight(f"{prefix}.ln1", w["ln1"]),
                "ln2": self.weight(f"{prefix}.ln2", w["ln2"]),
                "attn": {k: self.weight(f"{prefix}.attn.{k}", v) for k, v in w["attn"].items()}}
@@ -981,11 +1008,11 @@ class _Ranks:
         return o.narrow(-1, self.i_tp * w, w)
 
     # -- embedding, head, loss ---------------------------------------------
-    def embed(self, tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    def embed(self, tokens: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
         """The embeddings of ``tokens`` ([B, S], this rank's batch, every
-        position) in this rank's layout: vocab-parallel lookups summed over
-        ``tp`` (and split over the sequence with ``sp``)."""
-        e = self.weight("embed", table)
+        position) in this rank's layout, ``e`` the table from
+        ``weight("embed")``: vocab-parallel lookups summed over ``tp`` (and
+        split over the sequence with ``sp``)."""
         if not self.vocab_split:
             if self.sp:
                 w = tokens.shape[1] // self.n_tp
@@ -999,33 +1026,33 @@ class _Ranks:
         out = collective.all_reduce_sum(out, self.mesh, self.tp)
         return split_dim(out, 1, self.mesh, self.tp) if self.sp else out
 
-    def logits(self, h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-        """float32 logits of the normed ``h`` in this rank's layout:
-        vocab-parallel ``[B, S, V / |tp|]`` over the whole sequence, or
-        ``[B, S_rank, V]``."""
+    def logits(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """float32 logits of the normed ``h`` in this rank's layout, ``w``
+        the head from ``weight("lm_head")``: vocab-parallel ``[B, S, V /
+        |tp|]`` over the whole sequence, or ``[B, S_rank, V]``."""
         cd = self.cfg.compute_dtype
-        w = self.weight("lm_head", head)
         if self.vocab_split:
             h = self.seq_in(h)
         return (h.to(cd) @ w.to(cd)).to(F32)
 
-    def head_last(self, h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    def head_last(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """float32 logits [B, V] of the sequence's last position, every
-        vocabulary entry on every rank."""
+        vocabulary entry on every rank (``w`` as ``logits``')."""
         cd = self.cfg.compute_dtype
         last = self.seq_in(h)[:, -1]
-        lg = (last.to(cd) @ self.weight("lm_head", head).to(cd)).to(F32)
+        lg = (last.to(cd) @ w.to(cd)).to(F32)
         return self.cols(lg) if self.vocab_split else lg
 
-    def cross_entropy(self, h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+    def cross_entropy(self, h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                       drop: int = 0) -> torch.Tensor:
         """The mean float32 token cross-entropy over the global batch's
         positions ``[0, S - drop)``, the same on every rank: vocab-parallel
         (the max, the exponentials' sum and the label's logit over ``tp``)
-        where the vocabulary splits. ``labels`` [B, S]: this rank's batch."""
+        where the vocabulary splits. ``labels`` [B, S]: this rank's batch;
+        ``w`` as ``logits``'."""
         b, s = labels.shape
         count = b * self.mesh.axis_size(self.dp) * (s - drop)
-        lg = self.logits(h, head)
+        lg = self.logits(h, w)
         if self.vocab_split:
             lg, lab = lg[:, :s - drop], labels[:, :s - drop].long()
             m = collective.all_reduce_max(lg.detach().amax(-1), self.mesh, self.tp)
@@ -1042,8 +1069,7 @@ class _Ranks:
             w = lg.shape[1]
             start = self.i_tp * w if self.sp else 0
             lab = labels[:, start:start + w].long()
-            lse = torch.logsumexp(lg, dim=-1)
-            per = lse - torch.gather(lg, -1, lab[..., None])[..., 0]
+            per = _TokenNLL.apply(lg, lab)
             pos = start + torch.arange(w, device=per.device)
             per = torch.where(pos[None, :] < s - drop, per, _scalar(0, per))
             axes = self.dp + ((self.tp,) if self.sp else ())
@@ -1082,11 +1108,14 @@ class _Ranks:
     def _to_seq_blocks(self, t: torch.Tensor) -> torch.Tensor:
         """A prefill cache tensor [B, S, h_rank, ...] of this rank's heads
         as [B, S / |tp|, H, ...]: its sequence block of every head (one
-        all-to-all over ``tp``; a slice where the heads are whole)."""
+        all-to-all over ``tp``; a copy of the block where the heads are
+        whole, so that the layer's cache holds no more)."""
         b, s = t.shape[:2]
         w = s // self.n_tp
-        if not self.heads_split or self.n_tp == 1:
-            return t.narrow(1, self.i_tp * w, w)
+        if self.n_tp == 1:
+            return t
+        if not self.heads_split:
+            return t.narrow(1, self.i_tp * w, w).clone()   # not a view of every position
         blocks = t.reshape(b, self.n_tp, w, *t.shape[2:]).movedim(1, 0)
         got = collective.all_to_all(blocks.contiguous(), self.mesh, self.tp)
         return got.movedim(0, 2).reshape(b, w, self.n_tp * t.shape[2], *t.shape[3:])
@@ -1134,84 +1163,112 @@ class _Ranks:
         return out, {"k": self._to_seq_blocks(k), "v": self._to_seq_blocks(v)}
 
     def mla(self, y, ap, cfg: TransformerConfig, use_flash: bool, collect_cache: bool):
+        """MLA on this rank's stream. Heads split over ``tp``: this rank's
+        heads over the whole sequence (column-parallel ``wq_b`` and
+        ``wkv_b``, row-parallel ``wo`` summed over ``tp``). Else the
+        reference's ``act4``, as ``gqa``'s: this rank's rows (its sequence
+        block with ``sp``) of every head, its queries against ``wq_b``
+        gathered whole, every head's keys and values (column-parallel
+        ``wkv_b`` on the whole sequence, gathered), and ``wo`` gathered
+        whole, whose product is this rank's block of the output."""
         yf = self.seq_in(y)
         b, s, _ = yf.shape
-        h = cfg.n_heads // self.n_tp if self.heads_split else cfg.n_heads
         dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
         cd = cfg.compute_dtype
         xc = yf.to(cd)
-        cq = rms_norm(xc @ ap["wq_a"].to(cd), ap["q_norm"])
-        q = cq.to(cd) @ ap["wq_b"].to(cd)
         ckv = xc @ ap["wkv_a"].to(cd)
         c_kv = rms_norm(ckv[..., :cfg.kv_lora_rank], ap["kv_norm"])
         k_rope = ckv[..., cfg.kv_lora_rank:].reshape(b, s, 1, dr)
         kvm = c_kv.to(cd) @ ap["wkv_b"].to(cd)
-        if not self.heads_split:
-            q, kvm = self.cols(q), self.cols(kvm)
-        q = q.reshape(b, s, h, dn + dr)
+        wq_b, wo = ap["wq_b"], ap["wo"]
+        if self.heads_split:
+            h, xq, start = cfg.n_heads // self.n_tp, xc, 0
+        else:
+            h, kvm = cfg.n_heads, self.cols(kvm)
+            xq, start = y.to(cd), (self.i_tp * y.shape[1] if self.sp else 0)
+            wq_b, wo = self.cols(wq_b), gather_dim(wo, 0, self.mesh, self.tp)
+        cq = rms_norm(xq @ ap["wq_a"].to(cd), ap["q_norm"])
+        q = cq.to(cd) @ wq_b.to(cd)
+        sq = q.shape[1]
+        q = q.reshape(b, sq, h, dn + dr)
         q_nope, q_rope = q[..., :dn], q[..., dn:]
-        pos = torch.arange(s, device=y.device)[None, :]
-        q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
-        k_rope = apply_rope(k_rope, pos, cfg.rope_theta)
+        q_rope = apply_rope(q_rope, (start + torch.arange(sq, device=y.device))[None, :],
+                            cfg.rope_theta)
+        k_rope = apply_rope(k_rope, torch.arange(s, device=y.device)[None, :], cfg.rope_theta)
         kvm = kvm.reshape(b, s, h, dn + dv)
         k_nope, v = kvm[..., :dn], kvm[..., dn:]
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         k_full = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
-        o = _flash_or_plain(q_full, k_full, v, cfg, use_flash).reshape(b, s, h * dv)
-        if not self.heads_split:
-            o = self.rows(o)
-        out = self.seq_out(o.to(cd) @ ap["wo"].to(cd), y.dtype)
+        o = _flash_or_plain(q_full, k_full, v, cfg, use_flash, q_offset=start)
+        o = o.reshape(b, sq, h * dv).to(cd) @ wo.to(cd)
+        out = self.seq_out(o, y.dtype) if self.heads_split else o.to(y.dtype)
         if not collect_cache:
             return out, None
         w = s // self.n_tp
-        return out, {"c_kv": c_kv.narrow(1, self.i_tp * w, w),
-                     "k_rope": k_rope[:, :, 0].narrow(1, self.i_tp * w, w)}
+        # copies of this rank's block: a view would hold every position
+        return out, {"c_kv": c_kv.narrow(1, self.i_tp * w, w).clone(),
+                     "k_rope": k_rope[:, :, 0].narrow(1, self.i_tp * w, w).clone()}
 
     # -- the trunk and the losses ------------------------------------------
-    def trunk(self, model: "Transformer", tokens: torch.Tensor, return_cache: bool):
-        """(h normed [B, S_rank, D], aux, cache in ``cache_specs``' layout or None)."""
+    def trunk(self, model: "Transformer", tokens: torch.Tensor, return_cache: bool,
+              e: torch.Tensor | None = None):
+        """(h normed [B, S_rank, D], aux, cache in ``cache_specs``' layout or
+        None); ``e`` the table from ``weight("embed")`` (None: gathered
+        here). Under remat each block gathers its weights inside its
+        checkpoint: the gathered weights live for its forward and again for
+        its recompute in the backward, whose gathers leave each slice's
+        gradient as the backward leaves the block."""
         cfg = self.cfg
         s = tokens.shape[1]
         if self.sp and s % self.n_tp:
             raise ValueError(f"a sequence of {s} does not split over |{self.tp}| = {self.n_tp}")
         use_flash = s >= 2048
         remat = cfg.remat and torch.is_grad_enabled() and not return_cache
-        h = self.embed(tokens, model.embed)
+        h = self.embed(tokens, self.weight("embed", model.embed) if e is None else e)
         aux = torch.zeros((), dtype=F32, device=h.device)
         caches = []
         for prefix, lp in self.blocks(model):
-            w = self.block(lp, prefix)
             if remat:
-                h, aux, _ = checkpoint(self.layer, h, aux, w, use_flash, False,
-                                       use_reentrant=False, preserve_rng_state=False)
+                h, aux, _ = checkpoint(self._gathered_layer, h, aux, _weights(lp), prefix,
+                                       use_flash, use_reentrant=False, preserve_rng_state=False)
             else:
-                h, aux, cache = self.layer(h, aux, w, use_flash, return_cache)
+                h, aux, cache = self.layer(h, aux, self.block(_weights(lp), prefix), use_flash,
+                                           return_cache)
                 caches.append(cache)
         h = rms_norm(h, self.weight("final_norm", model.final_norm))
         if not return_cache:
             return h, aux, None
         return h, aux, {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
+    def _gathered_layer(self, h, aux, slices: dict, prefix: str, use_flash: bool):
+        return self.layer(h, aux, self.block(slices, prefix), use_flash, False)
+
     def loss(self, model: "Transformer", tokens, labels) -> torch.Tensor:
         cfg = self.cfg
-        h, aux, _ = self.trunk(model, tokens, False)
-        loss = self.cross_entropy(h, model.lm_head, labels)
+        e = self.weight("embed", model.embed)
+        head = self.weight("lm_head", model.lm_head)
+        h, aux, _ = self.trunk(model, tokens, False, e)
+        loss = self.cross_entropy(h, head, labels)
         if cfg.mtp:
-            loss = loss + 0.1 * self.mtp_loss(model, tokens, labels)
+            loss = loss + 0.1 * self.mtp_loss(model, tokens, labels, e, head)
         coef = cfg.moe.router_aux_coef if cfg.moe else 0.0
         return loss + coef * aux
 
-    def mtp_loss(self, model: "Transformer", tokens, labels) -> torch.Tensor:
-        """``_mtp_loss`` in this rank's layout."""
+    def mtp_loss(self, model: "Transformer", tokens, labels, e: torch.Tensor | None = None,
+                 head: torch.Tensor | None = None) -> torch.Tensor:
+        """``_mtp_loss`` in this rank's layout (``e``, ``head``: the tables
+        from ``weight``; None: gathered here)."""
         cfg = self.cfg
         mp = model.mtp
         cd = cfg.compute_dtype
+        e = self.weight("embed", model.embed) if e is None else e
+        head = self.weight("lm_head", model.lm_head) if head is None else head
         ln = self.weight("mtp.ln", mp.ln)
-        h = self.embed(tokens, model.embed)
-        nxt = self.embed(torch.roll(labels, -1, dims=1), model.embed)
+        h = self.embed(tokens, e)
+        nxt = self.embed(torch.roll(labels, -1, dims=1), e)
         z = torch.cat([rms_norm(h, ln), nxt.to(h.dtype)], dim=-1)
         z = z.to(cd) @ self.weight("mtp.proj", mp.proj).to(cd)
-        w = self.block(mp.block, "mtp.block")
+        w = self.block(_weights(mp.block), "mtp.block")
         c = replace(cfg, remat=False)
         use_flash = tokens.shape[1] >= 2048
         if self.zero3:
@@ -1222,7 +1279,7 @@ class _Ranks:
             z = z + attn(rms_norm(z, w["ln1"]), w["attn"], c, use_flash, False)[0]
             z = z + self.swiglu(rms_norm(z, w["ln2"]), w["wg"], w["wi"], w["wo"])
         tgt = torch.roll(labels, -2, dims=1)
-        return self.cross_entropy(rms_norm(z, ln), model.lm_head, tgt, drop=2)
+        return self.cross_entropy(rms_norm(z, ln), head, tgt, drop=2)
 
     # -- decode ------------------------------------------------------------
     def decode_step(self, model: "Transformer", cache: dict, tokens, n, cache_specs_: dict):
@@ -1236,10 +1293,10 @@ class _Ranks:
         s_cache = s_local * self.mesh.axis_size(seq_axes)
         slot = torch.clamp(n % window if window else n, max=s_cache - 1)
         start = self.mesh.axis_index(seq_axes) * s_local
-        h = self.embed(tokens[:, None], model.embed)           # [B,1,D]
+        h = self.embed(tokens[:, None], self.weight("embed", model.embed))   # [B,1,D]
         decode = self.mla_decode if cfg.attn == "mla" else self.gqa_decode
         for li, (prefix, lp) in enumerate(self.blocks(model)):
-            w = self.block(lp, prefix)
+            w = self.block(_weights(lp), prefix)
             layer_cache = {k: v[li] for k, v in cache.items()}
             y = rms_norm(h, w["ln1"])
             h = h + decode(y, w["attn"], layer_cache, n, slot, start, s_cache, seq_axes)
@@ -1249,7 +1306,7 @@ class _Ranks:
             else:
                 h = h + self.swiglu(y2, w["wg"], w["wi"], w["wo"])
         h = rms_norm(h, self.weight("final_norm", model.final_norm))
-        return self.head_last(h, model.lm_head), cache
+        return self.head_last(h, self.weight("lm_head", model.lm_head)), cache
 
     def _write(self, c: torch.Tensor, new: torch.Tensor, slot, start: int) -> None:
         """Write ``new`` [B, 1, ...] at global position ``slot`` of the cache

@@ -39,9 +39,12 @@ def tag(shape) -> str:
 
 def lm_configs(transformer_config, moe_config, f32) -> dict:
     """tests/test_distributed.py:92's config ("gqa"), the same with a
-    vocabulary that does not split over 4 ranks ("gqa66"), and a small
-    MLA + MoE + MTP config whose 6 experts run ``moe_ep`` over 1 or 2
-    model ranks and ``moe_tp`` over 4 ("mla"), built by either package's
+    vocabulary that does not split over 4 ranks ("gqa66"), a small MLA +
+    MoE + MTP config whose 6 experts run ``moe_ep`` over 1 or 2 model ranks
+    and ``moe_tp`` over 4 ("mla"), "gqa" under per-block remat (each
+    block's weights gathered inside its checkpoint: "gqa-remat"), and a
+    dense MLA + MTP config whose 6 heads do not split over 4 model ranks
+    ("mla6": the reference's ``act4`` there), built by either package's
     classes."""
     gqa = transformer_config(name="t", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
                              d_ff=64, vocab=64, param_dtype=f32, compute_dtype=f32)
@@ -54,6 +57,11 @@ def lm_configs(transformer_config, moe_config, f32) -> dict:
             v_head_dim=8, n_dense_layers=1, mtp=True, param_dtype=f32, compute_dtype=f32,
             moe=moe_config(n_experts=6, top_k=2, d_model=32, d_ff=16, n_shared=1,
                            capacity_factor=8.0, compute_dtype=f32)),
+        "gqa-remat": replace(gqa, remat=True),
+        "mla6": transformer_config(
+            name="m6", n_layers=2, d_model=32, n_heads=6, n_kv_heads=6, d_ff=64, vocab=64,
+            attn="mla", q_lora_rank=16, kv_lora_rank=16, qk_nope_dim=8, qk_rope_dim=4,
+            v_head_dim=8, mtp=True, param_dtype=f32, compute_dtype=f32),
     }
 
 
@@ -153,7 +161,7 @@ def scripted(mesh, ref: dict) -> dict:
 
     # the train kind's loss and gradients, and one step against one device
     for name, cfg in cfgs.items():
-        layouts = ("tp_sp", "zero3") if cfg.moe is None else ("tp_sp",)
+        layouts = ("tp_sp", "zero3") if cfg.attn == "gqa" else ("tp_sp",)
         batch = train_batch(cfg.vocab)
         for layout in layouts:
             step = build_train_step(cfg, "adamw", layout, mesh)

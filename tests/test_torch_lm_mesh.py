@@ -130,7 +130,7 @@ def put_grads(prefix, loss, grads):
 
 if PART != "serve":
     if PART == "single":
-        for name in ("gqa", "gqa66", "mla"):
+        for name in ("gqa", "gqa66", "mla", "gqa-remat", "mla6"):
             put_grads(f"train/{name}/single", *train(name))
     else:   # "mla:<d>x<m>" (a mesh of one is one device)
         shape = tuple(int(n) for n in PART[4:].split("x"))
@@ -425,16 +425,18 @@ def _want_train(jax_ref, name: str, shape) -> tuple[float, dict, object]:
     return float(jax_ref[f"{src}/loss"]), _names(jax_ref, f"{src}/g/", cfg), cfg
 
 
-@pytest.mark.parametrize("name", ["gqa", "gqa66", "mla"])
+@pytest.mark.parametrize("name", ["gqa", "gqa66", "mla", "gqa-remat", "mla6"])
 def test_sharded_loss_and_gradients_match_jax(world, jax_ref, name):
     """The train kind's loss (2 microbatches) equals JAX's (the MoE
     config's sharded program on the same mesh) at rtol 2e-4 on every rank,
     and its gradients, put together, equal jax.grad's at 3e-4: tp_sp, and
-    zero3 for the dense configs."""
+    zero3 for the dense GQA configs; under per-block remat ("gqa-remat",
+    each block's weights gathered inside its checkpoint) and for MLA whose
+    heads do not split over 4 model ranks ("mla6" at 2 x 4)."""
     w, answers = world
     for shape in _meshes(w):
         loss, grads, _ = _want_train(jax_ref, name, shape)
-        for layout in (("tp_sp", "zero3") if name != "mla" else ("tp_sp",)):
+        for layout in (("tp_sp", "zero3") if name.startswith("gqa") else ("tp_sp",)):
             base = f"{ranks.tag(shape)}/{name}/{layout}"
             for ans in answers:
                 np.testing.assert_allclose(float(ans[f"{base}/loss"]), loss, rtol=LOSS_RTOL)
@@ -443,7 +445,7 @@ def test_sharded_loss_and_gradients_match_jax(world, jax_ref, name):
                                            err_msg=f"{base} {k}")
 
 
-@pytest.mark.parametrize("name", ["gqa", "mla"])
+@pytest.mark.parametrize("name", ["gqa", "mla", "mla6"])
 def test_train_step_matches_one_device(world, jax_ref, name):
     """One train step (AdamW) over the mesh gives the one-device step's
     loss and new parameters (the one-device step is held to JAX's in
