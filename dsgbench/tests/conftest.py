@@ -1,0 +1,8 @@
+"""Shared helpers of the benchmark's CPU tests: small sizes of each cell."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT), str(ROOT / "src")):
+    if p not in sys.path:
+        sys.path.insert(0, p)
