@@ -26,6 +26,11 @@ legit set, recompute e(v -> S~) against the enlarged S~ and absorb again.
 Each round is monotone non-decreasing in density, so the result remains a
 valid (and usually strictly better) lower bound for rho*. The paper runs one
 round; rounds=1 is the faithful setting and the default.
+
+Under ``obs.trace.capture()`` a call records a ``cbds_p`` span (label
+``rounds``) over the k-core's ``kcore_level`` spans (core/kcore.py), one
+``cbds_augment`` span a round and a ``host_sync`` span at each wait
+(core/syncs.py).
 """
 from __future__ import annotations
 
@@ -35,8 +40,10 @@ import torch
 from repro_torch.core import collective
 from repro_torch.core.dispatch import peel_delta, resolve_device, resolve_kernel
 from repro_torch.core.kcore import _kcore, kcore_np
+from repro_torch.core.syncs import host_read, scalar
 from repro_torch.graphs.convert import to_device
 from repro_torch.graphs.graph import Graph
+from repro_torch.obs.trace import detail
 
 
 def _augment_once(
@@ -92,11 +99,12 @@ def _cbds(src, dst, n_nodes: int, n_edges: int, rounds: int, kernel: bool, mesh=
     member = core.coreness >= core.best_k
     m_v, m_e = core.best_n_v, core.best_n_e
 
-    n_legit = torch.tensor(0, dtype=torch.int32, device=src.device)
+    n_legit = scalar(0, torch.int32, src.device)
     for _ in range(int(rounds)):
-        member, m_v, m_e, n_added = _augment_once(member, m_v, m_e, src, dst, n_nodes,
-                                                  kernel, mesh)
-        n_legit = n_legit + n_added
+        with detail("cbds_augment"):
+            member, m_v, m_e, n_added = _augment_once(member, m_v, m_e, src, dst, n_nodes,
+                                                      kernel, mesh)
+            n_legit = n_legit + n_added
 
     density = m_e.to(torch.float32) / m_v.clamp(min=1).to(torch.float32)
     return core, member, torch.maximum(density, core.best_density), n_legit
@@ -112,11 +120,11 @@ def cbds_resident(
     this rank's block of a sharded engine's)."""
     core, member, density, n_legit = _cbds(src, dst, n_nodes, n_edges, rounds, kernel, mesh)
     return {
-        "density": float(density),
-        "core_density": float(core.best_density),
-        "k_star": int(core.best_k),
-        "member_mask": member.cpu().numpy(),
-        "n_legit": int(n_legit),
+        "density": host_read(density),
+        "core_density": host_read(core.best_density),
+        "k_star": host_read(core.best_k),
+        "member_mask": host_read(member),
+        "n_legit": host_read(n_legit),
     }
 
 
@@ -130,10 +138,11 @@ def cbds_p(
     K2 for the k-core phase and K1 for each augmentation round (on dst-sorted
     lanes) and changes no result.
     """
-    device = resolve_device(device)
-    kernel = resolve_kernel(kernel, device)
-    src, dst = to_device(graph, device, sorted=kernel)
-    return cbds_resident(src, dst, graph.n_nodes, graph.n_edges, rounds, kernel)
+    with detail("cbds_p", rounds=rounds):
+        device = resolve_device(device)
+        kernel = resolve_kernel(kernel, device)
+        src, dst = to_device(graph, device, sorted=kernel)
+        return cbds_resident(src, dst, graph.n_nodes, graph.n_edges, rounds, kernel)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,9 @@ to the densest subgraph by Tatti 2019 + monotonicity).
 
 Both loops run on the host: the outer one reads ``n_v`` once per level, the
 inner one reads ``any(active & (deg <= k))`` once per fixpoint iteration.
+Under ``obs.trace.capture()`` each level records a ``kcore_level`` span
+(attribute ``k``) holding one ``kcore_iter`` span a fixpoint iteration (its
+peel's enqueue), and each read a ``host_sync`` span (core/syncs.py).
 """
 from __future__ import annotations
 
@@ -27,8 +30,10 @@ from repro_torch.core.density import degrees_from_coo
 from repro_torch.core.dispatch import (
     assert_exact_envelope, lane_degrees, peel_edges, resolve_device, resolve_kernel,
 )
+from repro_torch.core.syncs import host_sync, scalar
 from repro_torch.graphs.convert import to_device
 from repro_torch.graphs.graph import Graph
+from repro_torch.obs.trace import detail
 
 
 class CoreState(NamedTuple):
@@ -56,18 +61,22 @@ def _level_fixpoint(
     s = state
     while True:
         failed = s.active & (s.deg <= s.k)
-        if not failed.any().item():  # repro: allow RPR101 -- the one host sync of each iteration
+        with host_sync("fixpoint_test"):
+            # repro: allow RPR101 -- the one host sync of each iteration
+            done = not failed.any().item()
+        if done:
             return s
-        delta_to_dst, removed_directed = peel_edges(src, dst, s.active, failed,
-                                                    n_nodes, kernel, mesh=mesh)
-        active_new = s.active & ~failed
-        s = s._replace(
-            deg=torch.where(active_new, s.deg - delta_to_dst, 0),
-            active=active_new,
-            coreness=torch.where(failed, s.k, s.coreness),
-            n_v=s.n_v - failed.sum(dtype=torch.int32),
-            n_e=s.n_e - removed_directed // 2,
-        )
+        with detail("kcore_iter"):
+            delta_to_dst, removed_directed = peel_edges(src, dst, s.active, failed,
+                                                        n_nodes, kernel, mesh=mesh)
+            active_new = s.active & ~failed
+            s = s._replace(
+                deg=torch.where(active_new, s.deg - delta_to_dst, 0),
+                active=active_new,
+                coreness=torch.where(failed, s.k, s.coreness),
+                n_v=s.n_v - failed.sum(dtype=torch.int32),
+                n_e=s.n_e - removed_directed // 2,
+            )
 
 
 def _kcore(
@@ -79,34 +88,40 @@ def _kcore(
     over the mesh (K1 with ``kernel``), each fixpoint iteration one
     all-reduce."""
     dev = src.device
-    zero = torch.tensor(0, dtype=torch.int32, device=dev)
+    zero = scalar(0, torch.int32, dev)
     s = CoreState(
         k=0,
         deg=(degrees_from_coo(src, n_nodes) if mesh is None
              else lane_degrees(src, dst, n_nodes, kernel, mesh)),
         active=torch.ones(n_nodes, dtype=torch.bool, device=dev),
         coreness=torch.zeros(n_nodes, dtype=torch.int32, device=dev),
-        n_v=torch.tensor(n_nodes, dtype=torch.int32, device=dev),
-        n_e=torch.tensor(n_edges, dtype=torch.int32, device=dev),
-        best_density=torch.tensor(0.0, dtype=torch.float32, device=dev),
+        n_v=scalar(n_nodes, torch.int32, dev),
+        n_e=scalar(n_edges, torch.int32, dev),
+        best_density=scalar(0.0, torch.float32, dev),
         best_k=zero,
         best_n_v=zero,
         best_n_e=zero,
     )
-    while s.n_v.item() > 0:  # repro: allow RPR101 -- the one host sync of each level
-        # graph remaining on *entry* to level k is the k-core; record its
-        # density (paper Alg. 2, the `single` block after each level).
-        density = s.n_e.to(torch.float32) / s.n_v.clamp(min=1).to(torch.float32)
-        better = density > s.best_density
-        s = s._replace(
-            best_density=torch.where(better, density, s.best_density),
-            best_k=torch.where(better, s.k, s.best_k),
-            best_n_v=torch.where(better, s.n_v, s.best_n_v),
-            best_n_e=torch.where(better, s.n_e, s.best_n_e),
-        )
-        s = _level_fixpoint(s, src, dst, n_nodes, kernel, mesh)
+    while True:
+        with host_sync("level_test"):
+            # repro: allow RPR101 -- the one host sync of each level
+            live = s.n_v.item() > 0
+        if not live:
+            return s
+        with detail("kcore_level") as level:
+            level.set("k", s.k)
+            # graph remaining on *entry* to level k is the k-core; record its
+            # density (paper Alg. 2, the `single` block after each level).
+            density = s.n_e.to(torch.float32) / s.n_v.clamp(min=1).to(torch.float32)
+            better = density > s.best_density
+            s = s._replace(
+                best_density=torch.where(better, density, s.best_density),
+                best_k=torch.where(better, s.k, s.best_k),
+                best_n_v=torch.where(better, s.n_v, s.best_n_v),
+                best_n_e=torch.where(better, s.n_e, s.best_n_e),
+            )
+            s = _level_fixpoint(s, src, dst, n_nodes, kernel, mesh)
         s = s._replace(k=s.k + 1)
-    return s
 
 
 def kcore_decompose(

@@ -10,6 +10,11 @@ Device formulation: the paper's two "parts" per pass map to
 State is fixed-shape (degree array + masks + 0-d tensors). The loop over
 passes runs on the host and reads ``n_v`` once per pass: one device sync a
 pass, O(log_{1+eps} n) in all. ``pbahmani_pass`` is one pass.
+
+Under ``obs.trace.capture()`` a call records a ``pbahmani`` span (label
+``eps``) over ``peel_setup`` (the lanes and the initial state), one
+``peel_pass`` a pass (its enqueue) and a ``host_sync`` span at each wait
+(core/syncs.py).
 """
 from __future__ import annotations
 
@@ -22,8 +27,10 @@ from repro_torch.core.density import degrees_from_coo, peel_threshold
 from repro_torch.core.dispatch import (
     assert_exact_envelope, peel_edges, resolve_device, resolve_kernel,
 )
+from repro_torch.core.syncs import host_read, host_sync, scalar
 from repro_torch.graphs.convert import to_device
 from repro_torch.graphs.graph import Graph
+from repro_torch.obs.trace import detail
 
 
 class PeelState(NamedTuple):
@@ -51,7 +58,7 @@ def state_from_degrees(deg: torch.Tensor, n_edges: int) -> PeelState:
     vertices never contribute to density."""
     active = deg > 0
     n_v = active.sum(dtype=torch.int32)
-    n_e = torch.tensor(n_edges, dtype=torch.int32, device=deg.device)
+    n_e = scalar(n_edges, torch.int32, deg.device)
     rho0 = n_e.to(torch.float32) / n_v.clamp(min=1).to(torch.float32)
     return PeelState(
         deg=deg,
@@ -60,7 +67,7 @@ def state_from_degrees(deg: torch.Tensor, n_edges: int) -> PeelState:
         n_e=n_e,
         best_density=rho0,
         best_mask=active,
-        passes=torch.tensor(0, dtype=torch.int32, device=deg.device),
+        passes=scalar(0, torch.int32, deg.device),
     )
 
 
@@ -134,34 +141,39 @@ def pbahmani(
     round's. ``refine.refine`` gives the certificate and the ``target_gap``
     loop.
     """
-    device = resolve_device(device)
-    if graph.n_nodes == 0:
-        return 0.0, np.zeros(0, dtype=bool), 0
-    kernel = resolve_kernel(kernel, device)
-    if kernel:
-        assert_exact_envelope(graph.src.shape[0], graph.n_nodes)
-    if pruned:
-        from repro_torch.core.prune import pbahmani_pruned
+    with detail("pbahmani", eps=eps):
+        device = resolve_device(device)
+        if graph.n_nodes == 0:
+            return 0.0, np.zeros(0, dtype=bool), 0
+        kernel = resolve_kernel(kernel, device)
+        if kernel:
+            assert_exact_envelope(graph.src.shape[0], graph.n_nodes)
+        if pruned:
+            from repro_torch.core.prune import pbahmani_pruned
 
-        out = pbahmani_pruned(graph, eps=eps, kernel=kernel, device=device)
-    else:
-        src, dst = to_device(graph, device, sorted=kernel)
-        state = init_state(src, dst, graph.n_nodes, graph.n_edges)
-        while state.n_v.item() > 0:  # repro: allow RPR101 -- the one host sync of each pass
-            state = pbahmani_pass(state, src, dst, graph.n_nodes, float(eps), kernel)
-        out = (
-            float(state.best_density),
-            state.best_mask.cpu().numpy(),
-            int(state.passes),
-        )
-    if refine_rounds > 0:
-        from repro_torch.refine.engine import refine
+            out = pbahmani_pruned(graph, eps=eps, kernel=kernel, device=device)
+        else:
+            with detail("peel_setup"):
+                src, dst = to_device(graph, device, sorted=kernel)
+                state = init_state(src, dst, graph.n_nodes, graph.n_edges)
+            while True:
+                with host_sync("pass_test"):
+                    # repro: allow RPR101 -- the one host sync of each pass
+                    live = state.n_v.item() > 0
+                if not live:
+                    break
+                with detail("peel_pass"):
+                    state = pbahmani_pass(state, src, dst, graph.n_nodes, float(eps), kernel)
+            out = (host_read(state.best_density), host_read(state.best_mask),
+                   host_read(state.passes))
+        if refine_rounds > 0:
+            from repro_torch.refine.engine import refine
 
-        # negative target: run exactly refine_rounds rounds (deterministic)
-        res = refine(graph, target_gap=-1.0, max_rounds=int(refine_rounds),
-                     eps=eps, seed=out, kernel=kernel, device=device)
-        return res.density, res.mask, res.passes
-    return out
+            # negative target: run exactly refine_rounds rounds (deterministic)
+            res = refine(graph, target_gap=-1.0, max_rounds=int(refine_rounds),
+                         eps=eps, seed=out, kernel=kernel, device=device)
+            return res.density, res.mask, res.passes
+        return out
 
 
 # ---------------------------------------------------------------------------

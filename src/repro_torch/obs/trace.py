@@ -21,16 +21,23 @@ Two hard properties:
   * **host-side only** — a span never synchronises with the card or
     launches on it. The one call into torch is the optional
     ``torch.profiler.record_function`` bridge, entered only when the tracer
-    is enabled and ``profiler_bridge`` is set: it names the host range
-    ``obs:<name>`` in a ``torch.profiler`` trace, next to the kernels the
-    span launched;
+    is enabled, ``profiler_bridge`` is set and a profiler is recording on
+    this thread: it names the host range ``obs:<name>`` in a
+    ``torch.profiler`` trace, next to the kernels the span launched;
   * **one branch when disabled** — ``span()`` on a disabled tracer returns
     a shared no-op singleton; no clock read, no allocation, no ring write.
     Durations then read 0.0, which is what the engines' ``latency_ms``
     fields report with observability off.
+
+The spans inside the graph entry points (each peel pass, k-core level and
+fixpoint iteration, each host sync: ``detail()``) are off unless a block
+asks for them with ``capture()``: a CBDS-P answer opens thousands, too many
+to record on every call. Off, a ``detail()`` site reads one attribute and
+returns the no-op span.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import time
@@ -40,6 +47,7 @@ from dataclasses import dataclass, field
 from repro_torch.obs.metrics import MetricsRegistry
 
 try:  # the profiler bridge is optional: the metrics and export need no torch
+    from torch._C._autograd import _profiler_enabled
     from torch.profiler import record_function as _record_function
 except ImportError:  # pragma: no cover
     _record_function = None
@@ -137,26 +145,33 @@ class Span:
         return (time.perf_counter() - self._t0) * 1e3
 
     def __enter__(self) -> "Span":
+        # record_function costs more than the rest of the span: enter it
+        # only while a profiler records this thread. Its range holds the
+        # span's own bookkeeping, so a profile puts that under this span and
+        # not under its parent
+        if (self.tracer.profiler_bridge and _record_function is not None
+                and _profiler_enabled()):
+            self._ann = _record_function(f"obs:{self.name}")
+            self._ann.__enter__()
         stack = self.tracer._stack
         if stack:
             self.parent_id = stack[-1].span_id
             self.depth = len(stack)
         stack.append(self)
-        if self.tracer.profiler_bridge and _record_function is not None:
-            self._ann = _record_function(f"obs:{self.name}")
-            self._ann.__enter__()
         self._wall = time.time()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> bool:
         self.duration_ms = (time.perf_counter() - self._t0) * 1e3
-        if self._ann is not None:
-            self._ann.__exit__(*exc)
         stack = self.tracer._stack
         if stack and stack[-1] is self:
             stack.pop()
-        self.tracer._record(self)
+        try:
+            self.tracer._record(self)
+        finally:
+            if self._ann is not None:
+                self._ann.__exit__(*exc)
         return False
 
 
@@ -170,6 +185,7 @@ class Tracer:
                  jsonl_backups: int = 1):
         self.registry = registry if registry is not None else MetricsRegistry()
         self.enabled = bool(enabled)
+        self.detail = False  # the entry points' spans: on only inside capture()
         self.profiler_bridge = bool(profiler_bridge)
         self._ring: deque = deque(maxlen=int(ring_size))
         self._stack: list[Span] = []
@@ -303,6 +319,43 @@ def span(name: str, **labels):
     return _TRACER.span(name, **labels)
 
 
-__all__ = ["Span", "SpanRecord", "Tracer", "NOOP_SPAN", "span", "get_tracer",
-           "set_tracer", "configure", "read_jsonl", "ATTR_COUNTERS",
-           "ATTR_GAUGES", "ATTR_FLAG_COUNTERS"]
+def detail(name: str, **labels):
+    """A span inside a graph entry point, on the process-default tracer:
+    recorded only inside ``capture()``; otherwise the shared no-op span,
+    after one attribute read."""
+    tracer = _TRACER
+    if not tracer.detail:
+        return NOOP_SPAN
+    return tracer.span(name, **labels)
+
+
+CAPTURE_RING = 1 << 17   # records a capture tracer holds: 50 CBDS-P answers
+
+
+def capture_tracer() -> Tracer:
+    """A tracer for ``capture()``: ``CAPTURE_RING`` records, no metrics
+    registry (no ``host_sync_ms{at=...}`` series), no JSONL sink."""
+    return Tracer(ring_size=CAPTURE_RING, registry=MetricsRegistry(enabled=False))
+
+
+@contextlib.contextmanager
+def capture(tracer: Tracer | None = None):
+    """Record the ``detail()`` spans of the block on ``tracer``, or else on a
+    fresh ``capture_tracer()``, made the process default for the block (so
+    the block's other spans, a service's request spans say, go there too and
+    leave the default tracer's ring and registry alone). Yields the tracer;
+    on exit its ``detail`` state and the default tracer are what they
+    were."""
+    t = tracer if tracer is not None else capture_tracer()
+    prev, was = set_tracer(t), t.detail
+    t.detail = True
+    try:
+        yield t
+    finally:
+        t.detail = was
+        set_tracer(prev)
+
+
+__all__ = ["Span", "SpanRecord", "Tracer", "NOOP_SPAN", "span", "detail", "capture",
+           "capture_tracer", "CAPTURE_RING", "get_tracer", "set_tracer", "configure",
+           "read_jsonl", "ATTR_COUNTERS", "ATTR_GAUGES", "ATTR_FLAG_COUNTERS"]
